@@ -1,0 +1,158 @@
+"""Weights across the two packages, and the port's random init.
+
+`state_dict_from_flax(params, batch_stats)` turns the JAX package's
+variables (nested dicts of numpy arrays, as `RT1Policy.init` returns them)
+into the port's `state_dict`. It is the inverse of
+`rt1_tpu/models/load_pretrained.py`:
+
+* conv kernels HWIO -> OIHW, the depthwise `(kh, kw, 1, C)` included
+  (-> `(C, 1, kh, kw)`);
+* Dense kernels `(in, out)` -> Linear weights `(out, in)`;
+* BatchNorm `scale, bias` and statistics `mean, var` -> `weight, bias,
+  running_mean, running_var`; LayerNorm `scale` -> `weight`;
+* the position `Embed` table -> `Embedding.weight`.
+
+The port names its submodules after the flax ones, so a flax path maps to
+a torch key by two renames: the tokenizer passed as `image_tokenizer_def`
+is the port's `image_tokenizer`, and flax's auto-named `EfficientNet_0`
+is the encoder's `net`. `load_flax_variables` then insists that every
+leaf lands on exactly one parameter: leftover or missing keys raise.
+
+`load_npz(path)` reads the same tree flattened to `/`-joined flax paths
+(`params/transformer/layer_0/ff/kernel`, `batch_stats/...`).
+
+`init_weights` is the port's random init, in flax's initializer families:
+lecun-normal kernels and zero biases, zero FiLM projections, LayerNorm
+and BatchNorm at identity (scale 1, bias 0, mean 0, var 1), from a seeded
+`torch.Generator`. The numbers differ from JAX's.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from rt1_tpu_torch.models.efficientnet import BatchNorm
+from rt1_tpu_torch.models.film import FilmConditioning
+
+_MODULE_RENAMES = {"image_tokenizer_def": "image_tokenizer", "EfficientNet_0": "net"}
+# flax's truncated_normal keeps [-2, 2] and rescales so the variance is 1.
+_TRUNC_STD = 0.87962566103423978
+
+
+def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, Mapping):
+            yield from _flatten(value, path)
+        else:
+            yield path, np.asarray(value)
+
+
+def _convert_leaf(collection: str, path: Tuple[str, ...], value: np.ndarray):
+    *modules, leaf = path
+    modules = [_MODULE_RENAMES.get(m, m) for m in modules]
+    if collection == "batch_stats":
+        names = {"mean": "running_mean", "var": "running_var"}
+        if leaf not in names:
+            raise ValueError(f"unknown batch_stats leaf {'/'.join(path)}")
+        return ".".join(modules + [names[leaf]]), value
+    if leaf == "kernel":
+        if value.ndim == 4:  # HWIO -> OIHW (depthwise (kh,kw,1,C) -> (C,1,kh,kw))
+            value = np.transpose(value, (3, 2, 0, 1))
+        elif value.ndim == 2:  # (in, out) -> (out, in)
+            value = value.T
+        else:
+            raise ValueError(f"kernel {'/'.join(path)} has rank {value.ndim}")
+        return ".".join(modules + ["weight"]), value
+    if leaf in ("scale", "embedding"):
+        return ".".join(modules + ["weight"]), value
+    if leaf == "bias":
+        return ".".join(modules + ["bias"]), value
+    raise ValueError(f"unknown parameter leaf {'/'.join(path)}")
+
+
+def state_dict_from_flax(
+    params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None
+) -> Dict[str, torch.Tensor]:
+    """Flax `params` (+ `batch_stats`) -> the port's state_dict (float32)."""
+    out: Dict[str, torch.Tensor] = {}
+    trees = [("params", params)]
+    if batch_stats:
+        trees.append(("batch_stats", batch_stats))
+    for collection, tree in trees:
+        for path, value in _flatten(tree):
+            key, converted = _convert_leaf(collection, path, value)
+            if key in out:
+                raise ValueError(f"two flax leaves map to {key!r} (second: {'/'.join(path)})")
+            out[key] = torch.tensor(np.asarray(converted, dtype=np.float32))
+    return out
+
+
+def load_flax_variables(model: nn.Module, params, batch_stats=None) -> None:
+    """Copy flax variables into `model`; every leaf must map to exactly one
+    parameter or buffer of the same shape, and none may be left over."""
+    state = state_dict_from_flax(params, batch_stats)
+    own = model.state_dict()
+    missing = sorted(set(own) - set(state))
+    leftover = sorted(set(state) - set(own))
+    if missing or leftover:
+        raise KeyError(f"flax tree does not match the model: missing {missing}, leftover {leftover}")
+    for key, value in state.items():
+        if tuple(own[key].shape) != tuple(value.shape):
+            raise ValueError(f"{key}: flax {tuple(value.shape)} vs model {tuple(own[key].shape)}")
+    model.load_state_dict(state, strict=True)
+
+
+def load_npz(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Read `/`-joined flax paths from an .npz into (params, batch_stats)."""
+    trees: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    with np.load(path, allow_pickle=False) as z:
+        for name in z.files:
+            collection, *path = name.split("/")
+            if collection not in trees or not path:
+                raise ValueError(f"npz key {name!r} is not params/... or batch_stats/...")
+            node = trees[collection]
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = np.asarray(z[name])
+    return trees["params"], trees["batch_stats"]
+
+
+def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Random init in flax's families (see the module docstring)."""
+    for module in model.modules():
+        if isinstance(module, nn.Linear):
+            _lecun_normal_(module.weight, module.in_features, generator)
+            if module.bias is not None:
+                nn.init.zeros_(module.bias)
+        elif isinstance(module, nn.Conv2d):
+            kh, kw = module.kernel_size
+            _lecun_normal_(module.weight, kh * kw * module.in_channels // module.groups, generator)
+            if module.bias is not None:
+                nn.init.zeros_(module.bias)
+        elif isinstance(module, nn.Embedding):
+            nn.init.normal_(module.weight, std=1.0 / math.sqrt(module.num_embeddings),
+                            generator=generator)
+        elif isinstance(module, (nn.LayerNorm, BatchNorm)):
+            nn.init.ones_(module.weight)
+            nn.init.zeros_(module.bias)
+            if isinstance(module, BatchNorm):
+                module.running_mean.zero_()
+                module.running_var.fill_(1.0)
+    # FiLM starts as the identity: both projections at zero.
+    for module in model.modules():
+        if isinstance(module, FilmConditioning):
+            for proj in (module.projection_add, module.projection_mult):
+                nn.init.zeros_(proj.weight)
+                nn.init.zeros_(proj.bias)

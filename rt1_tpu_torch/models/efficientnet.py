@@ -1,0 +1,196 @@
+"""FiLM-conditioned EfficientNet, eval mode only (counterpart of
+`rt1_tpu/models/efficientnet.py`).
+
+Same architecture and parameter names as the JAX module: a 3x3 stride-2
+stem, MBConv blocks (expand 1x1 -> depthwise kxk -> squeeze-excite sized
+from the BLOCK INPUT -> project 1x1), an optional FiLM layer after every
+block, and a 1x1 top conv. B3 = width 1.2 / depth 1.4: stem 40 channels,
+26 blocks, top 1536.
+
+The public `EfficientNet.forward` takes and returns NHWC like the JAX
+module; inside the tower activations are NCHW, the layout cuDNN's
+convolutions take. Stochastic depth and dropout are training-only and are
+not ported. Convolutions use explicit symmetric padding `(k - 1) // 2`,
+which `padding=pad` reproduces.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rt1_tpu_torch.models.film import FilmConditioning
+
+# Table-1 base (B0) config.
+BLOCKS_ARGS: Tuple[Dict[str, Any], ...] = (
+    dict(kernel_size=3, repeats=1, in_size=32, out_size=16, expand_ratio=1, strides=1, se_ratio=0.25),
+    dict(kernel_size=3, repeats=2, in_size=16, out_size=24, expand_ratio=6, strides=2, se_ratio=0.25),
+    dict(kernel_size=5, repeats=2, in_size=24, out_size=40, expand_ratio=6, strides=2, se_ratio=0.25),
+    dict(kernel_size=3, repeats=3, in_size=40, out_size=80, expand_ratio=6, strides=2, se_ratio=0.25),
+    dict(kernel_size=5, repeats=3, in_size=80, out_size=112, expand_ratio=6, strides=1, se_ratio=0.25),
+    dict(kernel_size=5, repeats=4, in_size=112, out_size=192, expand_ratio=6, strides=2, se_ratio=0.25),
+    dict(kernel_size=3, repeats=1, in_size=192, out_size=320, expand_ratio=6, strides=1, se_ratio=0.25),
+)
+
+
+def round_filters(filters: float, divisor: int, width_coefficient: float) -> int:
+    """Width scaling with snap-to-multiple-of-divisor."""
+    filters *= width_coefficient
+    new_filters = max(divisor, int(filters + divisor / 2) // divisor * divisor)
+    if new_filters < 0.9 * filters:
+        new_filters += divisor
+    return int(new_filters)
+
+
+def round_repeats(repeats: int, depth_coefficient: float) -> int:
+    return int(math.ceil(depth_coefficient * repeats))
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm over dim 1 (flax `BatchNorm(use_running_average=True)`,
+    eps 1e-5): `scale`/`bias` parameters, `mean`/`var` statistics."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(
+            x, self.running_mean, self.running_var, self.weight, self.bias,
+            training=False, eps=self.eps,
+        )
+
+
+class ConvNormAct(nn.Module):
+    """Conv (no bias) -> BatchNorm -> optional SiLU, NCHW."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, strides: int = 1,
+                 groups: int = 1, use_act: bool = True):
+        super().__init__()
+        pad = (kernel_size - 1) // 2
+        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=strides,
+                              padding=pad, groups=groups, bias=False)
+        self.bn = BatchNorm(out_ch)
+        self.use_act = use_act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.bn(self.conv(x))
+        return F.silu(x) if self.use_act else x
+
+
+class SqueezeExcite(nn.Module):
+    """SE whose reduction width comes from the BLOCK INPUT size, NCHW."""
+
+    def __init__(self, expand_size: int, block_in_size: int, se_ratio: float = 0.25):
+        super().__init__()
+        se_size = max(1, int(block_in_size * se_ratio))
+        self.fc1 = nn.Conv2d(expand_size, se_size, 1)
+        self.fc2 = nn.Conv2d(se_size, expand_size, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.mean(dim=(2, 3), keepdim=True)
+        s = torch.sigmoid(self.fc2(F.silu(self.fc1(s))))
+        return x * s
+
+
+class MBConvBlock(nn.Module):
+    """Inverted residual block with SE, NCHW."""
+
+    def __init__(self, kernel_size: int, in_size: int, out_size: int, expand_ratio: int,
+                 strides: int, se_ratio: float, drop_rate: float = 0.0):
+        super().__init__()
+        del drop_rate  # stochastic depth is training-only
+        expand_size = in_size * expand_ratio
+        if expand_ratio != 1:
+            self.expand = ConvNormAct(in_size, expand_size, 1)
+        else:
+            self.expand = None
+        self.depthwise = ConvNormAct(expand_size, expand_size, kernel_size,
+                                     strides=strides, groups=expand_size)
+        if 0.0 < se_ratio <= 1.0:
+            self.se = SqueezeExcite(expand_size, in_size, se_ratio)
+        else:
+            self.se = None
+        self.project = ConvNormAct(expand_size, out_size, 1, use_act=False)
+        self.residual = strides == 1 and in_size == out_size
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        x = inputs
+        if self.expand is not None:
+            x = self.expand(x)
+        x = self.depthwise(x)
+        if self.se is not None:
+            x = self.se(x)
+        x = self.project(x)
+        return inputs + x if self.residual else x
+
+
+class EfficientNet(nn.Module):
+    """EfficientNet without the classifier head, with optional per-block FiLM."""
+
+    def __init__(self, width_coefficient: float, depth_coefficient: float,
+                 include_film: bool = False, context_dim: int = 512,
+                 depth_divisor: int = 8, drop_connect_rate: float = 0.2):
+        super().__init__()
+        self.width_coefficient = width_coefficient
+        self.depth_coefficient = depth_coefficient
+        self.depth_divisor = depth_divisor
+        self.drop_connect_rate = drop_connect_rate
+        self.include_film = include_film
+        stem_ch = round_filters(32, depth_divisor, width_coefficient)
+        self.stem = ConvNormAct(3, stem_ch, 3, strides=2)
+        self.num_blocks = 0
+        for i, cfg in enumerate(self.block_configs()):
+            self.add_module(f"block_{i}", MBConvBlock(**cfg))
+            if include_film:
+                self.add_module(f"film_{i}", FilmConditioning(context_dim, cfg["out_size"]))
+            self.num_blocks += 1
+        last = self.block_configs()[-1]["out_size"]
+        self.top_ch = round_filters(1280, depth_divisor, width_coefficient)
+        self.top = ConvNormAct(last, self.top_ch, 1)
+
+    def block_configs(self) -> List[Dict[str, Any]]:
+        """Flattened per-block args after width/depth scaling."""
+        configs = []
+        total_repeats = float(
+            sum(round_repeats(a["repeats"], self.depth_coefficient) for a in BLOCKS_ARGS)
+        )
+        b = 0
+        for args in BLOCKS_ARGS:
+            in_size = round_filters(args["in_size"], self.depth_divisor, self.width_coefficient)
+            out_size = round_filters(args["out_size"], self.depth_divisor, self.width_coefficient)
+            for j in range(round_repeats(args["repeats"], self.depth_coefficient)):
+                configs.append(
+                    dict(
+                        kernel_size=args["kernel_size"],
+                        in_size=in_size if j == 0 else out_size,
+                        out_size=out_size,
+                        expand_ratio=args["expand_ratio"],
+                        strides=args["strides"] if j == 0 else 1,
+                        se_ratio=args["se_ratio"],
+                        drop_rate=self.drop_connect_rate * b / total_repeats,
+                    )
+                )
+                b += 1
+        return configs
+
+    def forward_nchw(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.stem(x)
+        for i in range(self.num_blocks):
+            x = getattr(self, f"block_{i}")(x)
+            if self.include_film:
+                x = getattr(self, f"film_{i}")(x, context, channel_dim=1)
+        return self.top(x)
+
+    def forward(self, inputs: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """inputs: (B, H, W, 3) float; context: (B, D) when FiLM. Returns NHWC."""
+        x = inputs.to(self.stem.conv.weight.dtype).permute(0, 3, 1, 2)
+        return self.forward_nchw(x, context).permute(0, 2, 3, 1)

@@ -1,0 +1,210 @@
+"""RT-1 policy network, inference path (counterpart of
+`rt1_tpu/models/rt1.py`).
+
+The policy keeps a rolling window per stream — context image tokens,
+action tokens and `seq_idx` — and reads all action tokens of a control
+step from ONE transformer pass (action inputs are zeroed and masked, so
+the reference's per-token passes are identical).
+
+Unlike the JAX module, whose `seq_idx` is one scalar for the whole batch
+(the JAX serving engine vmaps a batch-1 step to give each stream its own),
+the port steps a batch of streams at different phases at once: `seq_idx`
+is a `(b,)` tensor, and the roll, the insert, the step-logit gather and
+the action write all act per row. A batch whose rows share a phase is
+exactly the JAX computation.
+
+The training forward (`__call__`, the loss), dropout, crop and
+augmentation belong to the training slice and are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from rt1_tpu_torch.models import action_tokenizer
+from rt1_tpu_torch.models.image_tokenizer import RT1ImageTokenizer
+from rt1_tpu_torch.models.transformer import CausalTransformer
+from rt1_tpu_torch.ops import image as image_ops
+
+
+def rt1_attention_mask(
+    time_sequence_length: int, tokens_per_image: int, tokens_per_action: int
+) -> np.ndarray:
+    """The RT-1 attention mask: (S, S) uint8, S = T*(I+A); 1 = may attend.
+
+    Causal, minus an action mask: an action-token query never attends to
+    action-token keys of the same or earlier timestep (itself included)."""
+    step = tokens_per_image + tokens_per_action
+    size = time_sequence_length * step
+
+    def action_time(k: int) -> int:
+        return k // step if (k % step) >= tokens_per_image else -1
+
+    mask = np.tril(np.ones((size, size), np.uint8))
+    for i in range(size):
+        ti = action_time(i)
+        if ti < 0:
+            continue
+        for j in range(i + 1):
+            tj = action_time(j)
+            if tj < 0:
+                continue
+            if tj < ti or (tj == ti and j <= i):
+                mask[i, j] = 0
+    return mask
+
+
+def action_token_positions(
+    time_sequence_length: int, tokens_per_image: int, tokens_per_action: int
+) -> np.ndarray:
+    """Sequence indices of the action tokens."""
+    step = tokens_per_image + tokens_per_action
+    return np.array(
+        [
+            t * step + tokens_per_image + x
+            for t in range(time_sequence_length)
+            for x in range(tokens_per_action)
+        ],
+        np.int32,
+    )
+
+
+class RT1Policy(nn.Module):
+    """The RT-1 actor network, eval mode."""
+
+    def __init__(
+        self,
+        action_space: Mapping[str, Any],
+        vocab_size: int = 256,
+        token_embedding_size: int = 512,
+        num_layers: int = 8,
+        layer_size: int = 128,
+        num_heads: int = 8,
+        feed_forward_size: int = 512,
+        time_sequence_length: int = 6,
+        num_image_tokens: int = 8,
+        image_tokenizer: Optional[nn.Module] = None,
+        action_decode: str = "argmax",
+        attention_impl: str = "dense",
+    ):
+        super().__init__()
+        if action_decode not in ("argmax", "expected"):
+            raise ValueError(f"action_decode must be 'argmax' or 'expected', got {action_decode!r}")
+        self.action_space = dict(action_space)
+        self.vocab_size = vocab_size
+        self.token_embedding_size = token_embedding_size
+        self.num_layers = num_layers
+        self.time_sequence_length = time_sequence_length
+        self.action_decode = action_decode
+        self.tokens_per_image = num_image_tokens
+        self.tokens_per_action = action_tokenizer.tokens_per_action(self.action_space)
+        self.single_step_tokens = self.tokens_per_image + self.tokens_per_action
+        self.sequence_tokens = time_sequence_length * self.single_step_tokens
+        if image_tokenizer is None:
+            image_tokenizer = RT1ImageTokenizer(
+                embedding_output_dim=token_embedding_size, num_tokens=num_image_tokens
+            )
+        self.image_tokenizer = image_tokenizer
+        self.transformer = CausalTransformer(
+            input_emb=token_embedding_size,
+            num_layers=num_layers,
+            key_dim=layer_size,
+            num_heads=num_heads,
+            d_model=feed_forward_size,
+            vocab_size=vocab_size,
+            # Grown past 256 if the window needs it, as in the JAX module.
+            max_seq_len=max(256, self.sequence_tokens),
+            attention_impl=attention_impl,
+        )
+        mask = rt1_attention_mask(
+            time_sequence_length, self.tokens_per_image, self.tokens_per_action
+        )
+        self.register_buffer("attention_mask", torch.from_numpy(mask), persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.attention_mask.device
+
+    def initial_state(self, batch_size: int) -> Dict[str, torch.Tensor]:
+        """Zeroed rolling window: the JAX leaves' names, shapes and dtypes,
+        except that `seq_idx` is per row, `(batch_size,)`."""
+        t = self.time_sequence_length
+        dev = self.device
+        return {
+            "context_image_tokens": torch.zeros(
+                (batch_size, t, self.tokens_per_image, self.token_embedding_size),
+                dtype=torch.float32, device=dev,
+            ),
+            "action_tokens": torch.zeros(
+                (batch_size, t, self.tokens_per_action), dtype=torch.int32, device=dev
+            ),
+            "seq_idx": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
+        }
+
+    def _tokenize_images(self, image: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
+        """image (b, t, H, W, 3), context (b, t, D) or (b, D) -> (b, t, I, E)."""
+        if context is not None and context.dim() == 2:
+            context = context[:, None, :].expand(-1, image.shape[1], -1)
+        return self.image_tokenizer(image_ops.convert_dtype(image), context=context)
+
+    def _assemble(self, context_image_tokens: torch.Tensor) -> torch.Tensor:
+        """(b, t, I, E) -> (b, t*(I+A), E) with zeroed action slots."""
+        b, t, _, e = context_image_tokens.shape
+        slots = context_image_tokens.new_zeros((b, t, self.tokens_per_action, e))
+        seq = torch.cat([context_image_tokens, slots], dim=2)
+        return seq.reshape(b, t * self.single_step_tokens, e)
+
+    def _advance_window(self, observation, state):
+        """Roll full windows, tokenize the new frame, insert it per row."""
+        seq_idx = state["seq_idx"].to(torch.long)
+        t_max = self.time_sequence_length
+        time_step = torch.clamp(seq_idx, max=t_max - 1)
+        full = seq_idx == t_max
+        img_state = state["context_image_tokens"]
+        act_state = state["action_tokens"]
+        img_state = torch.where(full[:, None, None, None], img_state.roll(-1, dims=1), img_state)
+        act_state = torch.where(full[:, None, None], act_state.roll(-1, dims=1), act_state)
+        image = observation["image"][:, None]  # (b, 1, H, W, 3)
+        context = observation.get("natural_language_embedding")
+        new_tokens = self._tokenize_images(image, context)  # (b, 1, I, E)
+        rows = torch.arange(img_state.shape[0], device=img_state.device)
+        img_state = img_state.index_put((rows, time_step), new_tokens[:, 0].to(img_state.dtype))
+        return img_state, act_state, time_step, seq_idx
+
+    def infer_step(
+        self, observation: Dict[str, torch.Tensor], state: Dict[str, torch.Tensor]
+    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """One control step for a batch of streams, each at its own phase.
+
+        observation: {'image': (b, H, W, 3), 'natural_language_embedding': (b, D)}.
+        Returns ({'action_tokens', 'action_logits', <detokenized action>},
+        new_state)."""
+        img_state, act_state, time_step, seq_idx = self._advance_window(observation, state)
+        logits = self.transformer(self._assemble(img_state), attention_mask=self.attention_mask)
+        start = time_step * self.single_step_tokens + self.tokens_per_image - 1  # (b,)
+        index = start[:, None] + torch.arange(self.tokens_per_action, device=start.device)
+        step_logits = torch.gather(
+            logits, 1, index[:, :, None].expand(-1, -1, logits.shape[-1])
+        )  # (b, A, vocab)
+        tokens = torch.argmax(step_logits, dim=-1).to(torch.int32)
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
+        act_state = act_state.index_put((rows, time_step), tokens)
+        new_state = {
+            "context_image_tokens": img_state,
+            "action_tokens": act_state,
+            "seq_idx": torch.clamp(seq_idx + 1, max=self.time_sequence_length).to(torch.int32),
+        }
+        output = {"action_tokens": tokens, "action_logits": step_logits}
+        output.update(self._decode_action(tokens, step_logits))
+        return output, new_state
+
+    def _decode_action(self, tokens, step_logits):
+        if self.action_decode == "expected":
+            return action_tokenizer.detokenize_expected(
+                self.action_space, step_logits, self.vocab_size
+            )
+        return action_tokenizer.detokenize(self.action_space, tokens, self.vocab_size)

@@ -1,0 +1,421 @@
+"""Stdlib-only HTTP frontend for the batched policy engine (counterpart of
+`rt1_tpu/serve/server.py`, with the same request and response fields).
+
+Threading model: `ThreadingHTTPServer` gives every connection a handler
+thread; one background thread runs an asyncio loop that owns the batcher;
+the batcher's executor calls the engine. Handler threads bridge into the
+loop with `run_coroutine_threadsafe` and block on the future.
+
+Endpoints (all JSON):
+
+* `POST /act`     {"session_id", "image" | "image_b64", "instruction" |
+                   "embedding"} -> {"action", "action_tokens",
+                   "session_started", "request_id", "terminate_episode"}
+* `POST /reset`   {"session_id"} -> {"ok": true, "slot": i}
+* `POST /release` {"session_id"} -> {"ok": true}
+* `GET /healthz`  liveness + the input contract (image shape, embed dim)
+* `GET /readyz`   503 before warm-up finishes and while draining, else 200
+* `GET /metrics`  `ServeMetrics.snapshot()` plus engine gauges, among them
+                  `attention_launches_total` (the fused kernel's launch
+                  count) and `engine_steps_total` (batched steps, warm-up
+                  included)
+
+Queue full -> 503 `busy`; draining -> 503 `draining`.
+`install_signal_handlers` turns SIGTERM/SIGINT into a drain: stop
+admitting, flush every accepted request, stop serving.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import base64
+import binascii
+import concurrent.futures
+import json
+import re
+import signal
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+
+from rt1_tpu_torch.parallel.flash_attention import fused_attention
+from rt1_tpu_torch.serve.batcher import BusyError, ContinuousBatcher, DrainingError, MicroBatcher
+from rt1_tpu_torch.serve.engine import (
+    EMBEDDING_DIM,
+    PolicyEngine,
+    SessionError,
+    SlotContentionError,
+)
+from rt1_tpu_torch.serve.metrics import ServeMetrics
+
+REQUEST_ID_HEADER = "X-RT1-Request-Id"
+# The JAX server's defaults: a bounded admission queue (beyond it, 503
+# busy), the longest a request waits for batchmates, two batches in flight
+# under the continuous scheduler, and the server-side request budget.
+MAX_QUEUE = 64
+MAX_DELAY_S = 0.010
+PIPELINE_DEPTH = 2
+REQUEST_TIMEOUT_S = 60.0
+_RID_SAFE = re.compile(r"[^A-Za-z0-9._:-]")
+
+
+class RequestError(ValueError):
+    """Malformed client payload -> HTTP 400."""
+
+
+def request_id_from(headers, payload: Optional[Dict[str, Any]] = None) -> str:
+    """Client header wins, else the payload field, else a fresh id."""
+    rid = headers.get(REQUEST_ID_HEADER) if headers is not None else None
+    if not rid and payload:
+        rid = payload.get("request_id")
+    if isinstance(rid, str) and rid:
+        rid = _RID_SAFE.sub("", rid)[:64]
+    if not isinstance(rid, str) or not rid:
+        rid = uuid.uuid4().hex[:16]
+    return rid
+
+
+def parse_observation(payload: Dict[str, Any], image_shape: Sequence[int],
+                      embed_dim: Optional[int] = None) -> Dict[str, Any]:
+    """Decode one /act payload into an engine observation. Images arrive as
+    a nested float list in [0, 1] or as `image_b64`, base64 of raw uint8
+    H*W*3 bytes."""
+    if "image_b64" in payload:
+        try:
+            raw = base64.b64decode(payload["image_b64"], validate=True)
+        except (binascii.Error, ValueError) as exc:
+            raise RequestError(f"image_b64 is not valid base64: {exc}") from exc
+        flat = np.frombuffer(raw, np.uint8)
+        expected = int(np.prod(image_shape))
+        if flat.size != expected:
+            raise RequestError(
+                f"image_b64 decodes to {flat.size} bytes, expected {expected} "
+                f"for shape {tuple(image_shape)}"
+            )
+        image = flat.reshape(image_shape).astype(np.float32) / 255.0
+    elif "image" in payload:
+        image = np.asarray(payload["image"], np.float32)
+        if image.shape != tuple(image_shape):
+            raise RequestError(f"image shape {image.shape} != server shape {tuple(image_shape)}")
+    else:
+        raise RequestError("payload needs 'image' or 'image_b64'")
+    obs: Dict[str, Any] = {"image": image}
+    if "embedding" in payload:
+        embedding = np.asarray(payload["embedding"], np.float32)
+        if embed_dim is not None and embedding.shape != (embed_dim,):
+            raise RequestError(f"embedding shape {embedding.shape} != ({embed_dim},)")
+        obs["natural_language_embedding"] = embedding
+    elif "instruction" in payload:
+        if not isinstance(payload["instruction"], str):
+            raise RequestError("'instruction' must be a string")
+        obs["instruction"] = payload["instruction"]
+    else:
+        raise RequestError("payload needs 'instruction' or 'embedding'")
+    return obs
+
+
+class ServeApp:
+    """Engine + batcher + metrics behind a thread-safe facade."""
+
+    def __init__(
+        self,
+        engine: PolicyEngine,
+        *,
+        image_shape: Sequence[int],
+        scheduler: str = "continuous",
+    ):
+        self.engine = engine
+        self.image_shape = tuple(image_shape)
+        self.embed_dim = EMBEDDING_DIM
+        self.metrics = ServeMetrics()
+        self.request_timeout_s = REQUEST_TIMEOUT_S
+        self.draining = False
+        self.ready = False
+        # Makes the draining check and the batcher submit one step against
+        # drain(): an admitted request is always flushed, never 503ed.
+        self._admit_lock = threading.Lock()
+        self._loop = asyncio.new_event_loop()
+        self._loop_thread = threading.Thread(
+            target=self._loop.run_forever, name="rt1-serve-loop", daemon=True
+        )
+        if scheduler not in ("continuous", "cycle"):
+            raise ValueError(f"scheduler must be 'continuous' or 'cycle', got {scheduler!r}")
+        self.scheduler = scheduler
+        # batch_key: one session's requests never share a batch.
+        if scheduler == "continuous":
+            self.batcher = ContinuousBatcher(
+                self._process,
+                max_batch=engine.max_sessions,
+                max_queue=MAX_QUEUE,
+                pipeline_depth=PIPELINE_DEPTH,
+                coalesce_delay_s=MAX_DELAY_S,
+                batch_key=lambda item: item[0],
+                metrics=self.metrics,
+            )
+        else:
+            self.batcher = MicroBatcher(
+                self._process,
+                max_batch=engine.max_sessions,
+                max_delay_s=MAX_DELAY_S,
+                max_queue=MAX_QUEUE,
+                batch_key=lambda item: item[0],
+                metrics=self.metrics,
+            )
+
+    def _process(self, items):
+        t0 = time.perf_counter()
+        # Dispatch (under the engine lock) then collect (outside it): with
+        # the continuous batcher's second worker, batch N+1 is enqueued
+        # while this collect waits. Nothing may sit between the two.
+        handle = self.engine.dispatch_batch(items)
+        results = self.engine.collect_batch(handle)
+        if handle.bucket is not None:
+            self.metrics.observe_bucket(handle.bucket, handle.active_count)
+        self.metrics.observe_step(time.perf_counter() - t0)
+        return results
+
+    def start(self, warmup: bool = True) -> None:
+        """Start the batcher loop and warm every bucket up front, on every
+        batcher worker thread: PyTorch keeps cuDNN's execution plans and
+        cuBLAS handles per thread."""
+        self._loop_thread.start()
+        asyncio.run_coroutine_threadsafe(self.batcher.start(), self._loop).result(timeout=10)
+        if warmup:
+            self.batcher.on_each_worker(
+                lambda: self.engine.warmup(self.image_shape, self.embed_dim)
+            )
+        self.ready = True
+
+    def act(self, session_id: str, obs: Dict[str, Any]) -> Dict[str, Any]:
+        """Blocking bridge used by HTTP handler threads."""
+        t_entry = time.perf_counter()
+        while True:
+            with self._admit_lock:
+                if self.draining:
+                    raise DrainingError("draining; not accepting requests")
+                future = asyncio.run_coroutine_threadsafe(
+                    self.batcher.submit((session_id, obs)), self._loop
+                )
+            try:
+                remaining = self.request_timeout_s - (time.perf_counter() - t_entry)
+                result = future.result(timeout=max(remaining, 0.001))
+            except concurrent.futures.TimeoutError:
+                future.cancel()
+                raise
+            if (
+                isinstance(result.get("error"), SlotContentionError)
+                and time.perf_counter() - t_entry < self.request_timeout_s / 2
+            ):
+                # Every slot rides this batch or an in-flight step: re-ride
+                # the next batch instead of bouncing a 503.
+                time.sleep(0.002)
+                continue
+            break
+        if "error" in result:
+            raise result["error"]
+        return result
+
+    def reset(self, session_id: str) -> int:
+        return self.engine.reset(session_id)
+
+    def release(self, session_id: str) -> None:
+        self.engine.release(session_id)
+
+    def drain(self, timeout: float = 30.0) -> None:
+        """Reject new work and flush everything admitted."""
+        with self._admit_lock:
+            self.draining = True
+            self.ready = False
+        if self._loop_thread.is_alive():
+            asyncio.run_coroutine_threadsafe(self.batcher.drain(), self._loop).result(timeout=timeout)
+            self._loop.call_soon_threadsafe(self._loop.stop)
+            self._loop_thread.join(timeout=timeout)
+
+    def healthz(self) -> Dict[str, Any]:
+        return {
+            "status": "draining" if self.draining else "ok",
+            "image_shape": list(self.image_shape),
+            "embed_dim": self.embed_dim,
+            "max_sessions": self.engine.max_sessions,
+            "active_sessions": self.engine.active_sessions,
+            "compile_count": self.engine.compile_count,
+            "window": self.engine.window,
+            "scheduler": self.scheduler,
+            "buckets": [int(b) for b in self.engine.buckets],
+            "device": str(self.engine.device),
+            "dtype": self.engine.dtype,
+        }
+
+    def readyz(self) -> Tuple[int, Dict[str, Any]]:
+        if self.draining:
+            return 503, {"ready": False, "reason": "draining"}
+        if not self.ready:
+            return 503, {"ready": False, "reason": "warming"}
+        return 200, {"ready": True}
+
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        return self.metrics.snapshot(
+            active_sessions=self.engine.active_sessions,
+            compile_count=self.engine.compile_count,
+            bucket_count=len(self.engine.buckets),
+            embed_cache_misses=self.engine.embed_calls,
+            session_evictions=self.engine.evictions,
+            draining=int(self.draining),
+            ready=int(self.ready),
+            engine_steps_total=self.engine.steps_total,
+            attention_launches_total=fused_attention.launches,
+            decoder_layers=self.engine.policy.num_layers,
+            device=str(self.engine.device),
+            dtype=self.engine.dtype,
+        )
+
+
+class _Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    app: ServeApp = None  # bound by make_server
+
+    def log_message(self, fmt, *args):  # noqa: D102 - stdlib hook: no per-request lines
+        pass
+
+    def _reply(self, code: int, payload: Dict[str, Any]) -> None:
+        body = json.dumps(payload).encode("utf-8")
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _read_json(self) -> Dict[str, Any]:
+        length = int(self.headers.get("Content-Length", 0))
+        if length <= 0:
+            raise RequestError("missing request body")
+        try:
+            payload = json.loads(self.rfile.read(length))
+        except json.JSONDecodeError as exc:
+            raise RequestError(f"invalid JSON body: {exc}") from exc
+        if not isinstance(payload, dict):
+            raise RequestError("request body must be a JSON object")
+        return payload
+
+    def do_GET(self):  # noqa: N802 - stdlib casing
+        if self.path == "/healthz":
+            self._reply(200, self.app.healthz())
+        elif self.path == "/readyz":
+            self._reply(*self.app.readyz())
+        elif self.path == "/metrics":
+            self._reply(200, self.app.metrics_snapshot())
+        else:
+            self._reply(404, {"error": f"unknown path {self.path}"})
+
+    def do_POST(self):  # noqa: N802 - stdlib casing
+        try:
+            payload = self._read_json()
+        except RequestError as exc:
+            self._reply(400, {"error": str(exc)})
+            return
+        if self.path == "/act":
+            self._act(payload)
+        elif self.path == "/reset":
+            self._session_op(payload, self.app.reset, "slot", count_reset=True)
+        elif self.path == "/release":
+            self._session_op(payload, self.app.release, None)
+        else:
+            self._reply(404, {"error": f"unknown path {self.path}"})
+
+    @staticmethod
+    def _session_id(payload) -> str:
+        session_id = payload.get("session_id")
+        if not isinstance(session_id, str) or not session_id:
+            raise RequestError("'session_id' must be a non-empty string")
+        return session_id
+
+    def _session_op(self, payload, op, result_key, count_reset=False):
+        try:
+            value = op(self._session_id(payload))
+        except RequestError as exc:
+            self._reply(400, {"error": str(exc)})
+            return
+        except SlotContentionError as exc:
+            self._reply(503, {"error": str(exc), "retry": True})
+            return
+        except SessionError as exc:
+            self._reply(404, {"error": str(exc)})
+            return
+        out = {"ok": True}
+        if result_key is not None:
+            out[result_key] = value
+        if count_reset:
+            self.app.metrics.observe_reset()
+        self._reply(200, out)
+
+    def _fail(self, code: int, t0: float, request_id: str, body: Dict[str, Any],
+              counted: bool = True) -> None:
+        if counted:
+            self.app.metrics.observe_request(time.perf_counter() - t0, ok=False)
+        body["request_id"] = request_id
+        self._reply(code, body)
+
+    def _act(self, payload):
+        request_id = request_id_from(self.headers, payload)
+        t0 = time.perf_counter()
+        if self.app.draining:
+            self._fail(503, t0, request_id, {"error": "draining"}, counted=False)
+            return
+        try:
+            session_id = self._session_id(payload)
+            obs = parse_observation(payload, self.app.image_shape, self.app.embed_dim)
+            result = self.app.act(session_id, obs)
+        except RequestError as exc:
+            self._fail(400, t0, request_id, {"error": str(exc)})
+            return
+        except (BusyError, SlotContentionError):
+            self._fail(503, t0, request_id, {"error": "busy", "retry": True}, counted=False)
+            return
+        except DrainingError:
+            self._fail(503, t0, request_id, {"error": "draining"}, counted=False)
+            return
+        except concurrent.futures.TimeoutError:
+            self._fail(504, t0, request_id, {"error": "request timed out in the server"})
+            return
+        except (SessionError, ValueError, KeyError) as exc:
+            self._fail(400, t0, request_id, {"error": str(exc)})
+            return
+        except Exception as exc:  # noqa: BLE001 - last-resort HTTP 500
+            self._fail(500, t0, request_id, {"error": f"internal error: {exc}"})
+            return
+        self.app.metrics.observe_request(time.perf_counter() - t0)
+        out = {
+            "action": [float(x) for x in result["action"]],
+            "action_tokens": [int(x) for x in result["action_tokens"]],
+            "session_started": result.get("session_started", False),
+            "request_id": request_id,
+        }
+        if "terminate_episode" in result:
+            out["terminate_episode"] = result["terminate_episode"]
+        self._reply(200, out)
+
+
+def make_server(app: ServeApp, host: str = "127.0.0.1", port: int = 0) -> ThreadingHTTPServer:
+    """Bind a ThreadingHTTPServer to `app` (port 0 = ephemeral)."""
+    handler = type("BoundHandler", (_Handler,), {"app": app})
+    httpd = ThreadingHTTPServer((host, port), handler)
+    httpd.daemon_threads = True
+    return httpd
+
+
+def install_signal_handlers(app: ServeApp, httpd: ThreadingHTTPServer) -> None:
+    """SIGTERM/SIGINT -> drain accepted requests, then stop the server."""
+
+    def _shutdown(signum, frame):  # noqa: ARG001 - signal signature
+        def _run():
+            app.drain()
+            httpd.shutdown()
+
+        threading.Thread(target=_run, name="rt1-serve-drain").start()
+
+    signal.signal(signal.SIGTERM, _shutdown)
+    signal.signal(signal.SIGINT, _shutdown)

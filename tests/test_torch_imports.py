@@ -1,0 +1,84 @@
+"""Guard: the port imports nothing of JAX and nothing of `rt1_tpu`.
+
+A fresh interpreter blocks jax, flax, optax, orbax, tensorflow,
+ml_collections, absl and the top-level module `rt1_tpu` (by exact name:
+`rt1_tpu_torch` shares its prefix), then imports every module of
+`rt1_tpu_torch` and `chip_smoke.py`. The machine with the card has none of
+those packages, and `rt1_tpu/__init__.py` takes a chip-claim lock.
+"""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib
+import pkgutil
+import sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflow",
+           "ml_collections", "absl", "rt1_tpu")
+
+
+def blocked(name):
+    return name.split(".")[0] in BLOCKED
+
+
+for name in [m for m in sys.modules if blocked(m)]:
+    del sys.modules[name]
+
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if blocked(name):
+            raise ImportError(f"blocked by test_torch_imports: {name}")
+
+
+sys.meta_path.insert(0, Blocker())
+
+import rt1_tpu_torch
+
+names = ["rt1_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(rt1_tpu_torch.__path__, "rt1_tpu_torch.")
+]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401
+
+leaked = sorted(m for m in sys.modules if blocked(m))
+assert not leaked, leaked
+print("IMPORTED", len(names))
+"""
+
+
+def _port_modules():
+    pkg = os.path.join(REPO, "rt1_tpu_torch")
+    return ["rt1_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages([pkg], "rt1_tpu_torch.")
+    ]
+
+
+def test_port_imports_without_jax_or_rt1_tpu():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert f"IMPORTED {len(_port_modules())}" in proc.stdout
+
+
+def test_blocker_is_exact_on_the_rt1_tpu_name():
+    """`rt1_tpu_torch` must import while `rt1_tpu` is blocked, and the probe
+    must really block `rt1_tpu` itself."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    probe = _PROBE.split("import rt1_tpu_torch\n")[0] + "import rt1_tpu\n"
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0 and "blocked by test_torch_imports: rt1_tpu" in proc.stderr
+    assert len(_port_modules()) > 20

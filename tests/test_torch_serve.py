@@ -1,0 +1,147 @@
+"""The port's serving engine and HTTP server, on the CPU with the tiny config.
+
+Engine: two sessions that start at different steps go through
+`PolicyEngine.act_batch` together (so one batched step carries rows at two
+window phases) and must equal per-session JAX `infer_step` runs on the same
+variables and frames, through the window roll (the JAX side runs the
+Pallas kernel in interpret mode, the port its fused path's plain version). Server: port 0, `/healthz`,
+`/act` with `image_b64` and an instruction, `/reset`, and the JSON
+`/metrics` carrying the attention kernel's launch counter.
+"""
+
+import base64
+import json
+import threading
+import urllib.request
+
+import jax
+import numpy as np
+import torch
+
+from rt1_tpu.specs import language_table_action_space as jax_action_space
+from rt1_tpu.specs import sample_space
+from rt1_tpu.train.configs import tiny as jax_tiny
+from rt1_tpu.train.train import build_model as jax_build_model
+from rt1_tpu_torch.configs import get_config
+from rt1_tpu_torch.convert import load_flax_variables
+from rt1_tpu_torch.eval.embedding import get_embedder
+from rt1_tpu_torch.eval.restore import build_policy, build_serve_engine
+from rt1_tpu_torch.serve.engine import PolicyEngine, pow2_buckets
+from rt1_tpu_torch.serve.server import ServeApp, make_server
+
+torch.set_num_threads(2)
+
+H, W = 32, 56
+
+
+def _jax_tiny(seed):
+    jcfg = jax_tiny.get_config()
+    jm = jax_build_model(jcfg.model).clone(attention_impl="pallas", pallas_interpret=True)
+    t = jcfg.model.time_sequence_length
+    obs = {"image": np.zeros((1, t, H, W, 3), np.float32),
+           "natural_language_embedding": np.zeros((1, t, 512), np.float32)}
+    key = jax.random.PRNGKey(0)
+    actions = sample_space(jax_action_space(), key, (1, t))
+    shapes = jax.eval_shape(lambda k: jm.init({"params": k, "crop": k}, obs, actions), key)
+    rng = np.random.default_rng(seed)
+    variables = jax.tree_util.tree_map(
+        lambda x: (rng.standard_normal(x.shape) * 0.5).astype(np.float32), shapes
+    )
+    return jm, variables
+
+
+def test_engine_staggered_sessions_match_per_session_jax():
+    jm, variables = _jax_tiny(seed=21)
+    policy = build_policy(get_config("tiny"), attention_impl="fused")
+    load_flax_variables(policy, variables["params"])
+    engine = PolicyEngine(policy, max_sessions=4, buckets=pow2_buckets(4))
+    jax_step = jax.jit(lambda v, o, s: jm.apply(v, o, s, method=jm.infer_step))
+
+    rng = np.random.default_rng(0)
+    sessions = {"a": 0, "b": 2}  # session -> engine step at which it starts
+    emb = {sid: rng.standard_normal(512).astype(np.float32) for sid in sessions}
+    jstate = {sid: jm.initial_state(1) for sid in sessions}
+    steps = jm.time_sequence_length + 4
+    for step in range(steps):
+        items, expected = [], {}
+        for sid, start in sessions.items():
+            if step < start:
+                continue
+            frame = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
+            items.append((sid, {"image": frame, "natural_language_embedding": emb[sid]}))
+            out, jstate[sid] = jax_step(
+                variables,
+                {"image": frame[None], "natural_language_embedding": emb[sid][None]},
+                jstate[sid],
+            )
+            expected[sid] = out
+        results = engine.act_batch(items)
+        for (sid, _), result in zip(items, results):
+            ref = expected[sid]
+            np.testing.assert_array_equal(result["action_tokens"], np.asarray(ref["action_tokens"])[0],
+                                          err_msg=f"{sid} step {step}")
+            np.testing.assert_allclose(
+                result["action"], np.clip(np.asarray(ref["action"])[0], -0.03, 0.03), atol=1e-6
+            )
+            assert result["session_started"] == (step == sessions[sid])
+            state = engine.session_state(sid)
+            assert int(state["seq_idx"]) == int(jstate[sid]["seq_idx"])
+            np.testing.assert_array_equal(state["action_tokens"], np.asarray(jstate[sid]["action_tokens"])[0])
+    assert engine.compile_count == len(engine.buckets) == 3
+    # Warm-up runs every bucket once, then one batched step per act_batch.
+    assert engine.steps_total == len(engine.buckets) + steps
+
+
+def _post(url, payload):
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def _get(url):
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def test_server_act_reset_metrics():
+    config = get_config("tiny")
+    engine, step = build_serve_engine(config, device="cpu", max_sessions=2,
+                                      buckets=pow2_buckets(2), embedder=get_embedder("hash"))
+    assert step == -1
+    app = ServeApp(engine, image_shape=(H, W, 3))
+    app.start(warmup=True)
+    httpd = make_server(app, port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        code, health = _get(url + "/healthz")
+        assert code == 200 and health["image_shape"] == [H, W, 3]
+        assert health["compile_count"] == 2
+        frame = np.random.default_rng(0).integers(0, 256, (H, W, 3), dtype=np.uint8)
+        body = {"session_id": "s1", "image_b64": base64.b64encode(frame.tobytes()).decode(),
+                "instruction": "push the red star to the blue cube"}
+        for i in range(4):
+            code, out = _post(url + "/act", body)
+            assert code == 200
+            assert out["session_started"] == (i == 0)
+            assert len(out["action"]) == 2 and all(-0.03 <= a <= 0.03 for a in out["action"])
+            assert len(out["action_tokens"]) == 3 and "request_id" in out
+        code, out = _post(url + "/reset", {"session_id": "s1"})
+        assert code == 200 and out["ok"] and "slot" in out
+        code, metrics = _get(url + "/metrics")
+        assert code == 200 and metrics["requests_total"] == 4
+        # On the CPU the fused path runs the plain version: no kernel launches.
+        assert metrics["attention_launches_total"] == 0
+        # Warm-up: both buckets on each of the 2 batcher worker threads.
+        assert metrics["engine_steps_total"] == engine.steps_total == 2 * 2 + 4
+        assert metrics["resets_total"] == 1
+        code, ready = _get(url + "/readyz")
+        assert code == 200 and ready["ready"]
+    finally:
+        app.drain()
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
