@@ -1,8 +1,14 @@
-// Fused masked attention forward for Hopper (sm_90a).
+// Fused masked attention forward for Hopper (sm_90a): the simple kernel.
 //
 // Replaces the Pallas TPU kernel `_attention_kernel` in
-// rt1_tpu/parallel/flash_attention.py (wrapper `fused_attention`). Per
-// (batch, head) it computes
+// rt1_tpu/parallel/flash_attention.py (wrapper `fused_attention`) for
+// float32 inputs, and for bfloat16 inputs that the tensor-core kernel
+// (fused_attention_tc.cu) does not take: d not a multiple of 16, or rows
+// not 16-byte aligned (the rule is `_variant` in
+// rt1_tpu_torch/parallel/flash_attention.py). float32 stays here because
+// its products run in full fp32 on the CUDA cores: the tensor cores would
+// round them to TF32, and the float32 path is the one held to the CPU.
+// Per (batch, head) it computes
 //
 //   out = softmax(where(mask != 0, (q * scale) k^T, -1e9)) v
 //
@@ -42,7 +48,8 @@
 // tiles are loaded with scalar loads instead of TMA or cp.async (no
 // overlap of loads with math), and each block re-reads K and V of its
 // (batch, head), so K/V are read ceil(s / 16) times (from L2 after the
-// first).
+// first). The bf16 serve path now runs fused_attention_tc.cu, which
+// answers those points; this kernel keeps float32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -216,17 +223,23 @@ fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+size_t smem_bytes(int d) {
+  return sizeof(float) *
+      (size_t)(BLOCK_Q * d + 2 * BLOCK_K * (d + 1) + BLOCK_Q * BLOCK_K + 2 * BLOCK_Q);
+}
+
 template <typename T, int NC>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
                    int b, int s, int h, int d, Strides qs, Strides ks, Strides vs, Strides os,
                    float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (size_t)(BLOCK_Q * d + 2 * BLOCK_K * (d + 1) + BLOCK_Q * BLOCK_K + 2 * BLOCK_Q);
-  cudaError_t err = cudaFuncSetAttribute(fused_attention_kernel<T, NC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  // The dynamic shared-memory limit is set once per instance, for its
+  // largest head dim (128 * NC).
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fused_attention_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes(128 * NC));
+  if (attr != cudaSuccess) return attr;
   dim3 grid(b * h, (s + BLOCK_Q - 1) / BLOCK_Q);
-  fused_attention_kernel<T, NC><<<grid, THREADS, smem, stream>>>(
+  fused_attention_kernel<T, NC><<<grid, THREADS, smem_bytes(d), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(mask), static_cast<T*>(out), h, s, d, qs, ks, vs, os, scale);
   return cudaGetLastError();

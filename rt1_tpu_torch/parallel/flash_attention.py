@@ -1,4 +1,4 @@
-"""Fused masked attention: a hand-written CUDA kernel for Hopper.
+"""Fused masked attention: hand-written CUDA kernels for Hopper.
 
 Counterpart of `rt1_tpu/parallel/flash_attention.py`, whose Pallas TPU
 kernel `_attention_kernel` (wrapper `fused_attention`) this replaces. Both
@@ -6,24 +6,32 @@ compute, per (batch, head),
 
     out = softmax(where(mask != 0, (q * scale) k^T, -1e9)) v
 
-with logits, softmax and the PV product in fp32 and the result cast to q's
-dtype. q/k/v/out are `(b, s, h, d)`; the optional mask is `(s, s)` and
+with logits, softmax and the PV product in fp32 and the result cast to
+q's dtype. q/k/v/out are `(b, s, h, d)`; the optional mask is `(s, s)` and
 shared by every (batch, head). Forward only: training takes the dense
 path, as it does in the JAX package.
 
-The kernel is `csrc/fused_attention.cu`, built with `nvcc` for `sm_90a`
-into `csrc/build/` on first use and bound with `ctypes`. Its bound at the
-serve shape (b=8, s=66, h=8, d=128, bf16) is about 4.3 MB of q/k/v/out, or
-about 1.3 us at 3.35 TB/s; its arithmetic, about 0.14 GFLOP, lies far below
-the tensor-core line, so the function is memory- and launch-bound. The
-simple design (fp32 CUDA-core products, scalar tile loads, K/V re-read per
-query block) runs far above that bound (`PERF.md`) and leaves wgmma and TMA
-to a later redesign; see the note in the source.
+Two kernel variants, chosen per call by `_variant`:
 
-`fused_attention` launches the kernel for CUDA tensors (or raises) and runs
+* "tensor_core" (`csrc/fused_attention_tc.cu`): bf16 on the tensor cores
+  (mma.sync with fp32 accumulate, P kept in fp32 as a bf16 hi + lo pair),
+  cp.async copies, one K/V read per block. It takes bf16 with d a
+  multiple of 16 up to 256 and every row 16-byte aligned: the serve path.
+* "simple" (`csrc/fused_attention.cu`): fp32 products on the CUDA cores.
+  It takes float32 (which must stay full fp32, not TF32) and any bf16 call
+  the tensor-core kernel cannot take.
+
+Both sources are compiled with `nvcc` for `sm_90a`, in parallel, into one
+library under `csrc/build/` on first use, and bound with `ctypes`. The
+function's bound at the serve shape (b=8, s=66, h=8, d=128, bf16) is about
+4.3 MB of q/k/v/out, or 1.3 us at 3.35 TB/s; its 0.14 GFLOP lie far below
+the tensor-core line. `PERF.md` has the kernels' times.
+
+`fused_attention` launches a kernel for CUDA tensors (or raises) and runs
 `fused_attention_reference`, the plain PyTorch version of the same
 function, for CPU tensors. `fused_attention.launches` counts kernel
-launches, so a run can show that its main path went through the kernel.
+launches in all and `fused_attention.launches_by_variant` per variant, so
+a run can show which kernel its main path went through.
 """
 
 from __future__ import annotations
@@ -31,25 +39,32 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
 import tempfile
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 NEG_INF = -1e9
 MAX_HEAD_DIM = 256
+VARIANTS = ("tensor_core", "simple")
+# Query slices of 16 rows (one compute warp each) per block of the
+# tensor-core kernel (1..8): the fewer, the more blocks and the more K/V
+# re-reads from L2. 3 was the fastest in the sweep of chip_smoke.py at the
+# serve shape (PERF.md).
+TC_SLICES_PER_BLOCK = 3
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCE = os.path.join(_CSRC, "fused_attention.cu")
-BUILD_DIR = os.path.join(_CSRC, "build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+SOURCES = (
+    os.path.join(_CSRC, "fused_attention.cu"),
+    os.path.join(_CSRC, "fused_attention_tc.cu"),
 )
+BUILD_DIR = os.path.join(_CSRC, "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -74,6 +89,20 @@ def fused_attention_reference(
     return out.to(q.dtype)
 
 
+def _variant(dtype: torch.dtype, d: int, strides: Sequence[int], ptrs: Sequence[int]) -> str:
+    """Which kernel takes a call: "tensor_core" for bf16 with d a multiple
+    of 16 (at most 256) whose every row starts 16-byte aligned (each data
+    pointer and each batch/sequence/head stride in bytes a multiple of 16),
+    else "simple". `strides` are element strides of the non-last dims of
+    q, k and v; `ptrs` their data pointers and the mask's, if any (the
+    mask's rows need no alignment, its base does)."""
+    if dtype != torch.bfloat16 or d % 16 or not 16 <= d <= MAX_HEAD_DIM:
+        return "simple"
+    if functools.reduce(operator.or_, ptrs) % 16 or functools.reduce(operator.or_, strides) % 8:
+        return "simple"  # 8 bf16 elements = 16 bytes
+    return "tensor_core"
+
+
 def _find_nvcc() -> str:
     for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
         if home:
@@ -82,54 +111,74 @@ def _find_nvcc() -> str:
                 return candidate
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the fused attention kernel needs it")
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the fused attention kernels need it")
     return found
 
 
 def library_path() -> str:
-    """Where the built kernel lives: keyed by the source's hash, so an edit
-    to the source builds a new library instead of loading a stale one."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libfused_attention_{digest}.so")
+    """Where the built kernels live: keyed by a hash of every source, so an
+    edit to any of them builds a new library instead of loading a stale one."""
+    digest = hashlib.sha256()
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"libfused_attention_{digest.hexdigest()[:16]}.so")
+
+
+def _run(procs) -> str:
+    """Wait for every (cmd, Popen), then raise on the first that failed, or
+    return their joined output."""
+    logs = [proc.communicate() for _, proc in procs]
+    for (cmd, proc), (out, err) in zip(procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}{err}")
+    return "".join(out + err for out, err in logs)
 
 
 def build() -> str:
-    """Compile `csrc/fused_attention.cu` for sm_90a unless this source's
-    library already exists. Concurrent builders each compile into a private
-    temporary file and rename it into place. Returns the library path."""
+    """Compile every source for sm_90a (one nvcc per source, all started
+    together) and link them into one library, unless this set of sources'
+    library already exists. Concurrent builders each work in a private
+    temporary directory and rename the library into place. ptxas's report
+    (registers, spills, shared memory per kernel) goes beside it as
+    `<library>.ptxas.txt`. Returns the library's path."""
     path = library_path()
     if os.path.exists(path):
         return path
     nvcc = _find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in SOURCES:
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c", "-o", obj, src]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+            objs.append(obj)
+        report = _run(procs)
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+        with open(path + ".ptxas.txt", "w") as f:
+            f.write(report)
+        os.replace(lib, path)
     return path
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
-    fn = lib.rt1_fused_attention_fwd
-    fn.argtypes = (
-        [ctypes.c_void_p] * 5
-        + [ctypes.c_int] * 5
-        + [ctypes.c_longlong] * 12
-        + [ctypes.c_float, ctypes.c_void_p]
+    strides = [ctypes.c_longlong] * 12
+    lib.rt1_fused_attention_fwd.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + strides + [ctypes.c_float, ctypes.c_void_p]
     )
-    fn.restype = ctypes.c_int
+    lib.rt1_fused_attention_tc_fwd.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + strides
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.rt1_fused_attention_fwd.restype = ctypes.c_int
+    lib.rt1_fused_attention_tc_fwd.restype = ctypes.c_int
     return lib
 
 
@@ -140,34 +189,64 @@ def build_seconds() -> float:
     return time.perf_counter() - t0
 
 
-def _launch(q, k, v, mask, scale) -> torch.Tensor:
+def _current_stream(device: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on `device`."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def reset_launch_counts() -> None:
+    """Zero the total and per-variant launch counts (before a run reads them)."""
+    fused_attention.launches = 0
+    fused_attention.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def _launch(q, k, v, mask, scale, variant: Optional[str] = None,
+            slices: Optional[int] = None) -> torch.Tensor:
+    """Launch a kernel on CUDA tensors: the one `_variant` picks, or
+    `variant` where the caller names one (comparisons and benchmarks;
+    "tensor_core" raises on a call it cannot take). `slices` overrides
+    TC_SLICES_PER_BLOCK."""
     b, s, h, d = q.shape
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"fused_attention kernel takes float32 or bfloat16, got {q.dtype}")
-    for name, t in (("k", k), ("v", v)):
-        if t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name} must match q's dtype and device")
+    dtype, device = q.dtype, q.device
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_attention kernels take float32 or bfloat16, got {dtype}")
+    if k.dtype != dtype or v.dtype != dtype or k.device != device or v.device != device:
+        raise ValueError("k and v must match q's dtype and device")
     if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"fused_attention kernel takes head dim 1..{MAX_HEAD_DIM}, got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name} must be contiguous in its last (head) dim")
-    kernel = _library().rt1_fused_attention_fwd  # builds on first use
+        raise ValueError(f"fused_attention kernels take head dim 1..{MAX_HEAD_DIM}, got {d}")
+    qst, kst, vst = q.stride(), k.stride(), v.stride()
+    if qst[3] != 1 or kst[3] != 1 or vst[3] != 1:
+        raise ValueError("q, k and v must be contiguous in their last (head) dim")
+    lib = _library()  # builds on first use
     mask_ptr = None
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     if mask is not None:
-        if mask.dtype != torch.uint8 or mask.device != q.device or not mask.is_contiguous():
-            mask = (mask != 0).to(device=q.device, dtype=torch.uint8).contiguous()
+        if mask.dtype != torch.uint8 or mask.device != device or not mask.is_contiguous():
+            mask = (mask != 0).to(device=device, dtype=torch.uint8).contiguous()
         mask_ptr = mask.data_ptr()
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    strides = [x for t in (q, k, v, out) for x in t.stride()[:3]]
-    err = kernel(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-        _DTYPE_CODES[q.dtype], b, s, h, d, *strides, float(scale), stream,
-    )
+        ptrs += (mask_ptr,)
+    strides = qst[:3] + kst[:3] + vst[:3]
+    chosen = _variant(dtype, d, strides, ptrs)
+    if variant is None:
+        variant = chosen
+    elif variant == "tensor_core" and chosen != variant:
+        raise ValueError("the tensor-core kernel takes bf16, d % 16 == 0 and 16-byte aligned rows")
+    elif variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    out = torch.empty((b, s, h, d), dtype=dtype, device=device)
+    # out is contiguous: strides (s*h*d, h*d, d).
+    args = (*ptrs[:3], mask_ptr, out.data_ptr())
+    geometry = (b, s, h, d, *strides, s * h * d, h * d, d, float(scale))
+    stream = _current_stream(device)
+    if variant == "tensor_core":
+        err = lib.rt1_fused_attention_tc_fwd(*args, *geometry, slices or TC_SLICES_PER_BLOCK,
+                                             stream)
+    else:
+        err = lib.rt1_fused_attention_fwd(*args, _DTYPE_CODES[dtype], *geometry, stream)
     if err != 0:
-        raise RuntimeError(f"fused_attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"fused_attention {variant} kernel launch failed: cudaError {err}")
     fused_attention.launches += 1
+    fused_attention.launches_by_variant[variant] += 1
     return out
 
 
@@ -179,7 +258,7 @@ def fused_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Fused masked attention. q/k/v: (b, s, h, d); mask: (s, s), nonzero =
-    attend. CUDA tensors go through the hand-written kernel (or raise); CPU
+    attend. CUDA tensors go through a hand-written kernel (or raise); CPU
     tensors through `fused_attention_reference`."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v must share one (b, s, h, d) shape, got {q.shape}, {k.shape}, {v.shape}")
@@ -195,4 +274,4 @@ def fused_attention(
     raise ValueError(f"fused_attention runs on cuda or cpu tensors, got {q.device}")
 
 
-fused_attention.launches = 0
+reset_launch_counts()

@@ -16,9 +16,10 @@ Endpoints (all JSON):
 * `GET /healthz`  liveness + the input contract (image shape, embed dim)
 * `GET /readyz`   503 before warm-up finishes and while draining, else 200
 * `GET /metrics`  `ServeMetrics.snapshot()` plus engine gauges, among them
-                  `attention_launches_total` (the fused kernel's launch
-                  count) and `engine_steps_total` (batched steps, warm-up
-                  included)
+                  `attention_launches_total` (the fused kernels' launch
+                  count; `attention_launches_{tensor_core,simple}_total`
+                  per variant) and `engine_steps_total` (batched steps,
+                  warm-up included)
 
 Queue full -> 503 `busy`; draining -> 503 `draining`.
 `install_signal_handlers` turns SIGTERM/SIGINT into a drain: stop
@@ -268,6 +269,8 @@ class ServeApp:
             ready=int(self.ready),
             engine_steps_total=self.engine.steps_total,
             attention_launches_total=fused_attention.launches,
+            attention_launches_tensor_core_total=fused_attention.launches_by_variant["tensor_core"],
+            attention_launches_simple_total=fused_attention.launches_by_variant["simple"],
             decoder_layers=self.engine.policy.num_layers,
             device=str(self.engine.device),
             dtype=self.engine.dtype,

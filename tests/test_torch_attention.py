@@ -137,3 +137,184 @@ def test_wrapper_rejects_bad_shapes():
         port.fused_attention(q, q[:, :10], q)
     with pytest.raises(ValueError):
         port.fused_attention(q, q, q, mask=torch.ones((S, S + 1)))
+
+
+# The bf16 tensor-core kernel's precision scheme, emulated in plain PyTorch
+# and held to the JAX function in fp32, before the final cast to bf16. On
+# the card its bf16 output is held to within one bf16 ulp of the plain
+# version (chip_smoke.py); a bf16 output's ulp (2**-8 relative) is coarser
+# than a single bf16 P's error (2**-9), so only this fp32 comparison can
+# tell the split P from a single bf16 P.
+
+SCHEME_TOL = 1e-4
+SERVE_B, SERVE_H, SERVE_D = 2, 8, 128  # the serve shape at bucket 2
+
+
+def _bf16_inputs(seed, s, b=SERVE_B, h=SERVE_H, d=SERVE_D):
+    """float32 q/k/v whose values are bf16-representable."""
+    rng = np.random.default_rng(seed)
+    return tuple(
+        torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32))
+        .to(torch.bfloat16).float().numpy()
+        for _ in range(3)
+    )
+
+
+def _tensor_core_scheme(q, k, v, mask, split_p=True):
+    """fp32 emulation of csrc/fused_attention_tc.cu: bf16 x bf16 products
+    summed in fp32, `scale` applied to the fp32 logits, -1e9 where the mask
+    is 0, an fp32 softmax in base 2, and P split into hi = bf16(p) and
+    lo = bf16(p - hi) for the PV product (a single bf16 P when `split_p` is
+    False), normalised by the fp32 row sum at the end."""
+    qf, kf, vf = (torch.from_numpy(x) for x in (q, k, v))
+    log2e = 1.4426950408889634
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * np.float32(log2e / q.shape[-1] ** 0.5)
+    if mask is not None:
+        keep = torch.from_numpy(np.asarray(mask) != 0)
+        logits = torch.where(keep, logits, torch.tensor(-1e9 * log2e, dtype=torch.float32))
+    p = torch.exp2(logits - logits.amax(dim=-1, keepdim=True))
+    hi = p.to(torch.bfloat16).float()
+    parts = [hi, (p - hi).to(torch.bfloat16).float()] if split_p else [hi]
+    out = sum(torch.einsum("bhqk,bkhd->bqhd", part, vf) for part in parts)
+    return (out / p.sum(dim=-1).permute(0, 2, 1)[..., None]).numpy()
+
+
+def _masked_rows_mask():
+    mask = np.asarray(jax_rt1_mask(6, 8, 3), np.int32).copy()
+    mask[[0, 30, 65]] = 0
+    return mask
+
+
+def _scheme_case(name):
+    """(q, k, v, mask, fp32 reference). The fully masked rows are held to
+    dense_attention_reference: the Pallas wrapper's padding averages them
+    over the padded keys too (test_fully_masked_row_is_mean_of_real_values)."""
+    if name == "serve_b2_rt1":
+        q, k, v = _bf16_inputs(10, S)
+        mask = np.asarray(jax_rt1_mask(6, 8, 3))
+    elif name == "ragged_s37_causal":
+        q, k, v = _bf16_inputs(11, 37)
+        mask = np.tril(np.ones((37, 37), np.int32))
+    else:
+        q, k, v = _bf16_inputs(12, S)
+        mask = _masked_rows_mask()
+        ref = dense_attention_reference(*(jnp.asarray(x) for x in (q, k, v)),
+                                        mask=jnp.asarray(mask))
+        return q, k, v, mask, np.asarray(ref, np.float32)
+    ref = jax_fused_attention(*(jnp.asarray(x) for x in (q, k, v)), mask=jnp.asarray(mask),
+                              interpret=True)
+    return q, k, v, mask, np.asarray(ref, np.float32)
+
+
+SCHEME_CASES = ["serve_b2_rt1", "ragged_s37_causal", "serve_b2_masked_rows"]
+
+
+@pytest.mark.parametrize("name", SCHEME_CASES)
+def test_tensor_core_scheme_matches_jax_in_fp32(name):
+    q, k, v, mask, ref = _scheme_case(name)
+    out = _tensor_core_scheme(q, k, v, mask)
+    assert out.shape == ref.shape and np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, atol=SCHEME_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", SCHEME_CASES)
+def test_single_bf16_p_is_another_function(name):
+    """A single bf16 P (what SDPA and the dense path use) misses the same
+    bound on the same inputs, so the fp32 comparison above can tell."""
+    q, k, v, mask, ref = _scheme_case(name)
+    err = np.abs(_tensor_core_scheme(q, k, v, mask, split_p=False) - ref).max()
+    assert err > SCHEME_TOL
+
+
+def _strides(s, h, d):
+    return (s * h * d, h * d, d) * 3
+
+
+@pytest.mark.parametrize(
+    "dtype,d,strides,ptrs,expected",
+    [
+        (torch.bfloat16, 128, _strides(66, 8, 128), (0, 1 << 20, 2 << 20), "tensor_core"),
+        (torch.bfloat16, 64, _strides(66, 8, 64), (0, 1 << 20, 2 << 20, 3 << 20), "tensor_core"),
+        # d = 48 is a multiple of 16: padded to 64 in shared memory.
+        (torch.bfloat16, 48, _strides(66, 8, 48), (0, 1 << 20, 2 << 20), "tensor_core"),
+        (torch.float32, 128, _strides(66, 8, 128), (0, 1 << 20, 2 << 20), "simple"),
+        (torch.bfloat16, 40, _strides(66, 8, 40), (0, 1 << 20, 2 << 20), "simple"),
+        (torch.bfloat16, 272, _strides(66, 8, 272), (0, 1 << 20, 2 << 20), "simple"),
+        (torch.bfloat16, 128, _strides(66, 8, 128), (0, (1 << 20) + 8, 2 << 20), "simple"),
+        # a mask whose base is not 16-byte aligned
+        (torch.bfloat16, 128, _strides(66, 8, 128), (0, 1 << 20, 2 << 20, (3 << 20) + 4), "simple"),
+        # a sequence stride of 1028 bf16 elements: rows 8 bytes off 16-byte alignment
+        (torch.bfloat16, 128, (66 * 1028, 1028, 128) * 3, (0, 1 << 20, 2 << 20), "simple"),
+    ],
+)
+def test_variant_rule(dtype, d, strides, ptrs, expected):
+    assert port._variant(dtype, d, strides, ptrs) == expected
+
+
+class _FakeLaunchTensor:
+    """A CUDA-resident tensor as `_launch` sees it, on a host without CUDA."""
+
+    device = torch.device("cuda", 0)
+
+    def __init__(self, dtype, shape, ptr, strides=None):
+        self.dtype, self.shape, self._ptr = dtype, torch.Size(shape), ptr
+        b, s, h, d = shape
+        self._strides = strides or (s * h * d, h * d, d, 1)
+
+    def dim(self):
+        return 4
+
+    def stride(self, dim=None):
+        return self._strides if dim is None else self._strides[dim]
+
+    def data_ptr(self):
+        return self._ptr
+
+    def is_contiguous(self):
+        return True
+
+
+class _FakeLibrary:
+    def __init__(self):
+        self.calls = []
+        self.rt1_fused_attention_tc_fwd = lambda *a: self.calls.append(("tensor_core", a)) or 0
+        self.rt1_fused_attention_fwd = lambda *a: self.calls.append(("simple", a)) or 0
+
+
+@pytest.mark.parametrize(
+    "dtype,d,expected",
+    [(torch.bfloat16, 128, "tensor_core"), (torch.bfloat16, 64, "tensor_core"),
+     (torch.float32, 128, "simple"), (torch.bfloat16, 40, "simple")],
+)
+def test_launch_routes_by_variant_rule(monkeypatch, dtype, d, expected):
+    """`_launch` calls the C entry point `_variant` names, with the wrapper's
+    query slices per block for the tensor-core kernel, and counts the launch under
+    that variant and in the total."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(port, "_library", lambda: lib)
+    monkeypatch.setattr(port, "_current_stream", lambda device: 0)
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda shape, dtype, device: real_empty(shape, dtype=dtype))
+    monkeypatch.setattr(port.fused_attention, "launches", 0)
+    monkeypatch.setattr(port.fused_attention, "launches_by_variant",
+                        dict.fromkeys(port.VARIANTS, 0))
+    q, k, v = (_FakeLaunchTensor(dtype, (2, S, 8, d), (i + 1) << 20) for i in range(3))
+    mask = _FakeLaunchTensor(torch.uint8, (1, 1, S, S), 4 << 20)
+    mask.shape = torch.Size((S, S))
+    out = port.fused_attention(q, k, v, mask=mask)
+    assert tuple(out.shape) == (2, S, 8, d) and out.dtype == dtype
+    assert [name for name, _ in lib.calls] == [expected]
+    args = lib.calls[0][1]
+    assert args[:5] == (1 << 20, 2 << 20, 3 << 20, 4 << 20, out.data_ptr())
+    if expected == "tensor_core":
+        assert args[-2] == port.TC_SLICES_PER_BLOCK
+    assert port.fused_attention.launches == 1
+    assert port.fused_attention.launches_by_variant == {
+        name: int(name == expected) for name in port.VARIANTS}
+
+
+def test_forcing_the_tensor_core_kernel_on_float32_raises(monkeypatch):
+    monkeypatch.setattr(port, "_library", _FakeLibrary)
+    x = _FakeLaunchTensor(torch.float32, (2, S, 8, 128), 1 << 20)
+    with pytest.raises(ValueError):
+        port._launch(x, x, x, None, 0.1, variant="tensor_core")
