@@ -34,6 +34,9 @@ exits non-zero without a result line:
              serve shape, in turns (simple, tc, tc, simple), CUDA events and
              device time, beside SDPA; and the host's wall time per call
              over 200 calls issued without synchronising (kernel and SDPA).
+             Then the simple kernel in float32 at the same shape and mask
+             (its own path's dtype) against SDPA in float32, in turns
+             (simple, SDPA, SDPA, simple), with its byte bound.
 5. sweep   — query slices (16 rows, one compute warp each) per block of
              the tensor-core kernel at the serve shape, b = 8 and b = 1,
              each setting held to the reference; prints the fastest.
@@ -57,7 +60,29 @@ exits non-zero without a result line:
              0 in the new server process) equal to 8 x the engine's batched
              steps, warm-up included, and the simple kernel's 0; SIGTERM
              drains with exit 0.
-9. kernels — one line listing both kernels with their launches on their
+9. train_parity — one train step of the flagship (B3 at 256x456, 8
+             decoder layers) in float32 at batch 2, dropout, stochastic depth
+             and the crop off, on the card (TF32 off) against the same on the
+             CPU from the same weights and batch: the loss, the global
+             gradient norm, the gradient norm of each decoder layer and each
+             MBConv stage, every gradient element, the BatchNorm running
+             statistics after the step and the parameters after Adam where
+             the gradient decides them, each within the tolerance
+             `TRAIN_TOL` states (printed beside the largest error).
+10. train  — the flagship training path in bf16 (float32 masters), batch 8,
+             dropout, stochastic depth and the crop on, in process: 3
+             warm-up and 10 timed steps (wall time median and range,
+             frames/s), the card's busy time, idle share and launches per
+             step, peak memory, MFU (FLOPs of one step by FlopCounterMode,
+             with the grouped-conv backward counted per group (`step_flops`),
+             over 989 TFLOP/s), and no fused-attention launch in any train
+             step; 30 steps on one fixed batch whose last 5 losses average
+             below the first 5; an eval step with fused attention (8
+             tensor-core launches); then `python -m rt1_tpu_torch.train
+             --config language_table` for 4 steps with a checkpoint every 2,
+             a rerun to 6 steps that must report restoring step 4, and
+             `python -m rt1_tpu_torch.serve --workdir` answering one `/act`.
+11. kernels — one line listing both kernels with their launches on their
              path (serve for the tensor-core kernel, the f32 parity step
              for the simple one), errors, times and bound.
 
@@ -93,6 +118,25 @@ PARITY_REL_TOL = 1e-3
 SERVE_SESSIONS = 3
 SERVE_STEPS = 8
 SERVE_TIMEOUT_S = 600
+
+# Flagship train step, GPU (TF32 off) vs CPU in float32. Relative errors
+# against the CPU's value; a group's gradient norm against the larger of
+# its own and 1e-3 of the global norm (groups whose true gradient is ~0,
+# such as a FiLM bias that feeds a BatchNorm, carry only rounding noise).
+# Every gradient element: its GPU-CPU difference against the largest CPU
+# gradient element of the model (as the JAX parity tests hold the port).
+# BatchNorm statistics are O(1) after the step (0.9 of their init plus the
+# batch's). Parameters after Adam: 1e-6 wherever the CPU's gradient is
+# settled, |g| >= 100 eps and >= 10 x the gradient tolerance above: the
+# GPU's gradient, held within that tolerance, then has the same sign and
+# Adam's first update, g / (|g| + eps), differs by at most
+# eps |dg| / (|g1| |g2|) <= 1.2e-3, so the parameters by 6e-7 at lr 5e-4.
+# Elsewhere Adam turns a gradient's rounding noise into any update in
+# [-lr, lr], and the gradient check above is what holds those elements.
+TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "group_grad_norm": 1e-3, "grad_leaf": 1e-4,
+             "batch_stats": 1e-4, "params_settled": 1e-6}
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_FIT_STEPS = 3, 10, 30
+TRAIN_CLI_TIMEOUT_S = 600
 
 
 def emit(obj) -> None:
@@ -370,9 +414,41 @@ def phase_ab():
         host_us[name] = (time.perf_counter() - t0) / 200 * 1e6
         torch.cuda.synchronize()
     record = {"phase": "ab", "shape": [8, 66, 8, 128], "dtype": "bfloat16", "mask": "rt1",
-              "turns": turns, "host_us_per_call": host_us}
+              "turns": turns, "host_us_per_call": host_us, "float32": _ab_float32()}
     emit(record)
     return record
+
+
+def _ab_float32():
+    """The simple kernel in float32 (the `serve_b8_float32_rt1` case) against
+    SDPA in float32 on the same inputs, in turns (simple, SDPA, SDPA,
+    simple), with the byte bound (q/k/v/out and the mask over 3.35 TB/s)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from rt1_tpu_torch.parallel import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(np.random.default_rng(6), 8, 66, 8, 128, torch.float32)
+    mask, scale = make_mask("rt1", 66), 1.0 / 128 ** 0.5
+    ref = fa.fused_attention_reference(q, k, v, mask=mask, scale=scale)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    runs = {"simple": lambda: fa._launch(q, k, v, mask, scale, variant="simple"),
+            "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask.bool(),
+                                                           scale=scale)}
+    errs = {"simple": float((runs["simple"]() - ref).abs().max()),
+            "sdpa": float((runs["sdpa"]().transpose(1, 2) - ref).abs().max())}
+    if errs["simple"] > TOL["float32"]:
+        raise AssertionError(f"A/B float32: simple kernel max abs err {errs['simple']}")
+    turns = []
+    for name in ("simple", "sdpa", "sdpa", "simple"):
+        prof = device_profile(runs[name], iters=50)
+        turns.append({"kernel": name, "ms": cuda_time_ms(runs[name]),
+                      "device_ms": None if prof is None else prof["busy_ms"]})
+    bound_ms, bound_by = attention_bound(8, 66, 8, 128, "float32", masked=True)
+    return {"shape": [8, 66, 8, 128], "mask": "rt1", "turns": turns, "max_abs_err": errs,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_sweep(values=(8, 3, 2, 1)):
@@ -655,6 +731,329 @@ def phase_serve(config_name: str = "language_table", device: str = "cuda"):
     return record
 
 
+def _param_group(name, stage_of_block):
+    """The gradient-norm group of a parameter: a decoder layer, an MBConv
+    stage (its blocks and their FiLM layers), or the module it sits in."""
+    parts = name.split(".")
+    if parts[0] == "transformer" and parts[1].startswith("layer_"):
+        return "decoder_" + parts[1]
+    if "net" in parts:
+        leaf = parts[parts.index("net") + 1]
+        if leaf.startswith(("block_", "film_")):
+            return f"mbconv_stage_{stage_of_block[int(leaf.split('_')[1])]}"
+        return "tower_" + leaf
+    return ".".join(parts[:2])
+
+
+def _stage_of_block(policy):
+    """MBConv block index -> stage index (0..6) of the policy's tower; {}
+    for a tokenizer without one."""
+    from rt1_tpu_torch.models.efficientnet import BLOCKS_ARGS, round_repeats
+
+    net = getattr(getattr(policy.image_tokenizer, "encoder", None), "net", None)
+    if net is None:
+        return {}
+    stages = []
+    for stage, args in enumerate(BLOCKS_ARGS):
+        stages += [stage] * round_repeats(args["repeats"], net.depth_coefficient)
+    return dict(enumerate(stages))
+
+
+def phase_train_parity(config_name: str = "language_table", device: str = "cuda", batch: int = 2):
+    """One float32 train step of the flagship on `device` against the CPU."""
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.configs import apply_override, get_config
+    from rt1_tpu_torch.trainer.state import create_train_state
+    from rt1_tpu_torch.trainer.train import optimizer_from_config, train_step_fns_from_config
+    from rt1_tpu_torch.train.train import build_model, synthetic_batch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = get_config(config_name)
+    for assignment in ("model.dtype=float32", "model.dropout_rate=0",
+                       "regularization.crop_ratio=0", "regularization.drop_connect_rate=0",
+                       f"per_host_batch_size={batch}"):
+        apply_override(config, assignment)
+    host_batch = synthetic_batch(config, config.seed, 0, "cpu")
+    runs = {}
+    for dev in (device, "cpu"):
+        policy = build_model(config, dev)
+        optimizer = optimizer_from_config(config)
+        state = create_train_state(policy, optimizer)
+        fns = train_step_fns_from_config(config, optimizer)
+        tbatch = tuple({k: v.to(dev) for k, v in tree.items()} for tree in host_batch)
+        t0 = time.perf_counter()
+        metrics = fns.train_step(state, tbatch, 0, keep_grad=True)
+        grads = {k: g.double().cpu() for k, g in fns.grads_by_name(state, metrics["grad"]).items()}
+        runs[dev] = {
+            "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+            "grads": grads,
+            "stats": {k: v.double().cpu() for k, v in policy.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))},
+            "params": {k: p.detach().double().cpu() for k, p in policy.named_parameters()},
+            "seconds": time.perf_counter() - t0, "stage_of_block": _stage_of_block(policy),
+        }
+        del policy, state, fns, metrics
+        torch.cuda.empty_cache()
+    gpu, cpu = runs[device], runs["cpu"]
+    groups = {}
+    for name in cpu["grads"]:
+        groups.setdefault(_param_group(name, cpu["stage_of_block"]), []).append(name)
+
+    def group_norm(run, names):
+        return float(torch.sqrt(sum((run["grads"][n] ** 2).sum() for n in names)))
+
+    group_rows = {}
+    for group, names in sorted(groups.items()):
+        g_cpu, g_gpu = group_norm(cpu, names), group_norm(gpu, names)
+        ref = max(g_cpu, 1e-3 * cpu["grad_norm"])
+        group_rows[group] = {"cpu": g_cpu, "gpu": g_gpu, "rel_err": abs(g_gpu - g_cpu) / ref}
+    stats_err = max((float((gpu["stats"][k] - v).abs().max()) for k, v in cpu["stats"].items()),
+                    default=0.0)
+    scale = max(float(g.abs().max()) for g in cpu["grads"].values())
+    leaf_errs = {name: float((gpu["grads"][name] - g).abs().max()) / scale
+                 for name, g in cpu["grads"].items()}
+    worst_leaf = max(leaf_errs, key=leaf_errs.get)
+    # Settled by the CPU's gradient alone (see TRAIN_TOL).
+    floor = max(100 * 1e-8, 10 * TRAIN_TOL["grad_leaf"] * scale)
+    settled, total, settled_err = 0, 0, 0.0
+    for name, p_cpu in cpu["params"].items():
+        mask = cpu["grads"][name].abs() >= floor
+        settled += int(mask.sum())
+        total += mask.numel()
+        if mask.any():
+            settled_err = max(settled_err, float((gpu["params"][name] - p_cpu).abs()[mask].max()))
+    errors = {
+        "loss": abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+        "grad_norm": abs(gpu["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"],
+        "group_grad_norm": max(r["rel_err"] for r in group_rows.values()),
+        "grad_leaf": leaf_errs[worst_leaf],
+        "batch_stats": stats_err,
+        "params_settled": settled_err,
+    }
+    record = {
+        "phase": "train_parity", "config": config_name, "batch": batch, "dtype": "float32",
+        "tf32": False, "loss": {"gpu": gpu["loss"], "cpu": cpu["loss"]},
+        "grad_norm": {"gpu": gpu["grad_norm"], "cpu": cpu["grad_norm"]},
+        "max_err": errors, "tol": TRAIN_TOL, "group_grad_norms": group_rows,
+        "grad_leaf_worst": worst_leaf, "grad_scale": scale,
+        "params_settled_floor": floor, "params_settled_share": settled / total,
+        "step_s": {"device": gpu["seconds"], "cpu": cpu["seconds"]},
+    }
+    emit(record)
+    bad = {k: v for k, v in errors.items() if not v <= TRAIN_TOL[k]}
+    if bad or not np.isfinite(gpu["loss"]):
+        raise AssertionError(f"train parity: errors {bad} beyond {TRAIN_TOL}")
+    return record
+
+
+def _conv_backward_flop(grad_out_shape, x_shape, w_shape, _bias, _stride, _padding, _dilation,
+                        transposed, _output_padding, _groups, output_mask, out_shape=None,
+                        **kwargs) -> int:
+    """FLOPs of `aten.convolution_backward`: each of grad-input and
+    grad-weight repeats the forward's multiply-adds, 2 * prod(w_shape) per
+    output position (w_shape's input dim is already per group).
+    FlopCounterMode's own formula counts the grad-weight of a grouped conv
+    as a dense one, `groups` times too many (a depthwise conv's by its
+    channel count)."""
+    import math
+
+    # A forward conv's multiply-adds run over its output positions, a
+    # transposed conv's over its input's.
+    spatial = x_shape if transposed else grad_out_shape
+    positions = spatial[0] * math.prod(spatial[2:])
+    per_pass = 2 * math.prod(w_shape) * positions
+    return per_pass * (int(bool(output_mask[0])) + int(bool(output_mask[1])))
+
+
+def step_flops(fn):
+    """(FLOPs of `fn()` by FlopCounterMode with `_conv_backward_flop`, by
+    FlopCounterMode's own formulas)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counts = []
+    for mapping in ({torch.ops.aten.convolution_backward: _conv_backward_flop}, None):
+        with FlopCounterMode(display=False, custom_mapping=mapping) as counter:
+            fn()
+        counts.append(counter.get_total_flops())
+    return tuple(counts)
+
+
+def _timed_step(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def phase_train(config_name: str = "language_table", device: str = "cuda"):
+    """The flagship training path in bf16 on the card: timed steps, loss on
+    a fixed batch, a fused eval step, then the CLI with resume and serve."""
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.configs import apply_override, get_config
+    from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
+    from rt1_tpu_torch.trainer.state import create_train_state
+    from rt1_tpu_torch.trainer.train import optimizer_from_config, train_step_fns_from_config
+    from rt1_tpu_torch.train.train import build_model, synthetic_batch
+
+    # PyTorch's defaults, which the parity phases turned off: the trainer
+    # runs with them.
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = get_config(config_name)
+    apply_override(config, "model.attention_impl=fused")  # eval steps only: training runs dense
+    policy = build_model(config, device)
+    optimizer = optimizer_from_config(config)
+    state = create_train_state(policy, optimizer)
+    fns = train_step_fns_from_config(config, optimizer)
+    b, t = config.per_host_batch_size, config.model.time_sequence_length
+    batches = [synthetic_batch(config, config.seed, i, device) for i in range(2)]
+    reset_launch_counts()  # the train steps' launches start here
+    step = 0
+    for _ in range(TRAIN_WARMUP):
+        fns.train_step(state, batches[step % 2], step)
+        step += 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(TRAIN_TIMED):
+        ms, metrics = _timed_step(lambda: fns.train_step(state, batches[step % 2], step))
+        walls.append(ms)
+        step += 1
+    peak_bytes = torch.cuda.max_memory_allocated()
+    counter = {"step": step}
+
+    def one_step():
+        fns.train_step(state, batches[counter["step"] % 2], counter["step"])
+        counter["step"] += 1
+
+    prof = device_profile(one_step, iters=3)
+    flops, flops_raw = step_flops(one_step)
+    torch.cuda.synchronize()
+    train_launches = dict(fused_attention.launches_by_variant)
+    if any(train_launches.values()):
+        raise AssertionError(f"train: fused attention launched in train steps: {train_launches}")
+    step = counter["step"]
+    fixed = synthetic_batch(config, config.seed, 10_000, device)
+    losses = []
+    for _ in range(TRAIN_FIT_STEPS):
+        losses.append(float(fns.train_step(state, fixed, step)["loss"]))
+        step += 1
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"train: loss on a fixed batch did not fall: {losses}")
+    reset_launch_counts()
+    eval_metrics = fns.eval_step(state, fixed)
+    torch.cuda.synchronize()
+    eval_launches = dict(fused_attention.launches_by_variant)
+    expected = {"tensor_core": policy.num_layers, "simple": 0}
+    acc = float(eval_metrics["token_accuracy"])
+    if eval_launches != expected or not np.isfinite(float(eval_metrics["loss"])) or not 0 <= acc <= 1:
+        raise AssertionError(f"train: fused eval step launches {eval_launches} (expected "
+                             f"{expected}), metrics {eval_metrics}")
+    median_ms = float(np.median(walls))
+    record = {
+        "phase": "train", "config": config_name, "batch": b, "window": t,
+        "compute_dtype": str(fns.compute_dtype).split(".")[-1], "masters": "float32",
+        "guard": fns.guard_nonfinite, "step_wall_ms": {"median": median_ms, "min": min(walls),
+                                                      "max": max(walls), "all": walls},
+        "frames_per_s": b * t / (median_ms / 1e3),
+        "peak_memory_bytes": peak_bytes, "flops_per_step": flops,
+        "mfu": flops / (median_ms / 1e3) / PEAK_OPS_PER_S["bfloat16"],
+        "flops_per_step_flopcounter_formulas": flops_raw,
+        "mfu_flopcounter_formulas": flops_raw / (median_ms / 1e3) / PEAK_OPS_PER_S["bfloat16"],
+        "train_step_attention_launches": train_launches,
+        "fit": {"steps": TRAIN_FIT_STEPS, "first5_mean": first, "last5_mean": last,
+                "losses": losses},
+        "eval": {"loss": float(eval_metrics["loss"]), "token_accuracy": acc,
+                 "attention_launches": eval_launches},
+        "updates": int(state.step), "guard_skips": int(state.guard_skips),
+    }
+    if prof is not None:
+        top = sorted(prof["kernels"].items(), key=lambda kv: -kv[1])[:10]
+        record.update({
+            "profiled_wall_ms": prof["wall_ms"], "device_busy_ms": prof["busy_ms"],
+            "idle_share": 1.0 - prof["busy_ms"] / prof["wall_ms"],
+            "device_launches": prof["launches"],
+            "top_kernels_ms": [[name[:80], ms] for name, ms in top],
+        })
+    del policy, state, fns, batches, fixed
+    torch.cuda.empty_cache()
+    record["cli"] = _train_cli(config_name, device)
+    emit(record)
+    return record
+
+
+def _run_cli(args, timeout_s):
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "rt1_tpu_torch.train", *args], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=timeout_s)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-8000:])
+        raise AssertionError(f"train CLI {args}: exit code {proc.returncode}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    return lines, time.perf_counter() - t0
+
+
+def _train_cli(config_name, device):
+    """The trainer's CLI: 4 steps (checkpoints 2 and 4), a rerun to 6 that
+    restores step 4, then the server on the workdir answering one /act."""
+    import numpy as np
+
+    from rt1_tpu_torch.configs import get_config
+
+    config = get_config(config_name)
+    h, w = config.data.height, config.data.width
+    with tempfile.TemporaryDirectory() as workdir:
+        base = ["--config", config_name, "--workdir", workdir, "--device", device,
+                "--set", "checkpoint_every_steps=2"]
+        first, first_s = _run_cli(base + ["--set", "num_steps=4"], TRAIN_CLI_TIMEOUT_S)
+        if first[0].get("restored_step") is not None or first[-1].get("checkpoint_step") != 4:
+            raise AssertionError(f"train CLI: first run {first[0]} ... {first[-1]}")
+        second, second_s = _run_cli(base + ["--set", "num_steps=6"], TRAIN_CLI_TIMEOUT_S)
+        if second[0].get("restored_step") != 4 or second[-1].get("checkpoint_step") != 6:
+            raise AssertionError(f"train CLI: rerun {second[0]} ... {second[-1]}")
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        cmd = [sys.executable, "-m", "rt1_tpu_torch.serve", "--config", config_name,
+               "--workdir", workdir, "--port", "0", "--device", device, "--max_sessions", "1"]
+        with tempfile.TemporaryFile(mode="w+") as errlog:
+            proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                    stderr=errlog, text=True)
+            try:
+                ready = _read_ready_line(proc, SERVE_TIMEOUT_S)
+                frame = np.random.default_rng(7).integers(0, 256, (h, w, 3), dtype=np.uint8)
+                code, out = _http(f"http://127.0.0.1:{ready['port']}/act", {
+                    "session_id": "trained", "instruction": "push the red star to the left",
+                    "image_b64": base64.b64encode(frame.tobytes()).decode()})
+                action = np.asarray(out.get("action", []), np.float64)
+                if code != 200 or action.shape != (2,) or not np.isfinite(action).all() or \
+                        ready.get("checkpoint_step") != 6:
+                    raise AssertionError(f"serve --workdir: {code} {out} ready {ready}")
+                proc.send_signal(signal.SIGTERM)
+                rc = proc.wait(timeout=120)
+                if rc != 0:
+                    raise AssertionError(f"serve --workdir: exit code {rc} after SIGTERM")
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=30)
+                if proc.returncode not in (0, None):
+                    errlog.seek(0)
+                    sys.stderr.write(errlog.read()[-8000:])
+    return {"first_run_s": first_s, "rerun_s": second_s, "restored_step": second[0]["restored_step"],
+            "checkpoint_step": second[-1]["checkpoint_step"],
+            "served_checkpoint_step": ready["checkpoint_step"], "act": out}
+
+
 def _kernel_entry(name, source, launches, path, head, cases):
     """One entry of the `kernels` line: the kernel's numbers at `head` (the
     case of its path's shape) and its largest error over `cases`."""
@@ -674,7 +1073,7 @@ def _kernel_entry(name, source, launches, path, head, cases):
     }
 
 
-PHASES = ("kernel", "ab", "sweep", "parity", "step", "serve")
+PHASES = ("kernel", "ab", "sweep", "parity", "step", "serve", "train_parity", "train")
 
 
 def main(argv=None) -> int:

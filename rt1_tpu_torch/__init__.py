@@ -1,4 +1,4 @@
-"""rt1_tpu_torch — the RT-1 serving path in PyTorch, for one NVIDIA H100.
+"""rt1_tpu_torch — RT-1 serving and training in PyTorch, for one NVIDIA H100.
 
 A port of `rt1_tpu` (JAX) that imports torch and numpy and nothing of JAX
 or of `rt1_tpu`. The module layout mirrors the JAX package, so
@@ -7,8 +7,9 @@ Public functions keep the JAX layouts (images NHWC, attention q/k/v
 `(b, s, h, d)`); the conv tower permutes to NCHW inside.
 
 The one hand-written kernel is the fused masked attention
-(`parallel/flash_attention.py`, CUDA source in `csrc/fused_attention.cu`),
-the counterpart of the Pallas kernel in `rt1_tpu/parallel/flash_attention.py`.
+(`parallel/flash_attention.py`, CUDA sources in `csrc/`), the counterpart
+of the Pallas kernel in `rt1_tpu/parallel/flash_attention.py`; like it,
+forward only, so training takes the dense attention path.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; without
 CUDA they raise instead of falling back (`resolve_device`).

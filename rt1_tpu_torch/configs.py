@@ -1,17 +1,27 @@
-"""Serving configs as plain dataclasses (counterparts of
+"""Configs as plain dataclasses (counterparts of
 `rt1_tpu/train/configs/language_table.py` and `tiny.py`).
 
-Only the `model.*` and `data.height/width` fields that the serving path
-reads are carried; ml_collections is not a dependency of the port.
+The `model.*` fields, `data.height/width`, the training schedule,
+`resilience.guard` and `parallel.mixed_precision` carry the JAX config's
+names and values; ml_collections is not a dependency of the port.
 `get_config` takes a config name, or the path of the JAX config file
 (`rt1_tpu/train/configs/language_table.py`), whose file stem names it —
-so one command line drives both packages.
+so one command line drives both packages. `apply_override` takes the
+dotted `key=value` form of the CLI's `--set` (`model.dropout_rate=0`).
+
+`regularization` holds what the JAX package fixes as module defaults and
+the port makes settable, so a run can turn it off: the train-time crop
+ratio (`RT1Policy.crop_ratio`) and the tower's stochastic-depth rate
+(`EfficientNet.drop_connect_rate`). Dropout is `model.dropout_rate`, as in
+JAX.
 """
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import os
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -22,15 +32,20 @@ class ModelConfig:
     layer_size: int = 128          # per-head attention width (key_dim)
     num_heads: int = 8
     feed_forward_size: int = 512   # d_model
+    dropout_rate: float = 0.1
     time_sequence_length: int = 6
     use_token_learner: bool = True
     num_image_tokens: int = 8
     # "efficientnet_b3" | "efficientnet_small" (0.35/0.35 scaling) | "tiny"
     image_tokenizer: str = "efficientnet_b3"
     dtype: str = "bfloat16"        # compute dtype: "bfloat16" | "float32"
+    # Focal modulation of the action-token CE; 0 = reference parity.
+    focal_gamma: float = 0.0
+    # Soft-argmax MSE auxiliary; 0 = reference parity.
+    aux_mse_weight: float = 0.0
     action_decode: str = "argmax"  # "argmax" | "expected"
     # "dense" | "fused" ("pallas", the JAX package's name for the fused
-    # kernel, maps to "fused").
+    # kernel, maps to "fused"). Training always takes the dense path.
     attention_impl: str = "dense"
 
 
@@ -41,14 +56,57 @@ class DataConfig:
 
 
 @dataclasses.dataclass
+class RegularizationConfig:
+    crop_ratio: float = 0.07        # pad-and-random-shift ratio, train only
+    # Stochastic depth: block b of the tower drops at this x b / blocks.
+    drop_connect_rate: float = 0.2
+
+
+@dataclasses.dataclass
+class ResilienceConfig:
+    # Skip a step whose loss or gradient norm is not finite.
+    guard: bool = True
+
+
+@dataclasses.dataclass
+class ParallelConfig:
+    # f32 master weights, one bf16 compute copy per step (forces the model
+    # compute dtype to bfloat16).
+    mixed_precision: bool = False
+
+
+@dataclasses.dataclass
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    regularization: RegularizationConfig = dataclasses.field(
+        default_factory=RegularizationConfig)
+    resilience: ResilienceConfig = dataclasses.field(default_factory=ResilienceConfig)
+    parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
+    # Training schedule (reference: 100 epochs x 975 steps at batch 8).
+    per_host_batch_size: int = 8
+    num_steps: int = 97_500
+    steps_per_epoch: int = 975
+    learning_rate: float = 5e-4
+    lr_milestones: Tuple[int, ...] = (50, 75, 90)  # epochs
+    lr_gamma: float = 0.1
+    grad_clip_norm: float = 0.0  # 0 disables
+    # Added to the gradient before Adam (the JAX `make_optimizer`'s
+    # `weight_decay`; 0 disables, as in the reference).
+    weight_decay: float = 0.0
+    accum_steps: int = 1
+    seed: int = 42
+    checkpoint_every_steps: int = 975
+    max_to_keep: Optional[int] = None  # None keeps every checkpoint
+    log_every_steps: int = 50
+    eval_every_steps: int = 975
+    eval_batches: int = 6
 
 
 def language_table() -> Config:
     """The flagship: FiLM-EfficientNet-B3 at 256x456, TokenLearner 8 tokens,
-    window 6, 8 decoder layers of 8 heads x 128, d_model 512, vocab 256, bf16."""
+    window 6, 8 decoder layers of 8 heads x 128, d_model 512, vocab 256, bf16;
+    Adam 5e-4 with MultiStepLR [50, 75, 90] x 0.1 per epoch of 975 steps."""
     return Config()
 
 
@@ -68,6 +126,12 @@ def tiny() -> Config:
             dtype="float32",
         ),
         data=DataConfig(height=32, width=56),
+        num_steps=4,
+        steps_per_epoch=2,
+        checkpoint_every_steps=2,
+        log_every_steps=1,
+        eval_every_steps=2,
+        eval_batches=1,
     )
 
 
@@ -81,3 +145,51 @@ def get_config(name: str) -> Config:
     if key not in CONFIGS:
         raise ValueError(f"unknown config {name!r}; choose from {sorted(CONFIGS)}")
     return CONFIGS[key]()
+
+
+def _parse_value(text: str, current, key: str):
+    """`text` as a value of the type `current` has (None-valued fields take
+    an int or None)."""
+    if isinstance(current, bool):
+        lowered = text.strip().lower()
+        if lowered not in ("true", "false", "1", "0"):
+            raise ValueError(f"{key}: expected a bool, got {text!r}")
+        return lowered in ("true", "1")
+    if isinstance(current, str):
+        return text
+    try:
+        value = ast.literal_eval(text.strip())
+    except (ValueError, SyntaxError) as exc:
+        raise ValueError(f"{key}: cannot parse {text!r}") from exc
+    if current is None or value is None:
+        if value is not None and not isinstance(value, int):
+            raise ValueError(f"{key}: expected an int or None, got {text!r}")
+        return value
+    if isinstance(current, tuple):
+        value = tuple(value) if isinstance(value, (tuple, list)) else (value,)
+        if not all(isinstance(v, int) for v in value):
+            raise ValueError(f"{key}: expected ints, got {text!r}")
+        return value
+    if isinstance(current, float) and isinstance(value, (int, float)) and not isinstance(value, bool):
+        return float(value)
+    if isinstance(current, int) and isinstance(value, int) and not isinstance(value, bool):
+        return value
+    raise ValueError(f"{key}: expected {type(current).__name__}, got {text!r}")
+
+
+def apply_override(config: Config, assignment: str) -> None:
+    """Set one field from a dotted `key=value` (`model.dropout_rate=0`,
+    `num_steps=4`, `lr_milestones=50,75`), in place."""
+    if "=" not in assignment:
+        raise ValueError(f"override {assignment!r} is not key=value")
+    key, text = assignment.split("=", 1)
+    *parents, leaf = key.strip().split(".")
+    node = config
+    for part in parents:
+        if not dataclasses.is_dataclass(node) or not hasattr(node, part):
+            raise ValueError(f"unknown config key {key!r}")
+        node = getattr(node, part)
+    fields = {f.name for f in dataclasses.fields(node)} if dataclasses.is_dataclass(node) else set()
+    if leaf not in fields or dataclasses.is_dataclass(getattr(node, leaf)):
+        raise ValueError(f"unknown config key {key!r}")
+    setattr(node, leaf, _parse_value(text, getattr(node, leaf), key))

@@ -1,11 +1,13 @@
-"""Discretized action tokenizer, decode side (counterpart of
+"""Discretized action tokenizer (counterpart of
 `rt1_tpu/models/action_tokenizer.py`).
 
 * a `DiscreteSpec` action is one token, passed through as its own id; an id
   strictly greater than `n` decodes to 0 — the reference's `tok > n` quirk,
   kept so a policy emitting exactly `n` behaves the same in both packages;
-* a rank-1 `BoxSpec` action is `shape[0]` tokens, decoded as
-  `token / (vocab_size - 1) * (high - low) + low`.
+* a rank-1 `BoxSpec` action is `shape[0]` tokens: encoded by clipping to
+  [low, high], min-max normalising, scaling by `vocab_size - 1` and
+  truncating to int32; decoded as `token / (vocab_size - 1) * (high - low)
+  + low`.
 """
 
 from __future__ import annotations
@@ -35,6 +37,47 @@ def tokens_per_action(action_space: Mapping[str, Spec]) -> int:
                 f"action space entries must be Discrete or Box, got {spec!r} for {key!r}"
             )
     return n
+
+
+def tokenize(
+    action_space: Mapping[str, Spec],
+    action: Mapping[str, torch.Tensor],
+    vocab_size: int,
+) -> torch.Tensor:
+    """Action dict -> int32 tokens (..., tokens_per_action)."""
+    parts = []
+    for key, spec in action_space.items():
+        a = action[key]
+        if isinstance(spec, DiscreteSpec):
+            parts.append(a.to(torch.int32)[..., None])
+        elif isinstance(spec, BoxSpec):
+            low = torch.tensor(spec.low_array(), device=a.device)
+            high = torch.tensor(spec.high_array(), device=a.device)
+            t = (torch.clamp(a.to(torch.float32), low, high) - low) / (high - low)
+            parts.append((t * (vocab_size - 1)).to(torch.int32))  # truncation
+        else:
+            raise ValueError(f"unsupported spec {spec!r}")
+    return torch.cat(parts, dim=-1)
+
+
+def continuous_targets(
+    action_space: Mapping[str, Spec], action: Mapping[str, torch.Tensor]
+) -> torch.Tensor:
+    """Clipped continuous action values laid out per token (..., A): zeros
+    in Discrete slots, the clipped Box values in Box slots — the targets of
+    the soft-argmax auxiliary."""
+    parts = []
+    for key, spec in action_space.items():
+        a = action[key]
+        if isinstance(spec, DiscreteSpec):
+            parts.append(torch.zeros(a.shape + (1,), dtype=torch.float32, device=a.device))
+        elif isinstance(spec, BoxSpec):
+            low = torch.tensor(spec.low_array(), device=a.device)
+            high = torch.tensor(spec.high_array(), device=a.device)
+            parts.append(torch.clamp(a.to(torch.float32), low, high))
+        else:
+            raise ValueError(f"unsupported spec {spec!r}")
+    return torch.cat(parts, dim=-1)
 
 
 def detokenize(

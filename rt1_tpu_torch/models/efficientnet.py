@@ -1,4 +1,4 @@
-"""FiLM-conditioned EfficientNet, eval mode only (counterpart of
+"""FiLM-conditioned EfficientNet (counterpart of
 `rt1_tpu/models/efficientnet.py`).
 
 Same architecture and parameter names as the JAX module: a 3x3 stride-2
@@ -9,9 +9,14 @@ block, and a 1x1 top conv. B3 = width 1.2 / depth 1.4: stem 40 channels,
 
 The public `EfficientNet.forward` takes and returns NHWC like the JAX
 module; inside the tower activations are NCHW, the layout cuDNN's
-convolutions take. Stochastic depth and dropout are training-only and are
-not ported. Convolutions use explicit symmetric padding `(k - 1) // 2`,
-which `padding=pad` reproduces.
+convolutions take. Convolutions use explicit symmetric padding
+`(k - 1) // 2`, which `padding=pad` reproduces.
+
+`train=True` (an argument, as in JAX; `nn.Module.training` is not read)
+normalises with batch statistics and updates the running ones as flax does
+(momentum 0.9 on the BIASED batch variance), and applies row-mode
+stochastic depth to the residual blocks at `drop_connect_rate * b /
+total_repeats`, drawing from the generator passed as `rngs["stochastic_depth"]`.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rt1_tpu_torch.models.film import FilmConditioning
+from rt1_tpu_torch.ops.dropout import Rngs
 
 # Table-1 base (B0) config.
 BLOCKS_ARGS: Tuple[Dict[str, Any], ...] = (
@@ -50,9 +56,30 @@ def round_repeats(repeats: int, depth_coefficient: float) -> int:
     return int(math.ceil(depth_coefficient * repeats))
 
 
+def stochastic_depth(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Row-mode stochastic depth: each row (dim 0) is kept with probability
+    `1 - rate` and scaled by `1 / (1 - rate)`, else zeroed."""
+    keep = 1.0 - rate
+    draw = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
+                      device=x.device)
+    return torch.where(draw < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over dim 1 (flax `BatchNorm(use_running_average=True)`,
-    eps 1e-5): `scale`/`bias` parameters, `mean`/`var` statistics."""
+    """BatchNorm over dim 1 with flax's semantics (eps 1e-5): `scale`/`bias`
+    parameters, `mean`/`var` statistics.
+
+    Eval mode normalises with the running statistics; scale and bias take
+    their dtype when it differs (a bf16 compute copy of f32 buffers).
+    Train mode normalises with the batch statistics, computed in float32
+    whatever the input dtype (flax's `force_float32_reductions`), and
+    updates the running statistics as flax `momentum=0.9` does:
+    `r = 0.9 r + 0.1 batch`, on the biased batch variance.
+    `F.batch_norm` updates with the unbiased one (a factor n / (n - 1)),
+    so the update is corrected: with `r0` the old and `r1` torch's
+    new running variance, flax's is `r1 (n - 1) / n + 0.9 r0 / n`."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -62,11 +89,29 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight, self.bias,
-            training=False, eps=self.eps,
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        weight, bias = self.weight, self.bias
+        if weight.dtype != self.running_mean.dtype:
+            weight = weight.to(self.running_mean.dtype)
+            bias = bias.to(self.running_mean.dtype)
+        if not train:
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, weight, bias,
+                training=False, eps=self.eps,
+            )
+        n = x.numel() // x.shape[1]
+        # torch updates the statistics it is given and keeps them for the
+        # backward, so it gets copies; the module's buffers take the result.
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(
+            x, mean, var, weight, bias,
+            training=True, momentum=1.0 - self.MOMENTUM, eps=self.eps,
         )
+        with torch.no_grad():
+            var_flax = var * ((n - 1) / n) + self.running_var * (self.MOMENTUM / n)
+            self.running_mean.copy_(mean)
+            self.running_var.copy_(var_flax)
+        return y
 
 
 class ConvNormAct(nn.Module):
@@ -81,8 +126,8 @@ class ConvNormAct(nn.Module):
         self.bn = BatchNorm(out_ch)
         self.use_act = use_act
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.conv(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = self.bn(self.conv(x), train)
         return F.silu(x) if self.use_act else x
 
 
@@ -107,7 +152,7 @@ class MBConvBlock(nn.Module):
     def __init__(self, kernel_size: int, in_size: int, out_size: int, expand_ratio: int,
                  strides: int, se_ratio: float, drop_rate: float = 0.0):
         super().__init__()
-        del drop_rate  # stochastic depth is training-only
+        self.drop_rate = drop_rate
         expand_size = in_size * expand_ratio
         if expand_ratio != 1:
             self.expand = ConvNormAct(in_size, expand_size, 1)
@@ -122,15 +167,21 @@ class MBConvBlock(nn.Module):
         self.project = ConvNormAct(expand_size, out_size, 1, use_act=False)
         self.residual = strides == 1 and in_size == out_size
 
-    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor, train: bool = False, rngs: Rngs = None) -> torch.Tensor:
         x = inputs
         if self.expand is not None:
-            x = self.expand(x)
-        x = self.depthwise(x)
+            x = self.expand(x, train)
+        x = self.depthwise(x, train)
         if self.se is not None:
             x = self.se(x)
-        x = self.project(x)
-        return inputs + x if self.residual else x
+        x = self.project(x, train)
+        if not self.residual:
+            return x
+        if train and self.drop_rate > 0:
+            if not rngs or "stochastic_depth" not in rngs:
+                raise ValueError("stochastic depth in train mode needs rngs['stochastic_depth']")
+            x = stochastic_depth(x, self.drop_rate, rngs["stochastic_depth"])
+        return inputs + x
 
 
 class EfficientNet(nn.Module):
@@ -182,15 +233,17 @@ class EfficientNet(nn.Module):
                 b += 1
         return configs
 
-    def forward_nchw(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.stem(x)
+    def forward_nchw(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                     train: bool = False, rngs: Rngs = None) -> torch.Tensor:
+        x = self.stem(x, train)
         for i in range(self.num_blocks):
-            x = getattr(self, f"block_{i}")(x)
+            x = getattr(self, f"block_{i}")(x, train, rngs)
             if self.include_film:
                 x = getattr(self, f"film_{i}")(x, context, channel_dim=1)
-        return self.top(x)
+        return self.top(x, train)
 
-    def forward(self, inputs: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor, context: Optional[torch.Tensor] = None,
+                train: bool = False, rngs: Rngs = None) -> torch.Tensor:
         """inputs: (B, H, W, 3) float; context: (B, D) when FiLM. Returns NHWC."""
         x = inputs.to(self.stem.conv.weight.dtype).permute(0, 3, 1, 2)
-        return self.forward_nchw(x, context).permute(0, 2, 3, 1)
+        return self.forward_nchw(x, context, train, rngs).permute(0, 2, 3, 1)

@@ -13,22 +13,25 @@ from torch import nn
 
 from rt1_tpu_torch.models.efficientnet import EfficientNet
 from rt1_tpu_torch.models.film import FilmConditioning
+from rt1_tpu_torch.ops.dropout import Rngs
 
 
 class EfficientNetEncoder(nn.Module):
     def __init__(self, token_embedding_size: int = 512, early_film: bool = True,
                  width_coefficient: float = 1.2, depth_coefficient: float = 1.4,
-                 context_dim: int = 512):
+                 context_dim: int = 512, drop_connect_rate: float = 0.2):
         super().__init__()
         self.early_film = early_film
         self.net = EfficientNet(width_coefficient, depth_coefficient,
-                                include_film=early_film, context_dim=context_dim)
+                                include_film=early_film, context_dim=context_dim,
+                                drop_connect_rate=drop_connect_rate)
         self.conv1x1 = nn.Conv2d(self.net.top_ch, token_embedding_size, 1, bias=False)
         self.film = FilmConditioning(context_dim, token_embedding_size)
 
-    def forward(self, image: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, image: torch.Tensor, context: Optional[torch.Tensor] = None,
+                train: bool = False, rngs: Rngs = None) -> torch.Tensor:
         """image: (B, H, W, 3); context: (B, D). Returns (B, h, w, E)."""
         x = image.to(self.conv1x1.weight.dtype).permute(0, 3, 1, 2)
-        x = self.net.forward_nchw(x, context if self.early_film else None)
+        x = self.net.forward_nchw(x, context if self.early_film else None, train, rngs)
         x = self.film(self.conv1x1(x), context, channel_dim=1)
         return x.permute(0, 2, 3, 1)

@@ -13,12 +13,14 @@ from torch import nn
 
 from rt1_tpu_torch.models.encoder import EfficientNetEncoder
 from rt1_tpu_torch.models.token_learner import TokenLearner
+from rt1_tpu_torch.ops.dropout import Rngs
 
 
 class RT1ImageTokenizer(nn.Module):
     def __init__(self, embedding_output_dim: int = 512, use_token_learner: bool = True,
                  num_tokens: int = 8, width_coefficient: float = 1.2,
-                 depth_coefficient: float = 1.4, context_dim: int = 512):
+                 depth_coefficient: float = 1.4, context_dim: int = 512,
+                 drop_connect_rate: float = 0.2):
         super().__init__()
         self.embedding_output_dim = embedding_output_dim
         self.use_token_learner = use_token_learner
@@ -29,19 +31,21 @@ class RT1ImageTokenizer(nn.Module):
             width_coefficient=width_coefficient,
             depth_coefficient=depth_coefficient,
             context_dim=context_dim,
+            drop_connect_rate=drop_connect_rate,
         )
         if use_token_learner:
             self.token_learner = TokenLearner(embedding_output_dim, num_tokens=num_tokens)
 
-    def forward(self, image: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, image: torch.Tensor, context: Optional[torch.Tensor] = None,
+                train: bool = False, rngs: Rngs = None) -> torch.Tensor:
         """image: (B, T, H, W, 3); context: (B, T, D). Returns (B, T, N, E)."""
         b, t, h, w, c = image.shape
         image = image.reshape(b * t, h, w, c)
         if context is not None:
             context = context.reshape(b * t, -1)
-        feats = self.encoder(image, context=context)  # (B*T, h', w', E)
+        feats = self.encoder(image, context=context, train=train, rngs=rngs)  # (B*T, h', w', E)
         if self.use_token_learner:
-            tokens = self.token_learner(feats)
+            tokens = self.token_learner(feats, train, rngs)
             return tokens.reshape(b, t, self.num_tokens, self.embedding_output_dim)
         fh, fw = feats.shape[1], feats.shape[2]
         return feats.reshape(b, t, fh * fw, self.embedding_output_dim)

@@ -1,5 +1,15 @@
-"""RT-1 policy network, inference path (counterpart of
+"""RT-1 policy network, train and inference paths (counterpart of
 `rt1_tpu/models/rt1.py`).
+
+`forward(observations, actions, train)` is the training forward of the
+JAX module's `__call__`: ONE transformer pass over the T*(I+A) sequence,
+action-token CE on the logits one position before each action token,
+scaled as the reference does (`/(b*t*(I+A))`, the JAX module's
+`loss_scale="reference"`), optionally focal-modulated and with the
+soft-argmax MSE auxiliary. Train mode crops (`crop_ratio`, from `rngs["crop"]`), drops out
+(`rngs["dropout"]`), applies stochastic depth
+(`rngs["stochastic_depth"]`) and uses BatchNorm's batch statistics; the
+generators are passed in, never drawn from the global one.
 
 The policy keeps a rolling window per stream — context image tokens,
 action tokens and `seq_idx` — and reads all action tokens of a control
@@ -11,10 +21,7 @@ Unlike the JAX module, whose `seq_idx` is one scalar for the whole batch
 the port steps a batch of streams at different phases at once: `seq_idx`
 is a `(b,)` tensor, and the roll, the insert, the step-logit gather and
 the action write all act per row. A batch whose rows share a phase is
-exactly the JAX computation.
-
-The training forward (`__call__`, the loss), dropout, crop and
-augmentation belong to the training slice and are not ported.
+exactly the JAX computation. Photometric augmentation is not ported.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from rt1_tpu_torch.models import action_tokenizer
 from rt1_tpu_torch.models.image_tokenizer import RT1ImageTokenizer
 from rt1_tpu_torch.models.transformer import CausalTransformer
 from rt1_tpu_torch.ops import image as image_ops
+from rt1_tpu_torch.ops.dropout import Rngs
 
 
 def rt1_attention_mask(
@@ -73,8 +81,15 @@ def action_token_positions(
     )
 
 
+def softmax_ce_int(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy with integer labels: logsumexp(logits) - logits[label]."""
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logits = torch.gather(logits, -1, labels[..., None].to(torch.long))[..., 0]
+    return logz - label_logits
+
+
 class RT1Policy(nn.Module):
-    """The RT-1 actor network, eval mode."""
+    """The RT-1 actor network."""
 
     def __init__(
         self,
@@ -90,10 +105,17 @@ class RT1Policy(nn.Module):
         image_tokenizer: Optional[nn.Module] = None,
         action_decode: str = "argmax",
         attention_impl: str = "dense",
+        dropout_rate: float = 0.1,
+        crop_ratio: float = 0.07,
+        focal_gamma: float = 0.0,
+        aux_mse_weight: float = 0.0,
     ):
         super().__init__()
         if action_decode not in ("argmax", "expected"):
             raise ValueError(f"action_decode must be 'argmax' or 'expected', got {action_decode!r}")
+        self.crop_ratio = crop_ratio
+        self.focal_gamma = focal_gamma
+        self.aux_mse_weight = aux_mse_weight
         self.action_space = dict(action_space)
         self.vocab_size = vocab_size
         self.token_embedding_size = token_embedding_size
@@ -119,11 +141,19 @@ class RT1Policy(nn.Module):
             # Grown past 256 if the window needs it, as in the JAX module.
             max_seq_len=max(256, self.sequence_tokens),
             attention_impl=attention_impl,
+            dropout_rate=dropout_rate,
         )
         mask = rt1_attention_mask(
             time_sequence_length, self.tokens_per_image, self.tokens_per_action
         )
         self.register_buffer("attention_mask", torch.from_numpy(mask), persistent=False)
+        # The transformer predicts the next token: each action token's logits
+        # are read one position early.
+        positions = action_token_positions(
+            time_sequence_length, self.tokens_per_image, self.tokens_per_action
+        )
+        self.register_buffer("pred_positions", torch.from_numpy(positions - 1).to(torch.long),
+                             persistent=False)
 
     @property
     def device(self) -> torch.device:
@@ -145,11 +175,16 @@ class RT1Policy(nn.Module):
             "seq_idx": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
         }
 
-    def _tokenize_images(self, image: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
-        """image (b, t, H, W, 3), context (b, t, D) or (b, D) -> (b, t, I, E)."""
+    def _tokenize_images(self, image: torch.Tensor, context: Optional[torch.Tensor],
+                         train: bool = False, rngs: Rngs = None) -> torch.Tensor:
+        """image (b, t, H, W, 3), context (b, t, D) or (b, D) -> (b, t, I, E).
+        Train mode crops (unless `crop_ratio` is 0) with `rngs["crop"]`."""
         if context is not None and context.dim() == 2:
             context = context[:, None, :].expand(-1, image.shape[1], -1)
-        return self.image_tokenizer(image_ops.convert_dtype(image), context=context)
+        do_crop = train and self.crop_ratio > 0
+        image = image_ops.convert_dtype_and_crop_images(
+            image, generator=(rngs or {}).get("crop"), ratio=self.crop_ratio, train=do_crop)
+        return self.image_tokenizer(image, context=context, train=train, rngs=rngs)
 
     def _assemble(self, context_image_tokens: torch.Tensor) -> torch.Tensor:
         """(b, t, I, E) -> (b, t*(I+A), E) with zeroed action slots."""
@@ -157,6 +192,63 @@ class RT1Policy(nn.Module):
         slots = context_image_tokens.new_zeros((b, t, self.tokens_per_action, e))
         seq = torch.cat([context_image_tokens, slots], dim=2)
         return seq.reshape(b, t * self.single_step_tokens, e)
+
+    def forward(
+        self,
+        observations: Dict[str, torch.Tensor],
+        actions: Dict[str, torch.Tensor],
+        train: bool = False,
+        rngs: Rngs = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Training forward. observations: {'image': (b, t, H, W, 3),
+        'natural_language_embedding': (b, t, D) or (b, D)}; actions: per-key
+        (b, t, ...) labels. Returns the JAX aux dict: loss (scalar),
+        action_loss (b, t), cross_entropy (b, t, A), action_labels (b, t, A),
+        action_logits (b, t, A, vocab) and action_predictions (b, t, A), plus
+        aux_mse when `aux_mse_weight > 0`."""
+        image = observations["image"]
+        context = observations.get("natural_language_embedding")
+        b, t = image.shape[0], image.shape[1]
+        if t != self.time_sequence_length:
+            raise ValueError(f"window {t} != time_sequence_length {self.time_sequence_length}")
+        context_image_tokens = self._tokenize_images(image, context, train, rngs)
+        logits = self.transformer(self._assemble(context_image_tokens),
+                                  attention_mask=self.attention_mask, train=train, rngs=rngs)
+        labels = action_tokenizer.tokenize(self.action_space, actions, self.vocab_size)
+        action_logits = logits.index_select(1, self.pred_positions).reshape(
+            b, t, self.tokens_per_action, self.vocab_size)
+        ce = softmax_ce_int(action_logits.float(), labels)  # (b, t, A)
+        loss_terms = ce
+        if self.focal_gamma > 0:
+            # 1 - p_label = -expm1(-ce); the floor keeps a fractional power
+            # differentiable where ce reaches 0. "cross_entropy" stays raw.
+            base = torch.clamp(-torch.expm1(-ce), min=1e-12)
+            loss_terms = base ** self.focal_gamma * ce
+        num_items = float(b * t) * self.single_step_tokens
+        action_loss = loss_terms.mean(dim=-1) / num_items
+        loss = action_loss.mean()
+        out = {
+            "loss": loss,
+            "action_loss": action_loss,
+            "cross_entropy": ce,
+            "action_labels": labels,
+            "action_logits": action_logits,
+            "action_predictions": torch.argmax(action_logits, dim=-1).to(torch.int32),
+        }
+        if self.aux_mse_weight > 0:
+            bins, box_mask = action_tokenizer.box_bin_values(self.action_space, self.vocab_size)
+            probs = torch.softmax(action_logits.float(), dim=-1)
+            expected = torch.einsum("btav,av->bta", probs,
+                                    torch.from_numpy(bins).to(probs.device))
+            target = action_tokenizer.continuous_targets(self.action_space, actions)
+            mask = torch.from_numpy(box_mask).to(probs.device)
+            mse = torch.sum(torch.square(expected - target) * mask) / (float(box_mask.sum()) * b * t)
+            # The aux term gets the CE's normaliser, so the whole loss stays
+            # inversely proportional to the batch (gradient accumulation
+            # relies on it); "aux_mse" stays raw.
+            out["loss"] = loss + self.aux_mse_weight * mse / num_items
+            out["aux_mse"] = mse
+        return out
 
     def _advance_window(self, observation, state):
         """Roll full windows, tokenize the new frame, insert it per row."""

@@ -1,7 +1,7 @@
 """Tiny image tokenizer for the smoke config (counterpart of
 `rt1_tpu/models/tiny_tokenizer.py`): a 3x3 stride-2 conv with flax's SAME
 padding, ReLU, spatial mean, an optional projected language context, and
-one Dense to `num_tokens * emb`.
+one Dense to `num_tokens * emb`. Nothing in it depends on train mode.
 """
 
 from __future__ import annotations
@@ -29,7 +29,9 @@ class TinyImageTokenizer(nn.Module):
         self.ctx_proj = nn.Linear(context_dim, 8)
         self.tok = nn.Linear(16, num_tokens * emb)
 
-    def forward(self, image: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, image: torch.Tensor, context: Optional[torch.Tensor] = None,
+                train: bool = False, rngs=None) -> torch.Tensor:
+        del train, rngs
         b, t, h, w, c = image.shape
         x = image.reshape(b * t, h, w, c).to(self.conv.weight.dtype).permute(0, 3, 1, 2)
         ph, pw = same_padding(h, 3, 2), same_padding(w, 3, 2)

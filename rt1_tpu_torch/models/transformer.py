@@ -1,11 +1,11 @@
 """Causal decoder-only transformer for RT-1 (counterpart of
-`rt1_tpu/models/transformer.py`), inference only.
+`rt1_tpu/models/transformer.py`).
 
 * token embedding Dense(input_emb -> d_model) plus a learned position table;
 * N pre-norm blocks: LayerNorm (eps 1e-6) -> tf.keras-style multi-head
   attention with per-head width `key_dim` decoupled from d_model ->
   residual; LayerNorm -> ONE Dense(d_model -> d_model) with no activation
-  (the reference's quirk) -> residual;
+  (the reference's quirk) -> dropout -> residual;
 * output head Dense(d_model -> vocab).
 
 Attention has two paths, each the counterpart of its JAX path:
@@ -14,7 +14,12 @@ Attention has two paths, each the counterpart of its JAX path:
   dtype before the PV product (`transformer.py` dense branch);
 * "fused": the hand-written kernel (`parallel/flash_attention.py`), which
   keeps the probabilities in fp32 (the JAX "pallas" branch). In bf16 the
-  two paths therefore differ slightly, exactly as they do in JAX.
+  two paths therefore differ slightly, exactly as they do in JAX. The
+  kernel is forward-only, so `train=True` takes the dense path, as the
+  JAX "pallas" branch does.
+
+`train=True` drops attention probabilities (fp32, before the cast) and
+the FFN output at `dropout_rate`, drawing from `rngs["dropout"]`.
 
 Modules compute in the dtype of their weights; inputs are cast to it at
 the first Dense, as flax's `dtype=` does.
@@ -27,6 +32,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from rt1_tpu_torch.ops.dropout import Rngs, dropout
 from rt1_tpu_torch.parallel.flash_attention import fused_attention
 
 NEG_INF = -1e9
@@ -44,31 +50,34 @@ def normalize_attention_impl(impl: str) -> str:
 class TFMultiHeadAttention(nn.Module):
     """qkv project d_model -> heads*key_dim, out back to d_model."""
 
-    def __init__(self, num_heads: int, key_dim: int, d_model: int, attention_impl: str = "dense"):
+    def __init__(self, num_heads: int, key_dim: int, d_model: int, attention_impl: str = "dense",
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
         self.key_dim = key_dim
+        self.dropout_rate = dropout_rate
         self.attention_impl = normalize_attention_impl(attention_impl)
         self.query = nn.Linear(d_model, num_heads * key_dim)
         self.key = nn.Linear(d_model, num_heads * key_dim)
         self.value = nn.Linear(d_model, num_heads * key_dim)
         self.out = nn.Linear(num_heads * key_dim, d_model)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                train: bool = False, rngs: Rngs = None) -> torch.Tensor:
         """x: (b, s, d_model); mask: (s, s), nonzero = attend."""
         b, s, _ = x.shape
         h, k = self.num_heads, self.key_dim
         q = self.query(x).view(b, s, h, k)
         kk = self.key(x).view(b, s, h, k)
         v = self.value(x).view(b, s, h, k)
-        if self.attention_impl == "fused":
+        if self.attention_impl == "fused" and not train:
             out = fused_attention(q, kk, v, mask=mask, scale=1.0 / float(k) ** 0.5)
         else:
             logits = torch.einsum("bshd,bthd->bhst", q.float(), kk.float())
             logits = logits / float(k) ** 0.5
             if mask is not None:
                 logits = torch.where(mask != 0, logits, NEG_INF)
-            probs = torch.softmax(logits, dim=-1)
+            probs = dropout(torch.softmax(logits, dim=-1), self.dropout_rate, train, rngs)
             out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
         return self.out(out.reshape(b, s, h * k))
 
@@ -76,16 +85,19 @@ class TFMultiHeadAttention(nn.Module):
 class TransformerLayer(nn.Module):
     """Pre-norm block: x + MHA(LN(x)); x + FFN(LN(x))."""
 
-    def __init__(self, key_dim: int, num_heads: int, d_model: int, attention_impl: str = "dense"):
+    def __init__(self, key_dim: int, num_heads: int, d_model: int, attention_impl: str = "dense",
+                 dropout_rate: float = 0.1):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.norm_1 = nn.LayerNorm(d_model, eps=1e-6)
-        self.attn = TFMultiHeadAttention(num_heads, key_dim, d_model, attention_impl)
+        self.attn = TFMultiHeadAttention(num_heads, key_dim, d_model, attention_impl, dropout_rate)
         self.norm_2 = nn.LayerNorm(d_model, eps=1e-6)
         self.ff = nn.Linear(d_model, d_model)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(self.norm_1(x), mask)
-        return x + self.ff(self.norm_2(x))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                train: bool = False, rngs: Rngs = None) -> torch.Tensor:
+        x = x + self.attn(self.norm_1(x), mask, train, rngs)
+        return x + dropout(self.ff(self.norm_2(x)), self.dropout_rate, train, rngs)
 
 
 class CausalTransformer(nn.Module):
@@ -93,7 +105,8 @@ class CausalTransformer(nn.Module):
 
     def __init__(self, input_emb: int, num_layers: int = 8, key_dim: int = 128,
                  num_heads: int = 8, d_model: int = 512, vocab_size: int = 256,
-                 max_seq_len: int = 256, attention_impl: str = "dense"):
+                 max_seq_len: int = 256, attention_impl: str = "dense",
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.num_layers = num_layers
         self.max_seq_len = max_seq_len
@@ -101,11 +114,13 @@ class CausalTransformer(nn.Module):
         self.position_emb = nn.Embedding(max_seq_len, d_model)
         for i in range(num_layers):
             self.add_module(
-                f"layer_{i}", TransformerLayer(key_dim, num_heads, d_model, attention_impl)
+                f"layer_{i}",
+                TransformerLayer(key_dim, num_heads, d_model, attention_impl, dropout_rate),
             )
         self.output_tokens = nn.Linear(d_model, vocab_size)
 
-    def forward(self, inputs: torch.Tensor, attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
+                train: bool = False, rngs: Rngs = None) -> torch.Tensor:
         """inputs: (b, s, input_emb) -> logits (b, s, vocab_size)."""
         b, s, _ = inputs.shape
         if s > self.max_seq_len:
@@ -113,5 +128,5 @@ class CausalTransformer(nn.Module):
         x = self.token_emb(inputs.to(self.token_emb.weight.dtype))
         x = x + self.position_emb.weight[:s][None]
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, attention_mask)
+            x = getattr(self, f"layer_{i}")(x, attention_mask, train, rngs)
         return self.output_tokens(x)

@@ -1,0 +1,30 @@
+"""Dropout drawn from an explicit generator (flax `nn.Dropout` semantics).
+
+`nn.Dropout` and `F.dropout` draw from PyTorch's global generator; the
+port's train step seeds one generator per stream from `(seed, step)`, so
+a resumed run draws what an unbroken run would have. Train mode with a
+positive rate and no generator raises instead of falling back.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+# The generators of a train step by stream: "crop", "dropout",
+# "stochastic_depth".
+Rngs = Optional[Dict[str, torch.Generator]]
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool, rngs: Rngs) -> torch.Tensor:
+    """Keep each element with probability `1 - rate` and scale it by
+    `1 / (1 - rate)`, else zero it; the identity unless `train` and
+    `rate > 0`. Draws from `rngs["dropout"]` on `x`'s device."""
+    if not train or rate == 0.0:
+        return x
+    if not rngs or "dropout" not in rngs:
+        raise ValueError("dropout in train mode needs rngs['dropout']")
+    keep = 1.0 - rate
+    draw = torch.rand(x.shape, generator=rngs["dropout"], device=x.device)
+    return torch.where(draw < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -8,6 +8,10 @@ Run (the JAX package's weights, saved as an .npz of `/`-joined flax paths):
 
   python -m rt1_tpu_torch.serve --config language_table --weights params.npz
 
+Run (what `python -m rt1_tpu_torch.train` wrote: its newest checkpoint):
+
+  python -m rt1_tpu_torch.serve --config language_table --workdir /tmp/rt1_torch
+
 Run (smoke config on the CPU):
 
   python -m rt1_tpu_torch.serve --config tiny --random_init --port 0 --device cpu
@@ -35,6 +39,8 @@ def parse_args(argv):
     src.add_argument("--random_init", action="store_true",
                      help="Serve seeded random weights (no checkpoint needed).")
     src.add_argument("--weights", help="An .npz of the JAX package's variables.")
+    src.add_argument("--workdir", help="A workdir of the port's trainer: serve its newest "
+                                       "checkpoint.")
     p.add_argument("--attention", choices=("fused", "dense", "pallas"), default="fused",
                    help="Attention path; 'pallas' is the JAX name of 'fused'.")
     p.add_argument("--device", default="cuda", help="cuda | cpu")
@@ -63,6 +69,7 @@ def main(argv=None) -> int:
     engine, step = build_serve_engine(
         config,
         weights=args.weights,
+        workdir=args.workdir,
         device=args.device,
         attention_impl=args.attention,
         max_sessions=args.max_sessions,

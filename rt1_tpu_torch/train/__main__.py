@@ -1,0 +1,53 @@
+"""Training entry point: `python -m rt1_tpu_torch.train`.
+
+Run (the flagship on the card, synthetic batches):
+
+  python -m rt1_tpu_torch.train --config language_table --workdir /tmp/rt1_torch
+
+Run (the smoke config on the CPU, 4 steps, checkpoints at 2 and 4):
+
+  python -m rt1_tpu_torch.train --config tiny --workdir /tmp/rt1_tiny --device cpu
+
+Override any config field with `--set key=value` (repeatable), e.g.
+`--set num_steps=6 --set model.dropout_rate=0`; `--set
+model.attention_impl=fused` runs the eval steps' attention through the
+fused kernel (train steps always run dense). A second run in the same
+workdir resumes from the newest checkpoint. Prints one JSON line at the
+start (`restored_step` names the checkpoint it resumed from), one per
+log and eval step, and one at the end; serve the result with
+`python -m rt1_tpu_torch.serve --config <name> --workdir <dir>`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def parse_args(argv):
+    p = argparse.ArgumentParser(prog="python -m rt1_tpu_torch.train", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", required=True,
+                   help="language_table | tiny (or the path of the JAX config file of that name)")
+    p.add_argument("--workdir", required=True, help="Checkpoints and metrics.jsonl go here.")
+    p.add_argument("--device", default="cuda", help="cuda | cpu")
+    p.add_argument("--set", dest="overrides", action="append", default=[], metavar="KEY=VALUE",
+                   help="Override a config field (dotted key), repeatable.")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(sys.argv[1:] if argv is None else argv)
+
+    from rt1_tpu_torch.configs import apply_override, get_config
+    from rt1_tpu_torch.train.train import train_and_evaluate
+
+    config = get_config(args.config)
+    for assignment in args.overrides:
+        apply_override(config, assignment)
+    train_and_evaluate(config, args.workdir, device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

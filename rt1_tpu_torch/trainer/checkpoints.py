@@ -1,0 +1,116 @@
+"""Checkpoints of the train state (counterpart of
+`rt1_tpu/trainer/checkpoints.py`, which writes Orbax).
+
+The port's own format, one `torch.save` file per step at
+`<directory>/<step>/state.pt` (`step` is the loop's step count at the
+save): the policy's `state_dict` (float32 masters and BatchNorm
+statistics), the optimizer's count and flat moments, the applied-update
+and guard-skip counters, and the generator state. The generators are
+reseeded from `(seed, step)` every step, so `seed` and the loop step are
+their whole state. Nothing is read or written in Orbax's format.
+
+A save writes `state.pt.tmp` and renames it over `state.pt`
+(`os.replace`), so a reader sees a whole file or none; `latest_step`
+counts only directories that hold `state.pt`. `max_to_keep` bounds the
+checkpoints kept (None keeps all).
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from rt1_tpu_torch.trainer.state import TrainState
+
+FILENAME = "state.pt"
+FORMAT = "rt1_tpu_torch.trainer/1"
+
+
+def all_steps(directory: str) -> List[int]:
+    """Steps with a complete checkpoint under `directory`, ascending."""
+    if not os.path.isdir(directory):
+        return []
+    steps = []
+    for name in os.listdir(directory):
+        if name.isdigit() and os.path.isfile(os.path.join(directory, name, FILENAME)):
+            steps.append(int(name))
+    return sorted(steps)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    steps = all_steps(directory)
+    return steps[-1] if steps else None
+
+
+def checkpoint_path(directory: str, step: int) -> str:
+    return os.path.join(directory, str(step), FILENAME)
+
+
+def load_checkpoint(directory: str, step: Optional[int] = None) -> Dict[str, Any]:
+    """The saved dict of `step` (default: the newest), on the CPU."""
+    step = latest_step(directory) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {directory}")
+    return torch.load(checkpoint_path(directory, step), map_location="cpu", weights_only=True)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, max_to_keep: Optional[int] = None, seed: int = 0):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        self.seed = seed
+
+    def latest_step(self) -> Optional[int]:
+        return latest_step(self.directory)
+
+    def save(self, step: int, state: TrainState) -> str:
+        """Write `state` as checkpoint `step` and prune old ones; returns
+        the file's path."""
+        opt = state.opt_state
+        payload = {
+            "format": FORMAT,
+            "loop_step": int(step),
+            "step": int(state.step),
+            "guard_skips": int(state.guard_skips),
+            "policy": {k: v.detach().cpu() for k, v in state.policy.state_dict().items()},
+            "optimizer": {"count": int(opt.count), "mu": opt.mu.cpu(), "nu": opt.nu.cpu()},
+            "rng": {"seed": int(self.seed), "step": int(step)},
+        }
+        path = checkpoint_path(self.directory, step)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save(payload, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        self._prune()
+        return path
+
+    def _prune(self) -> None:
+        if self.max_to_keep is None:
+            return
+        steps = all_steps(self.directory)
+        for step in steps[: max(len(steps) - self.max_to_keep, 0)]:
+            shutil.rmtree(os.path.join(self.directory, str(step)), ignore_errors=True)
+
+    def restore(self, state: TrainState, step: Optional[int] = None) -> int:
+        """Load checkpoint `step` (default: the newest) into `state` in
+        place; returns the loop step it was saved at."""
+        ckpt = load_checkpoint(self.directory, step)
+        if ckpt.get("format") != FORMAT:
+            raise ValueError(f"not a {FORMAT} checkpoint: {ckpt.get('format')!r}")
+        state.policy.load_state_dict(ckpt["policy"])
+        opt = state.opt_state
+        opt.count.fill_(ckpt["optimizer"]["count"])
+        opt.mu.copy_(ckpt["optimizer"]["mu"])
+        opt.nu.copy_(ckpt["optimizer"]["nu"])
+        state.step.fill_(ckpt["step"])
+        state.guard_skips.fill_(ckpt["guard_skips"])
+        return int(ckpt["loop_step"])
+
+    def restore_or_initialize(self, state: TrainState) -> Tuple[TrainState, int]:
+        """(state, loop step to start from): the newest checkpoint if there
+        is one, else `state` as given and 0."""
+        if self.latest_step() is None:
+            return state, 0
+        return state, self.restore(state)

@@ -1,0 +1,107 @@
+"""The train state (counterpart of `rt1_tpu/trainer/state.py`).
+
+JAX keeps `step`, `params`, `batch_stats` and `opt_state` in one pytree.
+Here the float32 master parameters live in one flat tensor, `flat`, laid
+out by `FlatLayout` in the order of `policy.named_parameters()`, and every
+parameter of the policy is a view of it; the BatchNorm statistics live the
+same way in `flat_buffers`. The optimizer's moments are flat tensors of
+the same layout. A step therefore updates the masters and the statistics
+with one copy each, and the policy sees the result with no per-parameter
+work. `step` counts the updates applied (a step the guard skipped does not
+count), on the policy's device; `guard_skips` counts the skipped ones.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import torch
+from torch import nn
+
+from rt1_tpu_torch.trainer.optim import Adam, AdamState
+
+
+class FlatLayout:
+    """Lays a fixed list of tensors out in one 1-D tensor and back. Each
+    tensor starts at a multiple of `ALIGN` elements (256 bytes in float32),
+    so its view is as aligned as a tensor of its own: CUDA kernels (cuDNN's
+    among them) may assume that of their operands, and fault on a view at
+    an odd offset. The padding stays zero."""
+
+    ALIGN = 64
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        self.shapes = [tuple(t.shape) for t in tensors]
+        self.numels = [t.numel() for t in tensors]
+        self.padded = [-(-n // self.ALIGN) * self.ALIGN for n in self.numels]
+        self.size = sum(self.padded)
+
+    def flatten(self, tensors: Sequence[torch.Tensor], dtype: Optional[torch.dtype] = None,
+                device=None) -> torch.Tensor:
+        """A new 1-D tensor holding `tensors` (detached, cast to `dtype`);
+        `device` places it when `tensors` is empty."""
+        if tensors:
+            dtype, device = dtype or tensors[0].dtype, tensors[0].device
+        flat = torch.zeros(self.size, dtype=dtype, device=device)
+        if tensors:
+            with torch.no_grad():
+                torch._foreach_copy_(self.views(flat), [t.detach() for t in tensors])
+        return flat
+
+    def views(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        """Views of `flat` in the layout's shapes. A gradient through them
+        reaches `flat` through one split, not one full-size scatter each."""
+        chunks = flat.split(self.padded)
+        return [c[:n].view(s) for c, n, s in zip(chunks, self.numels, self.shapes)]
+
+    def adopt(self, tensors: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+        """A new 1-D tensor holding `tensors`, each of which becomes a view
+        of it in place (the same tensor objects, now sharing its storage)."""
+        flat = self.flatten(tensors, device=device)
+        with torch.no_grad():
+            for t, v in zip(tensors, self.views(flat)):
+                t.data = v
+        return flat
+
+
+def floating_buffers(policy: nn.Module) -> List[torch.Tensor]:
+    """The policy's float buffers: the BatchNorm running statistics (the
+    masks and index tables it registers are integer)."""
+    return [b for b in policy.buffers() if b.is_floating_point()]
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: torch.Tensor          # int64 scalar: updates applied
+    policy: nn.Module           # its parameters view `flat`, its statistics `flat_buffers`
+    opt_state: AdamState
+    guard_skips: torch.Tensor   # int64 scalar: updates the guard dropped
+    layout: FlatLayout          # of the parameters, in `names` order
+    names: List[str]
+    flat: torch.Tensor          # the float32 masters
+    flat_buffers: torch.Tensor  # the BatchNorm statistics
+
+
+def create_train_state(policy: nn.Module, optimizer: Adam) -> TrainState:
+    """A fresh state over `policy` (already initialised, in float32, on its
+    device; it must stay there). The masters take no part in autograd: the
+    train step differentiates a compute copy of them."""
+    policy.requires_grad_(False)
+    names, params = zip(*policy.named_parameters())
+    if any(p.dtype != torch.float32 for p in params):
+        raise ValueError("the train state keeps float32 masters; build the policy in float32")
+    device = params[0].device
+    layout = FlatLayout(params)
+    flat = layout.adopt(params)
+    buffers = floating_buffers(policy)
+    return TrainState(
+        step=torch.zeros((), dtype=torch.int64, device=device),
+        policy=policy,
+        opt_state=optimizer.init(flat),
+        guard_skips=torch.zeros((), dtype=torch.int64, device=device),
+        layout=layout,
+        names=list(names),
+        flat=flat,
+        flat_buffers=FlatLayout(buffers).adopt(buffers, device=device),
+    )

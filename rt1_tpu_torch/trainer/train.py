@@ -1,0 +1,206 @@
+"""The train and eval steps (counterpart of `rt1_tpu/trainer/train.py`).
+
+`TrainStepFns` holds the two steps over a `TrainState`
+(`train_step_fns_from_config` builds it from a config):
+
+* `train_step(state, batch, step)` runs forward and backward in train mode
+  and one optimizer update, in place, and returns the metrics `loss`,
+  `grad_norm` and (without accumulation) `action_loss_mean`, plus
+  `aux_mse` when the auxiliary is on and `guard_skips_cum` with the guard,
+  as device tensors: nothing waits for the card until the caller reads
+  them (`trainer.metrics.scalars_from_metrics`).
+* `eval_step(state, batch)` runs the eval-mode forward and returns `loss`
+  and `token_accuracy`.
+
+Precision: the masters stay float32 (`state.flat`, which the policy's
+parameters view; the update is written into it). Each step casts them
+ONCE to the compute dtype (bf16 for the flagship, `_compute_copy`, the
+counterpart of JAX's `_bf16_compute_copy`) and runs the policy on that
+copy through `torch.func.functional_call`; the modules compute in the
+dtype of their weights, as flax's `dtype=` does, and keep their float32
+regions explicit (attention logits and softmax, the loss, BatchNorm
+statistics). There is no autocast: under autocast the dense attention's
+float32 einsum would run in bf16 again. The gradient arrives in the
+compute dtype and is taken to float32; the optimizer steps the float32
+masters.
+
+Randomness: the crop, dropout and stochastic depth each draw from a
+`torch.Generator` of their own on the step's device, seeded from
+`(seed, step)` (and the micro-batch under accumulation), so a resumed run
+draws what an unbroken one would have.
+
+Accumulation (`accum_steps > 1`) splits the batch into micro-batches,
+sums their gradients and applies one update. Under the reference loss
+scale the loss is inversely proportional to the batch, so a micro-batch
+of b/accum gives accum times the full-batch loss; one extra `/accum` makes
+the sum exact, as in JAX.
+
+The guard (`guard_nonfinite`) drops an update whose loss or gradient norm
+is not finite:
+parameters, optimizer state, BatchNorm statistics and `step` stay exactly
+as they were and `guard_skips` counts one. Like JAX's `jnp.where` select,
+it selects on the device and needs no host sync.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from rt1_tpu_torch.trainer.optim import Adam, AdamState, global_norm
+from rt1_tpu_torch.trainer.state import TrainState
+
+Batch = Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
+RNG_STREAMS = ("crop", "dropout", "stochastic_depth")
+
+
+def step_rngs(seed: int, step: int, device, micro: int = 0) -> Dict[str, torch.Generator]:
+    """One generator per random stream on `device`, seeded from
+    (seed, step, stream, micro)."""
+    device = torch.device(device)
+    rngs = {}
+    for index, name in enumerate(RNG_STREAMS):
+        words = np.random.SeedSequence([seed, step, index, micro]).generate_state(2, np.uint32)
+        g = torch.Generator(device=device)
+        g.manual_seed((int(words[0]) << 31) ^ int(words[1]))
+        rngs[name] = g
+    return rngs
+
+
+def _split(batch: Batch, parts: int):
+    obs, actions = batch
+    b = next(iter(obs.values())).shape[0]
+    if b % parts:
+        raise ValueError(f"batch {b} is not divisible by accum_steps={parts}")
+    cut = lambda tree, i: {k: v.chunk(parts)[i] for k, v in tree.items()}  # noqa: E731
+    return [(cut(obs, i), cut(actions, i)) for i in range(parts)]
+
+
+@dataclasses.dataclass
+class TrainStepFns:
+    optimizer: Adam
+    seed: int
+    compute_dtype: torch.dtype = torch.float32
+    accum_steps: int = 1
+    guard_nonfinite: bool = False
+
+    def __post_init__(self):
+        if self.accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {self.accum_steps}")
+
+    def _compute_copy(self, state: TrainState, requires_grad: bool):
+        """(the flat compute copy of the masters, its views by name)."""
+        copy = state.flat.detach().to(self.compute_dtype, copy=True)
+        copy.requires_grad_(requires_grad)
+        return copy, dict(zip(state.names, state.layout.views(copy)))
+
+    def _grad(self, state: TrainState, batch: Batch, rngs: Mapping[str, torch.Generator]):
+        """Loss, float32 flat gradient and aux dict of one (micro-)batch."""
+        copy, params = self._compute_copy(state, requires_grad=True)
+        obs, actions = batch
+        out = torch.func.functional_call(state.policy, params, (obs, actions),
+                                         {"train": True, "rngs": rngs})
+        (grad,) = torch.autograd.grad(out["loss"], copy)
+        out = {k: v.detach() for k, v in out.items()}
+        return out["loss"], grad.to(torch.float32), out
+
+    def value_and_grad(self, state: TrainState, batch: Batch, step: int):
+        """(loss, flat float32 gradient, aux dict) of the train-mode loss at
+        the current masters, accumulated over `accum_steps` micro-batches;
+        the BatchNorm statistics advance as in a step. `grads_by_name`
+        unflattens the gradient."""
+        device = state.flat.device
+        if self.accum_steps == 1:
+            return self._grad(state, batch, step_rngs(self.seed, step, device))
+        # The reference loss scale makes a micro-batch's loss accum times
+        # the full batch's: the extra /accum.
+        extra = float(self.accum_steps)
+        grad, loss, mse = None, 0.0, 0.0
+        for i, micro in enumerate(_split(batch, self.accum_steps)):
+            l_i, g_i, out_i = self._grad(state, micro,
+                                         step_rngs(self.seed, step, device, micro=i + 1))
+            grad = g_i if grad is None else grad + g_i
+            loss = loss + l_i
+            mse = mse + out_i.get("aux_mse", 0.0)
+        grad = grad / (self.accum_steps * extra)
+        loss = loss / (self.accum_steps * extra)
+        out = {"loss": loss}
+        if "aux_mse" in out_i:
+            out["aux_mse"] = mse / self.accum_steps
+        return loss, grad, out
+
+    @staticmethod
+    def grads_by_name(state: TrainState, grad: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return dict(zip(state.names, state.layout.views(grad)))
+
+    def train_step(self, state: TrainState, batch: Batch, step: int,
+                   keep_grad: bool = False) -> Dict[str, torch.Tensor]:
+        """One optimizer update on `batch`, in place; `step` is the loop's
+        step (it seeds the generators). Returns device metrics, and the flat
+        gradient under "grad" with `keep_grad`."""
+        if self.guard_nonfinite:
+            old_buffers = state.flat_buffers.clone()
+        loss, grad, out = self.value_and_grad(state, batch, step)
+        grad_norm = global_norm(grad)
+        new_flat, new_opt = self.optimizer.update(grad, state.opt_state, state.flat)
+        metrics = {"loss": loss, "grad_norm": grad_norm}
+        if keep_grad:
+            metrics["grad"] = grad
+        if "action_loss" in out:
+            metrics["action_loss_mean"] = out["action_loss"].mean()
+        if "aux_mse" in out:
+            metrics["aux_mse"] = out["aux_mse"]
+        if self.guard_nonfinite:
+            ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
+            new_flat = torch.where(ok, new_flat, state.flat)
+            new_opt = AdamState(
+                count=torch.where(ok, new_opt.count, state.opt_state.count),
+                mu=torch.where(ok, new_opt.mu, state.opt_state.mu),
+                nu=torch.where(ok, new_opt.nu, state.opt_state.nu),
+            )
+            state.flat_buffers.copy_(torch.where(ok, state.flat_buffers, old_buffers))
+            state.step += ok.to(torch.int64)
+            state.guard_skips += (~ok).to(torch.int64)
+            metrics["guard_skips_cum"] = state.guard_skips.clone()
+        else:
+            state.step += 1
+        state.flat.copy_(new_flat)
+        state.opt_state = new_opt
+        return metrics
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+        """Eval-mode loss and token accuracy on `batch` (no update)."""
+        _, params = self._compute_copy(state, requires_grad=False)
+        obs, actions = batch
+        out = torch.func.functional_call(state.policy, params, (obs, actions), {"train": False})
+        labels, preds = out["action_labels"], out["action_predictions"]
+        return {"loss": out["loss"],
+                "token_accuracy": (preds == labels).to(torch.float32).mean()}
+
+
+def optimizer_from_config(config) -> Adam:
+    return Adam(
+        learning_rate=config.learning_rate,
+        milestones=config.lr_milestones,
+        gamma=config.lr_gamma,
+        steps_per_epoch=config.steps_per_epoch,
+        grad_clip_norm=config.grad_clip_norm or None,
+        weight_decay=config.weight_decay,
+    )
+
+
+def train_step_fns_from_config(config, optimizer: Optional[Adam] = None) -> TrainStepFns:
+    """The steps `config` describes. Compute in bf16 when the model does or
+    mixed precision is on (which forces bf16 compute, as in JAX)."""
+    bf16 = config.parallel.mixed_precision or config.model.dtype == "bfloat16"
+    return TrainStepFns(
+        optimizer or optimizer_from_config(config),
+        seed=config.seed,
+        compute_dtype=torch.bfloat16 if bf16 else torch.float32,
+        accum_steps=config.accum_steps,
+        guard_nonfinite=config.resilience.guard,
+    )

@@ -82,3 +82,12 @@ def test_blocker_is_exact_on_the_rt1_tpu_name():
     )
     assert proc.returncode != 0 and "blocked by test_torch_imports: rt1_tpu" in proc.stderr
     assert len(_port_modules()) > 20
+
+
+def test_training_modules_are_among_those_imported():
+    names = set(_port_modules())
+    for name in ("rt1_tpu_torch.ops.dropout", "rt1_tpu_torch.trainer.optim",
+                 "rt1_tpu_torch.trainer.state", "rt1_tpu_torch.trainer.train",
+                 "rt1_tpu_torch.trainer.checkpoints", "rt1_tpu_torch.trainer.metrics",
+                 "rt1_tpu_torch.train.train", "rt1_tpu_torch.train.__main__"):
+        assert name in names, name
