@@ -10,57 +10,67 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without a result line:
 
 1. device  — requires CUDA; prints `nvidia-smi --query-gpu=name,power.limit`.
-2. build   — builds both attention kernels (`rt1_tpu_torch/csrc/
-             fused_attention.cu`, the simple kernel, and
-             `fused_attention_tc.cu`, the bf16 tensor-core kernel; one nvcc
-             per source for sm_90a, in parallel) from the checkout, and
-             prints ptxas's registers and spills per kernel.
+2. build   — builds the three attention kernels (`rt1_tpu_torch/csrc/
+             fused_attention.cu`, the simple kernel; `fused_attention_tc.cu`,
+             the bf16 tensor-core kernel; `fused_attention_tf32x3.cu`, the
+             float32 tensor-core kernel in 3xTF32; one nvcc per source for
+             sm_90a, in parallel) from the checkout, and prints ptxas's
+             registers and spills per kernel.
 3. kernel  — holds the kernels against their plain PyTorch version
-             (`fused_attention_reference`) on the card: the serve shape
-             q/k/v (b, 66, 8, 128) at the buckets 1/2/4/8, f32 and bf16, no
-             mask / the RT-1 mask / causal / the RT-1 mask with fully masked
-             rows; q/k/v as strided views of one packed projection; s=1;
-             ragged s=37; s=256 and s=320 (several key tiles), with rows whose
-             first key tile is fully masked; d=256, 64, 48 and 40.
+             (`fused_attention_reference`, TF32 off) on the card: the serve
+             shape q/k/v (b, 66, 8, 128) at the buckets 1/2/4/8, f32 and
+             bf16, no mask / the RT-1 mask / causal / the RT-1 mask with
+             fully masked rows; q/k/v as strided views of one packed
+             projection, and in f32 one element off 16-byte alignment; s=1;
+             ragged s=37; s=48, 64, 80, 81, 128, 256 and 320 (one or
+             several key tiles, either side of each kernel's tile choice),
+             with rows whose first key tiles are fully masked; d=256, 64,
+             48, 40, 12; the `tiny` config's (2, 15, 2, 8) in f32 and bf16.
              Tolerance 2e-5 in f32, 2e-2 in bf16, and in bf16 also at most
-             one bf16 ulp of the reference (at max(|ref|, 2^-4)). Every bf16
-             case with d % 16 == 0 must run the tensor-core kernel, every
-             other case the simple one (per-variant launch counts). Times
-             each kernel, the plain version and
-             `scaled_dot_product_attention` (a yardstick only; the port never
-             calls it) with CUDA events and, at the serve shape, the
-             profiler's device time.
+             one bf16 ulp of the reference (at max(|ref|, 2^-4)). Every case
+             must run the variant `flash_attention._variant` names for its
+             tensors (per-variant launch counts), and the three variants
+             must each run; two more cases force the simple kernel on
+             float32 (serve shape, s=37). Times each kernel, the plain
+             version and `scaled_dot_product_attention` (a yardstick only;
+             the port never calls it) with CUDA events and, at the serve
+             shape, the profiler's device time.
 4. ab      — the simple kernel in bf16 against the tensor-core kernel at the
              serve shape, in turns (simple, tc, tc, simple), CUDA events and
              device time, beside SDPA; and the host's wall time per call
              over 200 calls issued without synchronising (kernel and SDPA).
-             Then the simple kernel in float32 at the same shape and mask
-             (its own path's dtype) against SDPA in float32, in turns
-             (simple, SDPA, SDPA, simple), with its byte bound.
+             Then float32 at the same shape and mask: the simple kernel, the
+             tf32x3 kernel and SDPA in float32, in turns (simple, tf32x3,
+             SDPA, SDPA, tf32x3, simple), with errors and the byte bound.
 5. sweep   — query slices (16 rows, one compute warp each) per block of
-             the tensor-core kernel at the serve shape, b = 8 and b = 1,
-             each setting held to the reference; prints the fastest.
+             each tensor-core kernel (bf16 and tf32x3) at the serve shape,
+             b = 8 and b = 1, each setting held to the reference; prints
+             the fastest.
 6. parity  — the flagship policy (FiLM-EfficientNet-B3 at 256x456, 8 decoder
              layers) from one seeded set of weights, one `infer_step` at
-             batch 2 in f32 on the card (simple kernel, TF32 off for cuDNN
+             batch 2 in f32 on the card (tf32x3 kernel, TF32 off for cuDNN
              and cuBLAS) against the same on the CPU (plain path): step
              logits within 1e-3 x max|logit|, image tokens within 1e-3 of
              their own scale, action tokens equal wherever the top-2 gap
-             allows; exactly one simple-kernel launch per layer and no
-             tensor-core launch.
-7. step    — one full-bucket (8 sessions) batched step of the flagship
+             allows; exactly one tf32x3 launch per layer, no other.
+7. tiny    — the smoke config (`tiny`: 2 decoder layers of 2 heads x 8) on
+             the card: the same GPU-vs-CPU parity in its own float32 (one
+             tf32x3 launch per layer), then one `infer_step` in bf16, where
+             d = 8 is not a multiple of 16: one simple launch per layer, no
+             other, finite logits and tokens in range.
+8. step    — one full-bucket (8 sessions) batched step of the flagship
              engine in process: host wall time, the card's busy time and
              idle share from torch.profiler, and the costliest kernels;
-             tensor-core launches = 8 x engine steps, simple launches 0.
-8. serve   — the main path: `python -m rt1_tpu_torch.serve --config
+             tensor-core launches = 8 x engine steps, tf32x3 and simple 0.
+9. serve   — the main path: `python -m rt1_tpu_torch.serve --config
              language_table --random_init --port 0` (bf16, fused attention),
              3 sessions x 8 `/act` steps of 256x456 `image_b64` frames over
              HTTP, then `/reset`; every reply 200, actions finite and in
              bounds, the tensor-core kernel's launch count (which starts at
              0 in the new server process) equal to 8 x the engine's batched
-             steps, warm-up included, and the simple kernel's 0; SIGTERM
+             steps, warm-up included, and the other kernels' 0; SIGTERM
              drains with exit 0.
-9. train_parity — one train step of the flagship (B3 at 256x456, 8
+10. train_parity — one train step of the flagship (B3 at 256x456, 8
              decoder layers) in float32 at batch 2, dropout, stochastic depth
              and the crop off, on the card (TF32 off) against the same on the
              CPU from the same weights and batch: the loss, the global
@@ -69,7 +79,7 @@ exits non-zero without a result line:
              statistics after the step and the parameters after Adam where
              the gradient decides them, each within the tolerance
              `TRAIN_TOL` states (printed beside the largest error).
-10. train  — the flagship training path in bf16 (float32 masters), batch 8,
+11. train  — the flagship training path in bf16 (float32 masters), batch 8,
              dropout, stochastic depth and the crop on, in process: 3
              warm-up and 10 timed steps (wall time median and range,
              frames/s), the card's busy time, idle share and launches per
@@ -78,13 +88,14 @@ exits non-zero without a result line:
              over 989 TFLOP/s), and no fused-attention launch in any train
              step; 30 steps on one fixed batch whose last 5 losses average
              below the first 5; an eval step with fused attention (8
-             tensor-core launches); then `python -m rt1_tpu_torch.train
+             tensor-core launches, no other); then `python -m rt1_tpu_torch.train
              --config language_table` for 4 steps with a checkpoint every 2,
              a rerun to 6 steps that must report restoring step 4, and
              `python -m rt1_tpu_torch.serve --workdir` answering one `/act`.
-11. kernels — one line listing both kernels with their launches on their
-             path (serve for the tensor-core kernel, the f32 parity step
-             for the simple one), errors, times and bound.
+12. kernels — one line listing the three kernels with their launches on
+             their path (serve for the tensor-core kernel, the flagship f32
+             parity step for tf32x3, the `tiny` bf16 step for the simple
+             one), errors, times and bound.
 
 The last line is `{"ok": true, "device": {...}}`.
 """
@@ -225,12 +236,16 @@ def attention_bound(b, s, h, d, dtype: str, masked: bool):
 
 
 def kernel_cases():
-    """(name, b, s, h, d, dtype, mask kind). The serve shape is the
-    flagship window s = 6*(8+3) = 66 with 8 heads of 128, at the engine's
-    buckets 1, 2, 4 and 8. Each bf16 case with d % 16 == 0 runs the
-    tensor-core kernel (d = 48 and 64 with the head dim padded in shared
-    memory); float32 and d = 40 run the simple kernel
-    (`flash_attention._variant`)."""
+    """(name, b, s, h, d, dtype, mask kind, forced variant or None). The
+    serve shape is the flagship window s = 6*(8+3) = 66 with 8 heads of
+    128, at the engine's buckets 1, 2, 4 and 8; the `tiny` config's is
+    s = 3*(2+3) = 15 with 2 heads of 8. Each case runs the kernel
+    `flash_attention._variant` names: bf16 with d % 16 == 0 the tensor-core
+    kernel, float32 with d % 8 == 0 the tf32x3 kernel (both with the head
+    dim padded in shared memory where it is not 64, 128 or 256), rows off
+    16-byte alignment and the other head dims the simple kernel. The last
+    two cases force the simple kernel on float32 calls the rule gives to
+    tf32x3, so that it stays held on float32."""
     cases = []
     for dtype in ("float32", "bfloat16"):
         for mask in ("none", "rt1", "causal", "rt1_masked_rows"):
@@ -253,12 +268,33 @@ def kernel_cases():
         ("d64_bfloat16_rt1", 8, 66, 8, 64, "bfloat16", "rt1"),
         ("d48_bfloat16_rt1", 8, 66, 8, 48, "bfloat16", "rt1"),
         ("d40_bfloat16_rt1", 8, 66, 8, 40, "bfloat16", "rt1"),
+        ("packed_qkv_b8_float32_rt1", 8, 66, 8, 128, "float32", "rt1"),
+        ("misaligned_b8_float32_rt1", 8, 66, 8, 128, "float32", "rt1"),
+        ("s1_float32_none", 8, 1, 8, 128, "float32", "none"),
+        ("s256_float32_first_tile_masked", 2, 256, 8, 128, "float32", "first_tile_masked"),
+        ("s48_d256_float32_causal", 2, 48, 8, 256, "float32", "causal"),
+        ("s256_d256_float32_first_tile_masked", 2, 256, 8, 256, "float32", "first_tile_masked"),
+        ("d40_float32_rt1", 8, 66, 8, 40, "float32", "rt1"),
+        ("d12_float32_rt1", 8, 66, 8, 12, "float32", "rt1"),
+        # around the tf32x3 kernel's tile choice (one 80-key tile up to
+        # s = 80 at d <= 128, 64-key tiles past it) and its full tiles at
+        # d = 64 and d = 256
+        ("s80_float32_causal", 8, 80, 8, 128, "float32", "causal"),
+        ("s81_float32_causal", 8, 81, 8, 128, "float32", "causal"),
+        ("s128_d64_float32_causal", 2, 128, 8, 64, "float32", "causal"),
+        ("s64_d256_float32_causal", 2, 64, 8, 256, "float32", "causal"),
+        ("tiny_float32_rt1", 2, 15, 2, 8, "float32", "rt1_tiny"),
+        ("tiny_bfloat16_rt1", 2, 15, 2, 8, "bfloat16", "rt1_tiny"),
     ]
-    return cases
+    return [case + (None,) for case in cases] + [
+        ("serve_b8_float32_rt1_forced_simple", 8, 66, 8, 128, "float32", "rt1", "simple"),
+        ("ragged_s37_float32_causal_forced_simple", 8, 37, 8, 128, "float32", "causal", "simple"),
+    ]
 
 
 def make_mask(kind, s):
     """The (s, s) uint8 mask of a case on the card (None for "none").
+    "rt1_tiny" is the `tiny` config's RT-1 mask (window 3, 2 image tokens);
     "rt1_masked_rows" zeroes three whole rows of the RT-1 mask;
     "first_tile_masked" is causal, and rows from 128 on attend only to keys
     from 128 on, so their first key tile (128 keys at d <= 128, 64 at
@@ -270,7 +306,9 @@ def make_mask(kind, s):
 
     if kind == "none":
         return None
-    if kind in ("rt1", "rt1_masked_rows"):
+    if kind == "rt1_tiny":
+        m = np.array(rt1_attention_mask(3, 2, 3), np.uint8)
+    elif kind in ("rt1", "rt1_masked_rows"):
         m = np.array(rt1_attention_mask(6, 8, 3), np.uint8)
         if kind == "rt1_masked_rows":
             m[[0, 30, 65]] = 0
@@ -293,7 +331,7 @@ def bf16_ulp_err(out, ref):
     return float(((out.float() - ref.float()).abs() / ulp).max())
 
 
-def _qkv(rng, b, s, h, d, tdt, packed=False):
+def _qkv(rng, b, s, h, d, tdt, packed=False, misaligned=False):
     import numpy as np
     import torch
 
@@ -301,6 +339,12 @@ def _qkv(rng, b, s, h, d, tdt, packed=False):
         x = torch.from_numpy(rng.standard_normal((b, s, 3, h, d), dtype=np.float32))
         x = x.to("cuda", tdt)
         return x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    if misaligned:  # each one element into its storage: rows off 16-byte alignment
+        return tuple(
+            torch.from_numpy(rng.standard_normal(b * s * h * d + 1, dtype=np.float32))
+            .to("cuda", tdt)[1:].view(b, s, h, d)
+            for _ in range(3)
+        )
     return tuple(
         torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32)).to("cuda", tdt)
         for _ in range(3)
@@ -320,14 +364,20 @@ def phase_kernel():
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0)
     records = []
-    for name, b, s, h, d, dtype, mask_kind in kernel_cases():
+    for name, b, s, h, d, dtype, mask_kind, forced in kernel_cases():
         tdt = getattr(torch, dtype)
-        q, k, v = _qkv(rng, b, s, h, d, tdt, packed=name.startswith("packed_"))
+        q, k, v = _qkv(rng, b, s, h, d, tdt, packed=name.startswith("packed_"),
+                       misaligned=name.startswith("misaligned_"))
         mask = make_mask(mask_kind, s)
         scale = 1.0 / d ** 0.5
-        expected = "tensor_core" if dtype == "bfloat16" and d % 16 == 0 else "simple"
+        if forced:
+            expected = forced
+            run = lambda: fa._launch(q, k, v, mask, scale, variant=forced)  # noqa: E731
+        else:
+            expected = fa.variant_of(q, k, v, mask)
+            run = lambda: fused_attention(q, k, v, mask=mask, scale=scale)  # noqa: E731
         before = dict(fused_attention.launches_by_variant)
-        out = fused_attention(q, k, v, mask=mask, scale=scale)
+        out = run()
         ref = fused_attention_reference(q, k, v, mask=mask, scale=scale)
         torch.cuda.synchronize()
         ran = [x for x in fa.VARIANTS if fused_attention.launches_by_variant[x] != before[x]]
@@ -341,12 +391,14 @@ def phase_kernel():
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa_mask = None if mask is None else mask.bool()
         record = {
-            "phase": "kernel", "case": name, "variant": expected, "shape": [b, s, h, d],
-            "dtype": dtype, "mask": mask_kind, "max_abs_err": err, "tol": TOL[dtype],
-            "max_err_ulps": ulps,
-            "kernel_ms": cuda_time_ms(lambda: fused_attention(q, k, v, mask=mask, scale=scale)),
+            "phase": "kernel", "case": name, "variant": expected, "forced": bool(forced),
+            "shape": [b, s, h, d], "dtype": dtype, "mask": mask_kind, "max_abs_err": err,
+            "tol": TOL[dtype], "max_err_ulps": ulps,
+            "kernel_ms": cuda_time_ms(run),
             "plain_ms": cuda_time_ms(lambda: fused_attention_reference(q, k, v, mask=mask, scale=scale)),
-            "library_ms": cuda_time_ms(
+            # SDPA's kernels fault (cudaErrorMisalignedAddress) on views off
+            # 16-byte alignment: no yardstick there.
+            "library_ms": None if name.startswith("misaligned_") else cuda_time_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask, scale=scale)
             ),
         }
@@ -355,7 +407,7 @@ def phase_kernel():
             # Device-only time per call: the event times above include the
             # host's launch cost whenever the host, not the card, is slower.
             for key, fn in (
-                ("device_ms", lambda: fused_attention(q, k, v, mask=mask, scale=scale)),
+                ("device_ms", run),
                 ("plain_device_ms", lambda: fused_attention_reference(q, k, v, mask=mask, scale=scale)),
                 ("library_device_ms", lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=sdpa_mask, scale=scale)),
@@ -364,16 +416,19 @@ def phase_kernel():
                 record[key] = None if prof is None else prof["busy_ms"]
         emit(record)
         records.append(record)
+    ran = {r["variant"] for r in records}
+    if ran != set(fa.VARIANTS):
+        raise AssertionError(f"kernel cases ran {sorted(ran)}, not every variant of {fa.VARIANTS}")
     return records
 
 
-def _serve_inputs(b=8):
-    """q/k/v (b, 66, 8, 128) bf16 and the RT-1 mask: the serve shape."""
+def _serve_inputs(b=8, dtype="bfloat16"):
+    """q/k/v (b, 66, 8, 128) in `dtype` and the RT-1 mask: the serve shape."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(5)
-    q, k, v = _qkv(rng, b, 66, 8, 128, torch.bfloat16)
+    q, k, v = _qkv(rng, b, 66, 8, 128, getattr(torch, dtype))
     return q, k, v, make_mask("rt1", 66), 1.0 / 128 ** 0.5
 
 
@@ -420,9 +475,11 @@ def phase_ab():
 
 
 def _ab_float32():
-    """The simple kernel in float32 (the `serve_b8_float32_rt1` case) against
-    SDPA in float32 on the same inputs, in turns (simple, SDPA, SDPA,
-    simple), with the byte bound (q/k/v/out and the mask over 3.35 TB/s)."""
+    """float32 at the serve shape with the RT-1 mask: the simple kernel, the
+    tf32x3 kernel and SDPA in float32 on the same inputs, in turns (simple,
+    tf32x3, SDPA, SDPA, tf32x3, simple), by CUDA events and device time,
+    with each one's error against the plain version (TF32 off) and the
+    byte bound (q/k/v/out and the mask over 3.35 TB/s)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -435,14 +492,17 @@ def _ab_float32():
     ref = fa.fused_attention_reference(q, k, v, mask=mask, scale=scale)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     runs = {"simple": lambda: fa._launch(q, k, v, mask, scale, variant="simple"),
+            "tf32x3": lambda: fa._launch(q, k, v, mask, scale, variant="tf32x3"),
             "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask.bool(),
                                                            scale=scale)}
     errs = {"simple": float((runs["simple"]() - ref).abs().max()),
+            "tf32x3": float((runs["tf32x3"]() - ref).abs().max()),
             "sdpa": float((runs["sdpa"]().transpose(1, 2) - ref).abs().max())}
-    if errs["simple"] > TOL["float32"]:
-        raise AssertionError(f"A/B float32: simple kernel max abs err {errs['simple']}")
+    for name in ("simple", "tf32x3"):
+        if not errs[name] <= TOL["float32"]:
+            raise AssertionError(f"A/B float32: {name} kernel max abs err {errs[name]}")
     turns = []
-    for name in ("simple", "sdpa", "sdpa", "simple"):
+    for name in ("simple", "tf32x3", "sdpa", "sdpa", "tf32x3", "simple"):
         prof = device_profile(runs[name], iters=50)
         turns.append({"kernel": name, "ms": cuda_time_ms(runs[name]),
                       "device_ms": None if prof is None else prof["busy_ms"]})
@@ -452,37 +512,54 @@ def _ab_float32():
 
 
 def phase_sweep(values=(8, 3, 2, 1)):
-    """Query slices (16 rows, one compute warp each) per block of the
-    tensor-core kernel at the serve shape, b = 8 and b = 1: 8 (clamped to
-    the 5 slices of s = 66) is one block per (batch, head) and one K/V read;
-    fewer slices mean more blocks that re-read K/V from L2. Each setting is
-    also held to the reference."""
+    """Query slices (16 rows, one compute warp each) per block of each
+    tensor-core kernel (bf16 `tensor_core`, float32 `tf32x3`) at the serve
+    shape, b = 8 and b = 1: 8 (clamped to the 5 slices of s = 66) is one
+    block per (batch, head) and one K/V read; fewer slices mean more blocks
+    that re-read K/V from L2. Each setting is also held to the reference
+    (bf16: one ulp; float32: TOL)."""
+    import torch
+
     from rt1_tpu_torch.parallel import flash_attention as fa
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
-    for b in (8, 1):
-        q, k, v, mask, scale = _serve_inputs(b)
-        ref = fa.fused_attention_reference(q, k, v, mask=mask, scale=scale)
-        for slices in values:
-            fn = lambda: fa._launch(q, k, v, mask, scale, variant="tensor_core", slices=slices)  # noqa: E731
-            ulps = bf16_ulp_err(fn(), ref)
-            if ulps > 1.0:
-                raise AssertionError(f"sweep b={b} slices={slices}: {ulps} bf16 ulps")
-            prof = device_profile(fn, iters=50)
-            rows.append({"b": b, "slices": slices, "blocks": b * 8 * -(-5 // min(slices, 5)),
-                         "ms": cuda_time_ms(fn),
-                         "device_ms": None if prof is None else prof["busy_ms"],
-                         "max_err_ulps": ulps})
-    timed = [r for r in rows if r["b"] == 8 and r["device_ms"] is not None]
-    best = min(timed, key=lambda r: r["device_ms"])["slices"] if timed else None
+    for variant, dtype in (("tensor_core", "bfloat16"), ("tf32x3", "float32")):
+        for b in (8, 1):
+            q, k, v, mask, scale = _serve_inputs(b, dtype)
+            ref = fa.fused_attention_reference(q, k, v, mask=mask, scale=scale)
+            for slices in values:
+                fn = lambda: fa._launch(q, k, v, mask, scale, variant=variant, slices=slices)  # noqa: E731
+                out = fn()
+                if dtype == "bfloat16":
+                    err, bad = bf16_ulp_err(out, ref), "bf16 ulps"
+                    ok = err <= 1.0
+                else:
+                    err, bad = float((out - ref).abs().max()), "max abs err"
+                    ok = err <= TOL["float32"]
+                if not ok:
+                    raise AssertionError(f"sweep {variant} b={b} slices={slices}: {err} {bad}")
+                prof = device_profile(fn, iters=50)
+                rows.append({"kernel": variant, "b": b, "slices": slices,
+                             "blocks": b * 8 * -(-5 // min(slices, 5)), "ms": cuda_time_ms(fn),
+                             "device_ms": None if prof is None else prof["busy_ms"],
+                             ("max_err_ulps" if dtype == "bfloat16" else "max_abs_err"): err})
+    best = {}
+    for variant in ("tensor_core", "tf32x3"):
+        timed = [r for r in rows if r["kernel"] == variant and r["b"] == 8
+                 and r["device_ms"] is not None]
+        best[variant] = min(timed, key=lambda r: r["device_ms"])["slices"] if timed else None
     record = {"phase": "sweep", "rows": rows, "fastest_slices_b8": best,
-              "default_slices": fa.TC_SLICES_PER_BLOCK}
+              "default_slices": {"tensor_core": fa.TC_SLICES_PER_BLOCK,
+                                 "tf32x3": fa.TF32X3_SLICES_PER_BLOCK}}
     emit(record)
     return record
 
 
-def phase_parity(device: str = "cuda", config_name: str = "language_table", batch: int = 2):
-    """The flagship at f32 on `device` (fused kernel) vs the CPU (plain)."""
+def phase_parity(device: str = "cuda", config_name: str = "language_table", batch: int = 2,
+                 phase: str = "parity"):
+    """A policy (the flagship by default) at f32 on `device` (fused kernel,
+    tf32x3) vs the CPU (plain)."""
     import numpy as np
     import torch
 
@@ -533,7 +610,7 @@ def phase_parity(device: str = "cuda", config_name: str = "language_table", batc
     gap = top2[..., 0] - top2[..., 1]
     unexplained = int((~agree & (gap > 2 * bound)).sum())
     record = {
-        "phase": "parity", "config": config_name, "batch": batch, "dtype": "float32",
+        "phase": phase, "config": config_name, "batch": batch, "dtype": "float32",
         "tf32": False, "attention": "fused (card) vs plain (cpu)",
         "max_abs_logit_diff": diff, "bound": bound, "max_abs_logit": scale,
         "max_abs_image_token": token_scale, "image_token_rel_diff": token_rel_diff,
@@ -543,12 +620,55 @@ def phase_parity(device: str = "cuda", config_name: str = "language_table", batc
     }
     emit(record)
     if diff > bound or unexplained or not token_rel_diff <= PARITY_REL_TOL:
-        raise AssertionError(f"flagship parity: logit diff {diff} (bound {bound}), "
+        raise AssertionError(f"{config_name} parity: logit diff {diff} (bound {bound}), "
                              f"image-token relative diff {token_rel_diff}, "
                              f"{unexplained} token flips beyond the bound")
-    # One f32 infer_step: one simple-kernel launch per decoder layer.
-    if launches != {"tensor_core": 0, "simple": layers}:
-        raise AssertionError(f"flagship parity: launches {launches}, expected {layers} simple")
+    # One f32 infer_step: one tf32x3 launch per decoder layer, no other.
+    if launches != {"tensor_core": 0, "tf32x3": layers, "simple": 0}:
+        raise AssertionError(f"{config_name} parity: launches {launches}, "
+                             f"expected {layers} tf32x3")
+    return record
+
+
+def phase_tiny(device: str = "cuda", batch: int = 2):
+    """The smoke config on the card: GPU-vs-CPU parity in its own float32
+    (tf32x3), then one `infer_step` in bf16, whose head dim 8 the bf16
+    tensor-core kernel does not take: the simple kernel, once per layer."""
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.configs import get_config
+    from rt1_tpu_torch.eval.restore import load_policy
+    from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
+
+    parity = phase_parity(device, "tiny", batch, phase="tiny_parity")
+    config = get_config("tiny")
+    config.model.dtype = "bfloat16"
+    rng = np.random.default_rng(4)
+    h, w = config.data.height, config.data.width
+    policy = load_policy(config, device=device, attention_impl="fused")
+    frame = rng.uniform(0, 1, (batch, h, w, 3)).astype(np.float32)
+    emb = rng.standard_normal((batch, 512)).astype(np.float32)
+    obs = {"image": torch.from_numpy(frame).to(device),
+           "natural_language_embedding": torch.from_numpy(emb).to(device)}
+    reset_launch_counts()  # counts this path's launches only
+    with torch.no_grad():
+        out, _ = policy.infer_step(obs, policy.initial_state(batch))
+    torch.cuda.synchronize()
+    launches = dict(fused_attention.launches_by_variant)
+    logits, tokens = out["action_logits"].float(), out["action_tokens"]
+    record = {"phase": "tiny", "config": "tiny", "batch": batch, "dtype": "bfloat16",
+              "launches_by_variant": launches, "decoder_layers": policy.num_layers,
+              "logits_shape": list(logits.shape), "action_tokens": tokens.tolist(),
+              "float32_parity": {k: parity[k] for k in ("max_abs_logit_diff", "bound",
+                                                         "launches_by_variant")}}
+    emit(record)
+    if not torch.isfinite(logits).all() or \
+            ((tokens < 0) | (tokens >= config.model.vocab_size)).any():
+        raise AssertionError(f"tiny bf16: non-finite logits or tokens out of range {tokens}")
+    if launches != {"tensor_core": 0, "tf32x3": 0, "simple": policy.num_layers}:
+        raise AssertionError(f"tiny bf16: launches {launches}, expected "
+                             f"{policy.num_layers} simple")
     return record
 
 
@@ -588,7 +708,8 @@ def phase_step(config_name: str = "language_table", bucket: int = 8, iters: int 
         walls.append((time.perf_counter() - t0) * 1e3)
     prof = device_profile(lambda: engine.act_batch(items), iters=iters)
     launches = dict(fused_attention.launches_by_variant)
-    expected = {"tensor_core": engine.policy.num_layers * engine.steps_total, "simple": 0}
+    expected = {"tensor_core": engine.policy.num_layers * engine.steps_total, "tf32x3": 0,
+                "simple": 0}
     record = {"phase": "step", "config": config_name, "bucket": bucket, "dtype": engine.dtype,
               "wall_ms": sorted(walls), "launches_by_variant": launches,
               "engine_steps_total": engine.steps_total}
@@ -596,7 +717,7 @@ def phase_step(config_name: str = "language_table", bucket: int = 8, iters: int 
         raise AssertionError(f"step: launches {launches}, expected {expected}")
     if prof is not None:
         top = sorted(prof["kernels"].items(), key=lambda kv: -kv[1])[:8]
-        # Both attention kernels' names hold "attention"; nothing else in the step does.
+        # The attention kernels' names hold "attention"; nothing else in the step does.
         attn = sum(ms for name, ms in prof["kernels"].items() if "attention" in name)
         record.update({
             "profiled_wall_ms": prof["wall_ms"], "device_busy_ms": prof["busy_ms"],
@@ -691,15 +812,17 @@ def phase_serve(config_name: str = "language_table", device: str = "cuda"):
             _, metrics = _http(url + "/metrics")
             launches = int(metrics["attention_launches_total"])
             tc_launches = int(metrics["attention_launches_tensor_core_total"])
+            tf32x3_launches = int(metrics["attention_launches_tf32x3_total"])
             simple_launches = int(metrics["attention_launches_simple_total"])
             steps = int(metrics["engine_steps_total"])
             layers = int(metrics["decoder_layers"])
             expected = layers * steps if device == "cuda" else 0
             # bf16 serving runs the tensor-core kernel only.
             if (device == "cuda" and launches <= 0) or tc_launches != expected or \
-                    simple_launches != 0 or launches != tc_launches:
-                raise AssertionError(f"serve: {tc_launches} tensor-core and {simple_launches} "
-                                     f"simple launches, expected {layers} x {steps} and 0")
+                    tf32x3_launches != 0 or simple_launches != 0 or launches != tc_launches:
+                raise AssertionError(f"serve: {tc_launches} tensor-core, {tf32x3_launches} "
+                                     f"tf32x3 and {simple_launches} simple launches, expected "
+                                     f"{layers} x {steps}, 0 and 0")
             proc.send_signal(signal.SIGTERM)
             rc = proc.wait(timeout=120)
             if rc != 0:
@@ -724,6 +847,7 @@ def phase_serve(config_name: str = "language_table", device: str = "cuda"):
         "mean_batch_occupancy": metrics["mean_batch_occupancy"],
         "engine_steps_total": steps, "attention_launches_total": launches,
         "attention_launches_tensor_core_total": tc_launches,
+        "attention_launches_tf32x3_total": tf32x3_launches,
         "attention_launches_simple_total": simple_launches,
         "decoder_layers": layers, "compile_count": metrics["compile_count"],
     }
@@ -954,7 +1078,7 @@ def phase_train(config_name: str = "language_table", device: str = "cuda"):
     eval_metrics = fns.eval_step(state, fixed)
     torch.cuda.synchronize()
     eval_launches = dict(fused_attention.launches_by_variant)
-    expected = {"tensor_core": policy.num_layers, "simple": 0}
+    expected = {"tensor_core": policy.num_layers, "tf32x3": 0, "simple": 0}
     acc = float(eval_metrics["token_accuracy"])
     if eval_launches != expected or not np.isfinite(float(eval_metrics["loss"])) or not 0 <= acc <= 1:
         raise AssertionError(f"train: fused eval step launches {eval_launches} (expected "
@@ -1073,7 +1197,7 @@ def _kernel_entry(name, source, launches, path, head, cases):
     }
 
 
-PHASES = ("kernel", "ab", "sweep", "parity", "step", "serve", "train_parity", "train")
+PHASES = ("kernel", "ab", "sweep", "parity", "tiny", "step", "serve", "train_parity", "train")
 
 
 def main(argv=None) -> int:
@@ -1117,18 +1241,27 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         emit({"partial": phases, "passed": True})
         return 0
-    records, serve, parity = done["kernel"], done["serve"], done["parity"]
-    tc_cases = [r for r in records if r["variant"] == "tensor_core"]
-    simple_cases = [r for r in records if r["variant"] == "simple"]
+    records, serve, parity, tiny = done["kernel"], done["serve"], done["parity"], done["tiny"]
+
+    def case(name):
+        return next(r for r in records if r["case"] == name)
+
+    def cases(variant):
+        return [r for r in records if r["variant"] == variant]
+
     emit({"kernels": [
         _kernel_entry(
             "fused_attention_tc", "rt1_tpu_torch/csrc/fused_attention_tc.cu",
             serve["attention_launches_tensor_core_total"], "serve (bf16)",
-            next(r for r in records if r["case"] == "serve_b8_bfloat16_rt1"), tc_cases),
+            case("serve_b8_bfloat16_rt1"), cases("tensor_core")),
+        _kernel_entry(
+            "fused_attention_tf32x3", "rt1_tpu_torch/csrc/fused_attention_tf32x3.cu",
+            parity["launches_by_variant"]["tf32x3"], "flagship infer_step (float32)",
+            case("serve_b8_float32_rt1"), cases("tf32x3")),
         _kernel_entry(
             "fused_attention_simple", "rt1_tpu_torch/csrc/fused_attention.cu",
-            parity["launches_by_variant"]["simple"], "flagship infer_step (float32)",
-            next(r for r in records if r["case"] == "serve_b8_float32_rt1"), simple_cases),
+            tiny["launches_by_variant"]["simple"], "tiny infer_step (bfloat16, d = 8)",
+            case("tiny_bfloat16_rt1"), cases("simple")),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

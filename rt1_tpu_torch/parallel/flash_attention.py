@@ -11,21 +11,27 @@ q's dtype. q/k/v/out are `(b, s, h, d)`; the optional mask is `(s, s)` and
 shared by every (batch, head). Forward only: training takes the dense
 path, as it does in the JAX package.
 
-Two kernel variants, chosen per call by `_variant`:
+Three kernel variants, chosen per call by `_variant`:
 
 * "tensor_core" (`csrc/fused_attention_tc.cu`): bf16 on the tensor cores
   (mma.sync with fp32 accumulate, P kept in fp32 as a bf16 hi + lo pair),
   cp.async copies, one K/V read per block. It takes bf16 with d a
   multiple of 16 up to 256 and every row 16-byte aligned: the serve path.
+* "tf32x3" (`csrc/fused_attention_tf32x3.cu`): float32 on the tensor cores
+  in 3xTF32 (every operand split as tf32 big + small, three mma products,
+  fp32-grade), on the same skeleton. It takes float32 with d a multiple of
+  8 up to 256 and every row 16-byte aligned: the float32 paths (the `tiny`
+  config, a flagship run in float32, the parity check against the CPU).
 * "simple" (`csrc/fused_attention.cu`): fp32 products on the CUDA cores.
-  It takes float32 (which must stay full fp32, not TF32) and any bf16 call
-  the tensor-core kernel cannot take.
+  It takes any call, and gets those the other two cannot: bf16 with d not
+  a multiple of 16, float32 with d not a multiple of 8, misaligned rows.
 
-Both sources are compiled with `nvcc` for `sm_90a`, in parallel, into one
+The sources are compiled with `nvcc` for `sm_90a`, in parallel, into one
 library under `csrc/build/` on first use, and bound with `ctypes`. The
-function's bound at the serve shape (b=8, s=66, h=8, d=128, bf16) is about
-4.3 MB of q/k/v/out, or 1.3 us at 3.35 TB/s; its 0.14 GFLOP lie far below
-the tensor-core line. `PERF.md` has the kernels' times.
+function's bound at the serve shape (b=8, s=66, h=8, d=128) is about
+4.3 MB of q/k/v/out in bf16 (8.7 MB in float32), or 1.3 us (2.6 us) at
+3.35 TB/s; its 0.14 GFLOP lie far below the tensor-core line. `PERF.md`
+has the kernels' times.
 
 `fused_attention` launches a kernel for CUDA tensors (or raises) and runs
 `fused_attention_reference`, the plain PyTorch version of the same
@@ -51,17 +57,21 @@ import torch
 
 NEG_INF = -1e9
 MAX_HEAD_DIM = 256
-VARIANTS = ("tensor_core", "simple")
+VARIANTS = ("tensor_core", "tf32x3", "simple")
 # Query slices of 16 rows (one compute warp each) per block of the
 # tensor-core kernel (1..8): the fewer, the more blocks and the more K/V
 # re-reads from L2. 3 was the fastest in the sweep of chip_smoke.py at the
 # serve shape (PERF.md).
 TC_SLICES_PER_BLOCK = 3
+# The same for the tf32x3 kernel, whose float32 tiles are twice the bytes
+# (chip_smoke.py sweeps it too; PERF.md).
+TF32X3_SLICES_PER_BLOCK = 3
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = (
     os.path.join(_CSRC, "fused_attention.cu"),
     os.path.join(_CSRC, "fused_attention_tc.cu"),
+    os.path.join(_CSRC, "fused_attention_tf32x3.cu"),
 )
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
@@ -90,17 +100,34 @@ def fused_attention_reference(
 
 
 def _variant(dtype: torch.dtype, d: int, strides: Sequence[int], ptrs: Sequence[int]) -> str:
-    """Which kernel takes a call: "tensor_core" for bf16 with d a multiple
-    of 16 (at most 256) whose every row starts 16-byte aligned (each data
-    pointer and each batch/sequence/head stride in bytes a multiple of 16),
-    else "simple". `strides` are element strides of the non-last dims of
-    q, k and v; `ptrs` their data pointers and the mask's, if any (the
-    mask's rows need no alignment, its base does)."""
-    if dtype != torch.bfloat16 or d % 16 or not 16 <= d <= MAX_HEAD_DIM:
+    """Which kernel takes a call. Both tensor-core kernels need every row
+    to start 16-byte aligned: each data pointer and each batch/sequence/
+    head stride in bytes a multiple of 16. Then bf16 with d a multiple of
+    16 (at most 256) goes to "tensor_core" and float32 with d a multiple
+    of 8 (at most 256) to "tf32x3"; every other call to "simple".
+    `strides` are element strides of the non-last dims of q, k and v;
+    `ptrs` their data pointers and the mask's, if any (the mask's rows
+    need no alignment, its base does)."""
+    if functools.reduce(operator.or_, ptrs) % 16 or not 1 <= d <= MAX_HEAD_DIM:
         return "simple"
-    if functools.reduce(operator.or_, ptrs) % 16 or functools.reduce(operator.or_, strides) % 8:
-        return "simple"  # 8 bf16 elements = 16 bytes
-    return "tensor_core"
+    if functools.reduce(operator.or_, strides) * dtype.itemsize % 16:
+        return "simple"
+    if dtype == torch.bfloat16 and d % 16 == 0:
+        return "tensor_core"
+    if dtype == torch.float32 and d % 8 == 0:
+        return "tf32x3"
+    return "simple"
+
+
+def variant_of(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> str:
+    """The variant `_variant` names for a call on these tensors (the mask
+    as the kernel receives it: uint8 and contiguous)."""
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if mask is not None:
+        ptrs += (mask.data_ptr(),)
+    strides = q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
+    return _variant(q.dtype, q.shape[-1], strides, ptrs)
 
 
 def _find_nvcc() -> str:
@@ -177,8 +204,10 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + strides
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
+    lib.rt1_fused_attention_tf32x3_fwd.argtypes = lib.rt1_fused_attention_tc_fwd.argtypes
     lib.rt1_fused_attention_fwd.restype = ctypes.c_int
     lib.rt1_fused_attention_tc_fwd.restype = ctypes.c_int
+    lib.rt1_fused_attention_tf32x3_fwd.restype = ctypes.c_int
     return lib
 
 
@@ -204,8 +233,9 @@ def _launch(q, k, v, mask, scale, variant: Optional[str] = None,
             slices: Optional[int] = None) -> torch.Tensor:
     """Launch a kernel on CUDA tensors: the one `_variant` picks, or
     `variant` where the caller names one (comparisons and benchmarks;
-    "tensor_core" raises on a call it cannot take). `slices` overrides
-    TC_SLICES_PER_BLOCK."""
+    "tensor_core" and "tf32x3" raise on a call the rule does not give
+    them, "simple" takes any). `slices` overrides the tensor-core kernels'
+    TC_SLICES_PER_BLOCK / TF32X3_SLICES_PER_BLOCK."""
     b, s, h, d = q.shape
     dtype, device = q.dtype, q.device
     if dtype not in _DTYPE_CODES:
@@ -218,29 +248,29 @@ def _launch(q, k, v, mask, scale, variant: Optional[str] = None,
     if qst[3] != 1 or kst[3] != 1 or vst[3] != 1:
         raise ValueError("q, k and v must be contiguous in their last (head) dim")
     lib = _library()  # builds on first use
-    mask_ptr = None
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
-    if mask is not None:
-        if mask.dtype != torch.uint8 or mask.device != device or not mask.is_contiguous():
-            mask = (mask != 0).to(device=device, dtype=torch.uint8).contiguous()
-        mask_ptr = mask.data_ptr()
-        ptrs += (mask_ptr,)
-    strides = qst[:3] + kst[:3] + vst[:3]
-    chosen = _variant(dtype, d, strides, ptrs)
+    if mask is not None and (mask.dtype != torch.uint8 or mask.device != device
+                             or not mask.is_contiguous()):
+        mask = (mask != 0).to(device=device, dtype=torch.uint8).contiguous()
+    chosen = variant_of(q, k, v, mask)
     if variant is None:
         variant = chosen
-    elif variant == "tensor_core" and chosen != variant:
-        raise ValueError("the tensor-core kernel takes bf16, d % 16 == 0 and 16-byte aligned rows")
     elif variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    elif variant != "simple" and chosen != variant:
+        raise ValueError(f"the {variant} kernel does not take this call: the rule gives it "
+                         f"to {chosen}")
     out = torch.empty((b, s, h, d), dtype=dtype, device=device)
     # out is contiguous: strides (s*h*d, h*d, d).
-    args = (*ptrs[:3], mask_ptr, out.data_ptr())
-    geometry = (b, s, h, d, *strides, s * h * d, h * d, d, float(scale))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr())
+    geometry = (b, s, h, d, *qst[:3], *kst[:3], *vst[:3], s * h * d, h * d, d, float(scale))
     stream = _current_stream(device)
     if variant == "tensor_core":
         err = lib.rt1_fused_attention_tc_fwd(*args, *geometry, slices or TC_SLICES_PER_BLOCK,
                                              stream)
+    elif variant == "tf32x3":
+        err = lib.rt1_fused_attention_tf32x3_fwd(*args, *geometry,
+                                                 slices or TF32X3_SLICES_PER_BLOCK, stream)
     else:
         err = lib.rt1_fused_attention_fwd(*args, _DTYPE_CODES[dtype], *geometry, stream)
     if err != 0:

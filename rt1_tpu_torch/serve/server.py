@@ -17,7 +17,7 @@ Endpoints (all JSON):
 * `GET /readyz`   503 before warm-up finishes and while draining, else 200
 * `GET /metrics`  `ServeMetrics.snapshot()` plus engine gauges, among them
                   `attention_launches_total` (the fused kernels' launch
-                  count; `attention_launches_{tensor_core,simple}_total`
+                  count; `attention_launches_{tensor_core,tf32x3,simple}_total`
                   per variant) and `engine_steps_total` (batched steps,
                   warm-up included)
 
@@ -270,6 +270,7 @@ class ServeApp:
             engine_steps_total=self.engine.steps_total,
             attention_launches_total=fused_attention.launches,
             attention_launches_tensor_core_total=fused_attention.launches_by_variant["tensor_core"],
+            attention_launches_tf32x3_total=fused_attention.launches_by_variant["tf32x3"],
             attention_launches_simple_total=fused_attention.launches_by_variant["simple"],
             decoder_layers=self.engine.policy.num_layers,
             device=str(self.engine.device),

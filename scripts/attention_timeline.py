@@ -1,29 +1,34 @@
 #!/usr/bin/env python3
-"""Where the time of the bf16 tensor-core attention kernel goes, per phase.
+"""Where the time of a tensor-core attention kernel goes, per phase.
 
-Builds `rt1_tpu_torch/csrc/fused_attention_tc.cu` with
+Builds `rt1_tpu_torch/csrc/fused_attention_tc.cu` (bf16; with `--kernel
+tf32x3`, `fused_attention_tf32x3.cu` in float32) with
 -DRT1_ATTENTION_TIMELINE (a separate library under `csrc/build/`; the
 wrapper's own build never sets it), launches it and reads back each warp's
 stamps: the SM's clock64 at entry, after issuing the first copies, when Q
 and K have landed, after S and the softmax, when V has landed, after the
 PV product, and at the end; the same four stamps for the second key tile,
-which runs warm code; and %globaltimer at entry, which gives each block's
-start relative to the first. Cases: the serve shape q/k/v (b, 66, 8, 128)
-bf16 with the RT-1 mask (b = 8 and 1; 3 query slices per block, the
-wrapper's default, then 5 and 1) and without a mask, and s = 256 (two key
-tiles). Prints the card's name and power limit, then one JSON line per
-case with the median and maximum of every phase in SM cycles, the SM clock
-(nvidia-smi), the launch's device time from torch.profiler beside that of
-a one-element fill kernel (the profiler's floor), and then one line with
-the SASS instruction count of each kernel instance (cuobjdump).
+which runs warm code; for the tf32x3 kernel, also after the first tile's
+mask bits and after its S product; and %globaltimer at entry, which gives
+each block's start relative to the first. Cases: the serve shape q/k/v
+(b, 66, 8, 128) in the kernel's dtype with the RT-1 mask (b = 8 and 1; 3
+query slices per block, the wrapper's default, then 5 and 1) and without
+a mask, and s = 256 (two or more key tiles). Prints the card's name and
+power limit, then one JSON line per case with the median and maximum of
+every phase in SM cycles, the SM clock (nvidia-smi), the launch's device
+time from torch.profiler beside that of a one-element fill kernel (the
+profiler's floor), and then one line with the SASS instruction count of
+each kernel instance (cuobjdump).
 
 Run on a machine with one H100, from the repository root:
 
-    python3 scripts/attention_timeline.py
+    python3 scripts/attention_timeline.py                   # bf16 tensor-core kernel
+    python3 scripts/attention_timeline.py --kernel tf32x3   # float32 3xTF32 kernel
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import hashlib
 import json
@@ -40,13 +45,18 @@ CASES = ((8, 66, "rt1", 3), (8, 66, "none", 3), (1, 66, "rt1", 3), (8, 66, "rt1"
          (8, 66, "rt1", 1), (2, 256, "causal", 8))
 
 
-def build_timeline_library() -> str:
+# --kernel: (source, C entry, dtype).
+KERNELS = {"tc": ("fused_attention_tc.cu", "rt1_fused_attention_tc_fwd", "bfloat16"),
+           "tf32x3": ("fused_attention_tf32x3.cu", "rt1_fused_attention_tf32x3_fwd", "float32")}
+
+
+def build_timeline_library(kernel: str = "tc") -> str:
     from rt1_tpu_torch.parallel import flash_attention as fa
 
-    src = os.path.join(fa._CSRC, "fused_attention_tc.cu")
+    src = os.path.join(fa._CSRC, KERNELS[kernel][0])
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    path = os.path.join(fa.BUILD_DIR, f"libfused_attention_tc_timeline_{digest}.so")
+    path = os.path.join(fa.BUILD_DIR, f"libfused_attention_{kernel}_timeline_{digest}.so")
     if not os.path.exists(path):
         os.makedirs(fa.BUILD_DIR, exist_ok=True)
         cmd = [fa._find_nvcc(), *fa.NVCC_FLAGS, "-DRT1_ATTENTION_TIMELINE", "-shared",
@@ -95,9 +105,12 @@ def sass_sizes(path):
     return sizes
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernel", choices=sorted(KERNELS), default="tc")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("attention_timeline: CUDA is not available", file=sys.stderr)
         return 1
@@ -109,24 +122,25 @@ def main() -> int:
     print(smi, flush=True)
     one = torch.zeros(1, device="cuda")
     floor_ms = device_ms(lambda: one.fill_(1.0))
-    path = build_timeline_library()
-    run_cases(ctypes.CDLL(path), floor_ms, rt1_attention_mask)
+    path = build_timeline_library(args.kernel)
+    run_cases(ctypes.CDLL(path), floor_ms, rt1_attention_mask, args.kernel)
     print(json.dumps({"sass_instructions": sass_sizes(path)}), flush=True)
     return 0
 
 
-def run_cases(lib, floor_ms, rt1_attention_mask):
+def run_cases(lib, floor_ms, rt1_attention_mask, kernel="tc"):
     import numpy as np
     import torch
 
-    fn = lib.rt1_fused_attention_tc_fwd
+    _, entry, dtype = KERNELS[kernel]
+    fn = getattr(lib, entry)
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     rng = np.random.default_rng(0)
     for b, s, mask_kind, slices in CASES:
         q, k, v = (torch.from_numpy(rng.standard_normal((b, s, 8, 128), dtype=np.float32))
-                   .to("cuda", torch.bfloat16) for _ in range(3))
+                   .to("cuda", getattr(torch, dtype)) for _ in range(3))
         out = torch.empty_like(q)
         if mask_kind == "rt1":
             mask = torch.from_numpy(np.asarray(rt1_attention_mask(6, 8, 3), np.uint8)).cuda()
@@ -163,7 +177,7 @@ def run_cases(lib, floor_ms, rt1_attention_mask):
         start_ns = st[:, 0] - st[:, 0].min()
         total = st[:, 7] - st[:, 1]
         record = {
-            "b": b, "s": s, "mask": mask_kind, "slices": spb, "blocks": blocks,
+            "kernel": kernel, "b": b, "s": s, "mask": mask_kind, "slices": spb, "blocks": blocks,
             "sm_clock_mhz": clock,
             "phase_cycles_median": dict(zip(PHASES, np.median(cyc, 0).tolist())),
             "phase_cycles_max": dict(zip(PHASES, cyc.max(0).tolist())),
@@ -173,6 +187,10 @@ def run_cases(lib, floor_ms, rt1_attention_mask):
             "device_ms": device_ms(launch),
             "fill_kernel_device_ms": floor_ms,
         }
+        if kernel == "tf32x3":  # its slots 12-13 split S + softmax of the first tile
+            split = np.diff(st[:, [3, 12, 13, 4]], axis=1)
+            record["s_softmax_split_median"] = dict(
+                zip(("mask_bits", "s_product", "softmax"), np.median(split, 0).tolist()))
         if s > 128:
             tile1 = np.diff(st[:, [6, 8, 9, 10, 11]], axis=1)
             record["tile1_cycles_median"] = dict(zip(TILE1_PHASES, np.median(tile1, 0).tolist()))

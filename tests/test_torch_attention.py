@@ -185,18 +185,24 @@ def _masked_rows_mask():
     return mask
 
 
-def _scheme_case(name):
+def _f32_inputs(seed, s, b=SERVE_B, h=SERVE_H, d=SERVE_D):
+    """float32 q/k/v, standard normal: most values are not tf32-representable."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, s, h, d), dtype=np.float32) for _ in range(3))
+
+
+def _scheme_case(name, inputs=_bf16_inputs):
     """(q, k, v, mask, fp32 reference). The fully masked rows are held to
     dense_attention_reference: the Pallas wrapper's padding averages them
     over the padded keys too (test_fully_masked_row_is_mean_of_real_values)."""
     if name == "serve_b2_rt1":
-        q, k, v = _bf16_inputs(10, S)
+        q, k, v = inputs(10, S)
         mask = np.asarray(jax_rt1_mask(6, 8, 3))
     elif name == "ragged_s37_causal":
-        q, k, v = _bf16_inputs(11, 37)
+        q, k, v = inputs(11, 37)
         mask = np.tril(np.ones((37, 37), np.int32))
     else:
-        q, k, v = _bf16_inputs(12, S)
+        q, k, v = inputs(12, S)
         mask = _masked_rows_mask()
         ref = dense_attention_reference(*(jnp.asarray(x) for x in (q, k, v)),
                                         mask=jnp.asarray(mask))
@@ -237,7 +243,7 @@ def _strides(s, h, d):
         (torch.bfloat16, 64, _strides(66, 8, 64), (0, 1 << 20, 2 << 20, 3 << 20), "tensor_core"),
         # d = 48 is a multiple of 16: padded to 64 in shared memory.
         (torch.bfloat16, 48, _strides(66, 8, 48), (0, 1 << 20, 2 << 20), "tensor_core"),
-        (torch.float32, 128, _strides(66, 8, 128), (0, 1 << 20, 2 << 20), "simple"),
+        (torch.float32, 128, _strides(66, 8, 128), (0, 1 << 20, 2 << 20), "tf32x3"),
         (torch.bfloat16, 40, _strides(66, 8, 40), (0, 1 << 20, 2 << 20), "simple"),
         (torch.bfloat16, 272, _strides(66, 8, 272), (0, 1 << 20, 2 << 20), "simple"),
         (torch.bfloat16, 128, _strides(66, 8, 128), (0, (1 << 20) + 8, 2 << 20), "simple"),
@@ -245,10 +251,36 @@ def _strides(s, h, d):
         (torch.bfloat16, 128, _strides(66, 8, 128), (0, 1 << 20, 2 << 20, (3 << 20) + 4), "simple"),
         # a sequence stride of 1028 bf16 elements: rows 8 bytes off 16-byte alignment
         (torch.bfloat16, 128, (66 * 1028, 1028, 128) * 3, (0, 1 << 20, 2 << 20), "simple"),
+        # float32: d a multiple of 8 up to 256, rows 16-byte aligned -> tf32x3
+        (torch.float32, 128, _strides(66, 8, 128), (0, 1 << 20, 2 << 20, 3 << 20), "tf32x3"),
+        (torch.float32, 8, _strides(15, 2, 8), (0, 1 << 20, 2 << 20, 3 << 20), "tf32x3"),  # tiny
+        (torch.float32, 256, _strides(66, 8, 256), (0, 1 << 20, 2 << 20), "tf32x3"),
+        # q/k/v as views of one packed (b, s, 3, h, d) projection
+        (torch.float32, 128, (66 * 3 * 1024, 3 * 1024, 128) * 3,
+         (0, 1024 * 4, 2048 * 4), "tf32x3"),
+        (torch.float32, 12, _strides(66, 8, 12), (0, 1 << 20, 2 << 20), "simple"),
+        (torch.float32, 264, _strides(66, 8, 264), (0, 1 << 20, 2 << 20), "simple"),
+        # a float32 view one element into its storage: rows 4 bytes off
+        (torch.float32, 128, _strides(66, 8, 128), (4, (1 << 20) + 4, (2 << 20) + 4), "simple"),
+        # a sequence stride of 1026 floats: rows 8 bytes off 16-byte alignment
+        (torch.float32, 128, (66 * 1026, 1026, 128) * 3, (0, 1 << 20, 2 << 20), "simple"),
+        (torch.float32, 128, _strides(66, 8, 128), (0, 1 << 20, 2 << 20, (3 << 20) + 8), "simple"),
     ],
 )
 def test_variant_rule(dtype, d, strides, ptrs, expected):
     assert port._variant(dtype, d, strides, ptrs) == expected
+
+
+def test_variant_of_reads_the_tensors():
+    """`variant_of` applies the rule to real tensors' pointers and strides."""
+    x = torch.zeros((2, S, 8, 128))
+    mask = torch.ones((S, S), dtype=torch.uint8)
+    assert port.variant_of(x, x, x, mask) == "tf32x3"
+    assert port.variant_of(*(x.to(torch.bfloat16),) * 3) == "tensor_core"
+    off = torch.zeros(2 * S * 8 * 128 + 1)[1:].view(2, S, 8, 128)
+    assert port.variant_of(off, off, off) == "simple"
+    packed = torch.zeros((2, S, 3, 8, 128))
+    assert port.variant_of(packed[:, :, 0], packed[:, :, 1], packed[:, :, 2]) == "tf32x3"
 
 
 class _FakeLaunchTensor:
@@ -278,26 +310,21 @@ class _FakeLibrary:
     def __init__(self):
         self.calls = []
         self.rt1_fused_attention_tc_fwd = lambda *a: self.calls.append(("tensor_core", a)) or 0
+        self.rt1_fused_attention_tf32x3_fwd = lambda *a: self.calls.append(("tf32x3", a)) or 0
         self.rt1_fused_attention_fwd = lambda *a: self.calls.append(("simple", a)) or 0
 
 
 @pytest.mark.parametrize(
     "dtype,d,expected",
     [(torch.bfloat16, 128, "tensor_core"), (torch.bfloat16, 64, "tensor_core"),
-     (torch.float32, 128, "simple"), (torch.bfloat16, 40, "simple")],
+     (torch.float32, 128, "tf32x3"), (torch.bfloat16, 40, "simple"),
+     (torch.float32, 8, "tf32x3"), (torch.float32, 12, "simple")],
 )
 def test_launch_routes_by_variant_rule(monkeypatch, dtype, d, expected):
     """`_launch` calls the C entry point `_variant` names, with the wrapper's
-    query slices per block for the tensor-core kernel, and counts the launch under
+    query slices per block for the tensor-core kernels, and counts the launch under
     that variant and in the total."""
-    lib = _FakeLibrary()
-    monkeypatch.setattr(port, "_library", lambda: lib)
-    monkeypatch.setattr(port, "_current_stream", lambda device: 0)
-    real_empty = torch.empty
-    monkeypatch.setattr(torch, "empty", lambda shape, dtype, device: real_empty(shape, dtype=dtype))
-    monkeypatch.setattr(port.fused_attention, "launches", 0)
-    monkeypatch.setattr(port.fused_attention, "launches_by_variant",
-                        dict.fromkeys(port.VARIANTS, 0))
+    lib = _routing_library(monkeypatch)
     q, k, v = (_FakeLaunchTensor(dtype, (2, S, 8, d), (i + 1) << 20) for i in range(3))
     mask = _FakeLaunchTensor(torch.uint8, (1, 1, S, S), 4 << 20)
     mask.shape = torch.Size((S, S))
@@ -308,9 +335,25 @@ def test_launch_routes_by_variant_rule(monkeypatch, dtype, d, expected):
     assert args[:5] == (1 << 20, 2 << 20, 3 << 20, 4 << 20, out.data_ptr())
     if expected == "tensor_core":
         assert args[-2] == port.TC_SLICES_PER_BLOCK
+    if expected == "tf32x3":
+        assert args[-2] == port.TF32X3_SLICES_PER_BLOCK
     assert port.fused_attention.launches == 1
     assert port.fused_attention.launches_by_variant == {
         name: int(name == expected) for name in port.VARIANTS}
+
+
+def _routing_library(monkeypatch):
+    """A fake kernel library behind `_launch`, with zeroed launch counts and
+    `torch.empty` allocating on the CPU."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(port, "_library", lambda: lib)
+    monkeypatch.setattr(port, "_current_stream", lambda device: 0)
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda shape, dtype, device: real_empty(shape, dtype=dtype))
+    monkeypatch.setattr(port.fused_attention, "launches", 0)
+    monkeypatch.setattr(port.fused_attention, "launches_by_variant",
+                        dict.fromkeys(port.VARIANTS, 0))
+    return lib
 
 
 def test_forcing_the_tensor_core_kernel_on_float32_raises(monkeypatch):
@@ -318,3 +361,122 @@ def test_forcing_the_tensor_core_kernel_on_float32_raises(monkeypatch):
     x = _FakeLaunchTensor(torch.float32, (2, S, 8, 128), 1 << 20)
     with pytest.raises(ValueError):
         port._launch(x, x, x, None, 0.1, variant="tensor_core")
+
+
+@pytest.mark.parametrize(
+    "dtype,d,ptr",
+    [(torch.bfloat16, 128, 1 << 20),   # bf16 is the tensor-core kernel's
+     (torch.float32, 12, 1 << 20),     # d not a multiple of 8
+     (torch.float32, 128, (1 << 20) + 4)],  # rows 4 bytes off 16-byte alignment
+)
+def test_forcing_the_tf32x3_kernel_where_the_rule_refuses_raises(monkeypatch, dtype, d, ptr):
+    lib = _routing_library(monkeypatch)
+    x = _FakeLaunchTensor(dtype, (2, S, 8, d), ptr)
+    with pytest.raises(ValueError, match="tf32x3"):
+        port._launch(x, x, x, None, 0.1, variant="tf32x3")
+    assert lib.calls == [] and port.fused_attention.launches == 0
+
+
+def test_forcing_the_simple_kernel_on_an_aligned_float32_call(monkeypatch):
+    """The simple kernel takes any call: the A/B and the forced cases of
+    chip_smoke.py hold it on float32 inputs the rule gives to tf32x3."""
+    lib = _routing_library(monkeypatch)
+    x = _FakeLaunchTensor(torch.float32, (2, S, 8, 128), 1 << 20)
+    port._launch(x, x, x, None, 0.1, variant="simple")
+    assert [name for name, _ in lib.calls] == ["simple"]
+    assert port.fused_attention.launches_by_variant == {
+        "tensor_core": 0, "tf32x3": 0, "simple": 1}
+
+
+# The float32 tensor-core kernel's precision scheme (3xTF32), emulated in
+# plain PyTorch and held to the JAX function in float32 at the tolerance
+# the card holds the kernel to (chip_smoke.TOL["float32"]): standard-normal
+# float32 inputs, so q, k and v are not tf32-representable.
+
+TF32X3_TOL = 2e-5
+
+
+def _tf32_rna(x):
+    """float32 -> the nearest tf32 (10 mantissa bits), ties away from zero,
+    as cvt.rna.tf32.f32 gives: integer rounding of the low 13 bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, passes):
+    """einsum `eq` of a and b on tf32 tensor cores, fp32 accumulate: 3xTF32
+    (a_small b_big + a_big b_small + a_big b_big) or a single TF32 product."""
+    a_big, b_big = _tf32_rna(a), _tf32_rna(b)
+    if passes == 1:
+        return torch.einsum(eq, a_big, b_big)
+    a_small, b_small = _tf32_rna(a - a_big), _tf32_rna(b - b_big)
+    return (torch.einsum(eq, a_small, b_big) + torch.einsum(eq, a_big, b_small)
+            + torch.einsum(eq, a_big, b_big))
+
+
+def _kernel_tile(s, d):
+    """Keys per tile of csrc/fused_attention_tf32x3.cu (its C entry's choice)."""
+    s16 = -(-s // 16) * 16
+    if d <= 64:
+        return 128
+    if d <= 128:
+        return 80 if s16 <= 80 else 64
+    return 64 if s16 <= 64 else 32
+
+
+def _tf32x3_scheme(q, k, v, mask, passes=3, block_k=None):
+    """fp32 emulation of csrc/fused_attention_tf32x3.cu: S = Q K^T in
+    3xTF32 (`passes` = 1: one TF32 product), `scale` on the fp32 logits, -1e9
+    where the mask is 0, an online softmax in base 2 over key tiles of
+    `block_k` (the kernel's own by default), P split the same way for PV,
+    normalised by the fp32 row sum at the end."""
+    qf, kf, vf = (torch.from_numpy(x) for x in (q, k, v))
+    b, s, h, d = q.shape
+    block_k = block_k or _kernel_tile(s, d)
+    scale_log2 = np.float32(1.4426950408889634) * np.float32(1.0 / d ** 0.5)
+    fill = torch.tensor(np.float32(-1e9) * np.float32(1.4426950408889634))
+    keep = None if mask is None else torch.from_numpy(np.asarray(mask) != 0)
+    m = torch.full((b, h, s, 1), -float("inf"))
+    l = torch.zeros((b, h, s, 1))
+    o = torch.zeros((b, s, h, d))
+    for k0 in range(0, s, block_k):
+        kt, vt = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
+        logits = _tf32_product("bqhd,bkhd->bhqk", qf, kt, passes) * scale_log2
+        if keep is not None:
+            logits = torch.where(keep[:, k0:k0 + block_k], logits, fill)
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(logits - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha.permute(0, 2, 1, 3) + _tf32_product("bhqk,bkhd->bqhd", p, vt, passes)
+        m = m_new
+    return (o / l.permute(0, 2, 1, 3)).numpy()
+
+
+@pytest.mark.parametrize("block_k", [None, 32])
+@pytest.mark.parametrize("name", SCHEME_CASES)
+def test_tf32x3_scheme_matches_jax_in_fp32(name, block_k):
+    """The kernel's own tile (one tile at these shapes) and 32-key tiles,
+    which run the online softmax's rescaling over 2-3 tiles."""
+    q, k, v, mask, ref = _scheme_case(name, inputs=_f32_inputs)
+    out = _tf32x3_scheme(q, k, v, mask, block_k=block_k)
+    assert out.shape == ref.shape and np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, atol=TF32X3_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", SCHEME_CASES)
+def test_single_tf32_product_is_another_function(name):
+    """One TF32 product per operand pair (1xTF32, what a float32 matmul with
+    TF32 allowed runs) misses the same bound on the same inputs."""
+    q, k, v, mask, ref = _scheme_case(name, inputs=_f32_inputs)
+    err = np.abs(_tf32x3_scheme(q, k, v, mask, passes=1) - ref).max()
+    assert err > TF32X3_TOL
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -11 + 2.0 ** -20, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -12, 3.0], dtype=torch.float32)
+    expected = [1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 3.0]
+    assert _tf32_rna(x).tolist() == expected
+    big = _tf32_rna(x)
+    assert torch.equal(big + _tf32_rna(x - big), x)

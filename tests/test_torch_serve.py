@@ -134,6 +134,8 @@ def test_server_act_reset_metrics():
         assert code == 200 and metrics["requests_total"] == 4
         # On the CPU the fused path runs the plain version: no kernel launches.
         assert metrics["attention_launches_total"] == 0
+        for variant in ("tensor_core", "tf32x3", "simple"):
+            assert metrics[f"attention_launches_{variant}_total"] == 0
         # Warm-up: both buckets on each of the 2 batcher worker threads.
         assert metrics["engine_steps_total"] == engine.steps_total == 2 * 2 + 4
         assert metrics["resets_total"] == 1
