@@ -92,7 +92,34 @@ exits non-zero without a result line:
              --config language_table` for 4 steps with a checkpoint every 2,
              a rerun to 6 steps that must report restoring step 4, and
              `python -m rt1_tpu_torch.serve --workdir` answering one `/act`.
-12. kernels — one line listing the three kernels with their launches on
+12. data   — the flagship trained from Language-Table episode files: 256
+             train (four times the episodes a windowed loader keeps
+             decoded, so most windows read their episode file, as on a real
+             corpus) + 4 val seeded episodes x 40 steps at 180x320 written
+             under a temporary directory (removed at the end) and packed by
+             `python -m rt1_tpu_torch.data.pack_dataset`; the window sampler
+             (`native/window_sampler.cc`, built here by g++) held to its
+             plain version at 180x320 -> 256x456 and the packed gather to
+             plain slices (exact); frames/s of each loader alone at batch 8,
+             window 6 (numpy; torch at 2 and 4 workers, pinned, and at 4
+             unpinned; packed at 1, 2 and 4 threads), each after the
+             corpus's pages are dropped from the OS page cache, the numpy
+             loader with its episode reads a batch, their ms and their
+             share; the bf16 train step
+             fed by each loader through `device_feeder` (pinned, two
+             batches in flight on a copy stream) in turns with the
+             synthetic stream (synthetic, numpy, torch, packed, packed,
+             torch, numpy, synthetic): step wall median and range, ms
+             blocked on the host iterator and in the upload per step, the
+             card's idle share, frames/s, and for numpy the episode reads'
+             share of the wait; 10 more steps per fed turn whose
+             device batch must equal its host batch (>= 20 in all: a torn
+             pinned buffer fails); then the train CLI on the
+             corpus, 4 steps through the packed cache and a rerun to 6
+             through the torch loader that restores step 4, each eval on
+             `val` with 8 tensor-core launches per eval batch, and
+             `data_manifest.json` equal to the corpus's manifest.
+13. kernels — one line listing the three kernels with their launches on
              their path (serve for the tensor-core kernel, the flagship f32
              parity step for tf32x3, the `tiny` bf16 step for the simple
              one), errors, times and bound.
@@ -103,6 +130,7 @@ The last line is `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import base64
+import gc
 import json
 import os
 import signal
@@ -1116,14 +1144,14 @@ def phase_train(config_name: str = "language_table", device: str = "cuda"):
     return record
 
 
-def _run_cli(args, timeout_s):
+def _run_cli(args, timeout_s, module="rt1_tpu_torch.train"):
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "rt1_tpu_torch.train", *args], cwd=REPO,
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=timeout_s)
     if proc.returncode != 0:
         sys.stderr.write(proc.stderr[-8000:])
-        raise AssertionError(f"train CLI {args}: exit code {proc.returncode}")
+        raise AssertionError(f"{module} {args}: exit code {proc.returncode}")
     lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
     return lines, time.perf_counter() - t0
 
@@ -1178,6 +1206,445 @@ def _train_cli(config_name, device):
             "served_checkpoint_step": ready["checkpoint_step"], "act": out}
 
 
+# The data phase: Language-Table episode files -> loaders -> pinned upload
+# -> the flagship train step.
+# Train episodes: four times CACHE_EPISODES, the episodes a windowed
+# loader (each worker) keeps decoded, so that at most a quarter of the
+# timed windows find theirs decoded.
+DATA_EPISODES = {"train": 256, "val": 4}
+DATA_STEPS = 40                  # steps an episode, at Language-Table's 180x320
+DATA_WARM, DATA_BATCHES = 10, 20  # batches of each loader alone: drained, then timed
+DATA_CHECK_STEPS = 10            # fed steps per turn whose batch is held to its host batch
+DATA_CLI_TIMEOUT_S = 600
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _write_corpus(root, config, episodes_per_split, steps, seed=0):
+    """Seeded episodes with Language-Table's schema under `root`/{train,val},
+    a dataset manifest, and both splits packed by the packer's CLI."""
+    import numpy as np
+
+    from rt1_tpu_torch.data import episodes
+
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    for split, n in episodes_per_split.items():
+        for i in range(n):
+            episodes.save_episode(os.path.join(root, split, f"episode_{i:05d}.npz"),
+                                  episodes.generate_synthetic_episode(rng, num_steps=steps))
+    manifest = {"source": "chip_smoke seeded episodes", "seed": seed, "steps": steps,
+                "episodes": episodes_per_split}
+    with open(os.path.join(root, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    write_s = time.perf_counter() - t0
+    d = config.data
+    lines, pack_s = _run_cli(["--data_dir", root, "--height", str(d.height), "--width",
+                              str(d.width), "--crop_factor", str(d.crop_factor)],
+                             DATA_CLI_TIMEOUT_S, module="rt1_tpu_torch.data.pack_dataset")
+    sizes = {}
+    for dirpath, _, names in os.walk(root):
+        part = "pack" if dirpath.endswith("_packed") else "episodes"
+        sizes[part] = sizes.get(part, 0) + sum(os.path.getsize(os.path.join(dirpath, n))
+                                               for n in names)
+    # One episode file read cold (its pages just dropped), then warm.
+    probe = os.path.join(root, "train", "episode_00000.npz")
+    rates = {}
+    for kind in ("cold", "warm"):
+        if kind == "cold":
+            _drop_page_cache(root)
+        t0 = time.perf_counter()
+        with open(probe, "rb") as f:
+            n = len(f.read())
+        rates[f"{kind}_read_GBps"] = n / (time.perf_counter() - t0) / 1e9
+    return manifest, {"write_s": write_s, "pack_s": pack_s, "packs": lines, "bytes": sizes,
+                      "file_system": _file_system(root), **rates}
+
+
+def _file_system(path):
+    """The type of the file system that holds `path` (/proc/mounts)."""
+    path = os.path.realpath(path)
+    best, kind = "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            mount, fs = line.split()[1:3]
+            if (path == mount or path.startswith(mount.rstrip("/") + "/")) and \
+                    len(mount) >= len(best):
+                best, kind = mount, fs
+    return kind
+
+
+def _drop_page_cache(root):
+    """Write back every file under `root` and drop its pages from the OS
+    page cache (posix_fadvise DONTNEED), so that the next reads come from
+    the disk, as on a corpus larger than the host's memory. Pages still
+    mapped (an open pack) do not drop, nor anything on a memory file
+    system; `_write_corpus` records which it is."""
+    gc.collect()  # unmap the packs of closed caches
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            fd = os.open(os.path.join(dirpath, name), os.O_RDONLY)
+            try:
+                os.fdatasync(fd)
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+
+
+def _sampler_check(root, config, build_s):
+    """The sampler built here against its plain version at the flagship
+    geometry (exact) on one batch's worth of frames, and the packed gather
+    against plain slices."""
+    import numpy as np
+
+    from rt1_tpu_torch.data import native, pack
+    from rt1_tpu_torch.data.episodes import load_episode
+    from rt1_tpu_torch.data.pipeline import _crop_box, crop_resize_frames, crop_resize_reference
+
+    d = config.data
+    n = config.per_host_batch_size * config.model.time_sequence_length
+    frames = []
+    for i in range(2):
+        frames += list(load_episode(os.path.join(root, "train", f"episode_{i:05d}.npz"))["rgb"])
+    frames = frames[:n]
+    rng = np.random.default_rng(1)
+    boxes = [_crop_box(*f.shape[:2], d.crop_factor, rng) for f in frames]
+    t0 = time.perf_counter()
+    got = crop_resize_frames(frames, boxes, d.height, d.width)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    want = crop_resize_reference(frames, boxes, d.height, d.width)
+    mismatched = int((got != want).sum())
+    cache = pack.PackedEpisodeCache(pack.default_pack_dir(root, "train"),
+                                    window=config.model.time_sequence_length)
+    gather_mismatched = 0
+    for idx in (0, 7, len(cache) - 1):
+        ep_i, start = cache.index[idx]
+        draws = np.random.default_rng(idx)
+        boxes_w = [cache.draw_box(draws) for _ in range(cache.window)]
+        out = cache.gather_frames(ep_i, start, np.random.default_rng(idx))
+        for j, box in enumerate(boxes_w):
+            top, left = pack.map_box_to_packed(box, cache.src_h, cache.src_w, cache.packed_h,
+                                               cache.packed_w, cache.height, cache.width)
+            plain = cache.frames(ep_i)[cache._padded_src(start, j), top:top + cache.height,
+                                       left:left + cache.width]
+            gather_mismatched += int((out[j] != plain).sum())
+    record = {"build_s": build_s, "library": os.path.relpath(native.library_path(), REPO),
+              "frames": len(frames), "shape": [int(x) for x in got.shape],
+              "native_ms": native_ms, "mismatched_bytes": mismatched,
+              "gather_mismatched_bytes": gather_mismatched, "tolerance": "exact"}
+    if mismatched or gather_mismatched:
+        raise AssertionError(f"data: sampler disagrees with its plain version: {record}")
+    return record
+
+
+def _time_loader(batches, frames_per_batch, dataset=None):
+    """frames/s of a host-batch iterator alone: DATA_WARM batches drained
+    (the first includes the loader's start-up), DATA_BATCHES timed. With
+    the `dataset` it reads in this process, also its episode reads a
+    batch, their ms and share of the batch, and the share of windows that
+    found their episode decoded."""
+    t0 = time.perf_counter()
+    next(batches)
+    first_s = time.perf_counter() - t0
+    for _ in range(DATA_WARM - 1):
+        next(batches)
+    r0, s0 = (dataset.episode_reads, dataset.episode_read_s) if dataset else (0, 0.0)
+    t0 = time.perf_counter()
+    for _ in range(DATA_BATCHES):
+        next(batches)
+    dt = time.perf_counter() - t0
+    getattr(batches, "close", lambda: None)()
+    ms = dt * 1e3 / DATA_BATCHES
+    record = {"first_batch_s": first_s, "ms_per_batch": ms,
+              "frames_per_s": DATA_BATCHES * frames_per_batch / dt}
+    if dataset is not None:
+        reads = dataset.episode_reads - r0
+        read_ms = (dataset.episode_read_s - s0) * 1e3 / DATA_BATCHES
+        windows = DATA_BATCHES * frames_per_batch // dataset.window
+        record.update({"episode_reads_per_batch": reads / DATA_BATCHES,
+                       "episode_read_ms_per_batch": read_ms, "episode_read_share": read_ms / ms,
+                       "decoded_hit_rate": 1.0 - reads / windows})
+    return record
+
+
+def _loader_config(config, loader, **data):
+    import copy
+
+    cfg = copy.deepcopy(config)
+    cfg.data.packed_cache = loader == "packed"
+    cfg.data.loader = "numpy" if loader == "numpy" else "torch"
+    for key, value in data.items():
+        setattr(cfg.data, key, value)
+    return cfg
+
+
+class _HostRecorder:
+    """Passes host batches through; once armed, keeps a copy of each so the
+    batch the step received can be held to it."""
+
+    def __init__(self, source):
+        self.source = source
+        self.armed = False
+        self.copies = []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        import torch
+
+        batch = next(self.source)
+        self.copies.append({g: {k: torch.as_tensor(v).clone() for k, v in leaves.items()}
+                            for g, leaves in batch.items()} if self.armed else None)
+        return batch
+
+    def close(self):
+        getattr(self.source, "close", lambda: None)()
+
+
+def _fed_run(fns, state, step, next_batch, feeder, dev, frames_per_batch, recorder=None,
+             dataset=None):
+    """TRAIN_WARMUP + TRAIN_TIMED train steps, each fed by `next_batch()`,
+    synchronised per step; then the loop's rate over TRAIN_TIMED steps with
+    one synchronisation; the profiler's idle share over 3 steps; with a
+    recorder, DATA_CHECK_STEPS more steps whose batch must equal its host
+    batch. With the `dataset` the feed reads in this process, the episode
+    reads' ms a timed step and their share of the wait. Returns (record,
+    next step)."""
+    import numpy as np
+
+    box = {"step": step}
+
+    def one_step():
+        batch = next_batch(box["step"])
+        fns.train_step(state, batch, box["step"])
+        box["step"] += 1
+        return batch
+
+    for _ in range(TRAIN_WARMUP):
+        one_step()
+    _sync(dev)
+    w0, u0 = (feeder.wait_s, feeder.upload_s) if feeder else (0.0, 0.0)
+    r0, s0 = (dataset.episode_reads, dataset.episode_read_s) if dataset else (0, 0.0)
+    walls = []
+    for _ in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        one_step()
+        _sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    per = 1e3 / TRAIN_TIMED
+    wait_ms = (feeder.wait_s - w0) * per if feeder else None
+    upload_ms = (feeder.upload_s - u0) * per if feeder else None
+    reads = (dataset.episode_reads - r0, (dataset.episode_read_s - s0) * per) if dataset else None
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        one_step()
+    _sync(dev)
+    loop_s = time.perf_counter() - t0
+    median = float(np.median(walls))
+    record = {"step_wall_ms": {"median": median, "min": min(walls), "max": max(walls),
+                               "all": walls},
+              "wait_ms_per_step": wait_ms, "upload_ms_per_step": upload_ms,
+              "frames_per_s": frames_per_batch / (median / 1e3),
+              "loop_frames_per_s": TRAIN_TIMED * frames_per_batch / loop_s}
+    if reads is not None:
+        record.update({"episode_reads_per_step": reads[0] / TRAIN_TIMED,
+                       "episode_read_ms_per_step": reads[1],
+                       "episode_read_share_of_wait": reads[1] / wait_ms if wait_ms else None})
+    if dev.type == "cuda":
+        prof = device_profile(one_step, iters=3)
+        if prof is not None:
+            record.update({"profiled_wall_ms": prof["wall_ms"], "device_busy_ms": prof["busy_ms"],
+                           "idle_share": 1.0 - prof["busy_ms"] / prof["wall_ms"]})
+    if recorder is not None:
+        recorder.armed = True
+        checked = 0
+        for _ in range(DATA_CHECK_STEPS):
+            obs, actions = one_step()
+            _sync(dev)
+            host = recorder.copies[feeder.batches - 1]
+            recorder.copies[feeder.batches - 1] = None
+            # Pulled before arming (the feeder reads `depth` ahead): unchecked.
+            if host is None:
+                continue
+            for group, got in (("observations", obs), ("actions", actions)):
+                for k, v in got.items():
+                    if not _tensors_equal(v.cpu(), host[group][k]):
+                        raise AssertionError(f"data: the device batch's {group}/{k} differs "
+                                             "from its host batch (a torn upload)")
+            checked += 1
+        record["batches_held_to_host"] = checked
+    return record, box["step"]
+
+
+def _tensors_equal(a, b):
+    import torch
+
+    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _data_cli(root, config_name, device, manifest, num_layers):
+    """The trainer's CLI on the corpus: 4 steps through the packed cache with
+    eval on val (fused attention), then a rerun to 6 through the torch
+    loader that restores step 4."""
+    on_card = device.startswith("cuda")
+    with tempfile.TemporaryDirectory() as workdir:
+        base = ["--config", config_name, "--workdir", workdir, "--device", device,
+                "--set", f"data.data_dir={root}", "--set", "checkpoint_every_steps=2",
+                "--set", "eval_every_steps=2", "--set", "eval_batches=1",
+                "--set", "log_every_steps=2", "--set", "model.attention_impl=fused"]
+        first, first_s = _run_cli(base + ["--set", "data.packed_cache=True", "--set",
+                                          "num_steps=4"], DATA_CLI_TIMEOUT_S)
+        second, second_s = _run_cli(base + ["--set", "data.loader=torch", "--set",
+                                            "num_steps=6"], DATA_CLI_TIMEOUT_S)
+        with open(os.path.join(workdir, "data_manifest.json")) as f:
+            stamped = json.load(f)
+    runs = []
+    for lines, loader, restored, last in ((first, "packed", None, 4), (second, "torch", 4, 6)):
+        start = next(x for x in lines if x.get("status") == "start")
+        evals = [x for x in lines if "eval_loss" in x]
+        expected = num_layers if on_card else 0
+        bad = [x for x in evals
+               if x["eval_attention_launches_tensor_core"] != expected * x["eval_batches"]
+               or x["eval_attention_launches_tf32x3"] or x["eval_attention_launches_simple"]]
+        stale = [x for x in lines if x.get("status") == "packed_cache_stale"]
+        if start["data_loader"] != loader or start["restored_step"] != restored or stale or \
+                bad or not evals or lines[-1].get("checkpoint_step") != last:
+            raise AssertionError(f"data CLI ({loader}): start {start}, evals {evals}, stale "
+                                 f"{stale}, end {lines[-1]}")
+        runs.append({"data_loader": loader, "restored_step": restored,
+                     "eval_steps": [x["step"] for x in evals],
+                     "eval_attention_launches_tensor_core": [
+                         x["eval_attention_launches_tensor_core"] for x in evals],
+                     "checkpoint_step": lines[-1]["checkpoint_step"]})
+    if stamped != manifest:
+        raise AssertionError(f"data CLI: data_manifest.json {stamped} != {manifest}")
+    runs[0]["seconds"], runs[1]["seconds"] = first_s, second_s
+    return runs
+
+
+def phase_data(config_name: str = "language_table", device: str = "cuda",
+               episodes_per_split=None, steps: int = DATA_STEPS):
+    """Train the flagship from episode files: the corpus and its packs, the
+    sampler held to its plain version, each loader alone, the bf16 train
+    step fed by each loader through `device_feeder` beside the synthetic
+    stream, device batches held to their host batches, and the CLI."""
+    import shutil
+
+    import torch
+
+    from rt1_tpu_torch.configs import get_config
+    from rt1_tpu_torch.data import native
+    from rt1_tpu_torch.data.feeder import SampleAheadFeeder
+    from rt1_tpu_torch.data.pack import PackedEpisodeCache, default_pack_dir
+    from rt1_tpu_torch.data.pipeline import (CACHE_EPISODES, WindowedEpisodeDataset,
+                                             device_feeder, loader_batches)
+    from rt1_tpu_torch.train.train import build_model, dataset_batches, synthetic_batch
+    from rt1_tpu_torch.trainer.state import create_train_state
+    from rt1_tpu_torch.trainer.train import optimizer_from_config, train_step_fns_from_config
+
+    dev = torch.device(device)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = get_config(config_name)
+    b, t = config.per_host_batch_size, config.model.time_sequence_length
+    frames_per_batch = b * t
+    t0 = time.perf_counter()
+    native.build()  # g++ of native/window_sampler.cc: its first use in this run
+    build_s = time.perf_counter() - t0
+    if episodes_per_split is None:
+        episodes_per_split = DATA_EPISODES
+        if DATA_EPISODES["train"] < 4 * CACHE_EPISODES:
+            raise AssertionError("data: the train corpus must outgrow the decoded-episode "
+                                 f"cache ({CACHE_EPISODES}) four times")
+    root = tempfile.mkdtemp(prefix="rt1_chip_smoke_data_")
+    try:
+        config.data.data_dir = root
+        free_gb = shutil.disk_usage(root).free / 1e9
+        manifest, corpus = _write_corpus(root, config, episodes_per_split, steps)
+        corpus["free_GB_before"] = free_gb
+        sampler = _sampler_check(root, config, build_s)
+        paths = sorted(os.path.join(root, "train", n) for n in os.listdir(
+            os.path.join(root, "train")))
+
+        def windowed():
+            return WindowedEpisodeDataset(paths, window=t, crop_factor=config.data.crop_factor,
+                                          height=config.data.height, width=config.data.width)
+
+        # Each loader from a cold page cache, the numpy loader with a cold
+        # decoded-episode cache too (the workers' start empty).
+        _drop_page_cache(root)
+        ds = windowed()
+        alone = {"numpy": _time_loader(ds.numpy_batches(b, seed=0), frames_per_batch, ds)}
+        # As the trainer runs it (pinned on the card), and once unpinned.
+        for workers, pin in ((2, True), (4, True), (4, False)):
+            name = f"torch_{workers}_workers" + ("" if pin else "_unpinned")
+            _drop_page_cache(root)
+            alone[name] = _time_loader(loader_batches(windowed().as_torch_loader(
+                b, seed=0, num_workers=workers, pin_memory=pin and dev.type == "cuda")),
+                frames_per_batch)
+        del ds
+        for threads in (1, 2, 4):
+            _drop_page_cache(root)
+            alone[f"packed_{threads}_threads"] = _time_loader(SampleAheadFeeder(
+                PackedEpisodeCache(default_pack_dir(root, "train"), window=t), b, seed=0,
+                num_threads=threads), frames_per_batch)
+
+        policy = build_model(config, dev)
+        optimizer = optimizer_from_config(config)
+        state = create_train_state(policy, optimizer)
+        fns = train_step_fns_from_config(config, optimizer)
+        fed, step = {}, 0
+        turns = ("synthetic", "numpy", "torch", "packed", "packed", "torch", "numpy", "synthetic")
+        for turn, loader in enumerate(turns):
+            if loader == "synthetic":
+                record, step = _fed_run(
+                    fns, state, step, lambda i: synthetic_batch(config, config.seed, i, dev),
+                    None, dev, frames_per_batch)
+            else:
+                _drop_page_cache(root)
+                dataset = None
+                if loader == "numpy":
+                    # As dataset_batches builds it, held here for its reads.
+                    dataset = windowed()
+                    batches = dataset.numpy_batches(b, seed=config.seed)
+                else:
+                    stream = dataset_batches(_loader_config(config, loader), "train",
+                                             pin_memory=dev.type == "cuda")
+                    if stream.loader != loader:
+                        raise AssertionError(f"data: asked for {loader}, got {stream.loader}")
+                    batches = stream.batches
+                recorder = _HostRecorder(batches)
+                feeder = device_feeder(recorder, dev, depth=2)
+                try:
+                    record, step = _fed_run(fns, state, step, lambda i: next(feeder), feeder,
+                                            dev, frames_per_batch, recorder, dataset)
+                finally:
+                    feeder.close()
+            fed[f"{turn}_{loader}"] = record
+        held = sum(r.get("batches_held_to_host", 0) for r in fed.values())
+        if held < 20:
+            raise AssertionError(f"data: only {held} device batches held to their host batches")
+        num_layers = policy.num_layers
+        del policy, state, fns, optimizer
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        cli = _data_cli(root, config_name, device, manifest, num_layers)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    record = {"phase": "data", "config": config_name, "batch": b, "window": t,
+              "image": [config.data.height, config.data.width], "corpus": corpus,
+              "sampler": sampler, "loader_alone": alone, "fed_step": fed,
+              "batches_held_to_host": held, "cli": cli}
+    emit(record)
+    return record
+
+
 def _kernel_entry(name, source, launches, path, head, cases):
     """One entry of the `kernels` line: the kernel's numbers at `head` (the
     case of its path's shape) and its largest error over `cases`."""
@@ -1197,7 +1664,8 @@ def _kernel_entry(name, source, launches, path, head, cases):
     }
 
 
-PHASES = ("kernel", "ab", "sweep", "parity", "tiny", "step", "serve", "train_parity", "train")
+PHASES = ("kernel", "ab", "sweep", "parity", "tiny", "step", "serve", "train_parity", "train",
+          "data")
 
 
 def main(argv=None) -> int:

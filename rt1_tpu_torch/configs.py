@@ -21,6 +21,7 @@ from __future__ import annotations
 import ast
 import dataclasses
 import os
+import typing
 from typing import Optional, Tuple
 
 
@@ -51,8 +52,35 @@ class ModelConfig:
 
 @dataclasses.dataclass
 class DataConfig:
+    # Empty: synthetic batches drawn on the device. Else the episode root,
+    # <data_dir>/{train,val}/episode_*.npz (`rt1_tpu_torch/data/`).
+    data_dir: str = ""
     height: int = 256
     width: int = 456
+    crop_factor: Optional[float] = 0.95   # None: the full frame
+    # "torch" (a DataLoader of `num_workers` worker processes) | "numpy"
+    # (the loop's own thread); "tf", the JAX package's default, maps to
+    # "torch"; "rlds_tf" needs TensorFlow and raises.
+    loader: str = "tf"
+    # tf.data's shuffle buffer in JAX. The port's loaders draw a full
+    # permutation per epoch (a buffer as large as the corpus), so any
+    # other value raises.
+    shuffle_buffer: int = 2048
+    num_workers: int = 4                  # port only: the torch loader's processes
+    prefetch_factor: int = 2              # port only: batches in flight per worker
+    # CLIP BPE instruction tokens for LAVA: not ported yet (raises).
+    clip_tokens: bool = False
+    # The packed mmap frame cache and the sample-ahead feeder: build the
+    # pack with `python -m rt1_tpu_torch.data.pack_dataset`; a missing or
+    # stale pack falls back to `loader` (logged as a JSON line).
+    packed_cache: bool = False
+    packed_cache_dir: Optional[str] = None  # default <data_dir>/<split>_packed
+    feeder_threads: int = 2
+    feeder_depth: int = 2
+    feeder_stall_timeout_s: Optional[float] = None
+    # Re-read the pack's manifest at each epoch boundary (appended shards).
+    packed_refresh: bool = True
+    task_weights: str = ""                # "task:weight,..." per-task sampling weights
 
 
 @dataclasses.dataclass
@@ -147,9 +175,17 @@ def get_config(name: str) -> Config:
     return CONFIGS[key]()
 
 
-def _parse_value(text: str, current, key: str):
-    """`text` as a value of the type `current` has (None-valued fields take
-    an int or None)."""
+def _parse_value(text: str, current, key: str, hint):
+    """`text` as a value of the field's type: that of `current`, or, for an
+    `Optional[X]` field (`hint`, the resolved annotation) now None, X's.
+    "none" sets an Optional field to None."""
+    args = typing.get_args(hint)
+    if typing.get_origin(hint) is typing.Union and type(None) in args:
+        if text.strip().lower() in ("none", "null"):
+            return None
+        if current is None:
+            (inner,) = [a for a in args if a is not type(None)]
+            current = inner()
     if isinstance(current, bool):
         lowered = text.strip().lower()
         if lowered not in ("true", "false", "1", "0"):
@@ -161,10 +197,6 @@ def _parse_value(text: str, current, key: str):
         value = ast.literal_eval(text.strip())
     except (ValueError, SyntaxError) as exc:
         raise ValueError(f"{key}: cannot parse {text!r}") from exc
-    if current is None or value is None:
-        if value is not None and not isinstance(value, int):
-            raise ValueError(f"{key}: expected an int or None, got {text!r}")
-        return value
     if isinstance(current, tuple):
         value = tuple(value) if isinstance(value, (tuple, list)) else (value,)
         if not all(isinstance(v, int) for v in value):
@@ -189,7 +221,7 @@ def apply_override(config: Config, assignment: str) -> None:
         if not dataclasses.is_dataclass(node) or not hasattr(node, part):
             raise ValueError(f"unknown config key {key!r}")
         node = getattr(node, part)
-    fields = {f.name for f in dataclasses.fields(node)} if dataclasses.is_dataclass(node) else set()
-    if leaf not in fields or dataclasses.is_dataclass(getattr(node, leaf)):
+    hints = typing.get_type_hints(type(node)) if dataclasses.is_dataclass(node) else {}
+    if leaf not in hints or dataclasses.is_dataclass(getattr(node, leaf)):
         raise ValueError(f"unknown config key {key!r}")
-    setattr(node, leaf, _parse_value(text, getattr(node, leaf), key))
+    setattr(node, leaf, _parse_value(text, getattr(node, leaf), key, hints[leaf]))

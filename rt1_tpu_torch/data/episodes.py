@@ -1,0 +1,113 @@
+"""Episode record format and storage (counterpart of
+`rt1_tpu/data/episodes.py`).
+
+An episode is a dict of arrays stacked over time (T steps):
+
+* ``rgb``          (T, H, W, 3) uint8 — raw simulator frames (180x320 for
+  Language-Table)
+* ``action``       (T, 2) float32 — 2-D effector deltas
+* ``is_first``     (T,) bool
+* ``is_terminal``  (T,) bool
+* ``instruction``  (T, 512) float32 — the instruction's embedding
+
+Optional: ``instruction_text`` (L,) uint8, the instruction as UTF-8 bytes,
+and ``task`` (UTF-8 bytes of the task id), which the packer carries into
+its manifest.
+
+One uncompressed `.npz` per episode, written by `np.savez` and read by
+`np.load`: the same files the JAX package writes and reads.
+`read_reference_episode` reads the reference's pickled list-of-step-dicts
+`.npy`. `read_manifest` reads a dataset's `manifest.json` (counterpart of
+`rt1_tpu/data/collect.py::read_manifest`).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Optional
+
+import numpy as np
+
+Episode = Dict[str, np.ndarray]
+
+REQUIRED_KEYS = ("rgb", "action", "is_first", "is_terminal", "instruction")
+
+
+def encode_instruction_text(text: str) -> np.ndarray:
+    """Instruction string -> (L,) uint8 UTF-8 bytes."""
+    return np.frombuffer(text.encode("utf-8"), np.uint8).copy()
+
+
+def decode_instruction_text(arr: np.ndarray) -> str:
+    return bytes(np.asarray(arr, np.uint8)).decode("utf-8")
+
+
+def validate_episode(ep: Episode) -> None:
+    for k in REQUIRED_KEYS:
+        if k not in ep:
+            raise KeyError(f"episode missing key {k!r}; has {sorted(ep)}")
+    t = ep["rgb"].shape[0]
+    for k in REQUIRED_KEYS:
+        if ep[k].shape[0] != t:
+            raise ValueError(f"{k} has {ep[k].shape[0]} steps, rgb has {t}")
+
+
+def save_episode(path: str, ep: Episode) -> None:
+    validate_episode(ep)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **ep)
+
+
+def load_episode(path: str) -> Episode:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def read_reference_episode(path: str) -> Episode:
+    """Read the reference's pickled list-of-step-dicts `.npy` format. It
+    unpickles, so read only files this project or the reference wrote."""
+    steps = np.load(path, allow_pickle=True)
+    ep = {
+        "rgb": np.stack([s["rgb"] for s in steps]).astype(np.uint8),
+        "action": np.stack([s["action"] for s in steps]).astype(np.float32),
+        "is_first": np.array([bool(s["is_first"]) for s in steps]),
+        "is_terminal": np.array([bool(s["is_terminal"]) for s in steps]),
+        "instruction": np.stack([s["instruction"] for s in steps]).astype(np.float32),
+    }
+    validate_episode(ep)
+    return ep
+
+
+def generate_synthetic_episode(
+    rng: np.random.Generator,
+    num_steps: Optional[int] = None,
+    height: int = 180,
+    width: int = 320,
+    instruction_dim: int = 512,
+) -> Episode:
+    """Random episode with the Language-Table schema, for tests and the
+    on-card data phase. Draws from `rng` in the JAX package's order, so one
+    seed gives the same episode in both packages."""
+    t = int(num_steps if num_steps is not None else rng.integers(8, 40))
+    instruction = rng.standard_normal(instruction_dim).astype(np.float32)
+    is_terminal = np.zeros(t, bool)
+    is_terminal[-1] = True
+    is_first = np.zeros(t, bool)
+    is_first[0] = True
+    return {
+        "rgb": rng.integers(0, 256, (t, height, width, 3), dtype=np.uint8),
+        "action": rng.uniform(-0.1, 0.1, (t, 2)).astype(np.float32),
+        "is_first": is_first,
+        "is_terminal": is_terminal,
+        "instruction": np.tile(instruction, (t, 1)),
+    }
+
+
+def read_manifest(data_dir: str, manifest_name: str = "manifest.json"):
+    """A dataset's manifest dict, or None for datasets written without one."""
+    path = os.path.join(data_dir, manifest_name)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)

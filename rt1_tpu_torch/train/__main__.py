@@ -8,12 +8,25 @@ Run (the smoke config on the CPU, 4 steps, checkpoints at 2 and 4):
 
   python -m rt1_tpu_torch.train --config tiny --workdir /tmp/rt1_tiny --device cpu
 
+Run (the flagship on the card from Language-Table episode files, through
+the packed cache; pack each split once first):
+
+  python -m rt1_tpu_torch.data.pack_dataset --data_dir /data/lt --split train --split val
+  python -m rt1_tpu_torch.train --config language_table --workdir /tmp/rt1_torch \\
+      --set data.data_dir=/data/lt --set data.packed_cache=True
+
+Without `data.packed_cache` (or with a stale pack) the episodes go through
+the windowed loader: `data.loader=tf` or `torch` (a DataLoader of
+`data.num_workers` processes, the default) or `numpy` (the loop's own
+thread). With `data.data_dir` empty the loop trains on synthetic batches.
+
 Override any config field with `--set key=value` (repeatable), e.g.
 `--set num_steps=6 --set model.dropout_rate=0`; `--set
 model.attention_impl=fused` runs the eval steps' attention through the
 fused kernel (train steps always run dense). A second run in the same
-workdir resumes from the newest checkpoint. Prints one JSON line at the
-start (`restored_step` names the checkpoint it resumed from), one per
+workdir resumes from the newest checkpoint (the data stream restarts).
+Prints one JSON line at the start (`restored_step` names the checkpoint
+it resumed from, `data_loader` the source of the batches), one per
 log and eval step, and one at the end; serve the result with
 `python -m rt1_tpu_torch.serve --config <name> --workdir <dir>`.
 """

@@ -1,8 +1,8 @@
 """Guard: the port imports nothing of JAX and nothing of `rt1_tpu`.
 
 A fresh interpreter blocks jax, flax, optax, orbax, tensorflow,
-ml_collections, absl and the top-level module `rt1_tpu` (by exact name:
-`rt1_tpu_torch` shares its prefix), then imports every module of
+ml_collections, absl, cv2 and the top-level module `rt1_tpu` (by exact
+name: `rt1_tpu_torch` shares its prefix), then imports every module of
 `rt1_tpu_torch` and `chip_smoke.py`. The machine with the card has none of
 those packages, and `rt1_tpu/__init__.py` takes a chip-claim lock.
 """
@@ -20,7 +20,7 @@ import pkgutil
 import sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflow",
-           "ml_collections", "absl", "rt1_tpu")
+           "ml_collections", "absl", "cv2", "rt1_tpu")
 
 
 def blocked(name):
@@ -90,4 +90,12 @@ def test_training_modules_are_among_those_imported():
                  "rt1_tpu_torch.trainer.state", "rt1_tpu_torch.trainer.train",
                  "rt1_tpu_torch.trainer.checkpoints", "rt1_tpu_torch.trainer.metrics",
                  "rt1_tpu_torch.train.train", "rt1_tpu_torch.train.__main__"):
+        assert name in names, name
+
+
+def test_data_modules_are_among_those_imported():
+    names = set(_port_modules())
+    for name in ("rt1_tpu_torch.data.episodes", "rt1_tpu_torch.data.native",
+                 "rt1_tpu_torch.data.pipeline", "rt1_tpu_torch.data.pack",
+                 "rt1_tpu_torch.data.feeder", "rt1_tpu_torch.data.pack_dataset"):
         assert name in names, name
