@@ -119,10 +119,33 @@ exits non-zero without a result line:
              through the torch loader that restores step 4, each eval on
              `val` with 8 tensor-core launches per eval batch, and
              `data_manifest.json` equal to the corpus's manifest.
-13. kernels — one line listing the three kernels with their launches on
+13. eval   — the closed-loop Language-Table eval of the flagship: the
+             train CLI writes a checkpoint at step 2 under a temporary
+             directory, `python -m rt1_tpu_torch.eval --config language_table
+             --workdir <it> --episodes 2 --max_steps 80` restores it (its
+             JSON must carry every key and the trainer's step); then in
+             process one bf16 episode of 80 control steps of that
+             checkpoint (fused attention, BLOCK_8 block2block, 180x320
+             frames drawn by the numpy renderer, cropped and resized to
+             256x456 by the native sampler): p50 / p99 / max ms of
+             `policy.action`, the wrapped `env.step`, `render_board`, the
+             crop-resize and the whole control step, the RRT validation of
+             each episode's init, 8 tensor-core launches a step and no
+             other, whether the p99 meets the 10 Hz budget, and the card's
+             busy time, idle share and launches a step over 5 more steps
+             (torch.profiler); then 12 float32 control steps on the card
+             (TF32 off, the window rolls after 6; 8 tf32x3 launches a
+             step, no other) replayed through a fresh CPU policy of the
+             same checkpoint: each step's logits within 1e-3 x max|logit|,
+             actions within 1e-6 wherever every action token's top-2 gap
+             exceeds that bound; then `--baseline oracle` and `--baseline
+             random` (3 episodes each) through the CLI and one oracle
+             episode on the `kinematic_arm` backend.
+14. kernels — one line listing the three kernels with their launches on
              their path (serve for the tensor-core kernel, the flagship f32
              parity step for tf32x3, the `tiny` bf16 step for the simple
-             one), errors, times and bound.
+             one) and on the eval path (`eval_launches`), errors, times and
+             bound.
 
 The last line is `{"ok": true, "device": {...}}`.
 """
@@ -1645,6 +1668,294 @@ def phase_data(config_name: str = "language_table", device: str = "cuda",
     return record
 
 
+# The eval phase: the closed-loop Language-Table eval of the flagship.
+EVAL_CLI_EPISODES = 2
+EVAL_STEPS = 80                  # the protocol's episode budget
+EVAL_PROFILE_STEPS = 5
+EVAL_REPLAY_STEPS = 12           # the window (6) rolls after step 6
+EVAL_BASELINE_EPISODES = 3
+EVAL_BUDGET_MS = 100.0           # the 10 Hz control period
+EVAL_CLI_TIMEOUT_S = 600
+
+
+def _quantiles(samples):
+    import numpy as np
+
+    a = np.asarray(samples, np.float64)
+    return {"p50": float(np.percentile(a, 50)), "p99": float(np.percentile(a, 99)),
+            "max": float(a.max()), "n": int(a.size)}
+
+
+def _env_kwargs(config, backend="kinematic"):
+    """The eval CLI's env settings for `config` (`eval/main.py`)."""
+    return dict(target_height=config.data.height, target_width=config.data.width,
+                random_crop_factor=config.data.crop_factor,
+                sequence_length=config.model.time_sequence_length, backend=backend)
+
+
+def _eval_env(config, seed):
+    """The CLI's default env chain: BLOCK_8, block2block."""
+    from rt1_tpu_torch.eval.evaluate import build_eval_env
+
+    return build_eval_env(seed=seed, **_env_kwargs(config))
+
+
+def _record_logits(policy):
+    """Keep each `infer_step`'s action logits (row 0) in a list, on the host."""
+    logits = []
+    infer_step = policy.infer_step
+
+    def recording(obs, state):
+        out, new_state = infer_step(obs, state)
+        logits.append(out["action_logits"][0].double().cpu())
+        return out, new_state
+
+    policy.infer_step = recording
+    return logits
+
+
+def _timed_eval_episode(config, workdir, device):
+    """One bf16 episode of EVAL_STEPS control steps of the restored
+    flagship: per-phase host times, the RRT validation, launches per step,
+    then torch.profiler over EVAL_PROFILE_STEPS more steps."""
+    import torch
+
+    from rt1_tpu_torch.envs import language_table as lt_module
+    from rt1_tpu_torch.eval import wrappers as wrappers_module
+    from rt1_tpu_torch.eval.evaluate import validated_reset
+    from rt1_tpu_torch.eval.policy import RT1EvalPolicy
+    from rt1_tpu_torch.eval.restore import load_policy_and_step
+    from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
+
+    model, step = load_policy_and_step(config, device=device, attention_impl="fused",
+                                       workdir=workdir)
+    policy = RT1EvalPolicy(model)
+    h, w = config.data.height, config.data.width
+    policy.engine.warmup((h, w, 3))
+    env = _eval_env(config, seed=0)
+    spans = {"render_board": [], "crop_resize": []}
+    originals = (lt_module.render_board, wrappers_module.crop_resize_batch)
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spans[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    lt_module.render_board = timed(originals[0], "render_board")
+    wrappers_module.crop_resize_batch = timed(originals[1], "crop_resize")
+    times = {k: [] for k in ("policy_action", "env_step", "render_board", "crop_resize",
+                             "control_step")}
+    rrt_s, box = [], {}
+    try:
+        def reset():
+            policy.reset()
+            t0 = time.perf_counter()
+            box["obs"] = validated_reset(env)
+            rrt_s.append(time.perf_counter() - t0)
+
+        def control_step():
+            for v in spans.values():
+                v.clear()
+            t0 = time.perf_counter()
+            action = policy.action(box["obs"])
+            t1 = time.perf_counter()
+            box["obs"], _, done, _ = env.step(action)
+            t2 = time.perf_counter()
+            times["policy_action"].append((t1 - t0) * 1e3)
+            times["env_step"].append((t2 - t1) * 1e3)
+            times["control_step"].append((t2 - t0) * 1e3)
+            times["render_board"].append(sum(spans["render_board"]))
+            times["crop_resize"].append(sum(spans["crop_resize"]))
+            if done:
+                reset()
+
+        reset()
+        steps_before = policy.engine.steps_total
+        reset_launch_counts()  # the timed episode's launches start here
+        for _ in range(EVAL_STEPS):
+            control_step()
+        on_card = torch.device(device).type == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+        launches = dict(fused_attention.launches_by_variant)
+        engine_steps = policy.engine.steps_total - steps_before
+        prof = device_profile(control_step, iters=EVAL_PROFILE_STEPS) if on_card else None
+    finally:
+        lt_module.render_board, wrappers_module.crop_resize_batch = originals
+    layers = model.num_layers
+    # bf16 on the card: the tensor-core kernel once per decoder layer a step.
+    expected = {"tensor_core": layers * engine_steps if on_card else 0, "tf32x3": 0, "simple": 0}
+    if engine_steps != EVAL_STEPS or launches != expected:
+        raise AssertionError(f"eval: {engine_steps} engine steps, launches {launches}, "
+                             f"expected {expected}")
+    timed_ms = {k: _quantiles(v[:EVAL_STEPS]) for k, v in times.items()}
+    kinematics = [e - r - c for e, r, c in zip(times["env_step"], times["render_board"],
+                                               times["crop_resize"])][:EVAL_STEPS]
+    record = {
+        "dtype": config.model.dtype, "checkpoint_step": step, "steps": EVAL_STEPS,
+        "episodes_started": len(rrt_s), "ms": timed_ms,
+        "env_step_less_render_and_resize_ms": _quantiles(kinematics),
+        "rrt_validation_s": rrt_s, "launches_by_variant": launches,
+        "attention_launches_per_step": launches["tensor_core"] / EVAL_STEPS,
+        "budget_ms": EVAL_BUDGET_MS,
+        "meets_10hz_budget": timed_ms["control_step"]["p99"] < EVAL_BUDGET_MS,
+    }
+    if prof is not None:
+        attn = {name[:80]: ms for name, ms in prof["kernels"].items() if "attention" in name}
+        record.update({
+            "profiled_control_step_ms": prof["wall_ms"], "device_busy_ms": prof["busy_ms"],
+            "idle_share": 1.0 - prof["busy_ms"] / prof["wall_ms"],
+            "device_launches_per_step": prof["launches"], "attention_kernels_ms": attn,
+        })
+    del policy, model
+    torch.cuda.empty_cache()
+    return record
+
+
+def _eval_replay(config, workdir, device):
+    """EVAL_REPLAY_STEPS float32 control steps on the card (tf32x3, TF32 off),
+    replayed through a fresh CPU policy of the same checkpoint (plain path):
+    logits within PARITY_REL_TOL x max|logit|, actions equal where every
+    action token's top-2 gap exceeds that bound."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.eval.evaluate import validated_reset
+    from rt1_tpu_torch.eval.policy import RT1EvalPolicy
+    from rt1_tpu_torch.eval.restore import load_policy_and_step
+    from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = copy.deepcopy(config)
+    config.model.dtype = "float32"
+    h, w = config.data.height, config.data.width
+    runs = {}
+    for dev in (device, "cpu"):
+        model, _ = load_policy_and_step(config, device=dev, attention_impl="fused",
+                                        workdir=workdir)
+        policy = RT1EvalPolicy(model)
+        policy.engine.warmup((h, w, 3))
+        logits = _record_logits(model)
+        runs[dev] = {"logits": logits, "actions": [], "seq_idx": []}
+        t0 = time.perf_counter()
+        if dev == device:
+            env = _eval_env(config, seed=1)
+            obs = validated_reset(env)
+            observations = []
+            reset_launch_counts()  # the replayed steps' launches start here
+            for _ in range(EVAL_REPLAY_STEPS):
+                observations.append(obs)
+                action = policy.action(obs)
+                runs[dev]["actions"].append(action)
+                runs[dev]["seq_idx"].append(int(policy.network_state["seq_idx"]))
+                obs, _, done, _ = env.step(action)
+                if done:
+                    raise AssertionError("eval replay: the episode ended before the window rolled")
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            launches = dict(fused_attention.launches_by_variant)
+        else:
+            for obs in observations:
+                runs[dev]["actions"].append(policy.action(obs))
+                runs[dev]["seq_idx"].append(int(policy.network_state["seq_idx"]))
+        runs[dev]["s"] = time.perf_counter() - t0
+        del policy, model
+    gpu, cpu = runs[device], runs["cpu"]
+    layers = config.model.num_layers
+    on_card = torch.device(device).type == "cuda"
+    expected = {"tensor_core": 0, "tf32x3": layers * EVAL_REPLAY_STEPS if on_card else 0,
+                "simple": 0}
+    if launches != expected:
+        raise AssertionError(f"eval replay: launches {launches}, expected {expected}")
+    if len(gpu["logits"]) != EVAL_REPLAY_STEPS or len(cpu["logits"]) != EVAL_REPLAY_STEPS:
+        raise AssertionError(f"eval replay: {len(gpu['logits'])} / {len(cpu['logits'])} steps "
+                             "recorded")
+    rows, failures = [], []
+    for i in range(EVAL_REPLAY_STEPS):
+        g, c = gpu["logits"][i], cpu["logits"][i]
+        bound = PARITY_REL_TOL * max(1.0, float(c.abs().max()))
+        diff = float((g - c).abs().max())
+        top2 = c.topk(2, dim=-1).values
+        min_gap = float((top2[..., 0] - top2[..., 1]).min())
+        action_diff = float(np.abs(gpu["actions"][i] - cpu["actions"][i]).max())
+        held = min_gap > bound
+        rows.append({"step": i, "max_abs_logit_diff": diff, "bound": bound,
+                     "min_top2_gap": min_gap, "action_diff": action_diff,
+                     "actions_held": held})
+        if not torch.isfinite(g).all() or diff > bound or (held and action_diff > 1e-6):
+            failures.append(rows[-1])
+    if gpu["seq_idx"] != cpu["seq_idx"] or max(gpu["seq_idx"]) != config.model.time_sequence_length:
+        failures.append({"seq_idx": [gpu["seq_idx"], cpu["seq_idx"]]})
+    record = {"dtype": "float32", "tf32": False, "steps": EVAL_REPLAY_STEPS,
+              "launches_by_variant": launches, "seq_idx": gpu["seq_idx"],
+              "max_abs_logit_diff": max(r["max_abs_logit_diff"] for r in rows),
+              "actions_held_steps": sum(r["actions_held"] for r in rows),
+              "step_s": {"device": gpu["s"], "cpu": cpu["s"]}, "rows": rows}
+    if failures:
+        emit({"phase": "eval_replay", **record})
+        raise AssertionError(f"eval replay: card vs CPU beyond the bound: {failures}")
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_eval(config_name: str = "language_table", device: str = "cuda"):
+    """The closed-loop eval of the flagship: the eval CLI on a checkpoint the
+    train CLI wrote here, one timed and profiled bf16 episode in process,
+    the f32 card-vs-CPU replay, and the oracle and random baselines and a
+    `kinematic_arm` episode."""
+    from rt1_tpu_torch.configs import get_config
+    from rt1_tpu_torch.eval.evaluate import OracleEvalPolicy, evaluate_policy
+
+    config = get_config(config_name)
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        trained, _ = _run_cli(["--config", config_name, "--workdir", workdir, "--device", device,
+                               "--set", "num_steps=2", "--set", "checkpoint_every_steps=2"],
+                              TRAIN_CLI_TIMEOUT_S)
+        train_s = time.perf_counter() - t0
+        trainer_step = trained[-1].get("checkpoint_step")
+        if trainer_step != 2:
+            raise AssertionError(f"eval: the train CLI ended with {trained[-1]}")
+        lines, cli_s = _run_cli(["--config", config_name, "--workdir", workdir, "--device", device,
+                                 "--episodes", str(EVAL_CLI_EPISODES), "--max_steps",
+                                 str(EVAL_STEPS), "--rewards", "block2block"],
+                                EVAL_CLI_TIMEOUT_S, module="rt1_tpu_torch.eval")
+        result = lines[-1]
+        keys = {"successes", "episodes_per_reward", "mean_episode_length", "checkpoint_step"}
+        if set(result) != keys or result["checkpoint_step"] != trainer_step or \
+                result["episodes_per_reward"] != EVAL_CLI_EPISODES or \
+                set(result["successes"]) != {"block2block"} or \
+                not 1 <= result["mean_episode_length"]["block2block"] <= EVAL_STEPS:
+            raise AssertionError(f"eval CLI: {result}, trainer step {trainer_step}")
+        timed = _timed_eval_episode(config, workdir, device)
+        replay = _eval_replay(config, workdir, device)
+    baselines = {}
+    for baseline in ("oracle", "random"):
+        lines, seconds = _run_cli(["--config", config_name, "--device", device, "--baseline",
+                                   baseline, "--episodes", str(EVAL_BASELINE_EPISODES)],
+                                  EVAL_CLI_TIMEOUT_S, module="rt1_tpu_torch.eval")
+        out = lines[-1]
+        if out.get("checkpoint_step") != -1 or out.get("episodes_per_reward") != \
+                EVAL_BASELINE_EPISODES or set(out.get("successes", {})) != {"block2block"}:
+            raise AssertionError(f"eval --baseline {baseline}: {out}")
+        baselines[baseline] = {"result": out, "s": seconds}
+    t0 = time.perf_counter()
+    arm = evaluate_policy(OracleEvalPolicy(seed=0), num_evals_per_reward=1,
+                          env_kwargs=_env_kwargs(config, backend="kinematic_arm"))
+    baselines["oracle_kinematic_arm"] = {"result": arm, "s": time.perf_counter() - t0}
+    record = {"phase": "eval", "config": config_name, "train_cli_s": train_s,
+              "cli": {"result": result, "s": cli_s}, "timed_episode": timed,
+              "replay": replay, "baselines": baselines}
+    emit(record)
+    return record
+
+
 def _kernel_entry(name, source, launches, path, head, cases):
     """One entry of the `kernels` line: the kernel's numbers at `head` (the
     case of its path's shape) and its largest error over `cases`."""
@@ -1665,7 +1976,7 @@ def _kernel_entry(name, source, launches, path, head, cases):
 
 
 PHASES = ("kernel", "ab", "sweep", "parity", "tiny", "step", "serve", "train_parity", "train",
-          "data")
+          "data", "eval")
 
 
 def main(argv=None) -> int:
@@ -1710,6 +2021,8 @@ def main(argv=None) -> int:
         emit({"partial": phases, "passed": True})
         return 0
     records, serve, parity, tiny = done["kernel"], done["serve"], done["parity"], done["tiny"]
+    eval_bf16 = done["eval"]["timed_episode"]["launches_by_variant"]
+    eval_f32 = done["eval"]["replay"]["launches_by_variant"]
 
     def case(name):
         return next(r for r in records if r["case"] == name)
@@ -1717,7 +2030,7 @@ def main(argv=None) -> int:
     def cases(variant):
         return [r for r in records if r["variant"] == variant]
 
-    emit({"kernels": [
+    entries = [
         _kernel_entry(
             "fused_attention_tc", "rt1_tpu_torch/csrc/fused_attention_tc.cu",
             serve["attention_launches_tensor_core_total"], "serve (bf16)",
@@ -1730,7 +2043,13 @@ def main(argv=None) -> int:
             "fused_attention_simple", "rt1_tpu_torch/csrc/fused_attention.cu",
             tiny["launches_by_variant"]["simple"], "tiny infer_step (bfloat16, d = 8)",
             case("tiny_bfloat16_rt1"), cases("simple")),
-    ]})
+    ]
+    # The eval path's launches beside each variant's own path: the timed
+    # bf16 episode and the f32 replay of the `eval` phase.
+    for entry, variant in zip(entries, ("tensor_core", "tf32x3", "simple")):
+        entry["eval_launches"] = {"bf16_episode": eval_bf16[variant],
+                                  "f32_replay": eval_f32[variant]}
+    emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -125,7 +125,8 @@ class Config:
     accum_steps: int = 1
     seed: int = 42
     checkpoint_every_steps: int = 975
-    max_to_keep: Optional[int] = None  # None keeps every checkpoint
+    max_to_keep: Optional[int] = None  # None (or 0, as in JAX) keeps every checkpoint
+    keep_period: Optional[int] = None  # also keep every step divisible by this
     log_every_steps: int = 50
     eval_every_steps: int = 975
     eval_batches: int = 6
@@ -134,8 +135,9 @@ class Config:
 def language_table() -> Config:
     """The flagship: FiLM-EfficientNet-B3 at 256x456, TokenLearner 8 tokens,
     window 6, 8 decoder layers of 8 heads x 128, d_model 512, vocab 256, bf16;
-    Adam 5e-4 with MultiStepLR [50, 75, 90] x 0.1 per epoch of 975 steps."""
-    return Config()
+    Adam 5e-4 with MultiStepLR [50, 75, 90] x 0.1 per epoch of 975 steps;
+    every 9750th checkpoint kept."""
+    return Config(keep_period=9750)
 
 
 def tiny() -> Config:
@@ -160,6 +162,7 @@ def tiny() -> Config:
         log_every_steps=1,
         eval_every_steps=2,
         eval_batches=1,
+        keep_period=9750,  # JAX's tiny config inherits the flagship's
     )
 
 

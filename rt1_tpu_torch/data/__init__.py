@@ -1,7 +1,8 @@
 """The training data path (counterpart of `rt1_tpu/data/`).
 
 * `episodes` — the episode record and its `.npz` file, the reference's
-  pickled `.npy` reader, synthetic episodes, `read_manifest`.
+  pickled `.npy` reader, synthetic episodes, `read_manifest`,
+  `check_embedder_compatibility`.
 * `native` — the window sampler (`native/window_sampler.cc`), compiled
   with g++ at first use and bound with ctypes: crop + fixed-point bilinear
   resize, and the packed-frame gather.

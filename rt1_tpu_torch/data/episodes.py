@@ -17,8 +17,9 @@ its manifest.
 One uncompressed `.npz` per episode, written by `np.savez` and read by
 `np.load`: the same files the JAX package writes and reads.
 `read_reference_episode` reads the reference's pickled list-of-step-dicts
-`.npy`. `read_manifest` reads a dataset's `manifest.json` (counterpart of
-`rt1_tpu/data/collect.py::read_manifest`).
+`.npy`. `read_manifest` reads a dataset's `manifest.json` and
+`check_embedder_compatibility` holds its embedder to the one requested
+(counterparts of the functions of `rt1_tpu/data/collect.py`).
 """
 
 from __future__ import annotations
@@ -111,3 +112,27 @@ def read_manifest(data_dir: str, manifest_name: str = "manifest.json"):
         return None
     with open(path) as f:
         return json.load(f)
+
+
+def check_embedder_compatibility(data_dir: str, embedder_spec, context: str = "",
+                                 manifest_name: str = "manifest.json"):
+    """Raise if the dataset manifest records a different instruction
+    embedder (counterpart of `rt1_tpu/data/collect.py::
+    check_embedder_compatibility`). The embedding is the task
+    specification: a policy trained on one provider's embeddings decodes
+    garbage from another's. No-op without a manifest; returns it (or None).
+    """
+    manifest = read_manifest(data_dir, manifest_name)
+    if manifest is None:
+        return None
+    recorded = manifest.get("embedder")
+    requested = embedder_spec if isinstance(embedder_spec, str) else \
+        getattr(embedder_spec, "name", None)
+    if recorded and requested and recorded != requested:
+        raise ValueError(
+            f"Embedder mismatch{' (' + context + ')' if context else ''}: "
+            f"dataset {data_dir!r} was embedded with {recorded!r} but "
+            f"{requested!r} was requested. Re-collect/convert the data or "
+            f"pass the matching embedder."
+        )
+    return manifest

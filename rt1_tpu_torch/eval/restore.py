@@ -80,12 +80,15 @@ def load_policy(config: Config, weights: Optional[str] = None, device=None,
     JAX package's variables, or the newest checkpoint of the port's trainer
     in `workdir`), cast to the compute dtype and place on `device` (default
     cuda), in eval mode."""
-    policy, _ = _load(config, weights, device, attention_impl, workdir)
+    policy, _ = load_policy_and_step(config, weights, device, attention_impl, workdir)
     return policy
 
 
-def _load(config, weights, device, attention_impl, workdir):
-    """(policy, checkpoint step): -1 for random init, None for an .npz."""
+def load_policy_and_step(config: Config, weights: Optional[str] = None, device=None,
+                         attention_impl: Optional[str] = None, workdir: Optional[str] = None):
+    """`load_policy` and the checkpoint step it restored: -1 for random
+    init, None for an .npz, the trainer's step for a workdir (whose lack
+    of a checkpoint raises FileNotFoundError)."""
     if weights is not None and workdir is not None:
         raise ValueError("pass weights or workdir, not both")
     dev = resolve_device(device)
@@ -111,5 +114,5 @@ def build_serve_engine(config: Config, weights: Optional[str] = None, device=Non
     """A multi-session serving engine over `load_policy(...)`. Returns
     (engine, checkpoint_step): -1 for random init, None for an .npz, the
     trainer's step for a workdir."""
-    policy, step = _load(config, weights, device, attention_impl, workdir)
+    policy, step = load_policy_and_step(config, weights, device, attention_impl, workdir)
     return PolicyEngine(policy, **engine_kwargs), step

@@ -39,9 +39,8 @@ import numpy as np
 import torch
 
 EMBEDDING_DIM = 512
-# Actions are clipped to the Language-Table environment's per-step limit.
-ACTION_LIMIT = 0.03
 EMBED_CACHE_SIZE = 256
+EPS = np.finfo(np.float32).eps
 
 
 class SessionError(RuntimeError):
@@ -107,6 +106,10 @@ class PolicyEngine:
         max_sessions: int = 8,
         embedder: Optional[Callable[[str], np.ndarray]] = None,
         buckets: Optional[Sequence[int]] = None,
+        action_mean: float = 0.0,
+        action_std: float = 1.0,
+        action_minimum: float = -0.03,
+        action_maximum: float = 0.03,
     ):
         if max_sessions < 1:
             raise ValueError(f"max_sessions must be >= 1, got {max_sessions}")
@@ -115,6 +118,13 @@ class PolicyEngine:
         self.device = policy.device
         self.dtype = str(next(policy.parameters()).dtype).replace("torch.", "")
         self.max_sessions = max_sessions
+        # De-normalisation of the decoded action: `action * max(std, eps) +
+        # mean`, clipped to [minimum, maximum]; the defaults keep the
+        # decoded action and clip it to the env's per-step limit.
+        self.action_mean = action_mean
+        self.action_std = action_std
+        self.action_minimum = action_minimum
+        self.action_maximum = action_maximum
         self._embedder = embedder
         self._embed_cache: collections.OrderedDict = collections.OrderedDict()
         self.embed_calls = 0  # embedder invocations (cache misses)
@@ -382,8 +392,8 @@ class PolicyEngine:
 
     def collect_batch(self, handle: StepHandle) -> List[Dict[str, Any]]:
         """Phase 2: wait for the handle's step (outside the lock) and build
-        one result per item: the clipped `action` and the raw
-        `action_tokens`, or `{"error": ...}`."""
+        one result per item: the de-normalised, clipped `action` and the
+        raw `action_tokens`, or `{"error": ...}`."""
         if handle.collected:
             raise RuntimeError("StepHandle already collected")
         handle.collected = True
@@ -410,7 +420,8 @@ class PolicyEngine:
                 results.append({"error": error})
                 continue
             lane = handle.lane_by_sid[sid]
-            action = np.clip(actions[lane], -ACTION_LIMIT, ACTION_LIMIT)
+            action = actions[lane] * max(self.action_std, EPS) + self.action_mean
+            action = np.clip(action, self.action_minimum, self.action_maximum)
             result = {
                 "action": action.astype(np.float32),
                 "action_tokens": tokens[lane],

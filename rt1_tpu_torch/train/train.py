@@ -189,6 +189,15 @@ def _data_feeds(config: Config, dev: torch.device, workdir: str, log):
     return device_feeder(train.batches, dev, depth=2), evals, train.loader
 
 
+def checkpoint_manager(config: Config, workdir: str) -> CheckpointManager:
+    """The run's checkpoints under `<workdir>/checkpoints`, retained as the
+    JAX trainer retains them (`rt1_tpu/train/train.py:680-689`):
+    `max_to_keep or None`, so 0 keeps every step, and `keep_period`."""
+    return CheckpointManager(os.path.join(workdir, "checkpoints"),
+                             max_to_keep=config.max_to_keep or None,
+                             keep_period=config.keep_period, seed=config.seed)
+
+
 def train_and_evaluate(config: Config, workdir: str, device=None,
                        log: Callable[[Dict], None] = _print_json) -> TrainState:
     """Train per `config` in `workdir`; returns the final TrainState.
@@ -198,8 +207,7 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
     policy = build_model(config, dev)
     optimizer = optimizer_from_config(config)
     state = create_train_state(policy, optimizer)
-    ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"), max_to_keep=config.max_to_keep,
-                             seed=config.seed)
+    ckpt = checkpoint_manager(config, workdir)
     state, initial_step = ckpt.restore_or_initialize(state)
     fns = train_step_fns_from_config(config, optimizer)
     train_feed = eval_feed = None

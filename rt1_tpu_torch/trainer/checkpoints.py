@@ -11,8 +11,14 @@ their whole state. Nothing is read or written in Orbax's format.
 
 A save writes `state.pt.tmp` and renames it over `state.pt`
 (`os.replace`), so a reader sees a whole file or none; `latest_step`
-counts only directories that hold `state.pt`. `max_to_keep` bounds the
-checkpoints kept (None keeps all).
+counts only directories that hold `state.pt`.
+
+Retention follows the Orbax manager that the JAX package configures
+(`CheckpointManagerOptions(max_to_keep, keep_period)`): after each save,
+a step stays if it is among the newest `max_to_keep` steps on disk (None
+keeps every step) or if `step % keep_period == 0`. Steps kept by the period
+count among the newest, as in Orbax, whose `LatestN` policy ranks every
+retained step.
 """
 
 from __future__ import annotations
@@ -58,9 +64,15 @@ def load_checkpoint(directory: str, step: Optional[int] = None) -> Dict[str, Any
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: Optional[int] = None, seed: int = 0):
+    def __init__(self, directory: str, max_to_keep: Optional[int] = None, seed: int = 0,
+                 keep_period: Optional[int] = None):
+        if max_to_keep is not None and max_to_keep < 1:
+            raise ValueError(f"max_to_keep must be None (keep all) or >= 1, got {max_to_keep}")
+        if keep_period is not None and keep_period < 1:
+            raise ValueError(f"keep_period must be None or >= 1, got {keep_period}")
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.keep_period = keep_period
         self.seed = seed
 
     def latest_step(self) -> Optional[int]:
@@ -91,6 +103,8 @@ class CheckpointManager:
             return
         steps = all_steps(self.directory)
         for step in steps[: max(len(steps) - self.max_to_keep, 0)]:
+            if self.keep_period is not None and step % self.keep_period == 0:
+                continue
             shutil.rmtree(os.path.join(self.directory, str(step)), ignore_errors=True)
 
     def restore(self, state: TrainState, step: Optional[int] = None) -> int:

@@ -1,10 +1,11 @@
 """Guard: the port imports nothing of JAX and nothing of `rt1_tpu`.
 
 A fresh interpreter blocks jax, flax, optax, orbax, tensorflow,
-ml_collections, absl, cv2 and the top-level module `rt1_tpu` (by exact
-name: `rt1_tpu_torch` shares its prefix), then imports every module of
-`rt1_tpu_torch` and `chip_smoke.py`. The machine with the card has none of
-those packages, and `rt1_tpu/__init__.py` takes a chip-claim lock.
+ml_collections, absl, cv2, PIL, imageio and the top-level module `rt1_tpu`
+(by exact name: `rt1_tpu_torch` shares its prefix), then imports every
+module of `rt1_tpu_torch` and `chip_smoke.py`. The machine with the card
+has none of those packages (scipy it has, and the env's arm kinematics use
+it), and `rt1_tpu/__init__.py` takes a chip-claim lock.
 """
 
 import os
@@ -20,7 +21,7 @@ import pkgutil
 import sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflow",
-           "ml_collections", "absl", "cv2", "rt1_tpu")
+           "ml_collections", "absl", "cv2", "PIL", "imageio", "rt1_tpu")
 
 
 def blocked(name):
@@ -98,4 +99,26 @@ def test_data_modules_are_among_those_imported():
     for name in ("rt1_tpu_torch.data.episodes", "rt1_tpu_torch.data.native",
                  "rt1_tpu_torch.data.pipeline", "rt1_tpu_torch.data.pack",
                  "rt1_tpu_torch.data.feeder", "rt1_tpu_torch.data.pack_dataset"):
+        assert name in names, name
+
+
+def test_eval_modules_are_among_those_imported():
+    names = set(_port_modules())
+    for name in ("rt1_tpu_torch.envs", "rt1_tpu_torch.envs.constants", "rt1_tpu_torch.envs.blocks",
+                 "rt1_tpu_torch.envs.language", "rt1_tpu_torch.envs.task_info",
+                 "rt1_tpu_torch.envs.utils.pose3d", "rt1_tpu_torch.envs.utils.xarm",
+                 "rt1_tpu_torch.envs.backends", "rt1_tpu_torch.envs.backends.kinematic",
+                 "rt1_tpu_torch.envs.rendering", "rt1_tpu_torch.envs.language_table",
+                 "rt1_tpu_torch.envs.rewards", "rt1_tpu_torch.envs.rewards.base",
+                 "rt1_tpu_torch.envs.rewards.block2block",
+                 "rt1_tpu_torch.envs.rewards.block2block_relative",
+                 "rt1_tpu_torch.envs.rewards.block2location",
+                 "rt1_tpu_torch.envs.rewards.block2relativelocation",
+                 "rt1_tpu_torch.envs.rewards.corner", "rt1_tpu_torch.envs.rewards.play",
+                 "rt1_tpu_torch.envs.rewards.point2block",
+                 "rt1_tpu_torch.envs.rewards.separate_blocks",
+                 "rt1_tpu_torch.envs.oracles", "rt1_tpu_torch.envs.oracles.rrt_star",
+                 "rt1_tpu_torch.envs.oracles.push_oracle", "rt1_tpu_torch.eval.wrappers",
+                 "rt1_tpu_torch.eval.policy", "rt1_tpu_torch.eval.evaluate",
+                 "rt1_tpu_torch.eval.main", "rt1_tpu_torch.eval.__main__"):
         assert name in names, name

@@ -6,7 +6,9 @@ window phases) and must equal per-session JAX `infer_step` runs on the same
 variables and frames, through the window roll (the JAX side runs the
 Pallas kernel in interpret mode, the port its fused path's plain version). Server: port 0, `/healthz`,
 `/act` with `image_b64` and an instruction, `/reset`, and the JSON
-`/metrics` carrying the attention kernel's launch counter.
+`/metrics` carrying the attention kernel's launch counter. The engine's
+action de-normalisation (mean, std, limits): at its defaults the actions
+of a fixed +-0.03 clip, bitwise; elsewhere the JAX engine's within 1e-6.
 """
 
 import base64
@@ -90,6 +92,38 @@ def test_engine_staggered_sessions_match_per_session_jax():
     assert engine.compile_count == len(engine.buckets) == 3
     # Warm-up runs every bucket once, then one batched step per act_batch.
     assert engine.steps_total == len(engine.buckets) + steps
+
+
+def test_engine_denormalisation_defaults_keep_actions():
+    """At their defaults (mean 0, std 1, limits -0.03 / 0.03) the engine's
+    de-normalisation fields give the actions of the fixed +-0.03 clip,
+    bitwise; other values give the JAX engine's actions within 1e-6."""
+    from rt1_tpu.serve.engine import PolicyEngine as JaxPolicyEngine
+
+    jm, variables = _jax_tiny(seed=5)
+    policy = build_policy(get_config("tiny"), attention_impl="fused")
+    load_flax_variables(policy, variables["params"])
+    engine = PolicyEngine(policy, max_sessions=1)
+    assert (engine.action_mean, engine.action_std, engine.action_minimum,
+            engine.action_maximum) == (0.0, 1.0, -0.03, 0.03)
+    custom = dict(action_mean=0.01, action_std=3.0, action_minimum=-0.05, action_maximum=0.02)
+    scaled = PolicyEngine(policy, max_sessions=1, **custom)
+    jax_engine = JaxPolicyEngine(jm, variables, max_sessions=1, **custom)
+    rng = np.random.default_rng(2)
+    emb = rng.standard_normal(512).astype(np.float32)
+    state = policy.initial_state(1)
+    for step in range(jm.time_sequence_length + 2):
+        frame = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
+        obs = {"image": frame, "natural_language_embedding": emb}
+        with torch.no_grad():
+            out, state = policy.infer_step(
+                {k: torch.from_numpy(v[None]) for k, v in obs.items()}, state)
+        raw = out["action"].numpy()[0]
+        got = engine.act("s", obs)["action"]
+        assert got.dtype == np.float32
+        assert got.tobytes() == np.clip(raw, -0.03, 0.03).astype(np.float32).tobytes(), step
+        np.testing.assert_allclose(scaled.act("s", obs)["action"],
+                                   jax_engine.act("s", obs)["action"], rtol=0, atol=1e-6)
 
 
 def _post(url, payload):

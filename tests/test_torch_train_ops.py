@@ -123,7 +123,7 @@ def test_training_config_matches_jax(name, jax_module):
     cfg = get_config(name)
     for field in ("per_host_batch_size", "num_steps", "steps_per_epoch", "learning_rate",
                   "lr_gamma", "grad_clip_norm", "accum_steps", "seed", "checkpoint_every_steps",
-                  "max_to_keep", "log_every_steps", "eval_every_steps",
+                  "max_to_keep", "keep_period", "log_every_steps", "eval_every_steps",
                   "eval_batches"):
         assert getattr(cfg, field) == jcfg[field], field
     assert tuple(cfg.lr_milestones) == tuple(jcfg.lr_milestones)
