@@ -141,11 +141,36 @@ exits non-zero without a result line:
              exceeds that bound; then `--baseline oracle` and `--baseline
              random` (3 episodes each) through the CLI and one oracle
              episode on the `kinematic_arm` backend.
-14. kernels — one line listing the three kernels with their launches on
+14. proof  — the learning proof at the flagship's width (B3 at 128x224,
+             window 6, batch 32, bf16) under a temporary directory, through
+             `python -m rt1_tpu_torch.train.learn_proof`: `--stage collect`
+             of 8 episodes over 4 workers (BLOCK_4 block2block, ngram,
+             180x320; the manifest, `corpus_accounting` and the split
+             counts checked), then 2 DART demos (std 0.005, 160 steps) by
+             `collect_dataset` in process into their own directory; 256
+             state-regression frames at 128x224 and 20 `pretrain_encoder`
+             steps at B3's coefficients (batch 32), `save_encoder`;
+             `--stage train` 20 steps from that encoder (the graft line
+             must show); `--stage dagger`, 1 round of 2 episodes + 10 steps
+             (the corpus grows by 2, the checkpoint reaches 30, no graft on
+             the resume); `--stage eval`, 2 episodes of the trained, random
+             and oracle arms at seed 10000 (`learn_proof.json` carries the
+             JAX summary's keys). The DAgger and eval stages each launch
+             the tensor-core kernel 8 times an engine step and no other
+             variant (the CLI's counts). Then 20 timed DAgger and 20 eval
+             control steps of the final checkpoint in process (p50 / p99 /
+             max ms, 8 tensor-core launches a step) and 3 more of each
+             under torch.profiler. Prints collection episodes/s and
+             successes an attempt (4 workers and 1), the pretrain and
+             train step ms, the control-step quantiles and each stage's
+             wall time, beside `nvidia-smi`'s line. CPU rehearsal:
+             `phase_proof('tiny', 'cpu')`.
+15. kernels — one line listing the three kernels with their launches on
              their path (serve for the tensor-core kernel, the flagship f32
              parity step for tf32x3, the `tiny` bf16 step for the simple
-             one) and on the eval path (`eval_launches`), errors, times and
-             bound.
+             one), on the eval path (`eval_launches`) and in the learning
+             proof's DAgger and eval stages (`proof_launches`), errors,
+             times and bound.
 
 The last line is `{"ok": true, "device": {...}}`.
 """
@@ -155,6 +180,7 @@ from __future__ import annotations
 import base64
 import gc
 import json
+import math
 import os
 import signal
 import subprocess
@@ -1956,6 +1982,324 @@ def phase_eval(config_name: str = "language_table", device: str = "cuda"):
     return record
 
 
+# The learning proof at the flagship's width, and its CPU rehearsal at
+# `tiny`'s: sizes of each stage. DART demos take the longer budget of the
+# JAX package's DART test (at 80 steps few noisy demos finish); seed 4
+# finishes its two in a few attempts.
+PROOF_SIZES = {
+    "language_table": dict(
+        cli=[], coefficients=(1.2, 1.4), episodes=8, workers=4, dart_episodes=2,
+        pretrain_frames=256, pretrain_steps=20, pretrain_batch=32, train_steps=20,
+        dagger_episodes=2, dagger_extra_steps=10, eval_episodes=2, timed_steps=20),
+    "tiny": dict(
+        cli=["--height", "32", "--width", "56", "--batch", "2", "--seq_len", "3",
+             "--dtype", "float32", "--image_tokenizer", "efficientnet_small",
+             "--set", "data.loader=numpy"],
+        coefficients=(0.35, 0.35), episodes=3, workers=2, dart_episodes=1,
+        pretrain_frames=16, pretrain_steps=2, pretrain_batch=4, train_steps=2,
+        dagger_episodes=1, dagger_extra_steps=2, eval_episodes=1, timed_steps=3),
+}
+PROOF_DART_STD = 0.005
+PROOF_DART_SEED = 4
+PROOF_DART_MAX_STEPS = 160
+PROOF_PROFILE_STEPS = 3
+PROOF_CLI_TIMEOUT_S = 600
+
+
+def _proof_cli(args):
+    return _run_cli(args, PROOF_CLI_TIMEOUT_S, module="rt1_tpu_torch.train.learn_proof")
+
+
+def _stage_line(lines, stage, key):
+    """The last JSON line of `stage` that carries `key`."""
+    found = [r for r in lines if r.get("stage") == stage and key in r]
+    if not found:
+        raise AssertionError(f"proof: no {stage} line with {key!r} in {lines[-3:]}")
+    return found[-1]
+
+
+def _check_launches(what, record, layers, on_card):
+    """The kernel's launches in a stage: the tensor-core variant once per
+    decoder layer an engine step (warm-up included) on the card, no other;
+    none on the CPU (the plain path)."""
+    steps = record["engine_steps"]
+    expected = {"tensor_core": layers * steps if on_card else 0, "tf32x3": 0, "simple": 0}
+    if steps < 1 or record["launches"] != expected:
+        raise AssertionError(f"proof {what}: {steps} engine steps, launches "
+                             f"{record['launches']}, expected {expected}")
+
+
+def _timed_control_steps(config, policy, device, steps, dagger):
+    """`steps` control steps of the restored policy (bf16 on the card, fused
+    attention) on a DAgger env (oracle label + policy action + env.step) or
+    an eval env (policy action + env.step): per-step host ms (an episode's
+    validated reset falls between steps, untimed), launches per step from
+    the counters, then torch.profiler over PROOF_PROFILE_STEPS more steps
+    with the counters read around them."""
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.data.dagger import DAGGER_HISTORY_KEYS
+    from rt1_tpu_torch.envs import blocks
+    from rt1_tpu_torch.envs.oracles import RRTPushOracle
+    from rt1_tpu_torch.eval.evaluate import build_eval_env, validated_reset
+    from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
+
+    layers = policy.engine.policy.num_layers
+    env = build_eval_env(
+        reward_name="block2block", block_mode=blocks.BlockMode.BLOCK_4,
+        seed=30_000 if dagger else 10_000, embedder="ngram",
+        target_height=config.data.height, target_width=config.data.width,
+        sequence_length=config.model.time_sequence_length,
+        history_keys=DAGGER_HISTORY_KEYS if dagger else None)
+    oracle = RRTPushOracle(env, use_ee_planner=True)
+    box = {}
+
+    def reset():
+        """A validated init, as `collect_dagger_episode` (the collector's
+        oracle plans it) and `run_episode` (`validated_reset`) take one;
+        between episodes, so outside the timed step."""
+        policy.reset()
+        if dagger:
+            while True:
+                box["obs"] = env.reset()
+                oracle.reset()
+                if oracle.get_plan(env.compute_state()):
+                    break
+        else:
+            box["obs"] = validated_reset(env)
+        box["done"] = False
+
+    def step():
+        if dagger:
+            np.asarray(oracle.action(env.compute_state()), np.float32)
+        box["obs"], _, box["done"], _ = env.step(policy.action(box["obs"]))
+
+    def control_step():
+        if box["done"]:
+            reset()
+        step()
+
+    reset()
+    on_card = torch.device(device).type == "cuda"
+    times = []
+    reset_launch_counts()
+    steps_before = policy.engine.steps_total
+    for _ in range(steps):
+        if box["done"]:
+            reset()
+        t0 = time.perf_counter()
+        step()
+        if on_card:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    record = {"launches": dict(fused_attention.launches_by_variant),
+              "engine_steps": policy.engine.steps_total - steps_before}
+    _check_launches("timed " + ("dagger" if dagger else "eval"), record, layers, on_card)
+    out = {"ms": _quantiles(times), **record}
+    if on_card:
+        reset_launch_counts()
+        steps_before = policy.engine.steps_total
+        prof = device_profile(control_step, iters=PROOF_PROFILE_STEPS)
+        profiled = {"launches": dict(fused_attention.launches_by_variant),
+                    "engine_steps": policy.engine.steps_total - steps_before}
+        _check_launches("profiled " + ("dagger" if dagger else "eval"), profiled, layers,
+                        on_card)
+        per_step = {v: n / profiled["engine_steps"] for v, n in profiled["launches"].items()}
+        if per_step != {"tensor_core": layers, "tf32x3": 0, "simple": 0}:
+            raise AssertionError(f"proof: profiled control step launches {per_step}")
+        out["profiled"] = {"attention_launches_per_step": per_step}
+        if prof is not None:
+            out["profiled"].update({
+                "control_step_ms": prof["wall_ms"], "device_busy_ms": prof["busy_ms"],
+                "idle_share": 1.0 - prof["busy_ms"] / prof["wall_ms"],
+                "device_launches_per_step": prof["launches"],
+                "attention_kernels_ms": {n[:80]: ms for n, ms in prof["kernels"].items()
+                                         if "attention" in n}})
+    return out
+
+
+def phase_proof(config_name: str = "language_table", device: str = "cuda"):
+    """The learning proof through `python -m rt1_tpu_torch.train.learn_proof`
+    at the config's width: collect (4 workers) plus DART demos in process,
+    vision pretraining and its encoder, train from the graft, one DAgger
+    round, the three-arm eval; then timed and profiled DAgger and eval
+    control steps."""
+    import torch
+
+    from rt1_tpu_torch.configs import get_config
+    from rt1_tpu_torch.data.collect import collect_dataset, corpus_accounting
+    from rt1_tpu_torch.data.episodes import read_manifest
+    from rt1_tpu_torch.envs import blocks
+    from rt1_tpu_torch.eval.policy import RT1EvalPolicy
+    from rt1_tpu_torch.eval.proof import build_proof_summary
+    from rt1_tpu_torch.eval.restore import load_policy_and_step
+    from rt1_tpu_torch.train.learn_proof import LearnProof, parse_args
+    from rt1_tpu_torch.train.pretrain_vision import (generate_state_regression_dataset,
+                                                      pretrain_encoder, save_encoder)
+
+    sizes = PROOF_SIZES[config_name]
+    on_card = torch.device(device).type == "cuda"
+    stage_s = {}
+    with tempfile.TemporaryDirectory() as root:
+        workdir = os.path.join(root, "learn_proof")
+        data_dir = os.path.join(workdir, "data")
+        enc_path = os.path.join(root, "encoder.pt")
+        common = ["--workdir", workdir, "--config", config_name, "--device", device,
+                  *sizes["cli"]]
+        # The config the CLI's stages build from these flags.
+        config = LearnProof(parse_args(common)).train_config(sizes["train_steps"])
+        layers = config.model.num_layers
+        hw = (config.data.height, config.data.width)
+        # 1. Collect: the CLI over worker processes, then DART demos in
+        # process (one worker) into a directory of their own.
+        lines, stage_s["collect"] = _proof_cli(
+            common + ["--stage", "collect", "--episodes", str(sizes["episodes"]),
+                      "--workers", str(sizes["workers"])])
+        collected = _stage_line(lines, "collect", "counts")
+        manifest = read_manifest(data_dir)
+        expected = {"episodes": sizes["episodes"], "embedder": "ngram", "block_mode": "BLOCK_4",
+                    "reward": "block2block", "workers": sizes["workers"], "exec_noise_std": 0.0}
+        if any(manifest.get(k) != v for k, v in expected.items()):
+            raise AssertionError(f"proof collect: manifest {manifest}, expected {expected}")
+        accounting = corpus_accounting(data_dir)
+        if accounting[0] != sizes["episodes"] or sum(accounting[1].values()) != \
+                sizes["episodes"] or accounting[1] != {k: v for k, v in
+                                                       collected["counts"].items() if v}:
+            raise AssertionError(f"proof collect: accounting {accounting}, CLI {collected}")
+        dart_dir = os.path.join(root, "dart")
+        dart_stats = {}
+        t0 = time.perf_counter()
+        dart_counts = collect_dataset(
+            dart_dir, sizes["dart_episodes"], block_mode=blocks.BlockMode.BLOCK_4,
+            seed=PROOF_DART_SEED, max_steps=PROOF_DART_MAX_STEPS, embedder="ngram",
+            progress_every=0, exec_noise_std=PROOF_DART_STD, stats=dart_stats)
+        stage_s["collect_dart"] = time.perf_counter() - t0
+        dart_manifest = read_manifest(dart_dir)
+        if dart_manifest.get("exec_noise_std") != PROOF_DART_STD or \
+                corpus_accounting(dart_dir) != (sizes["dart_episodes"], dart_counts):
+            raise AssertionError(f"proof DART: {dart_manifest}, {dart_counts}")
+        # 2. Pretrain the encoder at the policy's coefficients.
+        t0 = time.perf_counter()
+        images, targets, names = generate_state_regression_dataset(
+            sizes["pretrain_frames"], image_hw=hw, seed=0)
+        stage_s["pretrain_frames"] = time.perf_counter() - t0
+        step_ms = []
+        t0 = time.perf_counter()
+        model, metrics = pretrain_encoder(
+            images, targets, num_steps=sizes["pretrain_steps"],
+            batch_size=sizes["pretrain_batch"], seed=0,
+            width_coefficient=sizes["coefficients"][0],
+            depth_coefficient=sizes["coefficients"][1],
+            token_embedding_size=config.model.token_embedding_size,
+            eval_every=max(1, sizes["pretrain_steps"] // 2), log=lambda *_: None,
+            device=device, step_times=step_ms)
+        save_encoder(model, metrics, enc_path)
+        stage_s["pretrain"] = time.perf_counter() - t0
+        del model
+        if not all(map(math.isfinite, [metrics["val_rmse"]] +
+                       [h["train_loss"] for h in metrics["history"]])):
+            raise AssertionError(f"proof pretrain: {metrics}")
+        # 3. Train from the graft; 4. one DAgger round; 5. the eval.
+        run = common + ["--num_steps", str(sizes["train_steps"]),
+                        "--pretrained_encoder", enc_path]
+        log_every = max(1, sizes["train_steps"] // 4)
+        lines, stage_s["train"] = _proof_cli(run + ["--stage", "train",
+                                                    "--set", f"log_every_steps={log_every}"])
+        if {"status": "grafted_pretrained_encoder", "path": enc_path} not in lines:
+            raise AssertionError("proof train: no graft line in the trainer's log")
+        trained = _stage_line(lines, "train", "step")
+        rates = [r["steps_per_sec"] for r in lines if "steps_per_sec" in r]
+        if trained["step"] != sizes["train_steps"] or not rates:
+            raise AssertionError(f"proof train: {trained}, rates {rates}")
+        lines, stage_s["dagger"] = _proof_cli(
+            run + ["--stage", "dagger", "--dagger_rounds", "1",
+                   "--dagger_episodes", str(sizes["dagger_episodes"]),
+                   "--dagger_extra_steps", str(sizes["dagger_extra_steps"])])
+        if any(r.get("status") == "grafted_pretrained_encoder" for r in lines):
+            raise AssertionError("proof dagger: the resumed run grafted")
+        dagger = _stage_line(lines, "dagger", "rounds")
+        target = sizes["train_steps"] + sizes["dagger_extra_steps"]
+        corpus = sizes["episodes"] + sizes["dagger_episodes"]
+        (round0,) = dagger["rounds"]
+        if dagger["step"] != target or round0["rollout_episodes"] != sizes["dagger_episodes"] \
+                or round0["corpus_train_episodes_after"] != corpus:
+            raise AssertionError(f"proof dagger: {dagger}")
+        _check_launches("dagger", dagger, layers, on_card)
+        manifest = read_manifest(data_dir)
+        if (manifest["episodes"], manifest["dagger_episodes"]) != \
+                (corpus, sizes["dagger_episodes"]):
+            raise AssertionError(f"proof dagger: manifest {manifest}")
+        lines, stage_s["eval"] = _proof_cli(run + ["--stage", "eval", "--eval_episodes",
+                                                   str(sizes["eval_episodes"])])
+        evaluated = _stage_line(lines, "eval", "summary")
+        _check_launches("eval", evaluated, layers, on_card)
+        with open(os.path.join(workdir, "learn_proof.json")) as f:
+            summary = json.load(f)
+        arms = {"successes": {"block2block": 0}, "mean_episode_length": {"block2block": 0.0}}
+        keys = set(build_proof_summary(
+            reward="block2block", block_mode="", manifest=None, flag_embedder="",
+            flag_exec_noise_std=0.0,
+            episodes_collected=0, split_counts={}, num_steps_requested=0,
+            evaluated_checkpoint_step=0, seq_len=0, focal_gamma=0.0, aux_mse_weight=0.0,
+            image_tokenizer="", resolution=[], eval_episodes=0, eval_seed=0, trained=arms,
+            random_results=arms, oracle_results=arms, curves={"loss": [], "eval_loss": []}))
+        if set(summary) != keys | {"loss_curves", "corpus_entropy"} or \
+                summary["evaluated_checkpoint_step"] != target or \
+                summary["episodes_collected"] != corpus or \
+                summary["eval_episodes"] != sizes["eval_episodes"]:
+            raise AssertionError(f"proof eval: learn_proof.json {sorted(summary)}")
+        # 6. Timed and profiled control steps of the final checkpoint.
+        t0 = time.perf_counter()
+        model, _ = load_policy_and_step(config, device=device, attention_impl="fused",
+                                        workdir=os.path.join(workdir, "train"))
+        policy = RT1EvalPolicy(model)
+        policy.engine.warmup((config.data.height, config.data.width, 3))
+        dagger_steps = _timed_control_steps(config, policy, device, sizes["timed_steps"],
+                                            dagger=True)
+        eval_steps = _timed_control_steps(config, policy, device, sizes["timed_steps"],
+                                          dagger=False)
+        del policy, model
+        if on_card:
+            torch.cuda.empty_cache()
+        stage_s["timing"] = time.perf_counter() - t0
+    arms = {a: {"successes": summary[f"{a}_successes"],
+                "mean_episode_length": summary[f"{a}_mean_episode_length"]}
+            for a in ("trained", "random", "oracle")}
+    record = {
+        "phase": "proof", "config": config_name, "device": device,
+        "nvidia_smi": nvidia_smi() if on_card else None,
+        "collect": {"workers": sizes["workers"], "episodes": sizes["episodes"],
+                    "attempts": collected["attempts"], "seconds": collected["seconds"],
+                    "episodes_per_s": sizes["episodes"] / collected["seconds"],
+                    "successes_per_attempt": sizes["episodes"] / collected["attempts"]},
+        "collect_dart": {"workers": 1, "episodes": sizes["dart_episodes"],
+                         "attempts": dart_stats["attempts"], "seconds": stage_s["collect_dart"],
+                         "episodes_per_s": sizes["dart_episodes"] / stage_s["collect_dart"],
+                         "successes_per_attempt":
+                             sizes["dart_episodes"] / dart_stats["attempts"],
+                         "exec_noise_std": PROOF_DART_STD, "max_steps": PROOF_DART_MAX_STEPS},
+        "pretrain": {"frames": sizes["pretrain_frames"], "steps": sizes["pretrain_steps"],
+                     "batch": sizes["pretrain_batch"], "coefficients": sizes["coefficients"],
+                     "step_ms": _quantiles(step_ms[1:] or step_ms),
+                     "first_step_ms": step_ms[0], "val_rmse_mm": metrics["val_rmse_mm"],
+                     "targets": len(names)},
+        "train": {"steps": sizes["train_steps"], "batch": config.per_host_batch_size,
+                  "hw": list(hw), "dtype": config.model.dtype,
+                  "step_ms_per_window": [1e3 / r for r in rates]},
+        "dagger": {"rounds": dagger["rounds"], "launches": dagger["launches"],
+                   "engine_steps": dagger["engine_steps"], "seconds": dagger["seconds"]},
+        "eval": {"arms": arms, "launches": evaluated["launches"],
+                 "engine_steps": evaluated["engine_steps"], "seconds": evaluated["seconds"],
+                 "criterion_met": summary["criterion_met"],
+                 "corpus_entropy_nats": summary["corpus_entropy"]["mean_entropy_nats"]},
+        "control_step": {"dagger": dagger_steps, "eval": eval_steps},
+        "stage_s": stage_s,
+    }
+    emit(record)
+    return record
+
+
 def _kernel_entry(name, source, launches, path, head, cases):
     """One entry of the `kernels` line: the kernel's numbers at `head` (the
     case of its path's shape) and its largest error over `cases`."""
@@ -1976,7 +2320,7 @@ def _kernel_entry(name, source, launches, path, head, cases):
 
 
 PHASES = ("kernel", "ab", "sweep", "parity", "tiny", "step", "serve", "train_parity", "train",
-          "data", "eval")
+          "data", "eval", "proof")
 
 
 def main(argv=None) -> int:
@@ -2046,9 +2390,13 @@ def main(argv=None) -> int:
     ]
     # The eval path's launches beside each variant's own path: the timed
     # bf16 episode and the f32 replay of the `eval` phase.
+    # And the learning proof's: the DAgger and eval stages of its CLI.
+    proof = done["proof"]
     for entry, variant in zip(entries, ("tensor_core", "tf32x3", "simple")):
         entry["eval_launches"] = {"bf16_episode": eval_bf16[variant],
                                   "f32_replay": eval_f32[variant]}
+        entry["proof_launches"] = {"dagger": proof["dagger"]["launches"][variant],
+                                   "eval": proof["eval"]["launches"][variant]}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

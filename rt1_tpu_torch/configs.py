@@ -48,6 +48,10 @@ class ModelConfig:
     # "dense" | "fused" ("pallas", the JAX package's name for the fused
     # kernel, maps to "fused"). Training always takes the dense path.
     attention_impl: str = "dense"
+    # A state-regression-pretrained encoder (`train/pretrain_vision.py::
+    # save_encoder`) grafted into the tokenizer on a fresh start; None
+    # trains the tower from its random init.
+    pretrained_encoder: Optional[str] = None
 
 
 @dataclasses.dataclass

@@ -1,8 +1,8 @@
 """The training data path (counterpart of `rt1_tpu/data/`).
 
 * `episodes` — the episode record and its `.npz` file, the reference's
-  pickled `.npy` reader, synthetic episodes, `read_manifest`,
-  `check_embedder_compatibility`.
+  pickled `.npy` reader, synthetic episodes, `write_manifest`,
+  `read_manifest`, `check_embedder_compatibility`.
 * `native` — the window sampler (`native/window_sampler.cc`), compiled
   with g++ at first use and bound with ctypes: crop + fixed-point bilinear
   resize, and the packed-frame gather.
@@ -15,4 +15,9 @@
   packed cache.
 * `pack_dataset` — `python -m rt1_tpu_torch.data.pack_dataset`, the
   offline packer.
+* `collect` — oracle demos (DART noise optional) from the simulator, over
+  worker processes; `python -m rt1_tpu_torch.data.collect`.
+* `dagger` — on-policy rollouts relabelled by the oracle, aggregated into
+  a corpus.
+* `normalization` — dataset statistics (Chan's parallel algorithm).
 """

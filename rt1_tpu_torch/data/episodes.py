@@ -17,9 +17,10 @@ its manifest.
 One uncompressed `.npz` per episode, written by `np.savez` and read by
 `np.load`: the same files the JAX package writes and reads.
 `read_reference_episode` reads the reference's pickled list-of-step-dicts
-`.npy`. `read_manifest` reads a dataset's `manifest.json` and
-`check_embedder_compatibility` holds its embedder to the one requested
-(counterparts of the functions of `rt1_tpu/data/collect.py`).
+`.npy`. `write_manifest` stamps a dataset's `manifest.json`,
+`read_manifest` reads it and `check_embedder_compatibility` holds its
+embedder to the one requested (counterparts of the functions of
+`rt1_tpu/data/collect.py`).
 """
 
 from __future__ import annotations
@@ -103,6 +104,26 @@ def generate_synthetic_episode(
         "is_terminal": is_terminal,
         "instruction": np.tile(instruction, (t, 1)),
     }
+
+
+def write_manifest(data_dir: str, **fields):
+    """Stamp collection provenance, above all the instruction embedder,
+    into `<data_dir>/manifest.json` (sorted keys, indent 2: the JAX
+    package's bytes); returns the fields. An embedder object is stamped by
+    its `name`. The file is written under a pid-unique name and renamed
+    into place, so a reader sees the old or the new manifest and an update
+    never truncates an inode that a hard-linked copy of the corpus
+    shares."""
+    fields = dict(fields)
+    emb = fields.get("embedder")
+    if emb is not None and not isinstance(emb, str):
+        fields["embedder"] = getattr(emb, "name", str(emb))
+    path = os.path.join(data_dir, "manifest.json")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(fields, f, indent=2, sort_keys=True)
+    os.replace(tmp, path)
+    return fields
 
 
 def read_manifest(data_dir: str, manifest_name: str = "manifest.json"):

@@ -8,4 +8,6 @@
 * `evaluate` — the protocol: oracle-validated inits, <= 80 steps per
   episode, success by the sparse reward; the oracle and random baselines.
 * `main` — `python -m rt1_tpu_torch.eval`.
+* `proof` — the learning proof's summary and its pre-registered criterion.
+* `diagnostics` — the marginal action-token entropy of a corpus.
 """

@@ -19,6 +19,10 @@ running `<data_dir>/val` stream at each eval, and there is no eval without
 that split. A resumed run restarts the data stream from its beginning, as
 the JAX loop does.
 
+`config.model.pretrained_encoder`, the path of a `save_encoder` file,
+is grafted into the tokenizer on a fresh start only (logged as a JSON
+line); a run that resumes a checkpoint restores the checkpoint's encoder.
+
 Without `data_dir` the loop trains on synthetic batches, as the JAX loop
 does. Batch `i` is drawn on the device from a generator seeded with
 `(seed, i)`, so a resumed run sees the batches an unbroken run would have
@@ -45,6 +49,7 @@ from rt1_tpu_torch.data.feeder import SampleAheadFeeder, parse_task_weights
 from rt1_tpu_torch.data.pipeline import WindowedEpisodeDataset, device_feeder, loader_batches
 from rt1_tpu_torch.eval.restore import build_policy
 from rt1_tpu_torch.parallel.flash_attention import fused_attention
+from rt1_tpu_torch.train.pretrain_vision import graft_encoder_into_policy, load_encoder
 from rt1_tpu_torch.trainer.checkpoints import CheckpointManager
 from rt1_tpu_torch.trainer.metrics import MetricsWriter, ThroughputMeter, scalars_from_metrics
 from rt1_tpu_torch.trainer.state import TrainState, create_train_state
@@ -205,9 +210,15 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
     card)."""
     dev = resolve_device(device)
     policy = build_model(config, dev)
+    ckpt = checkpoint_manager(config, workdir)
+    pretrained = config.model.pretrained_encoder
+    if pretrained and ckpt.latest_step() is None:
+        # The JAX loop's graft (`rt1_tpu/train/train.py:642-670`): a resumed
+        # run's checkpoint wins, and grafting first would log a false line.
+        graft_encoder_into_policy(policy, load_encoder(pretrained))
+        log({"status": "grafted_pretrained_encoder", "path": pretrained})
     optimizer = optimizer_from_config(config)
     state = create_train_state(policy, optimizer)
-    ckpt = checkpoint_manager(config, workdir)
     state, initial_step = ckpt.restore_or_initialize(state)
     fns = train_step_fns_from_config(config, optimizer)
     train_feed = eval_feed = None

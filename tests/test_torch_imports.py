@@ -1,11 +1,11 @@
 """Guard: the port imports nothing of JAX and nothing of `rt1_tpu`.
 
 A fresh interpreter blocks jax, flax, optax, orbax, tensorflow,
-ml_collections, absl, cv2, PIL, imageio and the top-level module `rt1_tpu`
-(by exact name: `rt1_tpu_torch` shares its prefix), then imports every
-module of `rt1_tpu_torch` and `chip_smoke.py`. The machine with the card
-has none of those packages (scipy it has, and the env's arm kinematics use
-it), and `rt1_tpu/__init__.py` takes a chip-claim lock.
+ml_collections, absl, cv2, PIL, imageio, matplotlib and the top-level
+module `rt1_tpu` (by exact name: `rt1_tpu_torch` shares its prefix), then
+imports every module of `rt1_tpu_torch` and `chip_smoke.py`. The machine
+with the card has none of those packages (scipy it has, and the env's arm
+kinematics use it), and `rt1_tpu/__init__.py` takes a chip-claim lock.
 """
 
 import os
@@ -21,7 +21,7 @@ import pkgutil
 import sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflow",
-           "ml_collections", "absl", "cv2", "PIL", "imageio", "rt1_tpu")
+           "ml_collections", "absl", "cv2", "PIL", "imageio", "matplotlib", "rt1_tpu")
 
 
 def blocked(name):
@@ -121,4 +121,16 @@ def test_eval_modules_are_among_those_imported():
                  "rt1_tpu_torch.envs.oracles.push_oracle", "rt1_tpu_torch.eval.wrappers",
                  "rt1_tpu_torch.eval.policy", "rt1_tpu_torch.eval.evaluate",
                  "rt1_tpu_torch.eval.main", "rt1_tpu_torch.eval.__main__"):
+        assert name in names, name
+
+
+def test_learning_proof_modules_are_among_those_imported():
+    names = set(_port_modules())
+    for name in ("rt1_tpu_torch.data.collect", "rt1_tpu_torch.data.normalization",
+                 "rt1_tpu_torch.data.dagger", "rt1_tpu_torch.train.dagger_loop",
+                 "rt1_tpu_torch.train.meta", "rt1_tpu_torch.train.proof_config",
+                 "rt1_tpu_torch.train.pretrain_vision", "rt1_tpu_torch.train.learn_proof",
+                 "rt1_tpu_torch.eval.proof", "rt1_tpu_torch.eval.diagnostics",
+                 "rt1_tpu_torch.utils", "rt1_tpu_torch.utils.curves",
+                 "rt1_tpu_torch.utils.artifacts"):
         assert name in names, name
