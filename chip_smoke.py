@@ -141,7 +141,29 @@ exits non-zero without a result line:
              exceeds that bound; then `--baseline oracle` and `--baseline
              random` (3 episodes each) through the CLI and one oracle
              episode on the `kinematic_arm` backend.
-14. proof  — the learning proof at the flagship's width (B3 at 128x224,
+14. serve_modes — the serving modes at the flagship's width, every engine
+             derived in process from the parity phase's seeded f32 master
+             weights: card vs CPU in float32 (TF32 off): the int8 tree bit
+             for bit, and step logits over window + 3 steps of the int8
+             windowed step and of the cached step, then `rebuild_cache`
+             and one more cached step, within 1e-3 x max|logit| (tf32x3
+             launches 8 a windowed step, 0 cached); the JAX engine's gates
+             through `serve/parity.py` at 0.99 in float32 (int8 against
+             f32, the cached fill against the windowed engine), bf16
+             agreement and the cached steady state reported; 3 + 20 timed
+             + 5 profiled bucket-8 steps of 8 sessions in four modes (f32
+             compute, bf16, int8 at bf16, cached at bf16), in turns and
+             back (the second turn beside the first): host ms p50 /
+             p99, busy ms, idle share, device launches, fused launches a
+             step (8 of the matching variant windowed, 0 cached), resident
+             bytes; then `python -m rt1_tpu_torch.serve --inference_dtype
+             int8 --cached_inference --session_snapshot_dir <tmp>`: `/act`,
+             `POST /reload` onto the same random init (a replay after it
+             gives the actions before it bit for bit; caches_rebuilt = the
+             live sessions), `/session/export`, `/release`,
+             `/session/import` under a new id (its next action = the
+             original's), the `/metrics` gauges, SIGTERM exit 0.
+15. proof  — the learning proof at the flagship's width (B3 at 128x224,
              window 6, batch 32, bf16) under a temporary directory, through
              `python -m rt1_tpu_torch.train.learn_proof`: `--stage collect`
              of 8 episodes over 4 workers (BLOCK_4 block2block, ngram,
@@ -165,12 +187,13 @@ exits non-zero without a result line:
              train step ms, the control-step quantiles and each stage's
              wall time, beside `nvidia-smi`'s line. CPU rehearsal:
              `phase_proof('tiny', 'cpu')`.
-15. kernels — one line listing the three kernels with their launches on
+16. kernels — one line listing the three kernels with their launches on
              their path (serve for the tensor-core kernel, the flagship f32
              parity step for tf32x3, the `tiny` bf16 step for the simple
-             one), on the eval path (`eval_launches`) and in the learning
-             proof's DAgger and eval stages (`proof_launches`), errors,
-             times and bound.
+             one), on the eval path (`eval_launches`), in the learning
+             proof's DAgger and eval stages (`proof_launches`) and in each
+             serving mode's bucket-8 drive (`serve_modes_launches`),
+             errors, times and bound.
 
 The last line is `{"ok": true, "device": {...}}`.
 """
@@ -927,6 +950,326 @@ def phase_serve(config_name: str = "language_table", device: str = "cuda"):
         "attention_launches_tf32x3_total": tf32x3_launches,
         "attention_launches_simple_total": simple_launches,
         "decoder_layers": layers, "compile_count": metrics["compile_count"],
+    }
+    emit(record)
+    return record
+
+
+# Serving modes: card vs CPU, the parity gates, per-mode bucket-8
+# steps, and the int8 + cached server's /reload and session moves.
+SERVE_MODES_BUCKET = 8
+SERVE_MODES_CPU_BATCH = 2      # rows of the card-vs-CPU replay
+SERVE_MODES_WARMUP, SERVE_MODES_TIMED, SERVE_MODES_PROFILED = 3, 20, 5
+SERVE_MODES_FLAGS = ("--inference_dtype", "int8", "--cached_inference")
+
+
+def _logit_check(what, logits, cpu_logits, tokens, cpu_tokens):
+    """The parity phase's rule over a list of steps: logits within
+    PARITY_REL_TOL x max|cpu logit|, a token flip only where the CPU's
+    top-2 gap lies within twice that bound."""
+    import torch
+
+    logits, cpu_logits = torch.stack(logits), torch.stack(cpu_logits)
+    tokens, cpu_tokens = torch.stack(tokens), torch.stack(cpu_tokens)
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"serve_modes {what}: non-finite logits on the card")
+    scale = max(1.0, float(cpu_logits.abs().max()))
+    bound = PARITY_REL_TOL * scale
+    diff = float((logits - cpu_logits).abs().max())
+    top2 = cpu_logits.topk(2, dim=-1).values
+    agree = tokens == cpu_tokens
+    unexplained = int((~agree & (top2[..., 0] - top2[..., 1] > 2 * bound)).sum())
+    record = {"max_abs_logit_diff": diff, "bound": bound, "max_abs_logit": scale,
+              "action_token_agreement": float(agree.float().mean()), "steps": len(logits)}
+    if diff > bound or unexplained:
+        emit({"phase": "serve_modes", "failed": what, **record})
+        raise AssertionError(f"serve_modes {what}: logit diff {diff} (bound {bound}), "
+                             f"{unexplained} token flips beyond the bound")
+    return record
+
+
+def _replay_steps(policy, dev, frames, emb, cached):
+    """Step `policy` over `frames` (window + 3 steps, then, cached, a
+    rebuild and one more step): per step (logits, tokens) on the CPU."""
+    import torch
+
+    out = []
+    state = policy.initial_state(emb.shape[0], cached=cached)
+    step = policy.infer_step_cached if cached else policy.infer_step
+    with torch.no_grad():
+        for i, frame in enumerate(frames):
+            if cached and i == len(frames) - 1:
+                state = policy.rebuild_cache(state)
+            obs = {"image": torch.from_numpy(frame).to(dev),
+                   "natural_language_embedding": torch.from_numpy(emb).to(dev)}
+            result, state = step(obs, state)
+            out.append((result["action_logits"].cpu().double(), result["action_tokens"].cpu()))
+    return out
+
+
+def _serve_modes_server(config_name, config, device, frames, embedding, cache_values):
+    """`python -m rt1_tpu_torch.serve --inference_dtype int8 --cached_inference
+    --session_snapshot_dir <tmp>`: act, /reload onto the same random init
+    (a replay after it must give the same actions bit for bit and every
+    live cache must be rebuilt), export / release / import a session (its
+    next action must equal the original's), the /metrics gauges;
+    `cache_values` is one slot's K/V cache in values."""
+    import numpy as np
+
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    window = config.model.time_sequence_length
+
+    def body(sid, i):
+        return {"session_id": sid, "embedding": embedding,
+                "image_b64": base64.b64encode(frames[i].tobytes()).decode()}
+
+    with tempfile.TemporaryDirectory() as ring, tempfile.TemporaryFile(mode="w+") as errlog:
+        cmd = [sys.executable, "-m", "rt1_tpu_torch.serve", "--config", config_name,
+               "--random_init", "--port", "0", "--device", device, *SERVE_MODES_FLAGS,
+               "--session_snapshot_dir", ring]
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=errlog,
+                                text=True)
+        try:
+            t0 = time.perf_counter()
+            ready = _read_ready_line(proc, SERVE_TIMEOUT_S)
+            startup_s = time.perf_counter() - t0
+            url = f"http://127.0.0.1:{ready['port']}"
+            before = [_http(url + "/act", body("r0", i))[1] for i in range(window)]
+            for i in range(3):
+                _http(url + "/act", body("m", i))
+            live = _http(url + "/healthz")[1]["active_sessions"]
+            t0 = time.perf_counter()
+            code, reload = _http(url + "/reload", {})
+            reload_s = time.perf_counter() - t0
+            after = [_http(url + "/act", body("r1", i))[1] for i in range(window)]
+            code_x, exported = _http(url + "/session/export", {"session_id": "m"})
+            original = _http(url + "/act", body("m", 3))[1]
+            _http(url + "/release", {"session_id": "m"})
+            code_i, imported = _http(url + "/session/import",
+                                     {"snapshot": exported["snapshot"], "session_id": "m2"})
+            moved = _http(url + "/act", body("m2", 3))[1]
+            ready_code = _http(url + "/readyz")[0]
+            _, metrics = _http(url + "/metrics")
+            ring_files = len([n for n in os.listdir(ring) if n.endswith(".json")])
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            if proc.returncode not in (0, None):
+                errlog.seek(0)
+                sys.stderr.write(errlog.read()[-8000:])
+    cache_bytes = cache_values * (2 if ready["dtype"] == "bfloat16" else 4)
+    record = {
+        "startup_s": startup_s, "ready": {k: ready[k] for k in (
+            "inference_dtype", "cached_inference", "param_bytes_device", "replica_id",
+            "compile_count", "dtype")},
+        "reload": {k: reload.get(k) for k in ("ok", "caches_rebuilt", "params_swapped",
+                                              "param_bytes", "inference_dtype")},
+        "reload_s": reload_s, "live_sessions_at_reload": live,
+        "replay_identical": [a["action"] for a in after] == [b["action"] for b in before]
+        and [a["action_tokens"] for a in after] == [b["action_tokens"] for b in before],
+        "moved_equals_original": (moved["action"], moved["action_tokens"])
+        == (original["action"], original["action_tokens"]),
+        "snapshot_bytes": len(json.dumps(exported.get("snapshot", {}))),
+        "ring_files": ring_files, "exit_code": rc,
+        "metrics": {k: metrics[k] for k in (
+            "inference_dtype", "param_bytes_device", "param_bytes_master", "cache_enabled",
+            "cache_bytes_per_slot", "cache_invalidations", "cache_rebuild_steps_total",
+            "reloads_total", "migration_exports_total", "migration_imports_total",
+            "attention_launches_total", "engine_steps_total", "compile_count")},
+    }
+    problems = []
+    if code != 200 or not reload.get("ok") or reload.get("caches_rebuilt") != live or live != 2:
+        problems.append(f"/reload {code} {reload} with {live} live sessions")
+    if not record["replay_identical"]:
+        problems.append(f"actions after /reload differ: {before} vs {after}")
+    if code_x != 200 or code_i != 200 or imported.get("session_id") != "m2" or \
+            moved.get("session_started") or not record["moved_equals_original"]:
+        problems.append(f"session move: export {code_x}, import {code_i} {imported}, "
+                        f"moved {moved} vs original {original}")
+    m = metrics
+    if (m["inference_dtype"], m["cache_enabled"], m["reloads_total"],
+            m["migration_exports_total"], m["migration_imports_total"]) != ("int8", 1, 1, 1, 1) \
+            or m["cache_bytes_per_slot"] != cache_bytes \
+            or not m["param_bytes_device"] < m["param_bytes_master"] \
+            or m["attention_launches_total"] != 0 or ready_code != 200 or rc != 0 \
+            or ring_files < 1:
+        problems.append(f"gauges {record['metrics']}, /readyz {ready_code}, exit {rc}, "
+                        f"ring files {ring_files}, expected cache bytes {cache_bytes}")
+    if problems:
+        emit({"phase": "serve_modes", "server": record})
+        raise AssertionError("serve_modes server: " + "; ".join(problems))
+    return record
+
+
+def phase_serve_modes(config_name: str = "language_table", device: str = "cuda"):
+    """The serving modes at the flagship's width, on the parity
+    phase's seeded random weights (one f32 master policy; every engine is
+    derived from it in process):
+
+    1. card vs CPU, float32 compute (TF32 off): the int8 tree bit for bit;
+       step logits over window + 3 steps of the int8 windowed step and of
+       the cached step (then `rebuild_cache` and one more cached step)
+       within the parity phase's tolerance;
+    2. the JAX engine's gates through `serve/parity.py` at 0.99, f32
+       compute: int8 against f32, the cached fill against the windowed
+       engine; reported, not gated: bf16 against f32 and the cached
+       steady state;
+    3. bucket-8 steps of 8 sessions in four modes (f32 compute, bf16,
+       int8 at bf16, cached at bf16), in turns and back: host ms p50 /
+       p99, the card's busy ms and idle share, device launches, fused
+       launches per variant (8 of the matching variant a windowed step, 0
+       a cached one) and resident bytes;
+    4. the int8 + cached server over HTTP (`_serve_modes_server`)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.configs import get_config
+    from rt1_tpu_torch.eval.restore import master_policy, serving_engine
+    from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
+    from rt1_tpu_torch.serve import parity
+
+    on_card = device == "cuda"
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    config = get_config(config_name)
+    h, w = config.data.height, config.data.width
+    shape, window = (h, w, 3), config.model.time_sequence_length
+    master, _ = master_policy(config, None, None, attention_impl="fused")
+    layers = master.num_layers
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def engine(dev, mode="f32", compute="float32", cached=False, sessions=SERVE_MODES_BUCKET):
+        return serving_engine(copy.deepcopy(master), dtypes[compute], dev, inference_dtype=mode,
+                              cached_inference=cached, max_sessions=sessions,
+                              buckets=[1, sessions])
+
+    # 1. card vs CPU.
+    card = {"f32": engine(device), "int8": engine(device, "int8")}
+    cpu = {"f32": engine("cpu", sessions=2), "int8": engine("cpu", "int8", sessions=2)}
+    card_tree = card["int8"].policy.state_dict()
+    cpu_tree = cpu["int8"].policy.state_dict()
+    int8_leaves = sum(v.dtype == torch.int8 for v in cpu_tree.values())
+    tree_diff = sorted(k for k, v in cpu_tree.items() if not torch.equal(card_tree[k].cpu(), v))
+    if tree_diff or sorted(card_tree) != sorted(cpu_tree):
+        raise AssertionError(f"serve_modes: int8 tree on the card differs from the CPU's in "
+                             f"{tree_diff[:8]} ({len(tree_diff)} leaves)")
+    rng = np.random.default_rng(5)
+    b = SERVE_MODES_CPU_BATCH
+    frames = [rng.uniform(0, 1, (b, h, w, 3)).astype(np.float32) for _ in range(window + 4)]
+    emb = rng.standard_normal((b, 512)).astype(np.float32)
+    replay = {}
+    for name, mode, cached in (("int8_f32", "int8", False), ("cached_f32", "f32", True)):
+        n = window + (4 if cached else 3)
+        reset_launch_counts()
+        on = _replay_steps(card[mode].policy, device, frames[:n], emb, cached)
+        launches = dict(fused_attention.launches_by_variant)
+        t0 = time.perf_counter()
+        ref = _replay_steps(cpu[mode].policy, "cpu", frames[:n], emb, cached)
+        record = _logit_check(name, [o[0] for o in on], [r[0] for r in ref],
+                              [o[1] for o in on], [r[1] for r in ref])
+        record.update(launches_by_variant=launches, cpu_s=time.perf_counter() - t0)
+        expected = {"tensor_core": 0, "tf32x3": 0 if cached or not on_card else layers * n,
+                    "simple": 0}
+        if launches != expected:
+            raise AssertionError(f"serve_modes {name}: launches {launches}, expected {expected}")
+        if cached:
+            # The step after the rebuild alone, as the cached gate reads it.
+            record["after_rebuild"] = _logit_check(name + "_rebuilt", [on[-1][0]], [ref[-1][0]],
+                                                   [on[-1][1]], [ref[-1][1]])
+        replay[name] = record
+    del cpu
+
+    # 2. the gates, f32 compute, through the port's parity.py.
+    card["cached"] = engine(device, cached=True)
+    card["bf16"] = engine(device, "bf16", "bfloat16")
+    gates = {}
+    try:
+        gates["int8_vs_f32"] = parity.check_parity(card["f32"], card["int8"], shape)
+        gates["cached_vs_windowed"] = parity.check_cached_parity(card["f32"], card["cached"], shape)
+    except ValueError as exc:
+        emit({"phase": "serve_modes", "gates": gates, "failed": str(exc)})
+        raise
+    bf16_stat = parity.action_token_agreement(card["f32"], card["bf16"],
+                                              parity.canned_episodes(shape))
+
+    # 3. bucket-8 steps per mode.
+    timed = {"f32": card.pop("f32"), "bf16": card.pop("bf16")}
+    del card
+    timed["int8_bf16"] = engine(device, "int8", "bfloat16")
+    timed["cached_bf16"] = engine(device, "f32", "bfloat16", cached=True)
+    items = [(f"t-{i}", {"image": rng.uniform(0, 1, shape).astype(np.float32),
+                         "natural_language_embedding": rng.standard_normal(512).astype(np.float32)})
+             for i in range(SERVE_MODES_BUCKET)]
+    modes = {}
+    # In turns (f32, bf16, int8, cached, cached, int8, bf16, f32): each
+    # mode's second turn is kept beside its first.
+    for name in list(timed) + list(reversed(list(timed))):
+        eng = timed[name]
+        reset_launch_counts()  # this mode's drive only
+        steps0 = eng.steps_total
+        for _ in range(SERVE_MODES_WARMUP):
+            eng.act_batch(items)
+        walls = []
+        for _ in range(SERVE_MODES_TIMED):
+            t0 = time.perf_counter()
+            eng.act_batch(items)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        prof = device_profile(lambda: eng.act_batch(items), iters=SERVE_MODES_PROFILED) \
+            if on_card else None
+        steps = eng.steps_total - steps0
+        launches = dict(fused_attention.launches_by_variant)
+        quantiles = _quantiles(walls)
+        record = {
+            "inference_dtype": eng.inference_dtype, "compute": eng.dtype,
+            "cached": eng.cached_inference, "host_ms_p50": quantiles["p50"],
+            "host_ms_p99": quantiles["p99"], "host_ms": sorted(walls),
+            "engine_steps": steps, "launches_by_variant": launches,
+            "fused_launches_per_step": {k: v / steps for k, v in launches.items()},
+            "serving_param_bytes": eng.serving_param_bytes,
+            "cache_bytes_per_slot": eng.cache_bytes_per_slot,
+            "compile_count": eng.compile_count,
+        }
+        if prof is not None:
+            record.update(device_busy_ms=prof["busy_ms"], profiled_wall_ms=prof["wall_ms"],
+                          idle_share=1.0 - prof["busy_ms"] / prof["wall_ms"],
+                          device_launches=prof["launches"])
+        variant = "tf32x3" if eng.dtype == "float32" else "tensor_core"
+        expected = {"tensor_core": 0, "tf32x3": 0, "simple": 0}
+        if on_card and not eng.cached_inference:
+            expected[variant] = layers * steps
+        if launches != expected:
+            raise AssertionError(f"serve_modes {name}: launches {launches}, expected {expected}")
+        if name in modes:
+            modes[name]["second_turn"] = {k: record[k] for k in (
+                "host_ms_p50", "host_ms_p99", "device_busy_ms", "idle_share", "device_launches")
+                if k in record}
+        else:
+            modes[name] = record
+    del timed
+
+    # 4. the server.
+    frames_u8 = rng.integers(0, 256, (max(window, 4), h, w, 3), dtype=np.uint8)
+    server = _serve_modes_server(config_name, config, device, frames_u8,
+                                 [float(x) for x in emb[0]],
+                                 modes["cached_bf16"]["cache_bytes_per_slot"] // 2)
+    record = {
+        "phase": "serve_modes", "config": config_name, "bucket": SERVE_MODES_BUCKET,
+        "card_vs_cpu": {"int8_tree_leaves": len(cpu_tree), "int8_leaves": int8_leaves,
+                        "int8_tree_bitwise": True, **replay},
+        "gates": {"threshold": parity.PARITY_THRESHOLD, **{
+            k: {f: v[f] for f in ("agreement", "tokens_total", "max_abs_action_diff", "passed")
+                if f in v} for k, v in gates.items()}},
+        "stats": {"bf16_vs_f32_agreement": bf16_stat["agreement"],
+                  "bf16_tokens_total": bf16_stat["tokens_total"],
+                  "cached_steady_agreement": gates["cached_vs_windowed"]["steady_agreement"],
+                  "cached_steady_steps": gates["cached_vs_windowed"]["steady_steps"]},
+        "modes": modes, "server": server, "seconds": time.perf_counter() - t_phase,
     }
     emit(record)
     return record
@@ -2320,7 +2663,7 @@ def _kernel_entry(name, source, launches, path, head, cases):
 
 
 PHASES = ("kernel", "ab", "sweep", "parity", "tiny", "step", "serve", "train_parity", "train",
-          "data", "eval", "proof")
+          "data", "eval", "serve_modes", "proof")
 
 
 def main(argv=None) -> int:
@@ -2392,7 +2735,11 @@ def main(argv=None) -> int:
     # bf16 episode and the f32 replay of the `eval` phase.
     # And the learning proof's: the DAgger and eval stages of its CLI.
     proof = done["proof"]
+    serve_modes = done["serve_modes"]["modes"]
     for entry, variant in zip(entries, ("tensor_core", "tf32x3", "simple")):
+        # Each serving mode's bucket-8 drive (counts set to 0 before it).
+        entry["serve_modes_launches"] = {
+            mode: record["launches_by_variant"][variant] for mode, record in serve_modes.items()}
         entry["eval_launches"] = {"bf16_episode": eval_bf16[variant],
                                   "f32_replay": eval_f32[variant]}
         entry["proof_launches"] = {"dagger": proof["dagger"]["launches"][variant],

@@ -18,6 +18,16 @@ is the port's `image_tokenizer`, and flax's auto-named `EfficientNet_0`
 is the encoder's `net`. `load_flax_variables` then insists that every
 leaf lands on exactly one parameter: leftover or missing keys raise.
 
+An int8 serving tree (JAX's `quantize_tree`: int8 kernels plus the
+`quant` collection of `<module>/kernel_scale` leaves) converts the same
+way: int8 kernels keep their dtype through the transposes, and each scale
+becomes the `<module>.weight_scale` buffer of a quantizable layer
+(`models/quant.py`).
+
+`flax_paths(model)` is the inverse map, each state_dict key to its flax
+path, checked against `_convert_leaf`: each path is converted forward
+and must land on its key.
+
 `load_npz(path)` reads the same tree flattened to `/`-joined flax paths
 (`params/transformer/layer_0/ff/kernel`, `batch_stats/...`).
 
@@ -40,6 +50,14 @@ from rt1_tpu_torch.models.efficientnet import BatchNorm
 from rt1_tpu_torch.models.film import FilmConditioning
 
 _MODULE_RENAMES = {"image_tokenizer_def": "image_tokenizer", "EfficientNet_0": "net"}
+_FLAX_NAMES = {v: k for k, v in _MODULE_RENAMES.items()}
+# The flax leaf of each torch leaf but `weight` (which `_flax_leaf` decides).
+_FLAX_LEAVES = {
+    "bias": ("params", "bias"),
+    "running_mean": ("batch_stats", "mean"),
+    "running_var": ("batch_stats", "var"),
+    "weight_scale": ("quant", "kernel_scale"),
+}
 # flax's truncated_normal keeps [-2, 2] and rescales so the variance is 1.
 _TRUNC_STD = 0.87962566103423978
 
@@ -56,6 +74,10 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
 def _convert_leaf(collection: str, path: Tuple[str, ...], value: np.ndarray):
     *modules, leaf = path
     modules = [_MODULE_RENAMES.get(m, m) for m in modules]
+    if collection == "quant":
+        if leaf != "kernel_scale":
+            raise ValueError(f"unknown quant leaf {'/'.join(path)}")
+        return ".".join(modules + ["weight_scale"]), value
     if collection == "batch_stats":
         names = {"mean": "running_mean", "var": "running_var"}
         if leaf not in names:
@@ -77,26 +99,67 @@ def _convert_leaf(collection: str, path: Tuple[str, ...], value: np.ndarray):
 
 
 def state_dict_from_flax(
-    params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None
+    params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None,
+    quant: Optional[Mapping[str, Any]] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Flax `params` (+ `batch_stats`) -> the port's state_dict (float32)."""
+    """Flax `params` (+ `batch_stats`, + an int8 tree's `quant` scales) ->
+    the port's state_dict: float32, but int8 kernels stay int8."""
     out: Dict[str, torch.Tensor] = {}
     trees = [("params", params)]
     if batch_stats:
         trees.append(("batch_stats", batch_stats))
+    if quant:
+        trees.append(("quant", quant))
     for collection, tree in trees:
         for path, value in _flatten(tree):
             key, converted = _convert_leaf(collection, path, value)
             if key in out:
                 raise ValueError(f"two flax leaves map to {key!r} (second: {'/'.join(path)})")
-            out[key] = torch.tensor(np.asarray(converted, dtype=np.float32))
+            dtype = np.int8 if converted.dtype == np.int8 else np.float32
+            out[key] = torch.tensor(np.asarray(converted, dtype=dtype))
     return out
 
 
-def load_flax_variables(model: nn.Module, params, batch_stats=None) -> None:
+def _flax_leaf(owner: nn.Module, leaf: str) -> Tuple[str, str]:
+    """(collection, flax leaf name) of a torch leaf of `owner`."""
+    if leaf == "weight":
+        if isinstance(owner, nn.Embedding):
+            return "params", "embedding"
+        return "params", "kernel" if isinstance(owner, (nn.Linear, nn.Conv2d)) else "scale"
+    return _FLAX_LEAVES[leaf]
+
+
+def flax_paths(model: nn.Module) -> Dict[str, str]:
+    """Each state_dict key of `model` -> its flax path
+    (`params/transformer/layer_0/ff/kernel`, `batch_stats/.../mean`,
+    `quant/.../kernel_scale`), checked by converting the path forward with
+    `_convert_leaf`, which must give back the key."""
+    # Both flax names of the tokenizer convert to `image_tokenizer`; the
+    # policy records which one its JAX counterpart uses.
+    names = dict(_FLAX_NAMES, image_tokenizer=getattr(model, "tokenizer_flax_name",
+                                                      "image_tokenizer_def"))
+    out = {}
+    for key, value in model.state_dict().items():
+        *modules, leaf = key.split(".")
+        collection, flax_leaf = _flax_leaf(model.get_submodule(".".join(modules)), leaf)
+        path = tuple(names.get(m, m) for m in modules) + (flax_leaf,)
+        dummy = np.broadcast_to(np.float32(0), tuple(value.shape))
+        if _convert_leaf(collection, path, dummy)[0] != key:
+            raise ValueError(f"flax path {'/'.join(path)} does not convert to {key!r}")
+        out[key] = "/".join((collection,) + path)
+    return out
+
+
+def load_flax_variables(model: nn.Module, params, batch_stats=None, quant=None) -> None:
     """Copy flax variables into `model`; every leaf must map to exactly one
-    parameter or buffer of the same shape, and none may be left over."""
-    state = state_dict_from_flax(params, batch_stats)
+    parameter or buffer of the same shape, and none may be left over. With
+    an int8 tree's `quant` scales, the layers whose kernels are int8 take
+    them as int8 weights (`quant.quantize_layers_`)."""
+    from rt1_tpu_torch.models.quant import quantize_layers_
+
+    state = state_dict_from_flax(params, batch_stats, quant)
+    if quant:
+        quantize_layers_(model, state)
     own = model.state_dict()
     missing = sorted(set(own) - set(state))
     leftover = sorted(set(state) - set(own))

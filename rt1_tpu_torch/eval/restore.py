@@ -1,24 +1,37 @@
 """Build the serving engine from a config and weights (counterpart of
-`rt1_tpu/eval/restore.py::build_serve_engine`).
+`rt1_tpu/eval/restore.py::build_serve_engine` and
+`load_standby_variables`).
 
 Weights are f32 masters — from the port's seeded random init, from the
 JAX package's variables saved as an .npz of `/`-joined flax paths
 (`convert.load_npz`), or from the newest checkpoint the port's trainer
-wrote under `<workdir>/checkpoints` — cast ONCE to `config.model.dtype`
-when the policy moves to its device. The JAX package's restore notes that
-this cast at build equals flax's cast at use.
+wrote under `<workdir>/checkpoints`. The serving weights are derived from
+them once, on the device (`models/quant.py::serving_preparer`):
+
+* `inference_dtype="f32"`: every float leaf cast to `config.model.dtype`.
+  The port holds its weights at the compute dtype, where JAX holds f32
+  masters and casts at use: the outputs are the same, the bytes differ.
+* `"bf16"`: the policy is rebuilt at bfloat16 compute and every float
+  leaf cast to bfloat16.
+* `"int8"`: the quant plan's int8 leaves quantized per output channel on
+  the device (scales float32), the rest cast to the compute dtype.
+
+The engine keeps the master spec and the preparer, so `/reload` takes an
+f32 master (`load_standby_variables`) and prepares it the same way.
 """
 
 from __future__ import annotations
 
+import copy
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from rt1_tpu_torch import resolve_device
 from rt1_tpu_torch.configs import Config
-from rt1_tpu_torch.convert import init_weights, load_flax_variables, load_npz
+from rt1_tpu_torch.convert import flax_paths, init_weights, load_flax_variables, load_npz
+from rt1_tpu_torch.models import quant
 from rt1_tpu_torch.models.image_tokenizer import RT1ImageTokenizer
 from rt1_tpu_torch.models.rt1 import RT1Policy
 from rt1_tpu_torch.models.tiny_tokenizer import TinyImageTokenizer
@@ -71,7 +84,31 @@ def build_policy(config: Config, attention_impl: Optional[str] = None) -> RT1Pol
         crop_ratio=reg.crop_ratio,
         focal_gamma=m.focal_gamma,
         aux_mse_weight=m.aux_mse_weight,
+        # JAX's build_model passes every tokenizer but B3's as a def.
+        tokenizer_flax_name="image_tokenizer" if m.image_tokenizer == "efficientnet_b3" else None,
     )
+
+
+def master_policy(config: Config, weights: Optional[str], workdir: Optional[str],
+                   attention_impl: Optional[str] = None, step: Optional[int] = None):
+    """(the policy in float32 on the CPU filled with its masters, the
+    checkpoint step): -1 for random init, None for an .npz, the trainer's
+    step for a workdir (`step` picks one; default the newest)."""
+    if weights is not None and workdir is not None:
+        raise ValueError("pass weights or workdir, not both")
+    policy = build_policy(config, attention_impl)
+    restored = -1
+    if workdir is not None:
+        ckpt = load_checkpoint(os.path.join(workdir, "checkpoints"), step)
+        policy.load_state_dict(ckpt["policy"])
+        restored = int(ckpt["loop_step"])
+    elif weights is None:
+        init_weights(policy, torch.Generator().manual_seed(RANDOM_INIT_SEED))
+    else:
+        params, batch_stats = load_npz(weights)
+        load_flax_variables(policy, params, batch_stats)
+        restored = None
+    return policy, restored
 
 
 def load_policy(config: Config, weights: Optional[str] = None, device=None,
@@ -89,30 +126,60 @@ def load_policy_and_step(config: Config, weights: Optional[str] = None, device=N
     """`load_policy` and the checkpoint step it restored: -1 for random
     init, None for an .npz, the trainer's step for a workdir (whose lack
     of a checkpoint raises FileNotFoundError)."""
-    if weights is not None and workdir is not None:
-        raise ValueError("pass weights or workdir, not both")
     dev = resolve_device(device)
-    policy = build_policy(config, attention_impl)
-    step = -1
-    if workdir is not None:
-        ckpt = load_checkpoint(os.path.join(workdir, "checkpoints"))
-        policy.load_state_dict(ckpt["policy"])
-        step = int(ckpt["loop_step"])
-    elif weights is None:
-        init_weights(policy, torch.Generator().manual_seed(RANDOM_INIT_SEED))
-    else:
-        params, batch_stats = load_npz(weights)
-        load_flax_variables(policy, params, batch_stats)
-        step = None
+    policy, step = master_policy(config, weights, workdir, attention_impl)
     dtype = DTYPES[config.model.dtype]
     return policy.to(device=dev, dtype=dtype).eval().requires_grad_(False), step
 
 
+def config_with_model_dtype(config: Config, dtype: str) -> Config:
+    """A copy of `config` whose model computes in `dtype` (bf16 serving
+    rebuilds the model at bfloat16; the masters stay float32)."""
+    config = copy.deepcopy(config)
+    config.model.dtype = dtype
+    return config
+
+
+def serving_engine(master: RT1Policy, compute_dtype: torch.dtype, device=None,
+                   inference_dtype: str = "f32", cached_inference: bool = False,
+                   **engine_kwargs) -> PolicyEngine:
+    """An engine serving `master` (a float32 policy on the CPU, which this
+    moves to `device`) in `inference_dtype` at `compute_dtype`."""
+    quant.check_inference_dtype(inference_dtype)
+    dev = resolve_device(device)
+    master_state = {k: v.detach().clone() for k, v in master.state_dict().items()}
+    prepare = quant.serving_preparer(inference_dtype, flax_paths(master), compute_dtype, dev)
+    serving = prepare(master_state)
+    policy = master.to(device=dev, dtype=compute_dtype)
+    quant.quantize_layers_(policy, serving)
+    policy.load_state_dict(serving)
+    return PolicyEngine(policy.eval().requires_grad_(False), inference_dtype=inference_dtype,
+                        prepare_variables=prepare, master_state=master_state,
+                        cached_inference=cached_inference, **engine_kwargs)
+
+
 def build_serve_engine(config: Config, weights: Optional[str] = None, device=None,
                        attention_impl: Optional[str] = None, workdir: Optional[str] = None,
+                       inference_dtype: str = "f32", cached_inference: bool = False,
                        **engine_kwargs):
-    """A multi-session serving engine over `load_policy(...)`. Returns
-    (engine, checkpoint_step): -1 for random init, None for an .npz, the
-    trainer's step for a workdir."""
-    policy, step = load_policy_and_step(config, weights, device, attention_impl, workdir)
-    return PolicyEngine(policy, **engine_kwargs), step
+    """A multi-session serving engine in one of the serving modes (see the
+    module docstring). Returns (engine, checkpoint_step): -1 for random
+    init, None for an .npz, the trainer's step for a workdir."""
+    quant.check_inference_dtype(inference_dtype)
+    if inference_dtype == "bf16":
+        config = config_with_model_dtype(config, "bfloat16")
+    master, step = master_policy(config, weights, workdir, attention_impl)
+    engine = serving_engine(master, DTYPES[config.model.dtype], device, inference_dtype,
+                            cached_inference, **engine_kwargs)
+    return engine, step
+
+
+def load_standby_variables(config: Config, weights: Optional[str] = None,
+                           workdir: Optional[str] = None, step: Optional[int] = None):
+    """The f32 master state_dict of a hot swap, on the host, and its step:
+    from `workdir`'s checkpoint (`step`, default the newest), from an .npz,
+    or the seeded random init (bit-identical to `build_serve_engine`'s).
+    Returns (state_dict, checkpoint_step)."""
+    policy, restored = master_policy(config, weights, workdir, step=step)
+    state: Dict[str, torch.Tensor] = {k: v.detach() for k, v in policy.state_dict().items()}
+    return state, restored

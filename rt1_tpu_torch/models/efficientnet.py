@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rt1_tpu_torch.models.film import FilmConditioning
+from rt1_tpu_torch.models.quant import QuantConv2d
 from rt1_tpu_torch.ops.dropout import Rngs
 
 # Table-1 base (B0) config.
@@ -121,8 +122,8 @@ class ConvNormAct(nn.Module):
                  groups: int = 1, use_act: bool = True):
         super().__init__()
         pad = (kernel_size - 1) // 2
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=strides,
-                              padding=pad, groups=groups, bias=False)
+        self.conv = QuantConv2d(in_ch, out_ch, kernel_size, stride=strides,
+                                padding=pad, groups=groups, bias=False)
         self.bn = BatchNorm(out_ch)
         self.use_act = use_act
 
@@ -137,8 +138,8 @@ class SqueezeExcite(nn.Module):
     def __init__(self, expand_size: int, block_in_size: int, se_ratio: float = 0.25):
         super().__init__()
         se_size = max(1, int(block_in_size * se_ratio))
-        self.fc1 = nn.Conv2d(expand_size, se_size, 1)
-        self.fc2 = nn.Conv2d(se_size, expand_size, 1)
+        self.fc1 = QuantConv2d(expand_size, se_size, 1)
+        self.fc2 = QuantConv2d(se_size, expand_size, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean(dim=(2, 3), keepdim=True)
@@ -245,5 +246,5 @@ class EfficientNet(nn.Module):
     def forward(self, inputs: torch.Tensor, context: Optional[torch.Tensor] = None,
                 train: bool = False, rngs: Rngs = None) -> torch.Tensor:
         """inputs: (B, H, W, 3) float; context: (B, D) when FiLM. Returns NHWC."""
-        x = inputs.to(self.stem.conv.weight.dtype).permute(0, 3, 1, 2)
+        x = inputs.to(self.stem.conv.compute_dtype).permute(0, 3, 1, 2)
         return self.forward_nchw(x, context, train, rngs).permute(0, 2, 3, 1)

@@ -13,6 +13,7 @@ from torch import nn
 
 from rt1_tpu_torch.models.efficientnet import EfficientNet
 from rt1_tpu_torch.models.film import FilmConditioning
+from rt1_tpu_torch.models.quant import QuantConv2d
 from rt1_tpu_torch.ops.dropout import Rngs
 
 
@@ -25,13 +26,13 @@ class EfficientNetEncoder(nn.Module):
         self.net = EfficientNet(width_coefficient, depth_coefficient,
                                 include_film=early_film, context_dim=context_dim,
                                 drop_connect_rate=drop_connect_rate)
-        self.conv1x1 = nn.Conv2d(self.net.top_ch, token_embedding_size, 1, bias=False)
+        self.conv1x1 = QuantConv2d(self.net.top_ch, token_embedding_size, 1, bias=False)
         self.film = FilmConditioning(context_dim, token_embedding_size)
 
     def forward(self, image: torch.Tensor, context: Optional[torch.Tensor] = None,
                 train: bool = False, rngs: Rngs = None) -> torch.Tensor:
         """image: (B, H, W, 3); context: (B, D). Returns (B, h, w, E)."""
-        x = image.to(self.conv1x1.weight.dtype).permute(0, 3, 1, 2)
+        x = image.to(self.conv1x1.compute_dtype).permute(0, 3, 1, 2)
         x = self.net.forward_nchw(x, context if self.early_film else None, train, rngs)
         x = self.film(self.conv1x1(x), context, channel_dim=1)
         return x.permute(0, 2, 3, 1)

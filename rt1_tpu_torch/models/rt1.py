@@ -22,6 +22,16 @@ the port steps a batch of streams at different phases at once: `seq_idx`
 is a `(b,)` tensor, and the roll, the insert, the step-logit gather and
 the action write all act per row. A batch whose rows share a phase is
 exactly the JAX computation. Photometric augmentation is not ported.
+
+`infer_step_cached` is the incremental step against a per-stream K/V
+cache (`initial_state(b, cached=True)`): it runs the transformer over the
+new frame's I+A positions only, attending the cached prefix. While a
+window fills it equals `infer_step` to float tolerance; once full, the
+cache rolls by one step block and the surviving rows keep the K/V they
+were computed with (position rows and context one frame stale per roll),
+as in JAX. `rebuild_cache` recomputes every row from the stored image
+tokens (the engine runs it after a weight swap). The roll, the cache
+write, the position rows and the decode-mask rows are per row.
 """
 
 from __future__ import annotations
@@ -109,6 +119,7 @@ class RT1Policy(nn.Module):
         crop_ratio: float = 0.07,
         focal_gamma: float = 0.0,
         aux_mse_weight: float = 0.0,
+        tokenizer_flax_name: Optional[str] = None,
     ):
         super().__init__()
         if action_decode not in ("argmax", "expected"):
@@ -120,12 +131,18 @@ class RT1Policy(nn.Module):
         self.vocab_size = vocab_size
         self.token_embedding_size = token_embedding_size
         self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.layer_size = layer_size
         self.time_sequence_length = time_sequence_length
         self.action_decode = action_decode
         self.tokens_per_image = num_image_tokens
         self.tokens_per_action = action_tokenizer.tokens_per_action(self.action_space)
         self.single_step_tokens = self.tokens_per_image + self.tokens_per_action
         self.sequence_tokens = time_sequence_length * self.single_step_tokens
+        # The tokenizer's name in the JAX module's variables: its own
+        # tokenizer is `image_tokenizer`, one passed in `image_tokenizer_def`.
+        self.tokenizer_flax_name = tokenizer_flax_name or (
+            "image_tokenizer" if image_tokenizer is None else "image_tokenizer_def")
         if image_tokenizer is None:
             image_tokenizer = RT1ImageTokenizer(
                 embedding_output_dim=token_embedding_size, num_tokens=num_image_tokens
@@ -159,12 +176,19 @@ class RT1Policy(nn.Module):
     def device(self) -> torch.device:
         return self.attention_mask.device
 
-    def initial_state(self, batch_size: int) -> Dict[str, torch.Tensor]:
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype the network computes in (its embedding's, never int8)."""
+        return self.transformer.token_emb.weight.dtype
+
+    def initial_state(self, batch_size: int, cached: bool = False) -> Dict[str, torch.Tensor]:
         """Zeroed rolling window: the JAX leaves' names, shapes and dtypes,
-        except that `seq_idx` is per row, `(batch_size,)`."""
+        except that `seq_idx` is per row, `(batch_size,)`. `cached=True` adds
+        the `kv_cache` leaf, (b, layers, 2, sequence_tokens, heads, key_dim)
+        at the compute dtype."""
         t = self.time_sequence_length
         dev = self.device
-        return {
+        state = {
             "context_image_tokens": torch.zeros(
                 (batch_size, t, self.tokens_per_image, self.token_embedding_size),
                 dtype=torch.float32, device=dev,
@@ -174,6 +198,13 @@ class RT1Policy(nn.Module):
             ),
             "seq_idx": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
         }
+        if cached:
+            state["kv_cache"] = torch.zeros(
+                (batch_size, self.num_layers, 2, self.sequence_tokens, self.num_heads,
+                 self.layer_size),
+                dtype=self.compute_dtype, device=dev,
+            )
+        return state
 
     def _tokenize_images(self, image: torch.Tensor, context: Optional[torch.Tensor],
                          train: bool = False, rngs: Rngs = None) -> torch.Tensor:
@@ -285,6 +316,79 @@ class RT1Policy(nn.Module):
         tokens = torch.argmax(step_logits, dim=-1).to(torch.int32)
         rows = torch.arange(tokens.shape[0], device=tokens.device)
         act_state = act_state.index_put((rows, time_step), tokens)
+        new_state = {
+            "context_image_tokens": img_state,
+            "action_tokens": act_state,
+            "seq_idx": torch.clamp(seq_idx + 1, max=self.time_sequence_length).to(torch.int32),
+        }
+        output = {"action_tokens": tokens, "action_logits": step_logits}
+        output.update(self._decode_action(tokens, step_logits))
+        return output, new_state
+
+    def infer_step_cached(
+        self, observation: Dict[str, torch.Tensor], state: Dict[str, torch.Tensor]
+    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """`infer_step` against the `kv_cache` state leaf: the transformer
+        runs over the new frame's step block only (see the module
+        docstring). Same observation, state and output contract."""
+        step = self.single_step_tokens
+        full = state["seq_idx"] == self.time_sequence_length
+        kv = state["kv_cache"]
+        kv = torch.where(full.view(-1, 1, 1, 1, 1, 1), kv.roll(-step, dims=3), kv)
+        img_state, act_state, time_step, seq_idx = self._advance_window(observation, state)
+        b = img_state.shape[0]
+        rows = torch.arange(b, device=img_state.device)
+        # The new frame's block: its image tokens and zeroed action slots,
+        # float32 as in the stored window.
+        frame = img_state[rows, time_step]  # (b, I, E)
+        block = torch.cat([frame, frame.new_zeros((b, self.tokens_per_action, frame.shape[-1]))],
+                          dim=1)
+        q_start = time_step * step  # (b,)
+        block_rows = q_start[:, None] + torch.arange(step, device=q_start.device)
+        dec_mask = self.attention_mask[block_rows]  # (b, I+A, S)
+        logits, new_kv = self.transformer.decode(block, dec_mask, kv, q_start)
+        i0 = self.tokens_per_image - 1
+        step_logits = logits[:, i0:i0 + self.tokens_per_action]  # (b, A, vocab)
+        tokens = torch.argmax(step_logits, dim=-1).to(torch.int32)
+        act_state = act_state.index_put((rows, time_step), tokens)
+        new_state = {
+            "context_image_tokens": img_state,
+            "action_tokens": act_state,
+            "seq_idx": torch.clamp(seq_idx + 1, max=self.time_sequence_length).to(torch.int32),
+            "kv_cache": new_kv,
+        }
+        output = {"action_tokens": tokens, "action_logits": step_logits}
+        output.update(self._decode_action(tokens, step_logits))
+        return output, new_state
+
+    def rebuild_cache(self, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Every K/V cache row recomputed from the stored image tokens: one
+        full-window pass, the math of `infer_step`'s (dense, not the kernel)."""
+        kv = state["kv_cache"]
+        start = torch.zeros((kv.shape[0],), dtype=torch.long, device=kv.device)
+        _, new_kv = self.transformer.decode(self._assemble(state["context_image_tokens"]),
+                                            self.attention_mask, torch.zeros_like(kv), start)
+        return dict(state, kv_cache=new_kv)
+
+    def infer_step_autoregressive(
+        self, observation: Dict[str, torch.Tensor], state: Dict[str, torch.Tensor]
+    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """The reference's token-by-token loop: A full transformer passes,
+        each reading one action position. Equals `infer_step` (action inputs
+        are zeroed); kept for that proof and for comparison."""
+        img_state, act_state, time_step, seq_idx = self._advance_window(observation, state)
+        start = time_step * self.single_step_tokens + self.tokens_per_image - 1  # (b,)
+        rows = torch.arange(img_state.shape[0], device=img_state.device)
+        toks, slices = [], []
+        for k in range(self.tokens_per_action):
+            logits = self.transformer(self._assemble(img_state), attention_mask=self.attention_mask)
+            sl = logits[rows, start + k]  # (b, vocab)
+            tok = torch.argmax(sl, dim=-1).to(torch.int32)
+            act_state = act_state.index_put((rows, time_step, torch.full_like(rows, k)), tok)
+            toks.append(tok)
+            slices.append(sl)
+        tokens = torch.stack(toks, dim=1)
+        step_logits = torch.stack(slices, dim=1)
         new_state = {
             "context_image_tokens": img_state,
             "action_tokens": act_state,

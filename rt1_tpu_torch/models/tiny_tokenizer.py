@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rt1_tpu_torch.models.quant import QuantConv2d, QuantLinear
+
 
 def same_padding(size: int, kernel: int, stride: int):
     """(low, high) padding of XLA's SAME convention along one axis."""
@@ -25,15 +27,15 @@ class TinyImageTokenizer(nn.Module):
         super().__init__()
         self.num_tokens = num_tokens
         self.emb = emb
-        self.conv = nn.Conv2d(3, 8, 3, stride=2)
-        self.ctx_proj = nn.Linear(context_dim, 8)
-        self.tok = nn.Linear(16, num_tokens * emb)
+        self.conv = QuantConv2d(3, 8, 3, stride=2)
+        self.ctx_proj = QuantLinear(context_dim, 8)
+        self.tok = QuantLinear(16, num_tokens * emb)
 
     def forward(self, image: torch.Tensor, context: Optional[torch.Tensor] = None,
                 train: bool = False, rngs=None) -> torch.Tensor:
         del train, rngs
         b, t, h, w, c = image.shape
-        x = image.reshape(b * t, h, w, c).to(self.conv.weight.dtype).permute(0, 3, 1, 2)
+        x = image.reshape(b * t, h, w, c).to(self.conv.compute_dtype).permute(0, 3, 1, 2)
         ph, pw = same_padding(h, 3, 2), same_padding(w, 3, 2)
         x = F.relu(self.conv(F.pad(x, (pw[0], pw[1], ph[0], ph[1]))))
         x = x.mean(dim=(2, 3))  # (b*t, 8)

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rt1_tpu_torch.models.quant import QuantConv2d
 from rt1_tpu_torch.ops.dropout import Rngs, dropout
 
 
@@ -26,16 +27,16 @@ class TokenLearner(nn.Module):
         self.norm = nn.LayerNorm(in_channels, eps=1e-6)
         # Stored as 1x1 convs (the JAX parameter layout); applied as matmuls
         # over the channel axis of the NHWC input.
-        self.conv1 = nn.Conv2d(in_channels, bottleneck_dim, 1)
-        self.conv2 = nn.Conv2d(bottleneck_dim, num_tokens, 1)
+        self.conv1 = QuantConv2d(in_channels, bottleneck_dim, 1)
+        self.conv2 = QuantConv2d(bottleneck_dim, num_tokens, 1)
 
     def forward(self, inputs: torch.Tensor, train: bool = False, rngs: Rngs = None) -> torch.Tensor:
         b, h, w, c = inputs.shape
         x = self.norm(inputs)
-        x = F.linear(x, self.conv1.weight.flatten(1), self.conv1.bias)
+        x = F.linear(x, self.conv1.kernel().flatten(1), self.conv1.bias)
         x = F.gelu(x, approximate="tanh")
         x = dropout(x, self.dropout_rate, train, rngs)
-        x = F.linear(x, self.conv2.weight.flatten(1), self.conv2.bias)
+        x = F.linear(x, self.conv2.kernel().flatten(1), self.conv2.bias)
         x = dropout(x, self.dropout_rate, train, rngs)
         maps = x.reshape(b, h * w, self.num_tokens).transpose(1, 2)
         maps = torch.softmax(maps, dim=-1)

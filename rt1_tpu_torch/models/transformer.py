@@ -21,18 +21,33 @@ Attention has two paths, each the counterpart of its JAX path:
 `train=True` drops attention probabilities (fp32, before the cast) and
 the FFN output at `dropout_rate`, drawing from `rngs["dropout"]`.
 
+Incremental decode (`decode`, the JAX modules' `kv_cache`/`cache_index`
+path): the input carries only the NEW positions; each layer writes their
+k/v into its cache rows at `cache_index`, and the new queries attend the
+whole cached prefix under a `(new, cache_len)` mask, with the dense math
+(fp32 logits and softmax, P cast to the compute dtype, -1e9 fill), never
+the kernel, as in JAX. The cache is one `(b, layers, 2, cache_len, heads,
+key_dim)` tensor at the compute dtype (k at index 0 of dim 2, v at 1).
+JAX writes at one scalar `cache_index` (its engine vmaps a batch-1 step);
+the port's `cache_index` is per row, `(b,)`, so the write, the position
+rows and the mask rows are per-row gathers and scatters.
+
+Modules whose weights are int8 (`models/quant.py`) compute in the dtype
+the quantizable layers record, and the projections dequantize at use.
+
 Modules compute in the dtype of their weights; inputs are cast to it at
 the first Dense, as flax's `dtype=` does.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from rt1_tpu_torch.ops.dropout import Rngs, dropout
+from rt1_tpu_torch.models.quant import QuantLinear
 from rt1_tpu_torch.parallel.flash_attention import fused_attention
 
 NEG_INF = -1e9
@@ -57,10 +72,10 @@ class TFMultiHeadAttention(nn.Module):
         self.key_dim = key_dim
         self.dropout_rate = dropout_rate
         self.attention_impl = normalize_attention_impl(attention_impl)
-        self.query = nn.Linear(d_model, num_heads * key_dim)
-        self.key = nn.Linear(d_model, num_heads * key_dim)
-        self.value = nn.Linear(d_model, num_heads * key_dim)
-        self.out = nn.Linear(num_heads * key_dim, d_model)
+        self.query = QuantLinear(d_model, num_heads * key_dim)
+        self.key = QuantLinear(d_model, num_heads * key_dim)
+        self.value = QuantLinear(d_model, num_heads * key_dim)
+        self.out = QuantLinear(num_heads * key_dim, d_model)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 train: bool = False, rngs: Rngs = None) -> torch.Tensor:
@@ -81,6 +96,26 @@ class TFMultiHeadAttention(nn.Module):
             out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
         return self.out(out.reshape(b, s, h * k))
 
+    def decode(self, x: torch.Tensor, mask: torch.Tensor, kv_cache: torch.Tensor,
+               cache_index: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: (b, s, d_model) new positions; mask: (s, cache_len) or
+        (b, s, cache_len), nonzero = attend; kv_cache: (b, 2, cache_len, h,
+        key_dim); cache_index: (b,) first new position of each row. Returns
+        the output and the updated cache."""
+        b, s, _ = x.shape
+        h, k = self.num_heads, self.key_dim
+        q = self.query(x).view(b, s, h, k)
+        rows = torch.arange(b, device=x.device)[:, None]
+        positions = cache_index.to(torch.long)[:, None] + torch.arange(s, device=x.device)
+        k_cache = kv_cache[:, 0].index_put((rows, positions), self.key(x).view(b, s, h, k))
+        v_cache = kv_cache[:, 1].index_put((rows, positions), self.value(x).view(b, s, h, k))
+        logits = torch.einsum("bqhd,bshd->bhqs", q.float(), k_cache.float()) / float(k) ** 0.5
+        mask = mask if mask.dim() == 3 else mask[None]
+        logits = torch.where(mask[:, None] != 0, logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqs,bshd->bqhd", probs.to(v_cache.dtype), v_cache)
+        return self.out(out.reshape(b, s, h * k)), torch.stack([k_cache, v_cache], dim=1)
+
 
 class TransformerLayer(nn.Module):
     """Pre-norm block: x + MHA(LN(x)); x + FFN(LN(x))."""
@@ -92,12 +127,19 @@ class TransformerLayer(nn.Module):
         self.norm_1 = nn.LayerNorm(d_model, eps=1e-6)
         self.attn = TFMultiHeadAttention(num_heads, key_dim, d_model, attention_impl, dropout_rate)
         self.norm_2 = nn.LayerNorm(d_model, eps=1e-6)
-        self.ff = nn.Linear(d_model, d_model)
+        self.ff = QuantLinear(d_model, d_model)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 train: bool = False, rngs: Rngs = None) -> torch.Tensor:
         x = x + self.attn(self.norm_1(x), mask, train, rngs)
         return x + dropout(self.ff(self.norm_2(x)), self.dropout_rate, train, rngs)
+
+    def decode(self, x, mask, kv_cache, cache_index):
+        """The block over new positions against the layer's (b, 2, cache_len,
+        h, key_dim) cache; returns (x, updated cache)."""
+        y, kv_cache = self.attn.decode(self.norm_1(x), mask, kv_cache, cache_index)
+        x = x + y
+        return x + self.ff(self.norm_2(x)), kv_cache
 
 
 class CausalTransformer(nn.Module):
@@ -130,3 +172,24 @@ class CausalTransformer(nn.Module):
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x, attention_mask, train, rngs)
         return self.output_tokens(x)
+
+    def decode(self, inputs: torch.Tensor, attention_mask: torch.Tensor, kv_cache: torch.Tensor,
+               cache_index: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """inputs: (b, s, input_emb), the new positions of each row, embedded
+        at `cache_index + arange(s)`; attention_mask: (s, cache_len) or (b, s,
+        cache_len); kv_cache: (b, layers, 2, cache_len, heads, key_dim);
+        cache_index: (b,). Returns (logits (b, s, vocab), updated cache).
+        The whole sequence with `cache_index` 0 and the square mask
+        recomputes every cache row (the engine's rebuild)."""
+        b, s, _ = inputs.shape
+        if s > self.max_seq_len:
+            raise ValueError(f"sequence length {s} exceeds max_seq_len={self.max_seq_len}")
+        x = self.token_emb(inputs.to(self.token_emb.weight.dtype))
+        positions = cache_index.to(torch.long)[:, None] + torch.arange(s, device=x.device)
+        x = x + self.position_emb.weight[positions]
+        caches = []
+        for i in range(self.num_layers):
+            x, layer_cache = getattr(self, f"layer_{i}").decode(
+                x, attention_mask, kv_cache[:, i], cache_index)
+            caches.append(layer_cache)
+        return self.output_tokens(x), torch.stack(caches, dim=1)

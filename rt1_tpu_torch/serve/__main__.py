@@ -16,6 +16,15 @@ Run (smoke config on the CPU):
 
   python -m rt1_tpu_torch.serve --config tiny --random_init --port 0 --device cpu
 
+Serving modes: `--inference_dtype bf16|int8` (bf16 weights and compute;
+int8 weights per output channel, dequantized at use),
+`--cached_inference` (per-session K/V caches: a step runs the decoder over
+the new frame only), `--session_snapshot_dir DIR` (an on-disk ring of
+session snapshots that a replica restores on `/act`). `POST /reload`
+swaps in the standby weights (the newest checkpoint of `--workdir`, the
+`--weights` file, or the same random init); `--watch_checkpoints_s N`
+polls `--workdir` and swaps in each newer checkpoint.
+
 Prints one JSON ready-line (`{"status": "serving", "port": ...}`) once every
 bucket is warmed and the socket is bound, then serves until SIGTERM/SIGINT,
 which drains accepted requests, prints a final `{"status": "drained", ...}`
@@ -27,7 +36,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import threading
+import time
 
 
 def parse_args(argv):
@@ -53,7 +65,64 @@ def parse_args(argv):
                    help="'continuous' rolls requests into the next step (two in flight); "
                         "'cycle' waits for a full batch or a 10 ms deadline.")
     p.add_argument("--embedder", default="hash", help="Instruction embedder: hash | ngram.")
+    p.add_argument("--buckets", default="auto",
+                   help="Batch-size buckets, comma-separated (e.g. '1,2,4,8'); 'auto' = powers "
+                        "of two up to max_sessions. Every bucket is warmed at start.")
+    p.add_argument("--inference_dtype", choices=("f32", "bf16", "int8"), default="f32",
+                   help="f32: the config's compute dtype; bf16: bf16 weights and compute; int8: "
+                        "per-output-channel int8 weights of the quant plan, dequantized at use.")
+    p.add_argument("--cached_inference", action="store_true",
+                   help="Keep per-session K/V caches: a step attends the new frame against "
+                        "cached keys (exact while a window fills; rebuilt on /reload).")
+    p.add_argument("--replica_id", type=int, default=0,
+                   help="This replica's id in a fleet (in /healthz and /metrics).")
+    p.add_argument("--watch_checkpoints_s", type=float, default=0.0,
+                   help="Poll --workdir's checkpoints this often and hot-swap newer steps "
+                        "(0 = off).")
+    p.add_argument("--session_snapshot_dir", default="",
+                   help="Write an on-disk ring of session snapshots here; an /act for an "
+                        "unknown session restores its snapshot (off when empty).")
+    p.add_argument("--snapshot_max_age_s", type=float, default=600.0,
+                   help="A ring snapshot older than this starts a fresh window instead.")
+    p.add_argument("--session_snapshot_every", type=int, default=1,
+                   help="Write a session's ring snapshot every N served steps.")
     return p.parse_args(argv)
+
+
+def parse_buckets(spec: str, max_sessions: int):
+    from rt1_tpu_torch.serve.engine import pow2_buckets
+
+    if spec.strip() == "auto":
+        return pow2_buckets(max_sessions)
+    return [int(b) for b in spec.split(",") if b.strip()] or None
+
+
+def start_checkpoint_watcher(app, workdir: str, interval_s: float, served_step) -> threading.Thread:
+    """Poll `<workdir>/checkpoints` and hot-swap each newer step
+    (`app.reload`), printing a `reloaded` or `reload_failed` JSON line; the
+    old weights keep serving on a failure. `served_step` is the step the
+    server restored at start, so a checkpoint saved meanwhile is not
+    skipped. A daemon thread."""
+    from rt1_tpu_torch.trainer.checkpoints import latest_step
+
+    directory = os.path.join(os.path.abspath(workdir), "checkpoints")
+
+    def watch():
+        served = served_step if served_step is not None and served_step >= 0 else None
+        while True:
+            time.sleep(interval_s)
+            try:
+                newest = latest_step(directory)
+                if newest is not None and (served is None or newest > served):
+                    result = app.reload(newest)
+                    served = result["checkpoint_step"]
+                    print(json.dumps({"status": "reloaded", **result}), flush=True)
+            except Exception as exc:  # noqa: BLE001 - keep watching
+                print(json.dumps({"status": "reload_failed", "error": str(exc)}), flush=True)
+
+    thread = threading.Thread(target=watch, name="rt1-serve-ckpt-watcher", daemon=True)
+    thread.start()
+    return thread
 
 
 def main(argv=None) -> int:
@@ -61,8 +130,7 @@ def main(argv=None) -> int:
 
     from rt1_tpu_torch.configs import get_config
     from rt1_tpu_torch.eval.embedding import get_embedder
-    from rt1_tpu_torch.eval.restore import build_serve_engine
-    from rt1_tpu_torch.serve.engine import pow2_buckets
+    from rt1_tpu_torch.eval.restore import build_serve_engine, load_standby_variables
     from rt1_tpu_torch.serve.server import ServeApp, install_signal_handlers, make_server
 
     config = get_config(args.config)
@@ -72,16 +140,33 @@ def main(argv=None) -> int:
         workdir=args.workdir,
         device=args.device,
         attention_impl=args.attention,
+        inference_dtype=args.inference_dtype,
+        cached_inference=args.cached_inference,
         max_sessions=args.max_sessions,
-        buckets=pow2_buckets(args.max_sessions),
+        buckets=parse_buckets(args.buckets, args.max_sessions),
         embedder=get_embedder(args.embedder),
     )
+
+    def reload_fn(reload_step):
+        # The standby: the same source's f32 masters (random init rebuilds
+        # the same seeded weights).
+        return load_standby_variables(config, weights=args.weights, workdir=args.workdir,
+                                      step=reload_step)
+
     app = ServeApp(
         engine,
         image_shape=(config.data.height, config.data.width, 3),
         scheduler=args.scheduler,
+        replica_id=args.replica_id,
+        reload_fn=reload_fn,
+        checkpoint_step=step if step is not None else -1,
+        session_snapshot_dir=args.session_snapshot_dir or None,
+        snapshot_max_age_s=args.snapshot_max_age_s,
+        snapshot_every=args.session_snapshot_every,
     )
     app.start(warmup=True)
+    if args.watch_checkpoints_s > 0 and args.workdir:
+        start_checkpoint_watcher(app, args.workdir, args.watch_checkpoints_s, served_step=step)
     httpd = make_server(app, host=args.host, port=args.port)
     install_signal_handlers(app, httpd)
     print(
@@ -98,6 +183,10 @@ def main(argv=None) -> int:
                 "device": str(engine.device),
                 "dtype": engine.dtype,
                 "attention": engine.policy.transformer.layer_0.attn.attention_impl,
+                "replica_id": args.replica_id,
+                "inference_dtype": engine.inference_dtype,
+                "cached_inference": engine.cached_inference,
+                "param_bytes_device": engine.serving_param_bytes,
             }
         ),
         flush=True,

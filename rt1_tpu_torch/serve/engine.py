@@ -27,6 +27,25 @@ riding an uncollected step are protected from LRU eviction.
 The instruction-embedding cache is keyed on the raw text (the JAX engine
 keys on CLIP BPE ids, which folds case and spacing variants into one
 entry): cache hits differ, outputs do not.
+
+Serving modes, as in the JAX engine:
+
+* `inference_dtype` f32 | bf16 | int8 (`models/quant.py`): the policy
+  holds the SERVING weights; `prepare_variables` derives them from an f32
+  master state_dict, and `master_state` gives the spec a standby is held
+  to. `swap_variables` validates a standby master against that spec
+  (names, shapes, float32, finite), prepares it off the lock and copies it
+  into the served tensors under the lock, between two batches: a step
+  already enqueued runs on the old weights (the copies queue behind it on
+  the stream), the next on the new. No bucket is warmed again, so
+  `compile_count` stays at `len(buckets)`.
+* `cached_inference`: every slot also holds its K/V cache (`kv_cache`,
+  at the compute dtype) and a step is `infer_step_cached`; a swap
+  rebuilds every slot's cache from its stored image tokens. Invalidations
+  are counted by cause (`swap`, `reset`, `evict`).
+* Session migration: `state_schema`, `export_session` and
+  `import_session` move one slot's rolling state (and cache) between
+  engines; a JAX engine's snapshot has the same schema.
 """
 
 from __future__ import annotations
@@ -37,6 +56,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from rt1_tpu_torch.models import quant
 
 EMBEDDING_DIM = 512
 EMBED_CACHE_SIZE = 256
@@ -110,13 +131,26 @@ class PolicyEngine:
         action_std: float = 1.0,
         action_minimum: float = -0.03,
         action_maximum: float = 0.03,
+        inference_dtype: str = "f32",
+        prepare_variables: Optional[Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]] = None,
+        master_state: Optional[Dict[str, torch.Tensor]] = None,
+        cached_inference: bool = False,
     ):
         if max_sessions < 1:
             raise ValueError(f"max_sessions must be >= 1, got {max_sessions}")
         self.buckets = normalize_buckets(buckets, max_sessions)
         self.policy = policy.eval().requires_grad_(False)
         self.device = policy.device
-        self.dtype = str(next(policy.parameters()).dtype).replace("torch.", "")
+        self.dtype = str(policy.compute_dtype).replace("torch.", "")
+        self.inference_dtype = inference_dtype
+        self._prepare = prepare_variables
+        spec = master_state if master_state is not None else policy.state_dict()
+        self._master_spec = [(k, tuple(v.shape), v.dtype) for k, v in spec.items()]
+        self.reloads = 0  # successful swap_variables hot-swaps
+        self.cached_inference = bool(cached_inference)
+        self.cache_invalidations = {"swap": 0, "reset": 0, "evict": 0}
+        self.cache_cached_steps = 0   # lanes stepped through the cached step
+        self.cache_rebuild_steps = 0  # per-slot cache rebuilds
         self.max_sessions = max_sessions
         # De-normalisation of the decoded action: `action * max(std, eps) +
         # mean`, clipped to [minimum, maximum]; the defaults keep the
@@ -129,7 +163,7 @@ class PolicyEngine:
         self._embed_cache: collections.OrderedDict = collections.OrderedDict()
         self.embed_calls = 0  # embedder invocations (cache misses)
 
-        self._state = policy.initial_state(max_sessions)
+        self._state = policy.initial_state(max_sessions, cached=self.cached_inference)
 
         self._lock = threading.RLock()
         self._embed_lock = threading.Lock()
@@ -176,6 +210,27 @@ class PolicyEngine:
                 self._embed_cache.popitem(last=False)
         return vec
 
+    def cached_embedding(self, text: str) -> Optional[np.ndarray]:
+        """The cached embedding of `text`, or None: no embedder call, no
+        LRU refresh (the session exporter reads it)."""
+        if self._embedder is None:
+            return None
+        with self._embed_lock:
+            cached = self._embed_cache.get(text)
+        return None if cached is None else np.asarray(cached, np.float32)
+
+    def seed_embedding(self, text: str, vec) -> None:
+        """Put a migrated (instruction, embedding) pair in the cache, so the
+        imported session's next step skips the embedder; not counted in
+        `embed_calls`."""
+        if self._embedder is None:
+            return
+        with self._embed_lock:
+            if text not in self._embed_cache:
+                self._embed_cache[text] = np.asarray(vec, np.float32)
+                while len(self._embed_cache) > EMBED_CACHE_SIZE:
+                    self._embed_cache.popitem(last=False)
+
     # ------------------------------------------------------------ buckets
 
     def bucket_for(self, active: int) -> int:
@@ -196,7 +251,8 @@ class PolicyEngine:
             slots_t = torch.from_numpy(slots.astype(np.int64)).to(dev)
             active_t = torch.from_numpy(active).to(dev)
             lanes = {k: v.index_select(0, slots_t) for k, v in self._state.items()}
-            out, stepped = self.policy.infer_step(obs_t, lanes)
+            step = self.policy.infer_step_cached if self.cached_inference else self.policy.infer_step
+            out, stepped = step(obs_t, lanes)
             for k, full in self._state.items():
                 new = stepped[k].to(full.dtype)
                 gate = active_t.view((-1,) + (1,) * (new.dim() - 1))
@@ -220,6 +276,9 @@ class PolicyEngine:
             obs = {k: np.zeros((b,) + s, np.float32) for k, s in self._obs_shapes.items()}
             self._step(obs, np.arange(b, dtype=np.int64), np.zeros((b,), np.bool_))
             self._warm.add(b)
+        if self.cached_inference:
+            with torch.no_grad():  # the rebuild's shapes, result discarded
+                self.policy.rebuild_cache(self._state)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -255,6 +314,8 @@ class PolicyEngine:
                 )
             slot = self._sessions.pop(victim)
             self.evictions += 1
+            if self.cached_inference:
+                self.cache_invalidations["evict"] += 1
         self._sessions[session_id] = slot
         self._zero_slot(slot)
         return slot
@@ -267,8 +328,11 @@ class PolicyEngine:
     def reset(self, session_id: str) -> int:
         """Zero a session's rolling window (allocating a slot if new)."""
         with self._lock:
+            known = session_id in self._sessions
             slot = self._slot_for(session_id, protected=frozenset(self._inflight_sessions))
             self._zero_slot(slot)
+            if self.cached_inference and known:
+                self.cache_invalidations["reset"] += 1
             return slot
 
     def release(self, session_id: str) -> None:
@@ -284,13 +348,149 @@ class PolicyEngine:
         with self._lock:
             return len(self._sessions)
 
-    def session_state(self, session_id: str) -> Dict[str, np.ndarray]:
-        """One session's state rows on the host (no LRU refresh)."""
+    def session_ids(self) -> List[str]:
+        with self._lock:
+            return list(self._sessions)
+
+    def _session_tensors(self, session_id: str) -> Dict[str, torch.Tensor]:
         with self._lock:
             slot = self._sessions.get(session_id)
             if slot is None:
                 raise SessionError(f"unknown session {session_id!r}")
-            return {k: v[slot].cpu().numpy() for k, v in self._state.items()}
+            return {k: v[slot].cpu() for k, v in self._state.items()}
+
+    def session_state(self, session_id: str) -> Dict[str, Any]:
+        """One session's state rows on the host (no LRU refresh): numpy
+        arrays, but a bfloat16 leaf (numpy has no such dtype) stays a CPU
+        tensor."""
+        return {
+            k: v if v.dtype == torch.bfloat16 else v.numpy()
+            for k, v in self._session_tensors(session_id).items()
+        }
+
+    # ------------------------------------------------------------ hot swap
+
+    @property
+    def serving_param_bytes(self) -> int:
+        """Bytes of the served weights on the device (int8 weights and
+        their scales at their own size)."""
+        return quant.tree_bytes(self.policy.state_dict())
+
+    @property
+    def master_param_bytes(self) -> int:
+        """Bytes of the f32 master tree a reload brings."""
+        return int(sum(int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+                       for _, shape, dtype in self._master_spec))
+
+    @property
+    def cache_bytes_per_slot(self) -> int:
+        """Device bytes of one session's K/V cache (0 without caching)."""
+        kv = self._state.get("kv_cache")
+        return 0 if kv is None else kv.numel() * kv.element_size() // self.max_sessions
+
+    def swap_variables(self, new_state: Dict[str, Any]) -> Dict[str, Any]:
+        """Zero-downtime weight swap from an f32 master state_dict: held to
+        the master spec (same keys in order, shapes, dtypes; finite), turned
+        into serving weights by `prepare_variables` off the lock, then copied
+        into the served tensors under it. Raises ValueError, with the old
+        weights still serving, on any mismatch: a standby already cast or
+        quantized to a serving dtype is refused. With `cached_inference`,
+        every slot's cache is rebuilt under the new weights."""
+        standby = [(k, torch.as_tensor(v)) for k, v in new_state.items()]
+        if [k for k, _ in standby] != [k for k, _, _ in self._master_spec]:
+            raise ValueError(
+                "swap_variables: the standby's leaves differ from the master tree "
+                f"({len(standby)} vs {len(self._master_spec)}); a hot swap needs a "
+                "checkpoint of the same model")
+        for (key, new), (_, shape, dtype) in zip(standby, self._master_spec):
+            if tuple(new.shape) != shape or new.dtype != dtype:
+                raise ValueError(
+                    f"swap_variables: leaf {key!r} is {tuple(new.shape)}/{new.dtype}, the master "
+                    f"spec {shape}/{dtype}; a hot swap takes the f32 master checkpoint")
+        bad = [k for k, v in standby if v.is_floating_point() and not torch.isfinite(v).all()]
+        if bad:
+            raise ValueError(f"swap_variables: non-finite values in {bad[:4]} ({len(bad)} "
+                             "leaves); the old weights stay live")
+        master = dict(standby)
+        serving = self._prepare(master) if self._prepare is not None else {
+            k: v.to(self.device) for k, v in master.items()}
+        current = self.policy.state_dict()
+        if sorted(serving) != sorted(current):
+            raise ValueError("swap_variables: the prepared serving tree's leaves differ from "
+                             "the served tree's")
+        for key, old in current.items():
+            new = serving[key]
+            if tuple(new.shape) != tuple(old.shape) or new.dtype != old.dtype:
+                raise ValueError(f"swap_variables: prepared leaf {key!r} is {tuple(new.shape)}/"
+                                 f"{new.dtype}, served {tuple(old.shape)}/{old.dtype}")
+        caches_rebuilt = 0
+        with self._lock, torch.no_grad():
+            for key, old in current.items():
+                old.copy_(serving[key])
+            self.reloads += 1
+            if self.cached_inference:
+                self._state = self.policy.rebuild_cache(self._state)
+                self.cache_invalidations["swap"] += 1
+                caches_rebuilt = len(self._sessions)
+                self.cache_rebuild_steps += caches_rebuilt
+        result = {"params_swapped": len(serving), "param_bytes": quant.tree_bytes(serving),
+                  "inference_dtype": self.inference_dtype}
+        if self.cached_inference:
+            result["caches_rebuilt"] = caches_rebuilt
+        return result
+
+    # ------------------------------------------------------------ migration
+
+    def state_schema(self) -> List[Tuple[str, Tuple[int, ...], str]]:
+        """The per-slot state contract, (leaf, per-slot shape, dtype name)
+        sorted by leaf: the JAX engine's, `kv_cache` included when cached."""
+        return sorted(
+            (k, tuple(v.shape[1:]), str(v.dtype).replace("torch.", ""))
+            for k, v in self._state.items()
+        )
+
+    def export_session(self, session_id: str) -> Dict[str, Any]:
+        """One slot's whole rolling state (CPU tensors) with the schema that
+        `import_session` checks. Pure read: no LRU refresh."""
+        return {
+            "session_id": session_id,
+            "cached_inference": self.cached_inference,
+            "schema": self.state_schema(),
+            "state": self._session_tensors(session_id),
+        }
+
+    def import_session(self, snapshot: Dict[str, Any], session_id: Optional[str] = None) -> int:
+        """Write an exported session (numpy arrays or tensors, from this
+        engine's `export_session` or a JAX engine's) into a slot: leaf names,
+        per-slot shapes and dtypes must match this engine's schema and float
+        leaves be finite, else ValueError with the engine untouched. Returns
+        the slot."""
+        sid = session_id or snapshot.get("session_id")
+        if not sid:
+            raise SessionError("import_session: no session id in snapshot or argument")
+        state = snapshot.get("state")
+        if not isinstance(state, dict):
+            raise ValueError("import_session: snapshot has no 'state'")
+        state = {k: torch.as_tensor(v) for k, v in state.items()}
+        expected = self.state_schema()
+        got = sorted((k, tuple(v.shape), str(v.dtype).replace("torch.", ""))
+                     for k, v in state.items())
+        if [k for k, _, _ in got] != [k for k, _, _ in expected]:
+            raise ValueError(
+                f"import_session: state leaves {[k for k, _, _ in got]} do not match this "
+                f"engine's {[k for k, _, _ in expected]}: cached_inference or model mismatch")
+        for (k, shape, dtype), (_, eshape, edtype) in zip(got, expected):
+            if shape != eshape or dtype != edtype:
+                raise ValueError(f"import_session: leaf {k!r} is {shape}/{dtype}, this engine "
+                                 f"expects {eshape}/{edtype}")
+        bad = [k for k, v in state.items() if v.is_floating_point() and not torch.isfinite(v).all()]
+        if bad:
+            raise ValueError(f"import_session: non-finite values in {bad}")
+        with self._lock, torch.no_grad():
+            slot = self._slot_for(sid, protected=frozenset(self._inflight_sessions))
+            for k, v in state.items():
+                self._state[k][slot] = v.to(self.device)
+            return slot
 
     # ------------------------------------------------------------ stepping
 
@@ -385,6 +585,8 @@ class PolicyEngine:
             handle.out = self._step(batch_obs, slots, active)
             handle.bucket = bucket
             handle.active_count = len(kept)
+            if self.cached_inference:
+                self.cache_cached_steps += len(kept)
             for _, sid, _ in kept:
                 self._inflight_sessions[sid] += 1
             self.batches_in_flight += 1

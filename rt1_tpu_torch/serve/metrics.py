@@ -68,8 +68,10 @@ class LatencyHistogram:
 class ServeMetrics:
     """Aggregates the serving process's request/batch/session counters."""
 
-    # Snapshot keys allowed to carry a string instead of a number.
-    TEXT_GAUGES = frozenset({"dtype", "device"})
+    # Snapshot keys allowed to carry a string, or a {label: count} dict,
+    # instead of a number.
+    TEXT_GAUGES = frozenset({"dtype", "device", "inference_dtype"})
+    DICT_GAUGES = frozenset({"cache_invalidations"})
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -78,6 +80,7 @@ class ServeMetrics:
         self.errors_total = 0
         self.rejected_total = 0
         self.resets_total = 0
+        self.reloads_total = 0
         self.batches_total = 0
         self.occupancy_sum = 0
         self.occupancy_max = 0
@@ -104,6 +107,10 @@ class ServeMetrics:
     def observe_reset(self) -> None:
         with self._lock:
             self.resets_total += 1
+
+    def observe_reload(self) -> None:
+        with self._lock:
+            self.reloads_total += 1
 
     def observe_batch(self, size: int, queued: int = 0, in_flight: int = 0,
                       joined_mid_cycle: int = 0) -> None:
@@ -138,6 +145,8 @@ class ServeMetrics:
         gauge — a typo'd gauge must fail the caller, not vanish."""
         if name in cls.TEXT_GAUGES and isinstance(value, str):
             return value
+        if name in cls.DICT_GAUGES and isinstance(value, dict):
+            return {str(k): float(v) for k, v in value.items()}
         try:
             return float(value)
         except (TypeError, ValueError) as exc:
@@ -155,6 +164,7 @@ class ServeMetrics:
                 "errors_total": self.errors_total,
                 "rejected_total": self.rejected_total,
                 "resets_total": self.resets_total,
+                "reloads_total": self.reloads_total,
                 "requests_per_sec": self.requests_total / uptime if uptime > 0 else 0.0,
                 "latency_p50_ms": self.latency.quantile(0.5) * 1e3,
                 "latency_p99_ms": self.latency.quantile(0.99) * 1e3,

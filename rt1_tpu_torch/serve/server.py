@@ -12,14 +12,31 @@ Endpoints (all JSON):
                    "embedding"} -> {"action", "action_tokens",
                    "session_started", "request_id", "terminate_episode"}
 * `POST /reset`   {"session_id"} -> {"ok": true, "slot": i}
-* `POST /release` {"session_id"} -> {"ok": true}
+* `POST /release` {"session_id", "keep_snapshot"?} -> {"ok": true}
+* `POST /reload`  {"step"?} -> zero-downtime weight swap from the standby
+                  source (`reload_fn`): 409 while another reload runs,
+                  `/readyz` 503 `reloading` meanwhile
+* `POST /session/export` {"session_id"} -> {"ok": true, "snapshot"}: the
+                  versioned wire snapshot (`serve/migrate.py`)
+* `POST /session/import` {"snapshot", "session_id"?} -> {"ok": true,
+                  "session_id", "slot", "step_index"}; 409 naming the field
+                  on a generation, window, mode or schema mismatch
 * `GET /healthz`  liveness + the input contract (image shape, embed dim)
-* `GET /readyz`   503 before warm-up finishes and while draining, else 200
+                  and the migration contract (generation, window, mode)
+* `GET /readyz`   503 before warm-up finishes, while draining and while
+                  reloading, else 200
 * `GET /metrics`  `ServeMetrics.snapshot()` plus engine gauges, among them
                   `attention_launches_total` (the fused kernels' launch
                   count; `attention_launches_{tensor_core,tf32x3,simple}_total`
-                  per variant) and `engine_steps_total` (batched steps,
-                  warm-up included)
+                  per variant), `engine_steps_total` (batched steps,
+                  warm-up included), the serving mode's `inference_dtype`,
+                  `param_bytes_device` / `param_bytes_master`, the cache's
+                  and the migration counters
+
+With `session_snapshot_dir`, every `snapshot_every`-th step of a session
+writes its snapshot to an on-disk ring; an `/act` for a session this
+replica does not hold restores it from there when the snapshot is younger
+than `snapshot_max_age_s` (`session_restored` in the reply).
 
 Queue full -> 503 `busy`; draining -> 503 `draining`.
 `install_signal_handlers` turns SIGTERM/SIGINT into a drain: stop
@@ -44,6 +61,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 
 from rt1_tpu_torch.parallel.flash_attention import fused_attention
+from rt1_tpu_torch.serve import migrate
 from rt1_tpu_torch.serve.batcher import BusyError, ContinuousBatcher, DrainingError, MicroBatcher
 from rt1_tpu_torch.serve.engine import (
     EMBEDDING_DIM,
@@ -66,6 +84,10 @@ _RID_SAFE = re.compile(r"[^A-Za-z0-9._:-]")
 
 class RequestError(ValueError):
     """Malformed client payload -> HTTP 400."""
+
+
+class ReloadInProgressError(RuntimeError):
+    """A weight hot swap is already running -> HTTP 409."""
 
 
 def request_id_from(headers, payload: Optional[Dict[str, Any]] = None) -> str:
@@ -128,12 +150,39 @@ class ServeApp:
         *,
         image_shape: Sequence[int],
         scheduler: str = "continuous",
+        replica_id: int = 0,
+        reload_fn=None,
+        checkpoint_step: int = -1,
+        session_snapshot_dir: Optional[str] = None,
+        snapshot_max_age_s: float = 600.0,
+        snapshot_every: int = 1,
     ):
         self.engine = engine
         self.image_shape = tuple(image_shape)
         self.embed_dim = EMBEDDING_DIM
         self.metrics = ServeMetrics()
         self.request_timeout_s = REQUEST_TIMEOUT_S
+        self.replica_id = replica_id
+        # The checkpoint generation stamps exported snapshots and gates
+        # imports; per-session metadata (step counter, last instruction)
+        # rides the snapshot.
+        self.checkpoint_generation = int(checkpoint_step)
+        self.snapshot_max_age_s = float(snapshot_max_age_s)
+        self.snapshot_every = max(1, int(snapshot_every))
+        self.snapshot_ring = (
+            migrate.SnapshotRing(session_snapshot_dir) if session_snapshot_dir else None
+        )
+        self._meta_lock = threading.Lock()
+        self._session_meta: Dict[str, Dict[str, Any]] = {}
+        self.migration_exports = 0
+        self.migration_imports = 0
+        self.migration_import_failures = 0
+        self.migration_restores = 0
+        self.migration_restore_failures = 0
+        # reload_fn(step | None) -> (f32 master state_dict, checkpoint step).
+        self._reload_fn = reload_fn
+        self._reload_lock = threading.Lock()
+        self.reloading = False
         self.draining = False
         self.ready = False
         # Makes the draining check and the batcher submit one step against
@@ -193,6 +242,7 @@ class ServeApp:
 
     def act(self, session_id: str, obs: Dict[str, Any]) -> Dict[str, Any]:
         """Blocking bridge used by HTTP handler threads."""
+        restored = self.maybe_restore_session(session_id) if self.snapshot_ring else None
         t_entry = time.perf_counter()
         while True:
             with self._admit_lock:
@@ -218,13 +268,174 @@ class ServeApp:
             break
         if "error" in result:
             raise result["error"]
+        self._note_act(session_id, obs, result)
+        if restored:
+            result.update(restored)
         return result
 
     def reset(self, session_id: str) -> int:
-        return self.engine.reset(session_id)
+        """A fresh window: the step counter restarts and the ring's copy
+        of the abandoned episode goes."""
+        slot = self.engine.reset(session_id)
+        with self._meta_lock:
+            meta = self._session_meta.get(session_id)
+            if meta is not None:
+                meta["step_index"] = 0
+        if self.snapshot_ring is not None:
+            self.snapshot_ring.drop(session_id)
+        return slot
 
-    def release(self, session_id: str) -> None:
+    def release(self, session_id: str, keep_snapshot: bool = False) -> None:
+        """Forget a session; `keep_snapshot` keeps its ring file (the
+        session continues on the replica that imported it)."""
         self.engine.release(session_id)
+        with self._meta_lock:
+            self._session_meta.pop(session_id, None)
+        if self.snapshot_ring is not None and not keep_snapshot:
+            self.snapshot_ring.drop(session_id)
+
+    # ------------------------------------------------------------ sessions
+
+    def _note_act(self, session_id: str, obs: Dict[str, Any], result: Dict[str, Any]) -> None:
+        """Advance the session's step counter and, every `snapshot_every`
+        steps, write its ring snapshot. Best effort: a full disk never
+        fails the served step."""
+        with self._meta_lock:
+            meta = self._session_meta.setdefault(session_id, {"step_index": 0})
+            if result.get("session_started"):
+                meta["step_index"] = 0
+            meta["step_index"] = int(meta["step_index"]) + 1
+            instruction = obs.get("instruction")
+            if isinstance(instruction, str) and instruction:
+                meta["instruction"] = instruction
+            steps = meta["step_index"]
+        if self.snapshot_ring is not None and steps % self.snapshot_every == 0:
+            try:
+                self.snapshot_ring.save(self._build_snapshot(session_id))
+            except Exception:  # noqa: BLE001 - durability is advisory
+                pass
+
+    def _build_snapshot(self, session_id: str) -> Dict[str, Any]:
+        """The wire snapshot: the engine's rolling state (and cache) with
+        the schema, step counter, checkpoint generation, window length and
+        the instruction with its cached embedding."""
+        base = self.engine.export_session(session_id)
+        with self._meta_lock:
+            meta = dict(self._session_meta.get(session_id, {}))
+        snapshot: Dict[str, Any] = {
+            "version": migrate.SNAPSHOT_VERSION,
+            "session_id": session_id,
+            "step_index": int(meta.get("step_index", 0)),
+            "checkpoint_generation": self.checkpoint_generation,
+            "window": self.engine.window,
+            "cached_inference": bool(base["cached_inference"]),
+            "schema": [[name, list(shape), dtype] for name, shape, dtype in base["schema"]],
+            "state": migrate.encode_state(base["state"]),
+        }
+        instruction = meta.get("instruction")
+        if instruction:
+            snapshot["instruction"] = instruction
+            cached = self.engine.cached_embedding(instruction)
+            if cached is not None:
+                snapshot["embedding"] = [float(x) for x in cached]
+        return snapshot
+
+    def export_session(self, session_id: str) -> Dict[str, Any]:
+        """POST /session/export: snapshot the session. Pure read; it keeps
+        serving here."""
+        snapshot = self._build_snapshot(session_id)
+        with self._meta_lock:
+            self.migration_exports += 1
+        return snapshot
+
+    def import_session(self, snapshot: Dict[str, Any], session_id: Optional[str] = None,
+                       _count: bool = True) -> Dict[str, Any]:
+        """POST /session/import: check a wire snapshot against this
+        replica's generation, window, mode and schema, then write it into a
+        slot. Refusals raise `SnapshotCompatibilityError` (HTTP 409).
+        `_count=False` is the ring restore, counted as a restore."""
+        try:
+            migrate.check_compatibility(
+                snapshot,
+                checkpoint_generation=self.checkpoint_generation,
+                window=self.engine.window,
+                cached_inference=self.engine.cached_inference,
+                schema=self.engine.state_schema(),
+            )
+            state = migrate.decode_state(snapshot["state"])
+            slot = self.engine.import_session(
+                {"session_id": snapshot["session_id"], "state": state}, session_id=session_id)
+        except Exception:
+            if _count:
+                with self._meta_lock:
+                    self.migration_import_failures += 1
+            raise
+        sid = session_id or str(snapshot["session_id"])
+        instruction = snapshot.get("instruction")
+        if instruction and snapshot.get("embedding") is not None:
+            self.engine.seed_embedding(instruction, snapshot["embedding"])
+        step_index = int(snapshot.get("step_index", 0))
+        with self._meta_lock:
+            meta = self._session_meta.setdefault(sid, {"step_index": 0})
+            meta["step_index"] = step_index
+            if instruction:
+                meta["instruction"] = instruction
+            if _count:
+                self.migration_imports += 1
+        return {"session_id": sid, "slot": int(slot), "step_index": step_index}
+
+    def maybe_restore_session(self, session_id: str) -> Optional[Dict[str, Any]]:
+        """On `/act` for a session this replica does not hold: restore its
+        ring snapshot if one is there and young enough. Returns the reply
+        fields to merge, or None for a fresh window."""
+        ring = self.snapshot_ring
+        if ring is None or session_id in self.engine.session_ids():
+            return None
+        loaded = ring.load(session_id)
+        if loaded is None:
+            return None
+        snapshot, age_s = loaded
+        try:
+            if age_s is not None and age_s > self.snapshot_max_age_s:
+                raise migrate.SnapshotCompatibilityError(
+                    f"session snapshot for {session_id!r} is {age_s:.1f}s old, past the "
+                    f"{self.snapshot_max_age_s:.1f}s bound")
+            result = self.import_session(snapshot, session_id=session_id, _count=False)
+        except Exception:  # noqa: BLE001 - fall back to a fresh window
+            with self._meta_lock:
+                self.migration_restore_failures += 1
+            ring.drop(session_id)
+            return None
+        with self._meta_lock:
+            self.migration_restores += 1
+        out: Dict[str, Any] = {"session_restored": True,
+                               "step_index_restored": result["step_index"]}
+        if age_s is not None:
+            out["snapshot_age_s"] = round(float(age_s), 3)
+        return out
+
+    def reload(self, step: Optional[int] = None) -> Dict[str, Any]:
+        """Zero-downtime weight swap: `reload_fn` restores the f32 masters
+        on the host, the engine validates, prepares and swaps them between
+        two batches. `/readyz` says `reloading` meanwhile; one at a time."""
+        if self._reload_fn is None:
+            raise RequestError("this replica has no reload source (pass reload_fn= to ServeApp)")
+        if not self._reload_lock.acquire(blocking=False):
+            raise ReloadInProgressError("a checkpoint reload is already in progress")
+        try:
+            self.reloading = True
+            variables, restored_step = self._reload_fn(step)
+            info = self.engine.swap_variables(variables)
+            self.metrics.observe_reload()
+            if restored_step is not None:
+                # New weights, new generation: a snapshot exported under the
+                # old one is refused by name.
+                self.checkpoint_generation = int(restored_step)
+            return {"ok": True, "checkpoint_step": restored_step,
+                    "reloads_total": self.engine.reloads, **info}
+        finally:
+            self.reloading = False
+            self._reload_lock.release()
 
     def drain(self, timeout: float = 30.0) -> None:
         """Reject new work and flush everything admitted."""
@@ -249,11 +460,19 @@ class ServeApp:
             "buckets": [int(b) for b in self.engine.buckets],
             "device": str(self.engine.device),
             "dtype": self.engine.dtype,
+            "replica_id": self.replica_id,
+            "reloads": self.engine.reloads,
+            "inference_dtype": self.engine.inference_dtype,
+            "cached_inference": self.engine.cached_inference,
+            "checkpoint_generation": self.checkpoint_generation,
+            "session_snapshots": self.snapshot_ring is not None,
         }
 
     def readyz(self) -> Tuple[int, Dict[str, Any]]:
         if self.draining:
             return 503, {"ready": False, "reason": "draining"}
+        if self.reloading:
+            return 503, {"ready": False, "reason": "reloading"}
         if not self.ready:
             return 503, {"ready": False, "reason": "warming"}
         return 200, {"ready": True}
@@ -275,6 +494,21 @@ class ServeApp:
             decoder_layers=self.engine.policy.num_layers,
             device=str(self.engine.device),
             dtype=self.engine.dtype,
+            reloading=int(self.reloading),
+            replica_id=self.replica_id,
+            inference_dtype=self.engine.inference_dtype,
+            param_bytes_device=self.engine.serving_param_bytes,
+            param_bytes_master=self.engine.master_param_bytes,
+            cache_enabled=int(self.engine.cached_inference),
+            cache_bytes_per_slot=self.engine.cache_bytes_per_slot,
+            cache_cached_steps_total=self.engine.cache_cached_steps,
+            cache_rebuild_steps_total=self.engine.cache_rebuild_steps,
+            cache_invalidations=dict(self.engine.cache_invalidations),
+            migration_exports_total=self.migration_exports,
+            migration_imports_total=self.migration_imports,
+            migration_import_failures_total=self.migration_import_failures,
+            migration_restores_total=self.migration_restores,
+            migration_restore_failures_total=self.migration_restore_failures,
         )
 
 
@@ -326,9 +560,71 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/reset":
             self._session_op(payload, self.app.reset, "slot", count_reset=True)
         elif self.path == "/release":
-            self._session_op(payload, self.app.release, None)
+            keep = bool(payload.get("keep_snapshot"))
+            self._session_op(payload, lambda sid: self.app.release(sid, keep_snapshot=keep), None)
+        elif self.path == "/reload":
+            self._reload(payload)
+        elif self.path == "/session/export":
+            self._session_export(payload)
+        elif self.path == "/session/import":
+            self._session_import(payload)
         else:
             self._reply(404, {"error": f"unknown path {self.path}"})
+
+    def _reload(self, payload):
+        step = payload.get("step")
+        if step is not None and (not isinstance(step, int) or isinstance(step, bool)):
+            self._reply(400, {"error": "'step' must be an integer"})
+            return
+        try:
+            self._reply(200, self.app.reload(step))
+        except RequestError as exc:
+            self._reply(400, {"error": str(exc)})
+        except ReloadInProgressError as exc:
+            self._reply(409, {"error": str(exc), "retry": True})
+        except Exception as exc:  # noqa: BLE001 - the old weights still serve
+            self._reply(500, {"error": f"reload failed: {exc}"})
+
+    def _session_export(self, payload):
+        try:
+            snapshot = self.app.export_session(self._session_id(payload))
+        except RequestError as exc:
+            self._reply(400, {"error": str(exc)})
+            return
+        except SessionError as exc:
+            self._reply(404, {"error": str(exc)})
+            return
+        except Exception as exc:  # noqa: BLE001 - report, keep serving
+            self._reply(500, {"error": f"export failed: {exc}"})
+            return
+        self._reply(200, {"ok": True, "snapshot": snapshot})
+
+    def _session_import(self, payload):
+        snapshot = payload.get("snapshot")
+        session_id = payload.get("session_id")
+        if not isinstance(snapshot, dict):
+            self._reply(400, {"error": "'snapshot' must be a JSON object"})
+            return
+        if session_id is not None and (not isinstance(session_id, str) or not session_id):
+            self._reply(400, {"error": "'session_id' must be a non-empty string when given"})
+            return
+        try:
+            result = self.app.import_session(snapshot, session_id=session_id)
+        except migrate.SnapshotCompatibilityError as exc:
+            # A ValueError too, but a conflict with this replica, not a
+            # malformed request.
+            self._reply(409, {"error": str(exc)})
+            return
+        except SlotContentionError as exc:
+            self._reply(503, {"error": str(exc), "retry": True})
+            return
+        except (RequestError, SessionError, ValueError) as exc:
+            self._reply(400, {"error": str(exc)})
+            return
+        except Exception as exc:  # noqa: BLE001 - report, keep serving
+            self._reply(500, {"error": f"import failed: {exc}"})
+            return
+        self._reply(200, {"ok": True, **result})
 
     @staticmethod
     def _session_id(payload) -> str:
@@ -400,6 +696,10 @@ class _Handler(BaseHTTPRequestHandler):
         }
         if "terminate_episode" in result:
             out["terminate_episode"] = result["terminate_episode"]
+        if result.get("session_restored"):
+            out["session_restored"] = True
+            if "snapshot_age_s" in result:
+                out["snapshot_age_s"] = result["snapshot_age_s"]
         self._reply(200, out)
 
 

@@ -134,3 +134,10 @@ def test_learning_proof_modules_are_among_those_imported():
                  "rt1_tpu_torch.utils", "rt1_tpu_torch.utils.curves",
                  "rt1_tpu_torch.utils.artifacts"):
         assert name in names, name
+
+
+def test_serve_mode_modules_are_among_those_imported():
+    names = set(_port_modules())
+    for name in ("rt1_tpu_torch.models.quant", "rt1_tpu_torch.serve.parity",
+                 "rt1_tpu_torch.serve.migrate", "rt1_tpu_torch.serve.__main__"):
+        assert name in names, name
