@@ -163,7 +163,29 @@ exits non-zero without a result line:
              live sessions), `/session/export`, `/release`,
              `/session/import` under a new id (its next action = the
              original's), the `/metrics` gauges, SIGTERM exit 0.
-15. proof  — the learning proof at the flagship's width (B3 at 128x224,
+15. fleet  — the serving fleet: `python -m rt1_tpu_torch.serve.fleet
+             --replicas 2 --config language_table --random_init
+             --inference_dtype bf16 --faults replica_kill@1` (the router on
+             an ephemeral port, a chaos tick every 20 s): both replicas
+             warm up; 4 sessions x 8 `/act` steps of 256x456 frames through
+             the router (`"debug": true`) answer 200 with the
+             `X-RT1-Request-Id` sent; each
+             session's window sits on exactly one replica (`/session/export`
+             on each: one holder, step 8) and both replicas hold sessions;
+             the router's Prometheus `/metrics` parses with the port's
+             `parse_exposition`, `rt1_serve_replica_up` 1 a replica; in each
+             replica's fanned-out JSON 8 tensor-core launches an engine step
+             (> 0) and no other, and the bf16 flagship's resident bytes;
+             after the kill the victim's sessions answer `"restarted": true`
+             and the others do not, the respawned replica is ready again
+             with the same launch rule; SIGTERM stops the fleet with exit 0
+             and one kill, one restart in its final line. Prints the router's
+             `/act` p50 / p99 / max beside phase `serve`'s, the warm-up and
+             kill-to-ready seconds, each replica's resident bytes and the
+             card's memory in use; the replica's own `phases` total split
+             from the client's time gives the router's and the HTTP hops'
+             share. CPU rehearsal: `phase_fleet('tiny', 'cpu')`.
+16. proof  — the learning proof at the flagship's width (B3 at 128x224,
              window 6, batch 32, bf16) under a temporary directory, through
              `python -m rt1_tpu_torch.train.learn_proof`: `--stage collect`
              of 8 episodes over 4 workers (BLOCK_4 block2block, ngram,
@@ -187,13 +209,13 @@ exits non-zero without a result line:
              train step ms, the control-step quantiles and each stage's
              wall time, beside `nvidia-smi`'s line. CPU rehearsal:
              `phase_proof('tiny', 'cpu')`.
-16. kernels — one line listing the three kernels with their launches on
+17. kernels — one line listing the three kernels with their launches on
              their path (serve for the tensor-core kernel, the flagship f32
              parity step for tf32x3, the `tiny` bf16 step for the simple
              one), on the eval path (`eval_launches`), in the learning
-             proof's DAgger and eval stages (`proof_launches`) and in each
-             serving mode's bucket-8 drive (`serve_modes_launches`),
-             errors, times and bound.
+             proof's DAgger and eval stages (`proof_launches`), in each
+             serving mode's bucket-8 drive (`serve_modes_launches`) and in
+             each fleet replica (`fleet_launches`), errors, times and bound.
 
 The last line is `{"ok": true, "device": {...}}`.
 """
@@ -211,6 +233,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -2643,6 +2666,263 @@ def phase_proof(config_name: str = "language_table", device: str = "cuda"):
     return record
 
 
+# The fleet: `python -m rt1_tpu_torch.serve.fleet` fronting flagship bf16
+# replicas on the card, with one `replica_kill` chaos tick after the drive.
+FLEET_REPLICAS = 2
+FLEET_SESSIONS = 4
+FLEET_STEPS = 8
+FLEET_CHAOS_INTERVAL_S = 20.0    # the kill's tick, counted from the fleet's first all-ready
+FLEET_TIMEOUT_S = 600            # a replica's warm-up, and the respawn's
+
+
+def _post(url, payload, headers=None, timeout=120):
+    """(status, body) of a JSON POST, an HTTP error's body included."""
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
+def _get_text(url, accept=None, timeout=60):
+    req = urllib.request.Request(url, headers={"Accept": accept} if accept else {})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.read().decode("utf-8")
+
+
+def _memory_used_mib(on_card):
+    if not on_card:
+        return None
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return int(out.stdout.strip().splitlines()[0])
+
+
+def _wait_for(predicate, timeout_s, what):
+    """Poll `predicate` every 0.1 s; returns its first truthy value."""
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        value = predicate()
+        if value:
+            return value
+        time.sleep(0.1)
+    raise AssertionError(f"fleet: timed out after {timeout_s:.0f}s waiting for {what}")
+
+
+def _fleet_launches(snapshot, on_card, what):
+    """A replica's per-variant launches from the router's fan-out, held to
+    8 tensor-core launches an engine step (0 on the CPU) and no other."""
+    steps, layers = int(snapshot["engine_steps_total"]), int(snapshot["decoder_layers"])
+    launches = {v: int(snapshot[f"attention_launches_{v}_total"])
+                for v in ("tensor_core", "tf32x3", "simple")}
+    expected = layers * steps if on_card else 0
+    if steps <= 0 or launches != {"tensor_core": expected, "tf32x3": 0, "simple": 0} or \
+            (on_card and expected <= 0):
+        raise AssertionError(f"fleet: {what} launched {launches} in {steps} engine steps, "
+                             f"expected {layers} x {steps} tensor-core and no other")
+    return {**launches, "engine_steps": steps}
+
+
+def phase_fleet(config_name: str = "language_table", device: str = "cuda", direct=None):
+    """`python -m rt1_tpu_torch.serve.fleet` with two bf16 replicas of the
+    config on `device`: warm-up, 4 sessions x 8 `/act` steps through the
+    router, affinity, request ids, the Prometheus and JSON fan-out with each
+    replica's kernel counters, the chaos kill and the respawn. `direct` is
+    phase `serve`'s record, printed beside the router's latencies."""
+    import numpy as np
+
+    from rt1_tpu_torch.configs import get_config
+    from rt1_tpu_torch.obs.prometheus import parse_exposition
+    from rt1_tpu_torch.serve.fleet import FLAGSHIP_PARAM_BYTES
+
+    config = get_config(config_name)
+    h, w = config.data.height, config.data.width
+    on_card = device == "cuda"
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("RT1_FAULTS", None)
+    sessions = [f"fleet-{i}" for i in range(FLEET_SESSIONS)]
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 256, (FLEET_SESSIONS, FLEET_STEPS + 1, h, w, 3), dtype=np.uint8)
+
+    def body(i, step):
+        return {"session_id": sessions[i], "instruction": f"push block {i} to the top left corner",
+                "image_b64": base64.b64encode(frames[i, step].tobytes()).decode()}
+
+    def check_action(out):
+        action = np.asarray(out.get("action", []), np.float64)
+        tokens = np.asarray(out.get("action_tokens", []))
+        if action.shape != (2,) or not np.isfinite(action).all() or \
+                (np.abs(action) > 0.03 + 1e-7).any() or tokens.shape != (3,) or \
+                ((tokens < 0) | (tokens >= config.model.vocab_size)).any():
+            raise AssertionError(f"fleet: bad action {out}")
+
+    with tempfile.TemporaryDirectory() as logs, tempfile.TemporaryFile(mode="w+") as errlog:
+        cmd = [sys.executable, "-m", "rt1_tpu_torch.serve.fleet", "--replicas",
+               str(FLEET_REPLICAS), "--config", config_name, "--random_init",
+               "--inference_dtype", "bf16", "--device", device, "--port", "0",
+               "--faults", "replica_kill@1", "--chaos_interval_s", str(FLEET_CHAOS_INTERVAL_S),
+               "--poll_interval_s", "0.25", "--warmup_timeout_s", str(FLEET_TIMEOUT_S),
+               "--log_dir", logs]
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=errlog,
+                                text=True, start_new_session=True)
+        ok = False
+        try:
+            t0 = time.perf_counter()
+            ready = _read_ready_line(proc, FLEET_TIMEOUT_S)
+            warmup_s = time.perf_counter() - t0
+            url = f"http://127.0.0.1:{ready['port']}"
+            fleet = json.loads(_get_text(url + "/fleet/status"))
+            if [r["state"] for r in fleet["replicas"]] != ["ready"] * FLEET_REPLICAS:
+                raise AssertionError(f"fleet: not every replica ready {fleet['replicas']}")
+            memory_ready = _memory_used_mib(on_card)
+            # 1. The drive: each session's steps in order, the sessions at once.
+            replies, lock = [], threading.Lock()
+
+            def drive(i):
+                for step in range(FLEET_STEPS):
+                    rid = f"fleet-{i}-{step}"
+                    t = time.perf_counter()
+                    code, out = _post(url + "/act", dict(body(i, step), debug=True),
+                                      {"X-RT1-Request-Id": rid})
+                    with lock:
+                        replies.append((rid, code, out, time.perf_counter() - t))
+
+            t_drive = time.perf_counter()
+            threads = [threading.Thread(target=drive, args=(i,)) for i in range(FLEET_SESSIONS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(FLEET_TIMEOUT_S)
+            drive_s = time.perf_counter() - t_drive
+            if len(replies) != FLEET_SESSIONS * FLEET_STEPS:
+                raise AssertionError(f"fleet: {len(replies)} replies of "
+                                     f"{FLEET_SESSIONS * FLEET_STEPS}")
+            for rid, code, out, _ in replies:
+                if code != 200 or out.get("restarted"):
+                    raise AssertionError(f"fleet: /act {code} {out}")
+                if out.get("request_id") != rid:
+                    raise AssertionError(f"fleet: request id {rid} came back as "
+                                         f"{out.get('request_id')}")
+                check_action(out)
+            # 2. Affinity: each session's whole window on exactly one replica.
+            fleet = json.loads(_get_text(url + "/fleet/status"))
+            if any(r["restarts"] for r in fleet["replicas"]):
+                raise AssertionError("fleet: the chaos kill came before the drive ended; "
+                                     "raise FLEET_CHAOS_INTERVAL_S")
+            urls = {r["id"]: r["url"] for r in fleet["replicas"]}
+            owners = {}
+            for sid in sessions:
+                held = {rid: _post(u + "/session/export", {"session_id": sid})
+                        for rid, u in urls.items()}
+                holders = [rid for rid, (code, _) in held.items() if code == 200]
+                if len(holders) != 1 or \
+                        held[holders[0]][1]["snapshot"]["step_index"] != FLEET_STEPS:
+                    raise AssertionError(f"fleet: {sid} held by {holders}")
+                owners[sid] = holders[0]
+            if set(owners.values()) != set(urls):
+                raise AssertionError(f"fleet: sessions on {owners}, replicas {sorted(urls)}")
+            # 3. The router's Prometheus text and JSON fan-out.
+            parsed = parse_exposition(_get_text(url + "/metrics", accept="text/plain"))
+            for rid in urls:
+                if parsed.value("rt1_serve_replica_up", replica_id=str(rid)) != 1.0:
+                    raise AssertionError(f"fleet: rt1_serve_replica_up of {rid} is not 1")
+            fanned = json.loads(_get_text(url + "/metrics"))["replicas"]
+            launches = {rid: _fleet_launches(snap, on_card, f"replica {rid}")
+                        for rid, snap in fanned.items()}
+            resident = {rid: int(snap["param_bytes_device"]) for rid, snap in fanned.items()}
+            if config_name == "language_table" and \
+                    set(resident.values()) != {FLAGSHIP_PARAM_BYTES["bf16"]}:
+                raise AssertionError(f"fleet: resident bytes {resident}")
+            # 4. The chaos kill (tick 1: the lowest-id ready replica).
+            def killed():
+                rs = json.loads(_get_text(url + "/fleet/status"))["replicas"]
+                return [r["id"] for r in rs if r["restarts"] == 1]
+
+            (victim,) = _wait_for(killed, FLEET_CHAOS_INTERVAL_S + 60, "the chaos kill")
+            t_kill = time.perf_counter()
+            rehome = {}
+            for i, sid in enumerate(sessions):
+                code, out = _post(url + "/act", body(i, FLEET_STEPS),
+                                  {"X-RT1-Request-Id": f"fleet-{i}-rehome"})
+                if code != 200 or bool(out.get("restarted")) != (owners[sid] == victim) or \
+                        out.get("request_id") != f"fleet-{i}-rehome":
+                    raise AssertionError(f"fleet: after the kill {sid} (on {owners[sid]}, "
+                                         f"victim {victim}) answered {code} {out}")
+                check_action(out)
+                rehome[sid] = bool(out.get("restarted"))
+            memory_killed = _memory_used_mib(on_card)
+
+            def healed():
+                rs = json.loads(_get_text(url + "/fleet/status"))["replicas"]
+                return all(r["state"] == "ready" for r in rs) and \
+                    [r["restarts"] for r in rs if r["id"] == victim] == [1]
+
+            _wait_for(healed, FLEET_TIMEOUT_S, "the respawned replica")
+            kill_to_ready_s = time.perf_counter() - t_kill
+            memory_respawned = _memory_used_mib(on_card)
+            fanned = json.loads(_get_text(url + "/metrics"))["replicas"]
+            respawned = _fleet_launches(fanned[str(victim)], on_card, "the respawned replica")
+            # 5. SIGTERM: the fleet drains its replicas and exits 0.
+            proc.send_signal(signal.SIGTERM)
+            out, _ = proc.communicate(timeout=180)
+            final = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+            if proc.returncode != 0 or not final or final[-1].get("status") != "stopped":
+                raise AssertionError(f"fleet: exit code {proc.returncode} after SIGTERM")
+            chaos = final[-1]["chaos"]
+            if (chaos["kills_injected"], chaos["replica_restarts"]) != (1, 1):
+                raise AssertionError(f"fleet: chaos {chaos}")
+            ok = True
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+            if not ok:
+                errlog.seek(0)
+                sys.stderr.write(errlog.read()[-4000:])
+                for name in sorted(os.listdir(logs)):
+                    with open(os.path.join(logs, name)) as f:
+                        sys.stderr.write(f"--- {name}\n" + f.read()[-4000:])
+    lat_ms = [r[3] * 1e3 for r in replies]
+    router_ms = _quantiles(lat_ms)
+    # Inside the replica (its `phases`, under "debug": true) and the rest:
+    # the router, both HTTP hops and the client.
+    replica_ms = [r[2]["phases"]["total_ms"] for r in replies]
+    hop_ms = _quantiles([c - r for c, r in zip(lat_ms, replica_ms)])
+    replica_ms = _quantiles(replica_ms)
+    direct_ms = None
+    if direct is not None:
+        direct_ms = {"p50": direct["client_p50_ms"], "p99": direct["client_p99_ms"],
+                     "max": max(direct["client_latencies_ms"]), "n": direct["requests"]}
+    smi = nvidia_smi() if on_card else None
+    emit({"phase": "fleet_latency", "router_act_ms": router_ms,
+          "direct_act_ms (phase serve)": direct_ms, "inside_replica_ms": replica_ms,
+          "router_and_hops_ms": hop_ms})
+    emit({"phase": "fleet_times", "warmup_s": warmup_s, "kill_to_ready_s": kill_to_ready_s,
+          "drive_s": drive_s})
+    emit({"phase": "fleet_bytes", "param_bytes_device": resident,
+          "memory_used_mib": {"ready": memory_ready, "after_kill": memory_killed,
+                              "respawned": memory_respawned}})
+    if smi:
+        print(smi, flush=True)
+    record = {
+        "phase": "fleet", "config": config_name, "device": device, "dtype": "bf16",
+        "replicas": FLEET_REPLICAS, "sessions": FLEET_SESSIONS, "steps": FLEET_STEPS,
+        "nvidia_smi": smi, "warmup_s": warmup_s, "kill_to_ready_s": kill_to_ready_s,
+        "drive_s": drive_s, "router_act_ms": router_ms, "direct_act_ms": direct_ms,
+        "inside_replica_ms": replica_ms, "router_and_hops_ms": hop_ms,
+        "owners": owners, "victim": victim, "restarted": rehome,
+        "launches": launches, "respawned_launches": respawned,
+        "param_bytes_device": resident,
+        "memory_used_mib": {"ready": memory_ready, "after_kill": memory_killed,
+                            "respawned": memory_respawned},
+        "slo": final[-1]["slo"]["by_class"],
+    }
+    emit(record)
+    return record
+
+
 def _kernel_entry(name, source, launches, path, head, cases):
     """One entry of the `kernels` line: the kernel's numbers at `head` (the
     case of its path's shape) and its largest error over `cases`."""
@@ -2663,7 +2943,7 @@ def _kernel_entry(name, source, launches, path, head, cases):
 
 
 PHASES = ("kernel", "ab", "sweep", "parity", "tiny", "step", "serve", "train_parity", "train",
-          "data", "eval", "serve_modes", "proof")
+          "data", "eval", "serve_modes", "fleet", "proof")
 
 
 def main(argv=None) -> int:
@@ -2702,7 +2982,9 @@ def main(argv=None) -> int:
     done = {}
     for phase in PHASES:
         if phase in phases:
-            done[phase] = globals()["phase_" + phase]()
+            run = globals()["phase_" + phase]
+            # The fleet's latencies print beside the lone server's.
+            done[phase] = run(direct=done.get("serve")) if phase == "fleet" else run()
     if set(phases) != set(PHASES):
         print(smi, flush=True)
         emit({"partial": phases, "passed": True})
@@ -2736,7 +3018,14 @@ def main(argv=None) -> int:
     # And the learning proof's: the DAgger and eval stages of its CLI.
     proof = done["proof"]
     serve_modes = done["serve_modes"]["modes"]
+    fleet = done["fleet"]
     for entry, variant in zip(entries, ("tensor_core", "tf32x3", "simple")):
+        # Each fleet replica's launches from its start to the drive's end,
+        # and the respawned replica's after the kill (new processes: 0 at
+        # start).
+        entry["fleet_launches"] = {
+            **{f"replica_{rid}": counts[variant] for rid, counts in fleet["launches"].items()},
+            "respawned": fleet["respawned_launches"][variant]}
         # Each serving mode's bucket-8 drive (counts set to 0 before it).
         entry["serve_modes_launches"] = {
             mode: record["launches_by_variant"][variant] for mode, record in serve_modes.items()}

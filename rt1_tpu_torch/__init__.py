@@ -17,13 +17,15 @@ CUDA they raise instead of falling back (`resolve_device`).
 
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """The device an entry point runs on: `cuda` unless the caller asks for
     the CPU. Raises when CUDA is requested (or defaulted) but absent — the
-    port never falls back to the CPU on its own."""
+    port never falls back to the CPU on its own. torch is imported here,
+    not with the package, so the model-free fleet modules (router,
+    supervisor, stub replica) import no torch."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -165,10 +165,12 @@ def _run(procs) -> str:
 def build() -> str:
     """Compile every source for sm_90a (one nvcc per source, all started
     together) and link them into one library, unless this set of sources'
-    library already exists. Concurrent builders each work in a private
-    temporary directory and rename the library into place. ptxas's report
-    (registers, spills, shared memory per kernel) goes beside it as
-    `<library>.ptxas.txt`. Returns the library's path."""
+    library already exists. Concurrent builds (replicas of one fleet
+    starting together) each work in a private temporary directory and
+    rename the library into place; ptxas's report (registers, spills,
+    shared memory per kernel) is written there too and renamed beside it
+    as `<library>.ptxas.txt`, so neither file is ever seen half written.
+    Returns the library's path."""
     path = library_path()
     if os.path.exists(path):
         return path
@@ -187,8 +189,10 @@ def build() -> str:
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
         _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.PIPE, text=True))])
-        with open(path + ".ptxas.txt", "w") as f:
+        report_tmp = os.path.join(tmp, "ptxas.txt")
+        with open(report_tmp, "w") as f:
             f.write(report)
+        os.replace(report_tmp, path + ".ptxas.txt")
         os.replace(lib, path)
     return path
 

@@ -25,6 +25,12 @@ swaps in the standby weights (the newest checkpoint of `--workdir`, the
 `--weights` file, or the same random init); `--watch_checkpoints_s N`
 polls `--workdir` and swaps in each newer checkpoint.
 
+Observability and chaos, as the fleet drives them: `GET /metrics` answers
+Prometheus text to `Accept: text/plain`; `GET /slow_requests` serves the
+exemplar ring of requests at least `--slow_threshold_ms` slow, dumped to
+`--exemplar_path` on drain; `RT1_FAULTS` arms the replica's fault sites
+(`session_restore@N`).
+
 Prints one JSON ready-line (`{"status": "serving", "port": ...}`) once every
 bucket is warmed and the socket is bound, then serves until SIGTERM/SIGINT,
 which drains accepted requests, prints a final `{"status": "drained", ...}`
@@ -86,6 +92,11 @@ def parse_args(argv):
                    help="A ring snapshot older than this starts a fresh window instead.")
     p.add_argument("--session_snapshot_every", type=int, default=1,
                    help="Write a session's ring snapshot every N served steps.")
+    p.add_argument("--slow_threshold_ms", type=float, default=0.0,
+                   help="Keep requests at least this slow in the exemplar ring "
+                        "(GET /slow_requests); 0 keeps the most recent window of all.")
+    p.add_argument("--exemplar_path", default="",
+                   help="Dump the slow-request exemplar ring here (JSONL) on drain.")
     return p.parse_args(argv)
 
 
@@ -131,8 +142,12 @@ def main(argv=None) -> int:
     from rt1_tpu_torch.configs import get_config
     from rt1_tpu_torch.eval.embedding import get_embedder
     from rt1_tpu_torch.eval.restore import build_serve_engine, load_standby_variables
+    from rt1_tpu_torch.resilience import faults
     from rt1_tpu_torch.serve.server import ServeApp, install_signal_handlers, make_server
 
+    # Arm the replica's chaos sites from RT1_FAULTS (the fleet exports its
+    # plan before spawning).
+    faults.install_from("")
     config = get_config(args.config)
     engine, step = build_serve_engine(
         config,
@@ -163,6 +178,8 @@ def main(argv=None) -> int:
         session_snapshot_dir=args.session_snapshot_dir or None,
         snapshot_max_age_s=args.snapshot_max_age_s,
         snapshot_every=args.session_snapshot_every,
+        slow_threshold_ms=args.slow_threshold_ms,
+        exemplar_path=args.exemplar_path or None,
     )
     app.start(warmup=True)
     if args.watch_checkpoints_s > 0 and args.workdir:

@@ -18,9 +18,14 @@ shape and dtype header (`encode_state` / `decode_state`). A bfloat16 leaf
 (a cached engine's K/V at bf16) is encoded from its raw 2-byte words and
 labelled "bfloat16", as JAX labels it; numpy knows that dtype only through
 `ml_dtypes`, which the card's machine lacks, so such a leaf is decoded by
-torch. Decoded leaves are CPU tensors. The JAX package's chaos sites
-(`faults.maybe_fail` before each migration leg and the ring restore) are
-not ported.
+torch. Decoded leaves are CPU tensors. numpy and torch are imported by
+the functions that encode and decode leaves, so the model-free router and
+stub replica import this module without them.
+
+Chaos sites, as in the JAX package: `migrate_export` fires before the
+export leg of `migrate_session` and `migrate_import` before its import
+leg (`resilience/faults.py`); the ring restore's `session_restore` site is
+in the server.
 """
 
 from __future__ import annotations
@@ -35,8 +40,7 @@ import urllib.error
 import urllib.request
 from typing import Any, Dict, List, Optional, Tuple
 
-import numpy as np
-import torch
+from rt1_tpu_torch.resilience import faults
 
 #: The snapshot wire schema's version; importers refuse any other.
 SNAPSHOT_VERSION = 1
@@ -53,6 +57,9 @@ class SnapshotCompatibilityError(ValueError):
 
 def _raw(value) -> Tuple[List[int], str, bytes]:
     """(shape, dtype name, raw bytes) of a tensor or array."""
+    import numpy as np
+    import torch
+
     if isinstance(value, torch.Tensor):
         value = value.detach().cpu()
         if value.dtype == torch.bfloat16:
@@ -77,6 +84,9 @@ def decode_state(encoded: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
     """Inverse of `encode_state`, to CPU tensors. Entries carrying plain
     `"data"` lists (a jax-free exporter such as the JAX fleet's stub) pass
     through untouched."""
+    import numpy as np
+    import torch
+
     decoded: Dict[str, Any] = {}
     for name, spec in encoded.items():
         if not isinstance(spec, dict):
@@ -261,13 +271,17 @@ def migrate_session(source_url: str, target_url: str, session_id: str,
                     timeout_s: float = 10.0) -> Dict[str, Any]:
     """Move ONE session: export from `source_url`, import into
     `target_url`. Never raises: the result carries `ok` and, on failure,
-    the `stage` that broke (export / import / transport) and the error."""
+    the `stage` that broke (export / import / transport) and the error.
+    An injected `migrate_export` or `migrate_import` fault is a transport
+    failure, so the caller falls back to the orphan + restart path."""
     try:
+        faults.maybe_fail("migrate_export", what=session_id)
         status, body = _post_json(source_url.rstrip("/") + "/session/export",
                                   {"session_id": session_id}, timeout_s)
         if status != 200 or not body.get("ok"):
             return {"ok": False, "session_id": session_id, "stage": "export",
                     "error": str(body.get("error") or f"HTTP {status}")}
+        faults.maybe_fail("migrate_import", what=session_id)
         status, body = _post_json(target_url.rstrip("/") + "/session/import",
                                   {"snapshot": body.get("snapshot")}, timeout_s)
         if status != 200 or not body.get("ok"):

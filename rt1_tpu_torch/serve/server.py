@@ -31,7 +31,19 @@ Endpoints (all JSON):
                   per variant), `engine_steps_total` (batched steps,
                   warm-up included), the serving mode's `inference_dtype`,
                   `param_bytes_device` / `param_bytes_master`, the cache's
-                  and the migration counters
+                  and the migration counters; with `Accept: text/plain`
+                  (or openmetrics) the same numbers as Prometheus text
+                  (`obs/prometheus.py`)
+* `GET /slow_requests` the bounded slow-request exemplar ring: request ids
+                  and per-phase breakdowns of every request past the slow
+                  threshold (dumped to `exemplar_path` as JSONL on drain)
+
+Request tracing (`serve/reqtrace.py`): every `/act` resolves a request id
+(the client's or router's `X-RT1-Request-Id` header, else minted), echoes
+it as `request_id`, stamps it through admission -> queue -> batch ->
+device -> serialization, emits linked `replica_act` / `batch_wait` /
+`device_step` spans on the obs timeline when tracing is on, and with
+`"debug": true` in the payload returns the `phases` breakdown.
 
 With `session_snapshot_dir`, every `snapshot_every`-th step of a session
 writes its snapshot to an on-disk ring; an `/act` for a session this
@@ -50,18 +62,20 @@ import base64
 import binascii
 import concurrent.futures
 import json
-import re
 import signal
 import threading
 import time
-import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from rt1_tpu_torch.obs import prometheus as obs_prometheus
+from rt1_tpu_torch.obs import trace as obs_trace
+from rt1_tpu_torch.obs.recorder import ExemplarRing
 from rt1_tpu_torch.parallel.flash_attention import fused_attention
-from rt1_tpu_torch.serve import migrate
+from rt1_tpu_torch.resilience import faults
+from rt1_tpu_torch.serve import migrate, reqtrace
 from rt1_tpu_torch.serve.batcher import BusyError, ContinuousBatcher, DrainingError, MicroBatcher
 from rt1_tpu_torch.serve.engine import (
     EMBEDDING_DIM,
@@ -71,7 +85,6 @@ from rt1_tpu_torch.serve.engine import (
 )
 from rt1_tpu_torch.serve.metrics import ServeMetrics
 
-REQUEST_ID_HEADER = "X-RT1-Request-Id"
 # The JAX server's defaults: a bounded admission queue (beyond it, 503
 # busy), the longest a request waits for batchmates, two batches in flight
 # under the continuous scheduler, and the server-side request budget.
@@ -79,7 +92,6 @@ MAX_QUEUE = 64
 MAX_DELAY_S = 0.010
 PIPELINE_DEPTH = 2
 REQUEST_TIMEOUT_S = 60.0
-_RID_SAFE = re.compile(r"[^A-Za-z0-9._:-]")
 
 
 class RequestError(ValueError):
@@ -88,18 +100,6 @@ class RequestError(ValueError):
 
 class ReloadInProgressError(RuntimeError):
     """A weight hot swap is already running -> HTTP 409."""
-
-
-def request_id_from(headers, payload: Optional[Dict[str, Any]] = None) -> str:
-    """Client header wins, else the payload field, else a fresh id."""
-    rid = headers.get(REQUEST_ID_HEADER) if headers is not None else None
-    if not rid and payload:
-        rid = payload.get("request_id")
-    if isinstance(rid, str) and rid:
-        rid = _RID_SAFE.sub("", rid)[:64]
-    if not isinstance(rid, str) or not rid:
-        rid = uuid.uuid4().hex[:16]
-    return rid
 
 
 def parse_observation(payload: Dict[str, Any], image_shape: Sequence[int],
@@ -156,6 +156,9 @@ class ServeApp:
         session_snapshot_dir: Optional[str] = None,
         snapshot_max_age_s: float = 600.0,
         snapshot_every: int = 1,
+        slow_threshold_ms: float = 0.0,
+        slow_capacity: int = 128,
+        exemplar_path: Optional[str] = None,
     ):
         self.engine = engine
         self.image_shape = tuple(image_shape)
@@ -163,6 +166,11 @@ class ServeApp:
         self.metrics = ServeMetrics()
         self.request_timeout_s = REQUEST_TIMEOUT_S
         self.replica_id = replica_id
+        # Slow-request exemplar ring: request id + phase breakdown for
+        # every request past the threshold (0 = all, ring-bounded), served
+        # on GET /slow_requests and dumped to `exemplar_path` on drain.
+        self.exemplars = ExemplarRing(capacity=slow_capacity, threshold_ms=slow_threshold_ms)
+        self.exemplar_path = exemplar_path
         # The checkpoint generation stamps exported snapshots and gates
         # imports; per-session metadata (step counter, last instruction)
         # rides the snapshot.
@@ -205,6 +213,7 @@ class ServeApp:
                 coalesce_delay_s=MAX_DELAY_S,
                 batch_key=lambda item: item[0],
                 metrics=self.metrics,
+                on_batch=self._mark_batch_formed,
             )
         else:
             self.batcher = MicroBatcher(
@@ -214,15 +223,32 @@ class ServeApp:
                 max_queue=MAX_QUEUE,
                 batch_key=lambda item: item[0],
                 metrics=self.metrics,
+                on_batch=self._mark_batch_formed,
             )
+
+    @staticmethod
+    def _mark_batch_formed(items) -> None:
+        """Batcher-loop hook: these requests just left the queue."""
+        now = obs_trace.now_us()
+        for _, _, phases in items:
+            phases.t_formed = now
 
     def _process(self, items):
         t0 = time.perf_counter()
-        # Dispatch (under the engine lock) then collect (outside it): with
-        # the continuous batcher's second worker, batch N+1 is enqueued
-        # while this collect waits. Nothing may sit between the two.
-        handle = self.engine.dispatch_batch(items)
-        results = self.engine.collect_batch(handle)
+        now = obs_trace.now_us()
+        for _, _, phases in items:
+            phases.t_device0 = now
+        # The `device_step` span, tagged with every rider's request id.
+        with reqtrace.device_step_span(len(items), (ph.request_id for _, _, ph in items)):
+            # Dispatch (under the engine lock) then collect (outside it):
+            # with the continuous batcher's second worker, batch N+1 is
+            # enqueued while this collect waits. Nothing may sit between
+            # the two.
+            handle = self.engine.dispatch_batch([(sid, obs) for sid, obs, _ in items])
+            results = self.engine.collect_batch(handle)
+        now = obs_trace.now_us()
+        for _, _, phases in items:
+            phases.t_device1 = now
         if handle.bucket is not None:
             self.metrics.observe_bucket(handle.bucket, handle.active_count)
         self.metrics.observe_step(time.perf_counter() - t0)
@@ -240,16 +266,23 @@ class ServeApp:
             )
         self.ready = True
 
-    def act(self, session_id: str, obs: Dict[str, Any]) -> Dict[str, Any]:
-        """Blocking bridge used by HTTP handler threads."""
+    def act(self, session_id: str, obs: Dict[str, Any],
+            phases: Optional[reqtrace.RequestPhases] = None,
+            task: Optional[str] = None) -> Dict[str, Any]:
+        """Blocking bridge used by HTTP handler threads. `phases` rides the
+        batcher item so every boundary stamps one ledger; `task` is the
+        client's workload tag for the per-task counters."""
+        if phases is None:
+            phases = reqtrace.RequestPhases()
         restored = self.maybe_restore_session(session_id) if self.snapshot_ring else None
         t_entry = time.perf_counter()
         while True:
             with self._admit_lock:
                 if self.draining:
                     raise DrainingError("draining; not accepting requests")
+                phases.t_enqueue = obs_trace.now_us()
                 future = asyncio.run_coroutine_threadsafe(
-                    self.batcher.submit((session_id, obs)), self._loop
+                    self.batcher.submit((session_id, obs, phases)), self._loop
                 )
             try:
                 remaining = self.request_timeout_s - (time.perf_counter() - t_entry)
@@ -268,6 +301,7 @@ class ServeApp:
             break
         if "error" in result:
             raise result["error"]
+        self.metrics.observe_task_request(task, new_session=result.get("session_started", False))
         self._note_act(session_id, obs, result)
         if restored:
             result.update(restored)
@@ -396,6 +430,7 @@ class ServeApp:
             return None
         snapshot, age_s = loaded
         try:
+            faults.maybe_fail("session_restore", what=session_id)
             if age_s is not None and age_s > self.snapshot_max_age_s:
                 raise migrate.SnapshotCompatibilityError(
                     f"session snapshot for {session_id!r} is {age_s:.1f}s old, past the "
@@ -446,6 +481,11 @@ class ServeApp:
             asyncio.run_coroutine_threadsafe(self.batcher.drain(), self._loop).result(timeout=timeout)
             self._loop.call_soon_threadsafe(self._loop.stop)
             self._loop_thread.join(timeout=timeout)
+        if self.exemplar_path and len(self.exemplars):
+            try:
+                self.exemplars.dump(self.exemplar_path, reason="drain")
+            except OSError:
+                pass  # exit path: a full disk must not block the drain
 
     def healthz(self) -> Dict[str, Any]:
         return {
@@ -477,13 +517,14 @@ class ServeApp:
             return 503, {"ready": False, "reason": "warming"}
         return 200, {"ready": True}
 
-    def metrics_snapshot(self) -> Dict[str, Any]:
-        return self.metrics.snapshot(
+    def _engine_gauges(self) -> Dict[str, Any]:
+        return dict(
             active_sessions=self.engine.active_sessions,
             compile_count=self.engine.compile_count,
             bucket_count=len(self.engine.buckets),
             embed_cache_misses=self.engine.embed_calls,
             session_evictions=self.engine.evictions,
+            slow_exemplars=len(self.exemplars),
             draining=int(self.draining),
             ready=int(self.ready),
             engine_steps_total=self.engine.steps_total,
@@ -511,6 +552,13 @@ class ServeApp:
             migration_restore_failures_total=self.migration_restore_failures,
         )
 
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        return self.metrics.snapshot(**self._engine_gauges())
+
+    def metrics_prometheus(self) -> str:
+        """The same numbers as Prometheus exposition text."""
+        return self.metrics.prometheus_text(**self._engine_gauges())
+
 
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
@@ -523,6 +571,14 @@ class _Handler(BaseHTTPRequestHandler):
         body = json.dumps(payload).encode("utf-8")
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _reply_text(self, code: int, text: str, content_type: str) -> None:
+        body = text.encode("utf-8")
+        self.send_response(code)
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
@@ -545,7 +601,14 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/readyz":
             self._reply(*self.app.readyz())
         elif self.path == "/metrics":
-            self._reply(200, self.app.metrics_snapshot())
+            # JSON by default; a Prometheus scraper's Accept header gets text.
+            if obs_prometheus.accepts_text(self.headers.get("Accept")):
+                self._reply_text(200, self.app.metrics_prometheus(), obs_prometheus.CONTENT_TYPE)
+            else:
+                self._reply(200, self.app.metrics_snapshot())
+        elif self.path == "/slow_requests":
+            self._reply(200, {**self.app.exemplars.stats(),
+                              "slow_requests": self.app.exemplars.snapshot()})
         else:
             self._reply(404, {"error": f"unknown path {self.path}"})
 
@@ -652,48 +715,71 @@ class _Handler(BaseHTTPRequestHandler):
             self.app.metrics.observe_reset()
         self._reply(200, out)
 
-    def _fail(self, code: int, t0: float, request_id: str, body: Dict[str, Any],
-              counted: bool = True) -> None:
-        if counted:
+    def _fail_act(self, code, phases, session_id, t0, outcome, body):
+        """One exit for every non-200 /act: metrics, the exemplar ring
+        (failures are the exemplars a post-mortem wants) and the request
+        id echoed so the client can quote it."""
+        if outcome == "failed":
             self.app.metrics.observe_request(time.perf_counter() - t0, ok=False)
-        body["request_id"] = request_id
+        body["request_id"] = phases.request_id
+        self.app.exemplars.offer(
+            (obs_trace.now_us() - phases.t_admit) / 1e3,
+            request_id=phases.request_id, session=session_id, outcome=outcome,
+            error=body.get("error"), phases=phases.phases_ms(),
+        )
         self._reply(code, body)
 
     def _act(self, payload):
-        request_id = request_id_from(self.headers, payload)
+        phases = reqtrace.RequestPhases(reqtrace.request_id_from(self.headers, payload))
         t0 = time.perf_counter()
         if self.app.draining:
-            self._fail(503, t0, request_id, {"error": "draining"}, counted=False)
+            self._fail_act(503, phases, payload.get("session_id"), t0, "rejected",
+                           {"error": "draining"})
             return
-        try:
-            session_id = self._session_id(payload)
-            obs = parse_observation(payload, self.app.image_shape, self.app.embed_dim)
-            result = self.app.act(session_id, obs)
-        except RequestError as exc:
-            self._fail(400, t0, request_id, {"error": str(exc)})
-            return
-        except (BusyError, SlotContentionError):
-            self._fail(503, t0, request_id, {"error": "busy", "retry": True}, counted=False)
-            return
-        except DrainingError:
-            self._fail(503, t0, request_id, {"error": "draining"}, counted=False)
-            return
-        except concurrent.futures.TimeoutError:
-            self._fail(504, t0, request_id, {"error": "request timed out in the server"})
-            return
-        except (SessionError, ValueError, KeyError) as exc:
-            self._fail(400, t0, request_id, {"error": str(exc)})
-            return
-        except Exception as exc:  # noqa: BLE001 - last-resort HTTP 500
-            self._fail(500, t0, request_id, {"error": f"internal error: {exc}"})
-            return
+        session_id = None
+        with obs_trace.span("replica_act", request_id=phases.request_id,
+                            replica=self.app.replica_id):
+            try:
+                session_id = self._session_id(payload)
+                obs = parse_observation(payload, self.app.image_shape, self.app.embed_dim)
+                task = payload.get("task")
+                result = self.app.act(session_id, obs, phases,
+                                      task=task if isinstance(task, str) else None)
+            except RequestError as exc:
+                self._fail_act(400, phases, session_id, t0, "failed", {"error": str(exc)})
+                return
+            except (BusyError, SlotContentionError):
+                self._fail_act(503, phases, session_id, t0, "rejected",
+                               {"error": "busy", "retry": True})
+                return
+            except DrainingError:
+                self._fail_act(503, phases, session_id, t0, "rejected", {"error": "draining"})
+                return
+            except concurrent.futures.TimeoutError:
+                self._fail_act(504, phases, session_id, t0, "failed",
+                               {"error": "request timed out in the server"})
+                return
+            except (SessionError, ValueError, KeyError) as exc:
+                self._fail_act(400, phases, session_id, t0, "failed", {"error": str(exc)})
+                return
+            except Exception as exc:  # noqa: BLE001 - last-resort HTTP 500
+                self._fail_act(500, phases, session_id, t0, "failed",
+                               {"error": f"internal error: {exc}"})
+                return
         self.app.metrics.observe_request(time.perf_counter() - t0)
+        phases.t_done = obs_trace.now_us()
+        phases.emit_trace(session_id)
+        breakdown = phases.phases_ms()
+        self.app.exemplars.offer(breakdown["total_ms"], request_id=phases.request_id,
+                                 session=session_id, outcome="ok", phases=breakdown)
         out = {
             "action": [float(x) for x in result["action"]],
             "action_tokens": [int(x) for x in result["action_tokens"]],
             "session_started": result.get("session_started", False),
-            "request_id": request_id,
+            "request_id": phases.request_id,
         }
+        if payload.get(reqtrace.DEBUG_KEY):
+            out["phases"] = breakdown
         if "terminate_episode" in result:
             out["terminate_episode"] = result["terminate_episode"]
         if result.get("session_restored"):

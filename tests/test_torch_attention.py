@@ -6,8 +6,12 @@ interpret mode, as tests/test_flash_attention.py does. Same numpy-seeded
 inputs, the four cases of that file (atol 2e-5 in f32, 2e-2 in bf16, whose
 last place is 2**-7 near 1), plus a ragged sequence and a fully masked row.
 The CUDA kernel itself is held against the same plain version on the card
-by chip_smoke.py.
+by chip_smoke.py. Concurrent builds of the kernel library (a fake nvcc)
+leave the library and ptxas's report whole.
 """
+
+import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -480,3 +484,58 @@ def test_tf32_rounding_is_nearest_ties_away():
     assert _tf32_rna(x).tolist() == expected
     big = _tf32_rna(x)
     assert torch.equal(big + _tf32_rna(x - big), x)
+
+
+_FAKE_NVCC = r"""#!{python}
+import sys, time
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+if "-c" in args:  # compile: ptxas's report on stderr, a large one
+    sys.stderr.write(("ptxas info    : Used 255 registers, 0 bytes spill stores " + args[-1] + "\n")
+                     * 40000)
+time.sleep(0.05)
+with open(out, "wb") as f:
+    f.write(b"ELF" + out.encode())
+"""
+
+
+def test_concurrent_builds_never_show_a_partial_library_or_report(monkeypatch, tmp_path):
+    """Replicas of one fleet build the kernel library at first use, at once:
+    each builds in its own temporary directory and renames the library and
+    ptxas's report into place, so a reader sees each whole or not at all."""
+    import threading
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(port, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(port, "_find_nvcc", lambda: str(nvcc))
+    library = port.library_path()
+    report = library + ".ptxas.txt"
+    full = 40000 * len(port.SOURCES)
+    seen, stop = [], threading.Event()
+
+    def reader():
+        while not stop.is_set():
+            try:
+                with open(report) as f:
+                    seen.append(f.read().count("\n"))
+            except FileNotFoundError:
+                pass
+
+    watcher = threading.Thread(target=reader)
+    watcher.start()
+    builds = [threading.Thread(target=port.build) for _ in range(4)]
+    for t in builds:
+        t.start()
+    for t in builds:
+        t.join(60)
+    stop.set()
+    watcher.join(10)
+    assert not any(t.is_alive() for t in builds) and not watcher.is_alive()
+    assert os.path.exists(library) and open(library, "rb").read().startswith(b"ELF")
+    with open(report) as f:
+        assert f.read().count("\n") == full
+    assert set(seen) <= {full}
+    assert sorted(os.listdir(tmp_path / "build")) == sorted(
+        [os.path.basename(library), os.path.basename(report)])  # no temporary left

@@ -141,3 +141,14 @@ def test_serve_mode_modules_are_among_those_imported():
     for name in ("rt1_tpu_torch.models.quant", "rt1_tpu_torch.serve.parity",
                  "rt1_tpu_torch.serve.migrate", "rt1_tpu_torch.serve.__main__"):
         assert name in names, name
+
+
+def test_fleet_modules_are_among_those_imported():
+    names = set(_port_modules())
+    for name in ("rt1_tpu_torch.obs", "rt1_tpu_torch.obs.prometheus", "rt1_tpu_torch.obs.trace",
+                 "rt1_tpu_torch.obs.recorder", "rt1_tpu_torch.obs.slo",
+                 "rt1_tpu_torch.obs.quantiles", "rt1_tpu_torch.resilience.faults",
+                 "rt1_tpu_torch.serve.reqtrace", "rt1_tpu_torch.serve.autoscale",
+                 "rt1_tpu_torch.serve.router", "rt1_tpu_torch.serve.stub",
+                 "rt1_tpu_torch.serve.fleet"):
+        assert name in names, name

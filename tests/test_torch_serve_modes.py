@@ -281,3 +281,62 @@ def test_checkpoint_watcher_reloads_each_newer_step(tmp_path, capsys):
     time.sleep(0.1)
     assert app.steps == [5]
     assert '"status": "reloaded"' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("site", ["migrate_export", "migrate_import"])
+def test_migration_fault_sites_fire_as_in_jax(site):
+    """`RT1_FAULTS` `migrate_export@1` / `migrate_import@1` break the
+    migration before that leg, as in the JAX package: a transport failure
+    naming the site, the session left where it was."""
+    from rt1_tpu_torch.resilience import faults
+
+    a, b = _Served(), _Served()
+    try:
+        bodies = _bodies(3, seed=6)
+        for body in bodies[:2]:
+            assert _post(a.url + "/act", body)[0] == 200
+        faults.install(faults.FaultPlan.parse(f"{site}@1"))
+        result = migrate.migrate_session(a.url, b.url, "s")
+        assert result == {"ok": False, "session_id": "s", "stage": "transport",
+                          "error": f"injected fault [{site}]: s"}
+        assert faults.active().fired_counts() == {f"{site}@1": 1}
+        exported = _get(a.url + "/metrics")[1]["migration_exports_total"]
+        assert exported == (1 if site == "migrate_import" else 0)
+        assert _get(b.url + "/metrics")[1]["migration_imports_total"] == 0
+        assert b.app.engine.active_sessions == 0
+        out = _post(a.url + "/act", bodies[2])[1]
+        assert not out["session_started"]  # still on a, its window intact
+        assert migrate.migrate_session(a.url, b.url, "s")["ok"]  # the plan fired once
+    finally:
+        faults.clear()
+        a.close()
+        b.close()
+
+
+def test_session_restore_fault_site_falls_back_to_a_fresh_window(tmp_path):
+    """`session_restore@1` fails the first ring restore: the `/act` answers
+    from a fresh window (no `session_restored`), the failure is counted and
+    the ring's copy dropped, as in the JAX server."""
+    from rt1_tpu_torch.resilience import faults
+
+    a = _Served(session_snapshot_dir=str(tmp_path))
+    try:
+        bodies = _bodies(3, seed=7)
+        for body in bodies[:2]:
+            assert _post(a.url + "/act", body)[0] == 200
+        assert _post(a.url + "/release", {"session_id": "s", "keep_snapshot": True})[0] == 200
+    finally:
+        a.close()
+    c = _Served(session_snapshot_dir=str(tmp_path))
+    try:
+        faults.install(faults.FaultPlan.parse("session_restore@1"))
+        out = _post(c.url + "/act", bodies[2])[1]
+        assert out["session_started"] and "session_restored" not in out
+        metrics = _get(c.url + "/metrics")[1]
+        assert metrics["migration_restore_failures_total"] == 1
+        assert metrics["migration_restores_total"] == 0
+        assert faults.active().fired_counts() == {"session_restore@1": 1}
+        assert c.app.snapshot_ring.load("s") is not None  # this step's own snapshot
+    finally:
+        faults.clear()
+        c.close()
