@@ -80,7 +80,9 @@ exits non-zero without a result line:
              the gradient decides them, each within the tolerance
              `TRAIN_TOL` states (printed beside the largest error).
 11. train  — the flagship training path in bf16 (float32 masters), batch 8,
-             dropout, stochastic depth and the crop on, in process: 3
+             dropout, stochastic depth and the crop on, without the
+             health pack (the step measured since PR 3; `train_parity`
+             and `data` leave it off too), in process: 3
              warm-up and 10 timed steps (wall time median and range,
              frames/s), the card's busy time, idle share and launches per
              step, peak memory, MFU (FLOPs of one step by FlopCounterMode,
@@ -92,10 +94,37 @@ exits non-zero without a result line:
              --config language_table` for 4 steps with a checkpoint every 2,
              a rerun to 6 steps that must report restoring step 4, and
              `python -m rt1_tpu_torch.serve --workdir` answering one `/act`.
-12. data   — the flagship trained from Language-Table episode files: 256
+12. train_ops — the trainer's resilience and observability at the
+             flagship's width (bf16 on f32 masters, batch 8, synthetic
+             batches) with the flagship config's `resilience.*` and `obs.*`:
+             the model-health pack's cost (3 warm-up steps, then 5 timed
+             steps a turn with the pack off, on, on, off: host ms median
+             each way; device launches and busy ms each way over 3 profiled
+             steps; the pack's entries finite and named as `pack_names`
+             names them for a meta-device policy); a 6-step
+             `train_and_evaluate` with `obs.prometheus_port=0` scraped from
+             its `log` callback at log step 4 (the text parses with
+             `parse_exposition` and carries `rt1_train_goodput_*`, `_health_*`,
+             `_timing_*` and `_guard_*` gauges; the port is closed after the
+             run); a guard rollback (8 steps, checkpoints every 2,
+             `guard_skip_budget=1`, `nan_batch@4x3`: back to step 4 with a
+             fresh seed, on to step 8, guard counters equal to the same run
+             of `tiny` on the CPU, `rollback_replay` > 0, the ledger's FLOPs
+             equal to the pack-free step's, and to phase `train`'s); then
+             `python -m rt1_tpu_torch.train --config language_table` for 12
+             steps through `nan_batch@2,ckpt_save@1,sigterm@9` (one guard
+             skip with an OK verdict, the first save retried once, exit 0
+             on the SIGTERM with a checkpoint at step 10,
+             `goodput_summary.json` summing to 1 within 1e-6 with `mfu_pct`
+             > 0, `flight_record.jsonl` with the reason `preempt`, 8
+             tensor-core launches per eval batch and no other) and a rerun
+             to 12 that restores step 10 and books `ckpt_restore`. Prints
+             the pack's cost, the ledger's MFU beside phase `train`'s, the
+             CLI's goodput buckets and the phase's wall time.
+13. data   — the flagship trained from Language-Table episode files: 256
              train (four times the episodes a windowed loader keeps
              decoded, so most windows read their episode file, as on a real
-             corpus) + 4 val seeded episodes x 40 steps at 180x320 written
+             corpus) + 4 val seeded episodes x 20 steps at 180x320 written
              under a temporary directory (removed at the end) and packed by
              `python -m rt1_tpu_torch.data.pack_dataset`; the window sampler
              (`native/window_sampler.cc`, built here by g++) held to its
@@ -119,7 +148,7 @@ exits non-zero without a result line:
              through the torch loader that restores step 4, each eval on
              `val` with 8 tensor-core launches per eval batch, and
              `data_manifest.json` equal to the corpus's manifest.
-13. eval   — the closed-loop Language-Table eval of the flagship: the
+14. eval   — the closed-loop Language-Table eval of the flagship: the
              train CLI writes a checkpoint at step 2 under a temporary
              directory, `python -m rt1_tpu_torch.eval --config language_table
              --workdir <it> --episodes 2 --max_steps 80` restores it (its
@@ -141,7 +170,7 @@ exits non-zero without a result line:
              exceeds that bound; then `--baseline oracle` and `--baseline
              random` (3 episodes each) through the CLI and one oracle
              episode on the `kinematic_arm` backend.
-14. serve_modes — the serving modes at the flagship's width, every engine
+15. serve_modes — the serving modes at the flagship's width, every engine
              derived in process from the parity phase's seeded f32 master
              weights: card vs CPU in float32 (TF32 off): the int8 tree bit
              for bit, and step logits over window + 3 steps of the int8
@@ -163,7 +192,7 @@ exits non-zero without a result line:
              live sessions), `/session/export`, `/release`,
              `/session/import` under a new id (its next action = the
              original's), the `/metrics` gauges, SIGTERM exit 0.
-15. fleet  — the serving fleet: `python -m rt1_tpu_torch.serve.fleet
+16. fleet  — the serving fleet: `python -m rt1_tpu_torch.serve.fleet
              --replicas 2 --config language_table --random_init
              --inference_dtype bf16 --faults replica_kill@1` (the router on
              an ephemeral port, a chaos tick every 20 s): both replicas
@@ -185,7 +214,7 @@ exits non-zero without a result line:
              card's memory in use; the replica's own `phases` total split
              from the client's time gives the router's and the HTTP hops'
              share. CPU rehearsal: `phase_fleet('tiny', 'cpu')`.
-16. proof  — the learning proof at the flagship's width (B3 at 128x224,
+17. proof  — the learning proof at the flagship's width (B3 at 128x224,
              window 6, batch 32, bf16) under a temporary directory, through
              `python -m rt1_tpu_torch.train.learn_proof`: `--stage collect`
              of 8 episodes over 4 workers (BLOCK_4 block2block, ngram,
@@ -209,13 +238,15 @@ exits non-zero without a result line:
              train step ms, the control-step quantiles and each stage's
              wall time, beside `nvidia-smi`'s line. CPU rehearsal:
              `phase_proof('tiny', 'cpu')`.
-17. kernels — one line listing the three kernels with their launches on
+18. kernels — one line listing the three kernels with their launches on
              their path (serve for the tensor-core kernel, the flagship f32
              parity step for tf32x3, the `tiny` bf16 step for the simple
              one), on the eval path (`eval_launches`), in the learning
              proof's DAgger and eval stages (`proof_launches`), in each
-             serving mode's bucket-8 drive (`serve_modes_launches`) and in
-             each fleet replica (`fleet_launches`), errors, times and bound.
+             serving mode's bucket-8 drive (`serve_modes_launches`), in
+             each fleet replica (`fleet_launches`) and, for the tensor-core
+             kernel, in the train CLI's evals of phase train_ops
+             (`train_ops_launches`), errors, times and bound.
 
 The last line is `{"ok": true, "device": {...}}`.
 """
@@ -223,6 +254,7 @@ The last line is `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import base64
+import copy
 import gc
 import json
 import math
@@ -1341,7 +1373,7 @@ def phase_train_parity(config_name: str = "language_table", device: str = "cuda"
     config = get_config(config_name)
     for assignment in ("model.dtype=float32", "model.dropout_rate=0",
                        "regularization.crop_ratio=0", "regularization.drop_connect_rate=0",
-                       f"per_host_batch_size={batch}"):
+                       f"per_host_batch_size={batch}", "obs.model_health=False"):
         apply_override(config, assignment)
     host_batch = synthetic_batch(config, config.seed, 0, "cpu")
     runs = {}
@@ -1416,39 +1448,6 @@ def phase_train_parity(config_name: str = "language_table", device: str = "cuda"
     return record
 
 
-def _conv_backward_flop(grad_out_shape, x_shape, w_shape, _bias, _stride, _padding, _dilation,
-                        transposed, _output_padding, _groups, output_mask, out_shape=None,
-                        **kwargs) -> int:
-    """FLOPs of `aten.convolution_backward`: each of grad-input and
-    grad-weight repeats the forward's multiply-adds, 2 * prod(w_shape) per
-    output position (w_shape's input dim is already per group).
-    FlopCounterMode's own formula counts the grad-weight of a grouped conv
-    as a dense one, `groups` times too many (a depthwise conv's by its
-    channel count)."""
-    import math
-
-    # A forward conv's multiply-adds run over its output positions, a
-    # transposed conv's over its input's.
-    spatial = x_shape if transposed else grad_out_shape
-    positions = spatial[0] * math.prod(spatial[2:])
-    per_pass = 2 * math.prod(w_shape) * positions
-    return per_pass * (int(bool(output_mask[0])) + int(bool(output_mask[1])))
-
-
-def step_flops(fn):
-    """(FLOPs of `fn()` by FlopCounterMode with `_conv_backward_flop`, by
-    FlopCounterMode's own formulas)."""
-    import torch
-    from torch.utils.flop_counter import FlopCounterMode
-
-    counts = []
-    for mapping in ({torch.ops.aten.convolution_backward: _conv_backward_flop}, None):
-        with FlopCounterMode(display=False, custom_mapping=mapping) as counter:
-            fn()
-        counts.append(counter.get_total_flops())
-    return tuple(counts)
-
-
 def _timed_step(fn):
     import torch
 
@@ -1466,6 +1465,7 @@ def phase_train(config_name: str = "language_table", device: str = "cuda"):
     import torch
 
     from rt1_tpu_torch.configs import apply_override, get_config
+    from rt1_tpu_torch.obs.flops import step_flops
     from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
     from rt1_tpu_torch.trainer.state import create_train_state
     from rt1_tpu_torch.trainer.train import optimizer_from_config, train_step_fns_from_config
@@ -1477,6 +1477,9 @@ def phase_train(config_name: str = "language_table", device: str = "cuda"):
     torch.backends.cuda.matmul.allow_tf32 = False
     config = get_config(config_name)
     apply_override(config, "model.attention_impl=fused")  # eval steps only: training runs dense
+    # The step this phase has measured since PR 3; train_ops measures the
+    # health pack beside it.
+    apply_override(config, "obs.model_health=False")
     policy = build_model(config, device)
     optimizer = optimizer_from_config(config)
     state = create_train_state(policy, optimizer)
@@ -1621,13 +1624,309 @@ def _train_cli(config_name, device):
             "served_checkpoint_step": ready["checkpoint_step"], "act": out}
 
 
+# The trainer's resilience and observability (phase train_ops), at the
+# flagship's width with the flagship config's resilience.* and obs.*.
+TRAIN_OPS_WARMUP, TRAIN_OPS_TURN = 3, 5      # warm-up steps; timed steps a turn
+TRAIN_OPS_TURNS = (False, True, True, False)  # model_health off, on, on, off
+TRAIN_OPS_PROFILED = 3
+TRAIN_OPS_ROLLBACK = ("num_steps=8", "checkpoint_every_steps=2", "log_every_steps=1",
+                      "resilience.guard_skip_budget=1", "resilience.faults=nan_batch@4x3")
+# The flagship's own obs values, named so that a CPU rehearsal on `tiny`
+# (which turns them off) runs the same checks.
+TRAIN_OPS_OBS = ("obs.model_health=True", "obs.goodput_mfu=True")
+TRAIN_OPS_CLI = ("num_steps=12", "checkpoint_every_steps=4", "log_every_steps=2",
+                 "eval_every_steps=4", "model.attention_impl=fused") + TRAIN_OPS_OBS
+TRAIN_OPS_SCRAPED = ("rt1_train_goodput_", "rt1_train_health_", "rt1_train_timing_",
+                     "rt1_train_guard_")
+
+
+def _sets(assignments):
+    return [arg for a in assignments for arg in ("--set", a)]
+
+
+def _train_ops_pack_cost(config, device):
+    """The health pack's cost on the flagship step: host ms (synchronised
+    steps) and device launches a step with the pack off and on, in turns;
+    the pack's entries against `pack_names` of a meta-device policy; and the
+    FLOPs of the pack-free step (phase `train`'s count)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.eval.restore import build_policy
+    from rt1_tpu_torch.obs.flops import train_step_flops
+    from rt1_tpu_torch.obs.health import PACK_KEY, pack_names, param_paths, unpack
+    from rt1_tpu_torch.trainer.state import create_train_state
+    from rt1_tpu_torch.trainer.train import optimizer_from_config, train_step_fns_from_config
+    from rt1_tpu_torch.train.train import build_model, synthetic_batch
+
+    policy = build_model(config, device)
+    optimizer = optimizer_from_config(config)
+    state = create_train_state(policy, optimizer)
+    on = train_step_fns_from_config(config, optimizer)
+    off = dataclasses.replace(on, model_health=False)
+    batches = [synthetic_batch(config, config.seed, i, device) for i in range(2)]
+    counter = {"step": 0}
+
+    def step(fns):
+        metrics = fns.train_step(state, batches[counter["step"] % 2], counter["step"])
+        counter["step"] += 1
+        return metrics
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    for _ in range(TRAIN_OPS_WARMUP):
+        step(on)
+        step(off)
+    walls = {False: [], True: []}
+    turns = []
+    for health in TRAIN_OPS_TURNS:
+        fns = on if health else off
+        turn = []
+        for _ in range(TRAIN_OPS_TURN):
+            sync()
+            t0 = time.perf_counter()
+            metrics = step(fns)
+            sync()
+            turn.append((time.perf_counter() - t0) * 1e3)
+            if health:
+                pack = metrics[PACK_KEY]
+        walls[health] += turn
+        turns.append(float(np.median(turn)))
+    names = on.health_names(state)
+    values = unpack(names, pack)
+    with torch.device("meta"):
+        meta = build_policy(config)
+    expected = pack_names(param_paths(meta), config.obs.health_group_depth,
+                          action_dims=meta.tokens_per_action)
+    if names != expected or not all(np.isfinite(list(values.values()))):
+        raise AssertionError(f"train_ops: pack names {names[:4]}... (expected "
+                             f"{expected[:4]}...), values {values}")
+    record = {"entries": len(names), "groups": sum(n.startswith("health/grad_norm/")
+                                                   for n in names)}
+    for health in (False, True):
+        key = "on" if health else "off"
+        record[f"host_ms_{key}"] = {"median": float(np.median(walls[health])),
+                                    "all": walls[health]}
+        if on_card:
+            prof = device_profile(lambda: step(on if health else off), iters=TRAIN_OPS_PROFILED)
+            record[f"launches_{key}"] = None if prof is None else prof["launches"]
+            record[f"busy_ms_{key}"] = None if prof is None else prof["busy_ms"]
+    # Off, on, on, off: each on turn against its neighbouring off turn,
+    # which cancels a drift over the four turns.
+    record["turn_median_ms"] = turns
+    record["added_host_ms"] = ((turns[1] - turns[0]) + (turns[2] - turns[3])) / 2
+    if on_card and record.get("launches_on") is not None and record["launches_off"] is not None:
+        record["added_launches"] = record["launches_on"] - record["launches_off"]
+    # FLOPs of the whole pack-free step: what phase `train` counts.
+    record["step_flops_pack_off"] = train_step_flops(lambda: step(off))
+    del policy, state, on, off, batches, meta
+    return record
+
+
+def _train_ops_scrape(config, device, workdir):
+    """A 6-step run with the scrape listener on an ephemeral port, scraped
+    once from the `log` callback at log step 4 (the pack's gauges ride in
+    from log step 2)."""
+    import urllib.request
+
+    from rt1_tpu_torch.configs import apply_override
+    from rt1_tpu_torch.obs.prometheus import parse_exposition
+    from rt1_tpu_torch.train.train import train_and_evaluate
+
+    cfg = copy.deepcopy(config)
+    for assignment in ("num_steps=6", "log_every_steps=2", "obs.prometheus_port=0"):
+        apply_override(cfg, assignment)
+    seen = {"records": []}
+
+    def log(record):
+        seen["records"].append(record)
+        if record.get("status") == "start":
+            seen["url"] = record["metrics_url"]
+        elif record.get("step") == 4 and "loss" in record:
+            with urllib.request.urlopen(seen["url"], timeout=60) as resp:
+                seen["text"] = resp.read().decode()
+
+    train_and_evaluate(cfg, workdir, device=device, log=log)
+    exp = parse_exposition(seen["text"])
+    families = sorted(exp.types)
+    counts = {prefix: sum(f.startswith(prefix) for f in families) for prefix in TRAIN_OPS_SCRAPED}
+    if not all(counts.values()):
+        raise AssertionError(f"train_ops: scrape at step 4 lacks families: {counts}")
+    # The listener is closed with the run: its port no longer answers.
+    try:
+        urllib.request.urlopen(seen["url"], timeout=5)
+        raise AssertionError("train_ops: the scrape listener outlived its run")
+    except (urllib.error.URLError, ConnectionError):
+        pass
+    return {"url": seen["url"], "families": len(families), "by_prefix": counts,
+            "health_gauges_sample": [f for f in families if f.startswith("rt1_train_health_")][:3]}
+
+
+def _guard_counters(records):
+    last = [r for r in records if "guard/checks_total" in r][-1]
+    return {k: v for k, v in last.items() if k.startswith("guard/")}
+
+
+def _train_ops_rollback(config, device, workdir):
+    """The guard's rollback at this config's width: `nan_batch@4x3` under a
+    skip budget of 1; returns the run's record, its guard counters and
+    goodput summary."""
+    from rt1_tpu_torch.configs import apply_override
+    from rt1_tpu_torch.resilience import faults
+    from rt1_tpu_torch.train.train import train_and_evaluate
+
+    cfg = copy.deepcopy(config)
+    for assignment in TRAIN_OPS_ROLLBACK:
+        apply_override(cfg, assignment)
+    records = []
+    try:
+        state = train_and_evaluate(cfg, workdir, device=device, log=records.append)
+    finally:
+        faults.clear()
+    rollbacks = [r for r in records if r.get("status") == "guard_rollback"]
+    with open(os.path.join(workdir, "goodput_summary.json")) as f:
+        summary = json.load(f)
+    return {"updates": int(state.step), "guard_skips": int(state.guard_skips),
+            "rollbacks": rollbacks, "counters": _guard_counters(records),
+            "done": records[-1], "goodput": summary}
+
+
+def phase_train_ops(config_name: str = "language_table", device: str = "cuda", train=None):
+    """The trainer's resilience and observability at the flagship's width:
+    the health pack's cost, the scrape listener's live gauges, a guard
+    rollback (its counters held to the tiny config's on the CPU) and the
+    train CLI through a NaN batch, a retried save and a self-delivered
+    SIGTERM, then its resume. `train`, phase `train`'s record where it ran,
+    gives the FLOPs the ledger's must equal and the MFU to print beside."""
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.configs import apply_override, get_config
+    from rt1_tpu_torch.parallel.flash_attention import reset_launch_counts
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+    config = get_config(config_name)
+    for assignment in TRAIN_OPS_OBS:
+        apply_override(config, assignment)
+    record = {"phase": "train_ops", "config": config_name,
+              "resilience": vars(config.resilience), "obs": vars(config.obs)}
+    reset_launch_counts()
+    record["pack"] = _train_ops_pack_cost(config, device)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        record["scrape"] = _train_ops_scrape(config, device, os.path.join(root, "scrape"))
+        gc.collect()
+        rollback = _train_ops_rollback(config, device, os.path.join(root, "rollback"))
+        # The same scenario on the tiny config on the CPU, which the CPU
+        # tests hold to JAX's loop.
+        reference = _train_ops_rollback(get_config("tiny"), "cpu", os.path.join(root, "tiny"))
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    restored = [r["restored_step"] for r in rollback["rollbacks"]]
+    if (restored != [4] or rollback["done"].get("step") != 8 or rollback["guard_skips"] < 2
+            or rollback["counters"] != reference["counters"]
+            or not rollback["goodput"]["buckets_s"]["rollback_replay"] > 0):
+        raise AssertionError(f"train_ops: rollback {rollback} against the tiny CPU run "
+                             f"{reference['counters']}")
+    record["rollback"] = {"restored": restored, "updates": rollback["updates"],
+                          "guard_skips": rollback["guard_skips"],
+                          "counters": rollback["counters"],
+                          "goodput_buckets_s": rollback["goodput"]["buckets_s"],
+                          "flops_per_step": rollback["goodput"].get("flops_per_step")}
+    counted = {record["pack"]["step_flops_pack_off"]}
+    if train is not None:
+        counted.add(float(train["flops_per_step"]))
+    if {record["rollback"]["flops_per_step"]} != counted:
+        raise AssertionError(f"train_ops: the ledger's FLOPs {record['rollback']} differ from "
+                             f"the step's {counted}")
+    record["cli"] = _train_ops_cli(config_name, device, config.eval_batches,
+                                   config.model.num_layers if on_card else 0)
+    record["phase_s"] = time.perf_counter() - t_phase
+    emit(record)
+    print(f"train_ops: health pack host ms off {record['pack']['host_ms_off']['median']:.2f} "
+          f"on {record['pack']['host_ms_on']['median']:.2f}; launches off "
+          f"{record['pack'].get('launches_off')} on {record['pack'].get('launches_on')}",
+          flush=True)
+    print(f"train_ops: goodput buckets (s) {json.dumps(record['cli']['goodput']['buckets_s'])}",
+          flush=True)
+    train_mfu = None if train is None else train["mfu"] * 100
+    print(f"train_ops: ledger mfu_pct {record['cli']['goodput'].get('mfu_pct')} (CLI run), "
+          f"phase train's mfu_pct {train_mfu}", flush=True)
+    print(f"train_ops: phase {record['phase_s']:.1f} s; {nvidia_smi() if on_card else 'cpu'}",
+          flush=True)
+    return record
+
+
+def _train_ops_cli(config_name, device, eval_batches, layers):
+    """`python -m rt1_tpu_torch.train` through `TRAIN_OPS_CLI`'s faults,
+    then a rerun to 12 without them."""
+    with tempfile.TemporaryDirectory() as workdir:
+        base = ["--config", config_name, "--workdir", workdir, "--device", device]
+        first, first_s = _run_cli(
+            base + _sets(TRAIN_OPS_CLI + ("resilience.faults=nan_batch@2,ckpt_save@1,sigterm@9",)),
+            TRAIN_CLI_TIMEOUT_S)
+        logs = [r for r in first if "loss" in r]
+        at4 = next(r for r in logs if r["step"] == 4)
+        done = first[-1]
+        ckpts = sorted(int(s) for s in os.listdir(os.path.join(workdir, "checkpoints")))
+        with open(os.path.join(workdir, "goodput_summary.json")) as f:
+            goodput = json.load(f)
+        with open(os.path.join(workdir, "flight_record.jsonl")) as f:
+            flight = json.loads(f.readline())["flight_recorder"]
+        evals = [r for r in first if "eval_loss" in r]
+        launches = [{v: r[f"eval_attention_launches_{v}"] for v in ("tensor_core", "tf32x3",
+                                                                    "simple")} for r in evals]
+        expected = {"tensor_core": layers * eval_batches, "tf32x3": 0, "simple": 0}
+        checks = {
+            "one_skip_ok_verdict": (at4["guard_skips_cum"] == 1
+                                    and at4["guard/device_skips_total"] == 1
+                                    and at4["guard/bad_checks_total"] == 0
+                                    and done["guard_skips"] == 1),
+            "save_retried_once": logs[-1].get("retry/ckpt_save_retries_total") == 1,
+            "preempted_at_10": (done.get("preempted") is True and done["step"] == 10
+                                and done["checkpoint_step"] == 10 and ckpts[-1] == 10),
+            "goodput_sums_to_1": abs(sum(goodput["fractions"].values()) - 1.0) <= 1e-6,
+            "mfu_positive": goodput.get("mfu_pct", 0) > 0 and goodput["preempted"],
+            "flight_reason_preempt": flight["reason"] == "preempt",
+            "eval_launches": len(evals) == 2 and all(x == expected for x in launches),
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"train_ops CLI: {checks}; done {done}; goodput {goodput}; "
+                                 f"evals {launches}")
+        second, second_s = _run_cli(base + _sets(TRAIN_OPS_CLI + ("resilience.faults=",)),
+                                    TRAIN_CLI_TIMEOUT_S)
+        with open(os.path.join(workdir, "goodput_summary.json")) as f:
+            resumed = json.load(f)
+        start = next(r for r in second if r.get("status") == "start")
+        if (start.get("restored_step") != 10 or second[-1].get("step") != 12
+                or second[-1].get("checkpoint_step") != 12
+                or not resumed["buckets_s"]["ckpt_restore"] > 0):
+            raise AssertionError(f"train_ops CLI rerun: {second[:2]} ... {second[-1]}; "
+                                 f"{resumed['buckets_s']}")
+    return {"first_run_s": first_s, "rerun_s": second_s, "checks": checks, "done": done,
+            "checkpoints": ckpts, "goodput": goodput, "flight_reason": flight["reason"],
+            "eval_launches": launches, "per_eval": expected, "eval_batches": eval_batches,
+            "resumed": {"restored_step": start["restored_step"], "done": second[-1],
+                        "goodput_buckets_s": resumed["buckets_s"],
+                        "mfu_pct": resumed.get("mfu_pct")}}
+
+
 # The data phase: Language-Table episode files -> loaders -> pinned upload
 # -> the flagship train step.
 # Train episodes: four times CACHE_EPISODES, the episodes a windowed
 # loader (each worker) keeps decoded, so that at most a quarter of the
 # timed windows find theirs decoded.
 DATA_EPISODES = {"train": 256, "val": 4}
-DATA_STEPS = 40                  # steps an episode, at Language-Table's 180x320
+DATA_STEPS = 20                  # steps an episode, at Language-Table's 180x320
 DATA_WARM, DATA_BATCHES = 10, 20  # batches of each loader alone: drained, then timed
 DATA_CHECK_STEPS = 10            # fed steps per turn whose batch is held to its host batch
 DATA_CLI_TIMEOUT_S = 600
@@ -1967,6 +2266,7 @@ def phase_data(config_name: str = "language_table", device: str = "cuda",
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     config = get_config(config_name)
+    config.obs.model_health = False  # the fed step of phase `train`, without the pack
     b, t = config.per_host_batch_size, config.model.time_sequence_length
     frames_per_batch = b * t
     t0 = time.perf_counter()
@@ -2943,7 +3243,7 @@ def _kernel_entry(name, source, launches, path, head, cases):
 
 
 PHASES = ("kernel", "ab", "sweep", "parity", "tiny", "step", "serve", "train_parity", "train",
-          "data", "eval", "serve_modes", "fleet", "proof")
+          "train_ops", "data", "eval", "serve_modes", "fleet", "proof")
 
 
 def main(argv=None) -> int:
@@ -2983,8 +3283,14 @@ def main(argv=None) -> int:
     for phase in PHASES:
         if phase in phases:
             run = globals()["phase_" + phase]
-            # The fleet's latencies print beside the lone server's.
-            done[phase] = run(direct=done.get("serve")) if phase == "fleet" else run()
+            # The fleet's latencies print beside the lone server's, the
+            # ledger's MFU beside phase train's.
+            if phase == "fleet":
+                done[phase] = run(direct=done.get("serve"))
+            elif phase == "train_ops":
+                done[phase] = run(train=done.get("train"))
+            else:
+                done[phase] = run()
     if set(phases) != set(PHASES):
         print(smi, flush=True)
         emit({"partial": phases, "passed": True})
@@ -3033,6 +3339,11 @@ def main(argv=None) -> int:
                                   "f32_replay": eval_f32[variant]}
         entry["proof_launches"] = {"dagger": proof["dagger"]["launches"][variant],
                                    "eval": proof["eval"]["launches"][variant]}
+    # The train CLI's periodic evals in phase train_ops.
+    train_ops = done["train_ops"]["cli"]
+    entries[0]["train_ops_launches"] = {
+        "evals": [launches["tensor_core"] for launches in train_ops["eval_launches"]],
+        "eval_batches": train_ops["eval_batches"]}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

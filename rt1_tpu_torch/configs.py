@@ -2,8 +2,9 @@
 `rt1_tpu/train/configs/language_table.py` and `tiny.py`).
 
 The `model.*` fields, `data.height/width`, the training schedule,
-`resilience.guard` and `parallel.mixed_precision` carry the JAX config's
-names and values; ml_collections is not a dependency of the port.
+`resilience.*`, `obs.*` (field for field) and `parallel.mixed_precision`
+carry the JAX config's names and values; ml_collections is not a
+dependency of the port.
 `get_config` takes a config name, or the path of the JAX config file
 (`rt1_tpu/train/configs/language_table.py`), whose file stem names it —
 so one command line drives both packages. `apply_override` takes the
@@ -96,8 +97,69 @@ class RegularizationConfig:
 
 @dataclasses.dataclass
 class ResilienceConfig:
-    # Skip a step whose loss or gradient norm is not finite.
+    """`config.resilience` of the flagship (`resilience/__init__.py::
+    ResilienceOptions` resolves it)."""
+    # Step guard: device-side skip of a step whose loss or gradient norm is
+    # not finite, and the host-side escalation (skip -> checkpoint rollback
+    # with a fresh data seed -> abort).
     guard: bool = True
+    # > 0: also skip updates whose global grad-norm exceeds this.
+    guard_grad_norm_max: float = 0.0
+    # > 0: flag loss > factor * EMA(healthy losses) at log steps.
+    guard_loss_spike_factor: float = 0.0
+    guard_spike_ema_beta: float = 0.9
+    guard_warmup_checks: int = 3
+    # Consecutive bad log-step checks tolerated before rolling back.
+    guard_skip_budget: int = 3
+    # Rollbacks allowed before the run aborts (GuardAbortError).
+    guard_rollback_budget: int = 2
+    # Exponential-backoff retry on checkpoint save/restore, packed-cache
+    # open and feeder construction.
+    io_retry: bool = True
+    retry_attempts: int = 3
+    retry_backoff_s: float = 0.5
+    retry_max_backoff_s: float = 8.0
+    retry_deadline_s: float = 120.0
+    # SIGTERM/SIGINT -> force-save at the current step, drain the feeder,
+    # exit 0; a second signal escalates to the previous handler.
+    preempt_save: bool = True
+    # Deterministic fault schedule (`resilience/faults.py` grammar, e.g.
+    # "nan_batch@7,ckpt_save@2"); the RT1_FAULTS environment variable appends.
+    faults: str = ""
+
+
+@dataclasses.dataclass
+class ObsConfig:
+    """`config.obs` of the flagship (`obs/__init__.py::ObsOptions` resolves
+    it; the paths default to files in the workdir)."""
+    # Host-side Chrome trace of the loop (and the feeder's workers), dumped
+    # to `trace_path` (default <workdir>/trace.json) at exit.
+    trace: bool = False
+    trace_path: Optional[str] = None
+    trace_max_events: int = 200_000
+    # Rolling window (steps) of the stall_pct gauge and the timing buckets.
+    stall_window: int = 50
+    # Synchronize on each step's loss, so `device_step` is the card's time.
+    sync_timing: bool = False
+    # >= 0: serve Prometheus text at http://<host>:<port>/metrics from the
+    # train process (0 = an ephemeral port, logged at start). < 0: off.
+    prometheus_port: int = -1
+    prometheus_host: str = "127.0.0.1"
+    # Ring of the last N step records, dumped to JSONL on an exception, a
+    # SIGTERM or a preemption.
+    flight_recorder: bool = True
+    flight_recorder_size: int = 256
+    flight_recorder_path: Optional[str] = None
+    # Model-health pack (`obs/health.py`): per-group gradient norms and
+    # update ratios, logit entropy, token accuracy, fetched at log steps.
+    model_health: bool = True
+    health_group_depth: int = 2
+    # Goodput ledger (`obs/goodput.py`): the run's wall time by bucket,
+    # <workdir>/goodput_summary.json.
+    goodput: bool = True
+    goodput_summary_path: Optional[str] = None
+    # Live MFU gauge: FLOPs of one step counted once at start.
+    goodput_mfu: bool = True
 
 
 @dataclasses.dataclass
@@ -114,6 +176,7 @@ class Config:
     regularization: RegularizationConfig = dataclasses.field(
         default_factory=RegularizationConfig)
     resilience: ResilienceConfig = dataclasses.field(default_factory=ResilienceConfig)
+    obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
     parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
     # Training schedule (reference: 100 epochs x 975 steps at batch 8).
     per_host_batch_size: int = 8
@@ -160,6 +223,9 @@ def tiny() -> Config:
             dtype="float32",
         ),
         data=DataConfig(height=32, width=56),
+        # As JAX's tiny config: the pack and the MFU count are off (tests
+        # turn them on).
+        obs=ObsConfig(model_health=False, goodput_mfu=False),
         num_steps=4,
         steps_per_epoch=2,
         checkpoint_every_steps=2,

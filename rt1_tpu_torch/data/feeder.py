@@ -21,6 +21,14 @@ feeder that picked a shard up mid-run gives the epochs of one built after
 the append. `close()` stops the workers promptly from any state; a finite
 `num_epochs` stream ends after exactly its batches; `stall_timeout_s`
 turns a consumer wait with no batch into `FeederStalledError`.
+
+`emit_task_ids=True` adds a (batch,) int32 `task_id` observation, the
+index of each window's task in `health_task_names` (the corpus's tasks,
+sorted, frozen at construction, plus an `other` bucket for tasks appended
+later), for the model-health pack's per-task reduction. `stats()` gives
+the queue and per-worker gauges the train loop scrapes. The `feeder_kill`
+and `feeder_hang` fault sites (`resilience/faults.py`, indexed by ticket)
+kill a worker loudly or silently.
 """
 
 from __future__ import annotations
@@ -28,12 +36,19 @@ from __future__ import annotations
 import bisect
 import queue
 import threading
+import time
 import zlib
 from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 
 from rt1_tpu_torch.data.pack import UNKNOWN_TASK, PackedEpisodeCache
+from rt1_tpu_torch.obs import trace as obs_trace
+from rt1_tpu_torch.obs.health import TASK_ID_KEY
+from rt1_tpu_torch.resilience import faults
+
+#: The per-task telemetry bucket of tasks unseen at construction.
+OTHER_TASK = "other"
 
 
 def parse_task_weights(spec) -> Optional[Dict[str, float]]:
@@ -109,9 +124,6 @@ class SampleAheadFeeder:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
         if stall_timeout_s is not None and stall_timeout_s <= 0:
             raise ValueError(f"stall_timeout_s must be positive or None, got {stall_timeout_s}")
-        if emit_task_ids:
-            raise ValueError("emit_task_ids (per-task telemetry for the model-health pack) is "
-                             "not ported yet; it comes with the trainer's obs layer")
         if refresh_at_epoch and process_count > 1:
             # A refresh is a per-process read with no barrier: processes
             # could draw orders over different corpora.
@@ -136,6 +148,15 @@ class SampleAheadFeeder:
         # (reproducible) stream.
         self._weights_key = (zlib.crc32(repr(sorted(self.task_weights.items())).encode("utf-8"))
                              if self.task_weights is not None else 0)
+        # The task-id table is frozen here (sorted corpus tasks + the
+        # OTHER_TASK bucket), so the pack's layout holds while the corpus
+        # grows; a corpus with a literal "other" task shares that bucket.
+        self.emit_task_ids = emit_task_ids
+        self._task_index = {name: i for i, name in enumerate(sorted(set(cache.tasks)))}
+        names = tuple(sorted(self._task_index))
+        if OTHER_TASK not in self._task_index:
+            names = names + (OTHER_TASK,)
+        self.health_task_names: Tuple[str, ...] = names if emit_task_ids else ()
         # One snapshot per epoch (window count, order): an append changes
         # only epochs not drawn yet. `_firsts[e]` is epoch e's first ticket.
         self._order_lock = threading.Lock()
@@ -160,6 +181,10 @@ class SampleAheadFeeder:
                          for k in range(self.num_threads)]
         self._next_ticket = 0
         self._started = False
+        # Per-worker counters for `stats()`: index-assigned list writes,
+        # read lock-free.
+        self._assembled = [0] * self.num_threads
+        self._assembly_s = [0.0] * self.num_threads
         if start:
             self.start()
 
@@ -285,7 +310,15 @@ class SampleAheadFeeder:
             lo = self.process_index * self.batch_size * w
             offsets = all_offsets[lo:lo + n * w]
         self.cache.fill_batch(indices, rng, images, embeds, terms, actions, offsets=offsets)
-        return {"observations": {"image": images, "natural_language_embedding": embeds},
+        observations = {"image": images, "natural_language_embedding": embeds}
+        if self.emit_task_ids:
+            other = self._task_index.get(OTHER_TASK, len(self._task_index))
+            tid = np.empty((n,), np.int32)
+            for j, idx in enumerate(indices):
+                entry = self.cache.episodes[self.cache.index[int(idx)][0]]
+                tid[j] = self._task_index.get(entry.get("task") or UNKNOWN_TASK, other)
+            observations[TASK_ID_KEY] = tid
+        return {"observations": observations,
                 "actions": {"terminate_episode": terms, "action": actions}}
 
     def _worker(self, k: int) -> None:
@@ -295,7 +328,20 @@ class SampleAheadFeeder:
             while not self._stop.is_set():
                 if self._past_end(ticket):
                     return
-                batch = self._assemble(ticket)
+                # feeder_hang dies silently (the deadlock the consumer's
+                # stall timeout diagnoses); feeder_kill dies loudly.
+                plan = faults.active()
+                if plan is not None:
+                    if plan.should_fire("feeder_hang", index=ticket):
+                        return
+                    if plan.should_fire("feeder_kill", index=ticket):
+                        raise RuntimeError(
+                            f"injected fault [feeder_kill]: worker {k} at ticket {ticket}")
+                t0 = time.perf_counter()
+                with obs_trace.span("feeder_assemble", ticket=ticket):
+                    batch = self._assemble(ticket)
+                self._assembly_s[k] += time.perf_counter() - t0
+                self._assembled[k] += 1
                 # A bounded put that still sees close().
                 while not self._stop.is_set():
                     try:
@@ -307,6 +353,26 @@ class SampleAheadFeeder:
         except BaseException as e:  # noqa: BLE001 - re-raised on the consumer in __next__
             self._error = e
             self._stop.set()
+
+    # ------------------------------------------------------------ observability
+
+    def stats(self) -> Dict[str, float]:
+        """Numeric gauges of the ready queues and the workers, for the
+        train loop's scalars, scrape listener and flight recorder; lock-free
+        reads, safe from any thread."""
+        out = {
+            "queue_depth": sum(q.qsize() for q in self._queues),
+            "queue_capacity": self.num_threads * self.depth,
+            "next_ticket": self._next_ticket,
+            "workers_alive": sum(t.is_alive() for t in self._threads),
+            "corpus_windows": len(self.cache.index),
+            "epochs_started": len(self._epochs),
+        }
+        for k in range(self.num_threads):
+            n = self._assembled[k]
+            out[f"assembled_w{k}"] = n
+            out[f"assembly_ms_mean_w{k}"] = self._assembly_s[k] / n * 1e3 if n else 0.0
+        return out
 
     # ------------------------------------------------------------ lifecycle
 

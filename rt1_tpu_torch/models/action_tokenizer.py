@@ -54,6 +54,10 @@ def tokenize(
             low = torch.tensor(spec.low_array(), device=a.device)
             high = torch.tensor(spec.high_array(), device=a.device)
             t = (torch.clamp(a.to(torch.float32), low, high) - low) / (high - low)
+            # XLA converts a NaN to int 0 (a poisoned batch still tokenizes
+            # and its loss goes NaN for the guard); torch's cast leaves it
+            # undefined.
+            t = torch.nan_to_num(t, nan=0.0)
             parts.append((t * (vocab_size - 1)).to(torch.int32))  # truncation
         else:
             raise ValueError(f"unsupported spec {spec!r}")

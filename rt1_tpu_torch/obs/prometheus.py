@@ -657,6 +657,23 @@ def render_fleet_snapshot(
 # ------------------------------------------------------------------ parsing
 
 
+def render_scalar_gauges(
+    scalars: Dict[str, Any], prefix: str = "rt1_train_"
+) -> str:
+    """Flat {name: number} -> all-gauge text (the train-side scrape body).
+
+    Names pass through `sanitize_name` ('timing/wait_data_ms' ->
+    'timing_wait_data_ms'); non-numeric values are skipped.
+    """
+    exp = TextExposition()
+    for key in sorted(scalars):
+        value = scalars[key]
+        if isinstance(value, bool) or not isinstance(value, (int, float)):
+            continue
+        exp.gauge(sanitize_name(prefix + key), value)
+    return exp.render()
+
+
 def parse_value(text: str) -> float:
     """Inverse of `format_value`: the three special spellings, then float."""
     if text == "+Inf":

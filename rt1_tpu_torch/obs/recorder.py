@@ -1,18 +1,51 @@
-"""Slow-request exemplar ring: the serve-side flight recorder.
+"""Flight recorder and slow-request exemplar ring: the port's copy of
+`rt1_tpu/obs/recorder.py` (the port imports nothing of the JAX package).
 
-A copy of `ExemplarRing` from `rt1_tpu/obs/recorder.py` for the port, which
-imports nothing of the JAX package. The trainer's `FlightRecorder` waits
-for the trainer's obs (ROADMAP A10).
+`FlightRecorder` keeps the last N per-step records of a training run (loss
+at log steps, timing buckets from `StepTimeline`, feeder queue depths,
+guard and retry counters) in a bounded deque and writes them as JSONL only
+when something goes wrong (an unhandled exception in the guarded block, a
+SIGTERM, a preemption), so the post-mortem has the seconds *before* the
+failure at per-step resolution, for the cost of one dict append per step.
+The dump's header carries `torch.cuda.memory_stats()` of the card.
+
+The dump is JSONL (one record per line, header line first) rather than a
+JSON array so a truncated dump — the disk was full, the kill was -9 after
+all — still parses line by line.
+
+Stdlib only at import: the serve fleet's router and stub replica import
+`ExemplarRing` and must not import torch.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
+import signal
+import sys
 import threading
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
+
+
+def device_memory_stats() -> Dict[str, Any]:
+    """`torch.cuda.memory_stats()` of each card this process has touched,
+    keyed ``cuda:<index>``, or {} where there is none (a CPU run, or a
+    process that never imported torch). Never initialises CUDA."""
+    torch = sys.modules.get("torch")
+    try:
+        if torch is None or not torch.cuda.is_initialized():
+            return {}
+        out = {}
+        for index in range(torch.cuda.device_count()):
+            stats = torch.cuda.memory_stats(index)
+            if stats:
+                out[f"cuda:{index}"] = {k: int(v) for k, v in stats.items()}
+        return out
+    except Exception:  # noqa: BLE001 - observability must not take down train
+        return {}
 
 
 def _jsonable(value: Any) -> Any:
@@ -27,6 +60,132 @@ def _jsonable(value: Any) -> Any:
         return float(value)
     except (TypeError, ValueError):
         return repr(value)
+
+
+class FlightRecorder:
+    """Bounded ring of step records + crash/SIGTERM dump hooks."""
+
+    def __init__(self, capacity: int = 256, path: Optional[str] = None):
+        if capacity <= 0:
+            raise ValueError(f"capacity must be positive, got {capacity}")
+        self.capacity = capacity
+        self.path = path
+        self._ring: collections.deque = collections.deque(maxlen=capacity)
+        # RLock, not Lock: the SIGTERM handler runs on the main thread
+        # BETWEEN bytecodes — possibly inside record()'s critical section —
+        # and dump() -> snapshot() re-acquires; a plain Lock self-deadlocks
+        # exactly on the dump the handler exists to produce.
+        self._lock = threading.RLock()
+        self._recorded = 0
+        self._dumped = False
+        self._prev_sigterm = None
+
+    # ------------------------------------------------------------ recording
+
+    def record(self, step: int, **fields: Any) -> None:
+        rec = {"step": int(step), "t": time.time()}
+        for k, v in fields.items():
+            rec[k] = _jsonable(v)
+        with self._lock:
+            self._recorded += 1
+            self._ring.append(rec)
+
+    def snapshot(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return list(self._ring)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._ring)
+
+    # ------------------------------------------------------------- dumping
+
+    def dump(self, path: Optional[str] = None, reason: str = "manual") -> str:
+        """Write header + ring as JSONL; returns the path written."""
+        path = path or self.path
+        if not path:
+            raise ValueError("no dump path: pass one or construct with path=")
+        records = self.snapshot()
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(
+                json.dumps(
+                    {
+                        "flight_recorder": {
+                            "reason": reason,
+                            "dumped_at": time.time(),
+                            "capacity": self.capacity,
+                            "records": len(records),
+                            "recorded_total": self._recorded,
+                            "memory_stats": device_memory_stats(),
+                        }
+                    }
+                )
+                + "\n"
+            )
+            for rec in records:
+                f.write(json.dumps(rec) + "\n")
+        self._dumped = True
+        return path
+
+    @contextlib.contextmanager
+    def dump_on_exception(self, path: Optional[str] = None):
+        """Re-raises after dumping; KeyboardInterrupt/SystemExit included
+        (they are exactly the post-mortems a long run cares about)."""
+        try:
+            yield self
+        except BaseException as exc:
+            try:
+                self.dump(path, reason=f"exception:{type(exc).__name__}")
+            except Exception:  # noqa: BLE001 - never mask the real failure
+                pass
+            raise
+
+    # -------------------------------------------------------------- signals
+
+    def install_sigterm(self, extra: Optional[Any] = None) -> bool:
+        """Dump on SIGTERM, then chain to the previous handler (or re-raise
+        the default so the exit code stays honest). Main-thread only —
+        returns False (no-op) elsewhere, e.g. under pytest workers.
+
+        `extra`: optional callable run (exception-guarded) after the dump
+        and before chaining — the train loop passes the host tracer's dump
+        here, because chaining to SIG_DFL kills the process before any
+        normal-exit teardown could write the trace.
+        """
+        if threading.current_thread() is not threading.main_thread():
+            return False
+
+        def _handler(signum, frame):
+            try:
+                self.dump(reason="SIGTERM")
+            except Exception:  # noqa: BLE001 - exit path
+                pass
+            if extra is not None:
+                try:
+                    extra()
+                except Exception:  # noqa: BLE001 - exit path
+                    pass
+            prev = self._prev_sigterm
+            if callable(prev):
+                prev(signum, frame)
+            elif prev is signal.SIG_IGN:
+                # SIGTERM was deliberately ignored before we installed;
+                # dumping must not turn an ignored signal into an exit.
+                pass
+            else:
+                # SIG_DFL (or an unknown non-Python handler): keep the
+                # default die-on-SIGTERM semantics and the honest exit code.
+                signal.signal(signal.SIGTERM, signal.SIG_DFL)
+                signal.raise_signal(signal.SIGTERM)
+
+        self._prev_sigterm = signal.signal(signal.SIGTERM, _handler)
+        return True
+
+    def uninstall_sigterm(self) -> None:
+        if self._prev_sigterm is not None:
+            signal.signal(signal.SIGTERM, self._prev_sigterm)
+            self._prev_sigterm = None
 
 
 class ExemplarRing:

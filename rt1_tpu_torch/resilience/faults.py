@@ -82,9 +82,9 @@ Install a plan process-wide with :func:`install` /
 appended — the subprocess-friendly channel chaos runs use). Call sites
 pay one module-global read when no plan is installed.
 
-This module is stdlib only: the router, the stub replica and the fleet
-supervisor consult it. The trainer-side injectors (`maybe_signal`,
-`poison_batch`) come with the trainer's resilience (ROADMAP A10).
+This module is stdlib only at import: the router, the stub replica and the
+fleet supervisor consult it. `poison_batch` imports numpy and torch inside
+the call.
 """
 
 from __future__ import annotations
@@ -92,6 +92,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
+import signal
 import threading
 from typing import Dict, List, Optional
 
@@ -253,3 +254,39 @@ def maybe_fail(site: str, index: Optional[int] = None, what: str = "") -> None:
         raise OSError(
             f"injected fault [{site}]" + (f": {what}" if what else "")
         )
+
+
+def maybe_signal(site: str, index: Optional[int], signum=signal.SIGTERM) -> bool:
+    """Deliver `signum` to this process when the plan fires; returns True."""
+    plan = _active
+    if plan is not None and plan.should_fire(site, index=index):
+        os.kill(os.getpid(), signum)
+        return True
+    return False
+
+
+def poison_batch(batch):
+    """Return a copy of a nested batch with every float leaf set to NaN.
+
+    Integer/uint8 leaves (token ids, packed images) pass through untouched —
+    NaN has no integer encoding, and poisoning the float leaves (embeddings,
+    actions) is already sufficient to drive the loss non-finite. A torch
+    tensor is poisoned on the device it lives on; tuples (the loop's
+    `(observations, actions)` device batches) keep their shape.
+    """
+    import numpy as np
+    import torch
+
+    def _poison(value):
+        if isinstance(value, dict):
+            return {k: _poison(v) for k, v in value.items()}
+        if isinstance(value, tuple):
+            return tuple(_poison(v) for v in value)
+        if isinstance(value, torch.Tensor):
+            return torch.full_like(value, float("nan")) if value.is_floating_point() else value
+        arr = np.asarray(value)
+        if np.issubdtype(arr.dtype, np.floating):
+            return np.full_like(arr, np.nan)
+        return arr
+
+    return _poison(batch)

@@ -26,9 +26,22 @@ model.attention_impl=fused` runs the eval steps' attention through the
 fused kernel (train steps always run dense). A second run in the same
 workdir resumes from the newest checkpoint (the data stream restarts).
 Prints one JSON line at the start (`restored_step` names the checkpoint
-it resumed from, `data_loader` the source of the batches), one per
-log and eval step, and one at the end; serve the result with
+it resumed from, `data_loader` the source of the batches, `metrics_url`
+the scrape listener's), one per log and eval step, and one at the end;
+serve the result with
 `python -m rt1_tpu_torch.serve --config <name> --workdir <dir>`.
+
+Resilience and observability run as the config sets them (the flagship's
+`resilience.*` and `obs.*` turn on the guard, I/O retry, preemption save,
+the health pack, the goodput ledger with its MFU gauge and the flight
+recorder). `--set obs.prometheus_port=0` serves `rt1_train_*` gauges on an
+ephemeral port (the start line's `metrics_url`); `--set
+resilience.faults=nan_batch@2,ckpt_save@1,sigterm@9` (or `RT1_FAULTS=...`)
+injects faults on a schedule. A SIGTERM or SIGINT saves a checkpoint at
+the current step and exits 0 (the end line says `"preempted": true`); a
+second one kills the process. `<workdir>/goodput_summary.json` is written
+at every exit, `<workdir>/flight_record.jsonl` on a crash, SIGTERM or
+preemption.
 """
 
 from __future__ import annotations

@@ -26,13 +26,27 @@ line); a run that resumes a checkpoint restores the checkpoint's encoder.
 Without `data_dir` the loop trains on synthetic batches, as the JAX loop
 does. Batch `i` is drawn on the device from a generator seeded with
 `(seed, i)`, so a resumed run sees the batches an unbroken run would have
-(the JAX loop restarts its one synthetic stream instead). Eval uses the
-fixed batches `0 .. eval_batches - 1` of seed `seed + 1`.
+(the JAX loop restarts its one synthetic stream instead). After a guard
+rollback to step `r`, batch `i >= r` is drawn from `(fresh_seed, i)`, and
+episode-file feeds reopen with the fresh seed, so the batches that
+diverged are not replayed. Eval uses the fixed batches `0 ..
+eval_batches - 1` of seed `seed + 1`.
+
+Resilience and observability follow `config.resilience` and `config.obs`
+as the JAX loop does (`train_and_evaluate`'s docstring): the guard's
+escalation and rollback, preemption save, I/O retry, the fault plan
+(`resilience.faults` and `RT1_FAULTS`), the health pack, the goodput
+ledger and its MFU gauge, the step timeline, the flight recorder, the host
+trace and the Prometheus listener. Their scalars go into each log step's
+metrics line (`guard/*`, `retry/*`, `goodput/*`, `health/*`, `timing/*`,
+`feeder/*`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
+import itertools
 import json
 import os
 from typing import Callable, Dict, Iterator, NamedTuple, Optional
@@ -40,7 +54,7 @@ from typing import Callable, Dict, Iterator, NamedTuple, Optional
 import numpy as np
 import torch
 
-from rt1_tpu_torch import resolve_device
+from rt1_tpu_torch import obs, resilience, resolve_device
 from rt1_tpu_torch.configs import Config, DataConfig
 from rt1_tpu_torch.convert import init_weights
 from rt1_tpu_torch.data import pack as pack_lib
@@ -49,6 +63,7 @@ from rt1_tpu_torch.data.feeder import SampleAheadFeeder, parse_task_weights
 from rt1_tpu_torch.data.pipeline import WindowedEpisodeDataset, device_feeder, loader_batches
 from rt1_tpu_torch.eval.restore import build_policy
 from rt1_tpu_torch.parallel.flash_attention import fused_attention
+from rt1_tpu_torch.resilience import faults
 from rt1_tpu_torch.train.pretrain_vision import graft_encoder_into_policy, load_encoder
 from rt1_tpu_torch.trainer.checkpoints import CheckpointManager
 from rt1_tpu_torch.trainer.metrics import MetricsWriter, ThroughputMeter, scalars_from_metrics
@@ -112,11 +127,25 @@ def loader_name(config: Config) -> str:
     return loader
 
 
+def _retrying(config: Config):
+    """`fn(*args, name=..., **kwargs)` called through `retry_call` with the
+    config's I/O retry (once without it)."""
+    retry_opts = resilience.ResilienceOptions.from_config(config).retry_options()
+
+    def build(fn, *args, name, **kwargs):
+        if retry_opts is None:
+            return fn(*args, **kwargs)
+        return resilience.retry_call(fn, *args, options=retry_opts, name=name, **kwargs)
+
+    return build
+
+
 def _packed_batches(config: Config, split: str, paths, seed: int,
                     log: Callable[[Dict], None]) -> Optional[SampleAheadFeeder]:
     """The packed-cache feed of `split`, or None (logged) when its pack is
     missing or stale, so that training falls back to the windowed loader
-    rather than train on stale pixels."""
+    rather than train on stale pixels. With `resilience.io_retry` the
+    pack's open and the feeder's construction retry with backoff."""
     d = config.data
     pack_dir = d.packed_cache_dir or pack_lib.default_pack_dir(d.data_dir, split)
     fresh, reason = pack_lib.pack_status(pack_dir, paths, d.height, d.width, d.crop_factor)
@@ -127,16 +156,20 @@ def _packed_batches(config: Config, split: str, paths, seed: int,
                       f"--split {split} --height {d.height} --width {d.width} "
                       f"--crop_factor {d.crop_factor}"})
         return None
-    cache = pack_lib.PackedEpisodeCache(pack_dir, window=config.model.time_sequence_length)
-    # Task weights and the mid-run pickup of appended shards: train only;
-    # eval streams stay the unweighted walk of one corpus.
+    build = _retrying(config)
+    cache = build(pack_lib.PackedEpisodeCache, pack_dir, window=config.model.time_sequence_length,
+                  name="packed_cache_open")
+    # Task weights, the mid-run pickup of appended shards and the per-task
+    # ids of the health pack: train only; eval streams stay the unweighted
+    # walk of one corpus.
     train = split == "train"
-    return SampleAheadFeeder(
-        cache, config.per_host_batch_size, seed=seed, shuffle=train,
+    return build(
+        SampleAheadFeeder, cache, config.per_host_batch_size, seed=seed, shuffle=train,
         num_threads=d.feeder_threads, depth=d.feeder_depth,
         stall_timeout_s=d.feeder_stall_timeout_s,
         refresh_at_epoch=train and d.packed_refresh,
-        task_weights=parse_task_weights(d.task_weights) if train else None)
+        task_weights=parse_task_weights(d.task_weights) if train else None,
+        emit_task_ids=train and config.obs.model_health, name="feeder_construct")
 
 
 def dataset_batches(config: Config, split: str = "train", seed: Optional[int] = None,
@@ -145,9 +178,10 @@ def dataset_batches(config: Config, split: str = "train", seed: Optional[int] = 
     """The endless host-batch stream of `<data_dir>/<split>/episode_*.np*`
     (counterpart of the JAX loop's `dataset_batches`): the packed cache's
     feeder when `data.packed_cache` and the pack is fresh, else the
-    windowed loader. `seed` overrides `config.seed`; `pin_memory` pins the
-    torch loader's batches for the upload. Raises FileNotFoundError when
-    the split has no episodes."""
+    windowed loader. `seed` overrides `config.seed` (a guard rollback
+    reopens the stream with a fresh one); `pin_memory` pins the torch
+    loader's batches for the upload. Raises FileNotFoundError when the
+    split has no episodes."""
     d = config.data
     if d.clip_tokens:
         raise ValueError("data.clip_tokens (CLIP BPE instruction tokens for LAVA) is not ported "
@@ -174,99 +208,411 @@ def dataset_batches(config: Config, split: str = "train", seed: Optional[int] = 
     return DataStream(ds.numpy_batches(config.per_host_batch_size, seed=stream_seed), "numpy")
 
 
-def _data_feeds(config: Config, dev: torch.device, workdir: str, log):
-    """(train feed, eval feed or None, loader name) of a run on episode
-    files; stamps `<workdir>/data_manifest.json` from the dataset's."""
-    pin = dev.type == "cuda"
-    train = dataset_batches(config, "train", log=log, pin_memory=pin)
+class TrainFeed:
+    """The train batches on the device, one stream of them: host batches
+    (episode files through `dataset_batches`, or the synthetic batches of
+    `seed` from `start_step` on) -> the `nan_batch` fault site, indexed by
+    the batch's ordinal in this stream -> the timeline's `wait_data`
+    bucket -> `device_feeder` (two batches in flight) for file batches.
+    `peek()` pulls the first batch ahead and hands it out again."""
+
+    def __init__(self, config: Config, dev: torch.device, timeline, seed: int, start_step: int,
+                 log: Callable[[Dict], None]):
+        self.host = None
+        if config.data.data_dir:
+            stream = dataset_batches(config, "train", seed=seed, log=log,
+                                     pin_memory=dev.type == "cuda")
+            self.host, self.loader = stream.batches, stream.loader
+            source = self.host
+        else:
+            self.loader = "synthetic"
+            source = (synthetic_batch(config, seed, start_step + i, dev)
+                      for i in itertools.count())
+        plan = faults.active()
+        if plan is not None:
+            source = self._with_faults(source, plan, log)
+        source = timeline.timed(source)
+        self._batches = device_feeder(source, dev, depth=2) if self.host is not None else source
+        self._ahead = []
+
+    @staticmethod
+    def _with_faults(source, plan, log):
+        for i, batch in enumerate(source):
+            if plan.should_fire("nan_batch", index=i):
+                log({"status": "injected_fault", "site": "nan_batch", "host_batch": i})
+                batch = faults.poison_batch(batch)
+            yield batch
+
+    def stats(self):
+        """The feeder's gauges, or None for a source without them."""
+        return getattr(self.host, "stats", None)
+
+    def peek(self):
+        if not self._ahead:
+            self._ahead.append(next(self._batches))
+        return self._ahead[0]
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self._ahead.pop() if self._ahead else next(self._batches)
+
+    def close(self) -> None:
+        """Drop the batches in flight and stop the host stream (a feeder's
+        threads, a DataLoader's workers)."""
+        closer = getattr(self._batches, "close", None)
+        if closer is not None:
+            closer()
+        closer = getattr(self.host, "close", None)
+        if closer is not None:
+            closer()
+
+
+def checkpoint_manager(config: Config, workdir: str, on_io=None) -> CheckpointManager:
+    """The run's checkpoints under `<workdir>/checkpoints`, retained as the
+    JAX trainer retains them (`rt1_tpu/train/train.py:680-689`):
+    `max_to_keep or None`, so 0 keeps every step, and `keep_period`; with
+    `resilience.io_retry` each save and restore retries with backoff, and
+    `on_io` receives each one's seconds."""
+    return CheckpointManager(os.path.join(workdir, "checkpoints"),
+                             max_to_keep=config.max_to_keep or None,
+                             keep_period=config.keep_period, seed=config.seed,
+                             retry=resilience.ResilienceOptions.from_config(config).retry_options(),
+                             on_io=on_io)
+
+
+def _eval_feed(config: Config, dev: torch.device, log):
+    """(the eval batches' callable or None, the device feeder to close or
+    None): `eval_batches` batches from the running `<data_dir>/val` stream
+    (no eval without that split), or the fixed synthetic batches of seed
+    `seed + 1`."""
+    if not config.eval_every_steps:
+        return None, None
+    if config.data.data_dir:
+        try:
+            feed = device_feeder(dataset_batches(config, "val", log=log,
+                                                 pin_memory=dev.type == "cuda").batches,
+                                 dev, depth=1)
+        except FileNotFoundError:
+            return None, None  # no val split: no eval, as in JAX
+        return (lambda: [next(feed) for _ in range(config.eval_batches)]), feed
+    fixed = [synthetic_batch(config, config.seed + 1, i, dev) for i in range(config.eval_batches)]
+    return (lambda: fixed), None
+
+
+def _stamp_manifest(config: Config, workdir: str) -> None:
+    """`<workdir>/data_manifest.json` from the dataset's manifest."""
     manifest = read_manifest(config.data.data_dir)
     if manifest is not None:
         os.makedirs(workdir, exist_ok=True)
         with open(os.path.join(workdir, "data_manifest.json"), "w") as f:
             json.dump(manifest, f, indent=2, sort_keys=True)
-    evals = None
-    if config.eval_every_steps:
-        try:
-            evals = device_feeder(dataset_batches(config, "val", log=log, pin_memory=pin).batches,
-                                  dev, depth=1)
-        except FileNotFoundError:
-            evals = None  # no val split: no eval, as in JAX
-    return device_feeder(train.batches, dev, depth=2), evals, train.loader
-
-
-def checkpoint_manager(config: Config, workdir: str) -> CheckpointManager:
-    """The run's checkpoints under `<workdir>/checkpoints`, retained as the
-    JAX trainer retains them (`rt1_tpu/train/train.py:680-689`):
-    `max_to_keep or None`, so 0 keeps every step, and `keep_period`."""
-    return CheckpointManager(os.path.join(workdir, "checkpoints"),
-                             max_to_keep=config.max_to_keep or None,
-                             keep_period=config.keep_period, seed=config.seed)
 
 
 def train_and_evaluate(config: Config, workdir: str, device=None,
                        log: Callable[[Dict], None] = _print_json) -> TrainState:
     """Train per `config` in `workdir`; returns the final TrainState.
     Runs on `cuda` unless `device` says otherwise (and raises without a
-    card)."""
+    card).
+
+    The resilience and observability of the JAX loop (`rt1_tpu/train/
+    train.py::train_and_evaluate`), in its order: with `resilience.guard`,
+    non-finite updates are skipped on the device and persistent divergence
+    escalates to a checkpoint rollback with a fresh data seed (`seed +
+    7919 * rollbacks`), bounded by `guard_rollback_budget`, then
+    `GuardAbortError`; with `preempt_save`, SIGTERM/SIGINT force-saves a
+    checkpoint at the current step, drains the feeds and returns normally
+    (the CLI exits 0); with `io_retry`, checkpoint and packed-cache I/O
+    retry with backoff. `obs.*` adds the step timeline, the goodput ledger
+    (`goodput_summary.json`, written on success, crash and preemption),
+    its MFU gauge, the health pack at log steps, the flight recorder
+    (`flight_record.jsonl` on a crash, SIGTERM or preemption), the host
+    trace and the Prometheus listener (`obs.prometheus_port`); all of them
+    are torn down on every exit.
+    """
     dev = resolve_device(device)
-    policy = build_model(config, dev)
-    ckpt = checkpoint_manager(config, workdir)
-    pretrained = config.model.pretrained_encoder
-    if pretrained and ckpt.latest_step() is None:
-        # The JAX loop's graft (`rt1_tpu/train/train.py:642-670`): a resumed
-        # run's checkpoint wins, and grafting first would log a false line.
-        graft_encoder_into_policy(policy, load_encoder(pretrained))
-        log({"status": "grafted_pretrained_encoder", "path": pretrained})
-    optimizer = optimizer_from_config(config)
-    state = create_train_state(policy, optimizer)
-    state, initial_step = ckpt.restore_or_initialize(state)
-    fns = train_step_fns_from_config(config, optimizer)
-    train_feed = eval_feed = None
-    if config.data.data_dir:
-        train_feed, eval_feed, data_loader = _data_feeds(config, dev, workdir, log)
-        eval_next = None if eval_feed is None else (
-            lambda: [next(eval_feed) for _ in range(config.eval_batches)])
-    else:
-        data_loader = "synthetic"
-        fixed = [synthetic_batch(config, config.seed + 1, i, dev)
-                 for i in range(config.eval_batches)] if config.eval_every_steps else []
-        eval_next = (lambda: fixed) if fixed else None
-    log({"status": "start", "device": str(dev), "restored_step": initial_step or None,
-         "num_steps": config.num_steps, "compute_dtype": str(fns.compute_dtype).split(".")[-1],
-         "parameters": sum(p.numel() for p in policy.parameters()), "data_loader": data_loader})
-    writer = MetricsWriter(workdir)
-    meter = ThroughputMeter(config.per_host_batch_size, config.model.time_sequence_length,
-                            initial_step=initial_step)
-    saved = None
-    step = initial_step
-    try:
-        while step < config.num_steps:
-            batch = next(train_feed) if train_feed is not None else \
-                synthetic_batch(config, config.seed, step, dev)
-            metrics = fns.train_step(state, batch, step)
-            if (step + 1) % config.log_every_steps == 0:
-                scalars = scalars_from_metrics(metrics)
-                scalars.update(meter.update(step + 1))
-                log(writer.write(step + 1, scalars))
-            if eval_next is not None and (step + 1) % config.eval_every_steps == 0:
-                before = dict(fused_attention.launches_by_variant)
-                results = [scalars_from_metrics(fns.eval_step(state, b)) for b in eval_next()]
-                log(writer.write(step + 1, {
-                    "eval_loss": float(np.mean([r["loss"] for r in results])),
-                    "eval_token_accuracy": float(np.mean([r["token_accuracy"] for r in results])),
-                    "eval_batches": len(results),
-                    # Fused-attention kernel launches in this eval, by variant.
-                    **{f"eval_attention_launches_{v}": n - before[v]
-                       for v, n in fused_attention.launches_by_variant.items()},
-                }))
-            if step + 1 == config.num_steps or (step + 1) % config.checkpoint_every_steps == 0:
-                ckpt.save(step + 1, state)
-                saved = step + 1
-            step += 1
-    finally:
-        for feed in (train_feed, eval_feed):
-            if feed is not None:
-                feed.close()
-    log({"status": "done", "step": step, "updates": int(state.step),
-         "guard_skips": int(state.guard_skips), "checkpoint_step": saved or ckpt.latest_step()})
+    obs_opts = obs.ObsOptions.from_config(config, workdir)
+    res_opts = resilience.ResilienceOptions.from_config(config)
+    # Released on every exit, in reverse order: a bound scrape port, a
+    # signal handler or a process-wide tracer left behind poisons the next
+    # run in this process.
+    cleanup = contextlib.ExitStack()
+    with cleanup:
+        if obs_opts.trace:
+            # Before the feeds exist, or their workers' spans are lost.
+            obs.trace.enable(obs_opts.trace_path, obs_opts.trace_max_events)
+            cleanup.callback(obs.trace.disable)
+        # Everything from here to the first step accrues to "init"; the
+        # checkpoint restore is carved out into "ckpt_restore" (on_io).
+        ledger = None
+        if obs_opts.goodput:
+            ledger = obs.GoodputLedger()
+            ledger.open_phase("init")
+        fault_plan = faults.install_from(res_opts.faults)
+        if fault_plan is not None:
+            log({"status": "fault_plan", "specs": sorted(fault_plan.fired_counts())})
+        step_guard = resilience.StepGuard(res_opts.guard_options()) if res_opts.guard else None
+
+        policy = build_model(config, dev)
+        ckpt = checkpoint_manager(config, workdir,
+                                  on_io=ledger.note_io if ledger is not None else None)
+        pretrained = config.model.pretrained_encoder
+        if pretrained and ckpt.latest_step() is None:
+            # The JAX loop's graft (`rt1_tpu/train/train.py:642-670`): a
+            # resumed run's checkpoint wins, and grafting first would log a
+            # false line.
+            graft_encoder_into_policy(policy, load_encoder(pretrained))
+            log({"status": "grafted_pretrained_encoder", "path": pretrained})
+        optimizer = optimizer_from_config(config)
+        state = create_train_state(policy, optimizer)
+        state, initial_step = ckpt.restore_or_initialize(state)
+
+        timeline = obs.StepTimeline(window=obs_opts.stall_window, sync=obs_opts.sync_timing)
+        if config.data.data_dir:
+            _stamp_manifest(config, workdir)
+        live = {"train": TrainFeed(config, dev, timeline, config.seed, initial_step, log)}
+        cleanup.callback(lambda: live["train"].close())
+        feeder_stats = live["train"].stats()
+        fns = train_step_fns_from_config(
+            config, optimizer,
+            health_task_names=getattr(live["train"].host, "health_task_names", ()) or ())
+        health_names = fns.health_names(state)
+
+        if ledger is not None and obs_opts.goodput_mfu:
+            # FLOPs of the forward and backward of the first batch (the
+            # optimizer, guard and pack add no counted FLOPs). The
+            # BatchNorm statistics this pass advances are put back, so
+            # the run's state is untouched; a failed count disarms the
+            # gauge.
+            first = live["train"].peek()
+
+            def _forward_backward():
+                saved = state.flat_buffers.clone()
+                try:
+                    fns.value_and_grad(state, first, initial_step)
+                finally:
+                    state.flat_buffers.copy_(saved)
+
+            with obs.trace.span("goodput_flops_estimate"):
+                ledger.set_flops_per_step(obs.flops.train_step_flops(_forward_backward))
+
+        eval_next, eval_feed = _eval_feed(config, dev, log)
+        if eval_feed is not None:
+            cleanup.callback(eval_feed.close)
+        writer = MetricsWriter(workdir)
+        meter = ThroughputMeter(config.per_host_batch_size, config.model.time_sequence_length,
+                                initial_step=initial_step)
+
+        recorder = None
+        if obs_opts.flight_recorder:
+            recorder = obs.FlightRecorder(obs_opts.flight_recorder_size,
+                                          path=obs_opts.flight_recorder_path)
+        coordinator = None
+        if res_opts.preempt_save:
+            # The first SIGTERM/SIGINT dumps the flight record and sets a
+            # flag the loop polls: the loop force-saves, drains and
+            # returns. A second signal restores the previous handlers and
+            # re-raises it.
+            callbacks = [lambda: recorder.dump(reason="preempt")] if recorder is not None else []
+            coordinator = resilience.PreemptionCoordinator(callbacks=callbacks)
+            coordinator.install()
+            cleanup.callback(coordinator.uninstall)
+        elif recorder is not None:
+            # SIGTERM chains to SIG_DFL and the process dies there: the host
+            # trace must dump inside the handler.
+            recorder.install_sigterm(extra=obs.trace.dump if obs_opts.trace else None)
+            cleanup.callback(recorder.uninstall_sigterm)
+
+        # The scrape listener renders the latest written scalars and the
+        # live gauges on the scraper's thread, never the step's.
+        latest_scalars: Dict[str, float] = {}
+        metrics_server = None
+        if obs_opts.prometheus_port >= 0:
+            def _render_prometheus():
+                scalars = dict(latest_scalars)
+                scalars.update(timeline.scalars())
+                if feeder_stats is not None:
+                    scalars.update({f"feeder/{k}": v for k, v in feeder_stats().items()})
+                if step_guard is not None:
+                    scalars.update(step_guard.counters())
+                scalars.update(resilience.retry.counters())
+                if coordinator is not None:
+                    scalars.update(coordinator.counters())
+                if fault_plan is not None:
+                    scalars.update(fault_plan.counters())
+                if ledger is not None:
+                    scalars.update(ledger.scalars())
+                return obs.prometheus.render_scalar_gauges(scalars)
+
+            metrics_server = obs.MetricsServer(_render_prometheus, host=obs_opts.prometheus_host,
+                                               port=obs_opts.prometheus_port)
+            cleanup.callback(metrics_server.close)
+
+        def _write_goodput():
+            # Success, crash and preemption all leave a summary on disk.
+            if ledger is None or not obs_opts.goodput_summary_path:
+                return
+            try:
+                ledger.write_summary(obs_opts.goodput_summary_path)
+            except OSError as exc:  # accounting must not mask the exit
+                log({"status": "goodput_summary_failed", "error": repr(exc)})
+
+        cleanup.callback(_write_goodput)
+        log({"status": "start", "device": str(dev), "restored_step": initial_step or None,
+             "num_steps": config.num_steps,
+             "compute_dtype": str(fns.compute_dtype).split(".")[-1],
+             "parameters": sum(p.numel() for p in policy.parameters()),
+             "data_loader": live["train"].loader,
+             "metrics_url": metrics_server.url if metrics_server is not None else None})
+        crash_guard = recorder.dump_on_exception() if recorder is not None \
+            else contextlib.nullcontext()
+        # Steps before this mark are re-runs after a rollback: the ledger
+        # books them as rollback_replay, not productive time.
+        replay_until = initial_step
+        saved_step = None
+        preempted = False
+        if ledger is not None:
+            ledger.close_phase()  # init ends where the step loop begins
+        with crash_guard:
+            step = initial_step
+            while step < config.num_steps:
+                if fault_plan is not None:
+                    # The chaos stand-in for a scheduler's preemption,
+                    # handled exactly as the real one.
+                    faults.maybe_signal("sigterm", index=step)
+                timeline.start_step(step)
+                with timeline.phase("h2d", exclusive_of="wait_data"):
+                    batch = next(live["train"])
+                with timeline.phase("device_step"):
+                    metrics = fns.train_step(state, batch, step)
+                step_record = timeline.end_step(sync_on=metrics["loss"])
+                if ledger is not None:
+                    ledger.note_step(step_record, replay=step < replay_until)
+
+                log_now = (step + 1) % config.log_every_steps == 0
+                verdict = resilience.GuardVerdict.OK
+                health_scalars = None
+                scalars: Dict[str, float] = {}
+                if log_now:
+                    # The pack is a vector: unpacked by name, not averaged.
+                    health_vec = metrics.pop(obs.health.PACK_KEY, None)
+                    scalars = scalars_from_metrics(metrics)
+                    if health_vec is not None:
+                        health_scalars = obs.health.unpack(health_names, health_vec)
+                        scalars.update(health_scalars)
+                    if step_guard is not None:
+                        verdict = step_guard.observe(step + 1, scalars)
+                        scalars.update(step_guard.counters())
+                    scalars.update(meter.update(step + 1))
+                    scalars.update(timeline.scalars())
+                    if ledger is not None:
+                        scalars.update(ledger.scalars())
+                    if feeder_stats is not None:
+                        scalars.update({f"feeder/{k}": v for k, v in feeder_stats().items()})
+                    scalars.update(resilience.retry.counters())
+                    if coordinator is not None:
+                        scalars.update(coordinator.counters())
+                    if fault_plan is not None:
+                        scalars.update(fault_plan.counters())
+                    log(writer.write(step + 1, scalars))
+                    latest_scalars.update(scalars)
+                    latest_scalars["step"] = step + 1
+
+                if recorder is not None:
+                    rec = {k: v for k, v in step_record.items() if k != "step"}
+                    if log_now:
+                        rec["loss"] = scalars.get("loss")
+                        if health_scalars is not None:
+                            rec["health"] = health_scalars
+                        if step_guard is not None:
+                            rec["guard"] = step_guard.counters()
+                        retry_counters = resilience.retry.counters()
+                        if retry_counters:
+                            rec["retry"] = retry_counters
+                    if feeder_stats is not None:
+                        rec["feeder"] = feeder_stats()
+                    recorder.record(step + 1, **rec)
+
+                if verdict is resilience.GuardVerdict.ABORT:
+                    raise resilience.GuardAbortError(
+                        f"guard: rollback budget ({res_opts.guard_rollback_budget}) exhausted "
+                        f"and training is still unhealthy at step {step + 1}: "
+                        f"{step_guard.last_reason}")
+                if verdict is resilience.GuardVerdict.ROLLBACK:
+                    target = ckpt.latest_step()
+                    if target is None:
+                        raise resilience.GuardAbortError(
+                            f"guard: training unhealthy at step {step + 1} "
+                            f"({step_guard.last_reason}) with no checkpoint to roll back to "
+                            f"(first save at step {config.checkpoint_every_steps})")
+                    # The skip count is the run's, not the checkpoint's: it
+                    # keeps counting across the rollback, as JAX's does.
+                    skips = state.guard_skips.clone()
+                    ckpt.restore(state, step=target)
+                    state.guard_skips.copy_(skips)
+                    step_guard.notify_rollback(target)
+                    # A fresh stream: re-walking the batches that diverged
+                    # would diverge again.
+                    fresh_seed = config.seed + 7919 * step_guard.rollbacks
+                    log({"status": "guard_rollback", "step": step + 1,
+                         "reason": step_guard.last_reason, "restored_step": target,
+                         "seed": fresh_seed})
+                    live["train"].close()
+                    live["train"] = TrainFeed(config, dev, timeline, fresh_seed, target, log)
+                    feeder_stats = live["train"].stats()
+                    obs.trace.counter("guard_rollbacks", step_guard.rollbacks)
+                    if ledger is not None:
+                        ledger.mark_rollback()
+                    replay_until = max(replay_until, step + 1)
+                    step = target
+                    continue
+
+                if eval_next is not None and (step + 1) % config.eval_every_steps == 0:
+                    before = dict(fused_attention.launches_by_variant)
+                    results = [scalars_from_metrics(fns.eval_step(state, b)) for b in eval_next()]
+                    log(writer.write(step + 1, {
+                        "eval_loss": float(np.mean([r["loss"] for r in results])),
+                        "eval_token_accuracy": float(np.mean([r["token_accuracy"]
+                                                              for r in results])),
+                        "eval_batches": len(results),
+                        # Fused-attention kernel launches in this eval, by variant.
+                        **{f"eval_attention_launches_{v}": n - before[v]
+                           for v, n in fused_attention.launches_by_variant.items()},
+                    }))
+
+                saved = False
+                if step + 1 == config.num_steps or (step + 1) % config.checkpoint_every_steps == 0:
+                    # Between steps: a trace span, not a timeline bucket.
+                    with obs.trace.span("checkpoint_save", step=step + 1):
+                        ckpt.save(step + 1, state)
+                    saved, saved_step = True, step + 1
+
+                if coordinator is not None and coordinator.triggered:
+                    log({"status": "preempted", "signal": coordinator.signum, "step": step + 1})
+                    if ledger is not None:
+                        ledger.mark_preempted()
+                    drain = ledger.phase("preempt_drain") if ledger is not None \
+                        else contextlib.nullcontext()
+                    # The force-save inside the drain lands in ckpt_save
+                    # (note_io steals it from the phase).
+                    with drain:
+                        if not saved:
+                            with obs.trace.span("preempt_save", step=step + 1):
+                                ckpt.save(step + 1, state)
+                            saved_step = step + 1
+                        live["train"].close()
+                        if eval_feed is not None:
+                            eval_feed.close()
+                    preempted = True
+                    step += 1
+                    break
+
+                step += 1
+    done = {"status": "done", "step": step, "updates": int(state.step),
+            "guard_skips": int(state.guard_skips),
+            "checkpoint_step": saved_step or ckpt.latest_step()}
+    if preempted:
+        done["preempted"] = True
+    log(done)
     return state

@@ -19,17 +19,34 @@ a step stays if it is among the newest `max_to_keep` steps on disk (None
 keeps every step) or if `step % keep_period == 0`. Steps kept by the period
 count among the newest, as in Orbax, whose `LatestN` policy ranks every
 retained step.
+
+Resilience, as in the JAX manager: `retry` wraps each save and restore in
+exponential-backoff retry (`resilience/retry.py`), so a transient
+filesystem error costs a logged warning instead of the run; `on_io(name,
+seconds)` reports each logical operation's wall time, retries included
+(the goodput ledger's `note_io`); the `ckpt_save` / `ckpt_restore` fault
+sites fire before the real I/O and are indexed by the logical operation,
+not the attempt, so `ckpt_save@1` fails the first save's first attempt and
+its retry truly succeeds; and `restore_or_initialize` falls back past a
+corrupt newest step to the next older one, raising only when every step
+fails.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import shutil
-from typing import Any, Dict, List, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from rt1_tpu_torch.resilience import faults
+from rt1_tpu_torch.resilience.retry import RetryOptions, retry_call
 from rt1_tpu_torch.trainer.state import TrainState
+
+_log = logging.getLogger(__name__)
 
 FILENAME = "state.pt"
 FORMAT = "rt1_tpu_torch.trainer/1"
@@ -65,7 +82,8 @@ def load_checkpoint(directory: str, step: Optional[int] = None) -> Dict[str, Any
 
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: Optional[int] = None, seed: int = 0,
-                 keep_period: Optional[int] = None):
+                 keep_period: Optional[int] = None, retry: Optional[RetryOptions] = None,
+                 on_io: Optional[Callable[[str, float], None]] = None):
         if max_to_keep is not None and max_to_keep < 1:
             raise ValueError(f"max_to_keep must be None (keep all) or >= 1, got {max_to_keep}")
         if keep_period is not None and keep_period < 1:
@@ -74,13 +92,39 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
         self.keep_period = keep_period
         self.seed = seed
+        self.retry = retry
+        self.on_io = on_io
+        # Logical-operation ordinals of the fault sites: one per save or
+        # restore, not per retry attempt.
+        self._save_ops = 0
+        self._restore_ops = 0
 
     def latest_step(self) -> Optional[int]:
         return latest_step(self.directory)
 
+    def all_steps(self) -> List[int]:
+        return all_steps(self.directory)
+
+    def _io(self, fn, name: str):
+        """Run an I/O closure, retried per `retry` (once without); reports
+        the whole operation's wall time, every attempt, to `on_io`."""
+        t0 = time.perf_counter()
+        try:
+            if self.retry is None:
+                return fn()
+            return retry_call(fn, options=self.retry, name=name)
+        finally:
+            if self.on_io is not None:
+                try:
+                    self.on_io(name, time.perf_counter() - t0)
+                except Exception:  # noqa: BLE001 - accounting only
+                    pass
+
     def save(self, step: int, state: TrainState) -> str:
         """Write `state` as checkpoint `step` and prune old ones; returns
         the file's path."""
+        self._save_ops += 1
+        op = self._save_ops
         opt = state.opt_state
         payload = {
             "format": FORMAT,
@@ -92,9 +136,14 @@ class CheckpointManager:
             "rng": {"seed": int(self.seed), "step": int(step)},
         }
         path = checkpoint_path(self.directory, step)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        torch.save(payload, path + ".tmp")
-        os.replace(path + ".tmp", path)
+
+        def _save():
+            faults.maybe_fail("ckpt_save", index=op, what=f"save at step {step}")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            torch.save(payload, path + ".tmp")
+            os.replace(path + ".tmp", path)
+
+        self._io(_save, "ckpt_save")
         self._prune()
         return path
 
@@ -110,9 +159,24 @@ class CheckpointManager:
     def restore(self, state: TrainState, step: Optional[int] = None) -> int:
         """Load checkpoint `step` (default: the newest) into `state` in
         place; returns the loop step it was saved at."""
-        ckpt = load_checkpoint(self.directory, step)
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {self.directory}")
+        self._restore_ops += 1
+        op = self._restore_ops
+
+        def _load():
+            faults.maybe_fail("ckpt_restore", index=op, what=f"restore step {step}")
+            return load_checkpoint(self.directory, step)
+
+        ckpt = self._io(_load, "ckpt_restore")
         if ckpt.get("format") != FORMAT:
             raise ValueError(f"not a {FORMAT} checkpoint: {ckpt.get('format')!r}")
+        # Checked before anything is copied, so a step that fails leaves
+        # `state` as it was for the fallback to an older one.
+        if set(ckpt["policy"]) != set(state.policy.state_dict()) or \
+                not {"count", "mu", "nu"} <= set(ckpt["optimizer"]):
+            raise ValueError(f"checkpoint step {step} does not match the train state")
         state.policy.load_state_dict(ckpt["policy"])
         opt = state.opt_state
         opt.count.fill_(ckpt["optimizer"]["count"])
@@ -123,8 +187,21 @@ class CheckpointManager:
         return int(ckpt["loop_step"])
 
     def restore_or_initialize(self, state: TrainState) -> Tuple[TrainState, int]:
-        """(state, loop step to start from): the newest checkpoint if there
-        is one, else `state` as given and 0."""
-        if self.latest_step() is None:
+        """(state, loop step to start from): the newest checkpoint that
+        restores, else `state` as given and 0. A corrupt or partial step is
+        logged and passed over for the next older one; when every step
+        fails, the error of the oldest raises."""
+        steps = sorted(self.all_steps(), reverse=True)
+        if not steps:
             return state, 0
-        return state, self.restore(state)
+        last_exc: Optional[Exception] = None
+        for step in steps:
+            try:
+                return state, self.restore(state, step)
+            except Exception as exc:  # noqa: BLE001 - fall back per step
+                last_exc = exc
+                _log.error("checkpoint: restore of step %d in %s FAILED (%s: %s)%s", step,
+                           self.directory, type(exc).__name__, exc,
+                           " — falling back to the previous retained step"
+                           if step != steps[-1] else " — no older step to fall back to")
+        raise last_exc

@@ -36,10 +36,21 @@ of b/accum gives accum times the full-batch loss; one extra `/accum` makes
 the sum exact, as in JAX.
 
 The guard (`guard_nonfinite`) drops an update whose loss or gradient norm
-is not finite:
-parameters, optimizer state, BatchNorm statistics and `step` stay exactly
-as they were and `guard_skips` counts one. Like JAX's `jnp.where` select,
-it selects on the device and needs no host sync.
+is not finite, or whose gradient norm exceeds `guard_grad_norm_max` when
+that is > 0: parameters, optimizer state, BatchNorm statistics and `step`
+stay exactly as they were and `guard_skips` counts one. Like JAX's
+`jnp.where` select, it selects on the device and needs no host sync; on a
+healthy step the select is the identity, bit for bit.
+
+The model-health pack (`model_health`, `obs/health.py`) adds one float32
+vector under `metrics[obs.health.PACK_KEY]`, computed on the device from
+the gradient, the optimizer's update (`new_flat - flat`, before the guard's
+select, as JAX computes it from `apply_gradients`' updates) and the loss's
+aux dict; `health_names(state)` names its entries. With the pack off the
+step is the step without it, bit for bit. A batch whose observations carry
+`obs.health.TASK_ID_KEY` (the feeder's `emit_task_ids`) has it stripped
+before the model, and with `health_task_names` the pack reduces its
+per-example loss and accuracy by task.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from rt1_tpu_torch.obs.health import PACK_KEY, TASK_ID_KEY, HealthPack, param_paths
 from rt1_tpu_torch.trainer.optim import Adam, AdamState, global_norm
 from rt1_tpu_torch.trainer.state import TrainState
 
@@ -70,6 +82,14 @@ def step_rngs(seed: int, step: int, device, micro: int = 0) -> Dict[str, torch.G
     return rngs
 
 
+def _strip_task_ids(obs: Dict[str, torch.Tensor]):
+    """(observations without the task ids, the ids or None)."""
+    if TASK_ID_KEY not in obs:
+        return obs, None
+    obs = dict(obs)
+    return obs, obs.pop(TASK_ID_KEY)
+
+
 def _split(batch: Batch, parts: int):
     obs, actions = batch
     b = next(iter(obs.values())).shape[0]
@@ -86,10 +106,30 @@ class TrainStepFns:
     compute_dtype: torch.dtype = torch.float32
     accum_steps: int = 1
     guard_nonfinite: bool = False
+    guard_grad_norm_max: float = 0.0
+    model_health: bool = False
+    health_group_depth: int = 2
+    health_task_names: Tuple[str, ...] = ()
+    _health: Optional[HealthPack] = dataclasses.field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         if self.accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {self.accum_steps}")
+
+    def _health_pack(self, state: TrainState) -> HealthPack:
+        """The pack of `state`'s layout, built at first use. Action
+        statistics need the unaccumulated step's logits, as in JAX."""
+        if self._health is None:
+            action_dims = state.policy.tokens_per_action if self.accum_steps == 1 else 0
+            self._health = HealthPack(param_paths(state.policy), state.layout.padded,
+                                      state.flat.device, depth=self.health_group_depth,
+                                      action_dims=action_dims,
+                                      task_names=self.health_task_names)
+        return self._health
+
+    def health_names(self, state: TrainState) -> Tuple[str, ...]:
+        """The entry names of the pack (empty with `model_health` off)."""
+        return self._health_pack(state).names if self.model_health else ()
 
     def _compute_copy(self, state: TrainState, requires_grad: bool):
         """(the flat compute copy of the masters, its views by name)."""
@@ -101,10 +141,13 @@ class TrainStepFns:
         """Loss, float32 flat gradient and aux dict of one (micro-)batch."""
         copy, params = self._compute_copy(state, requires_grad=True)
         obs, actions = batch
+        obs, task_ids = _strip_task_ids(obs)
         out = torch.func.functional_call(state.policy, params, (obs, actions),
                                          {"train": True, "rngs": rngs})
         (grad,) = torch.autograd.grad(out["loss"], copy)
         out = {k: v.detach() for k, v in out.items()}
+        if task_ids is not None and self.health_task_names:
+            out["task_ids"] = task_ids
         return out["loss"], grad.to(torch.float32), out
 
     def value_and_grad(self, state: TrainState, batch: Batch, step: int):
@@ -153,8 +196,13 @@ class TrainStepFns:
             metrics["action_loss_mean"] = out["action_loss"].mean()
         if "aux_mse" in out:
             metrics["aux_mse"] = out["aux_mse"]
+        if self.model_health:
+            metrics[PACK_KEY] = self._health_pack(state).compute(
+                grad, new_flat - state.flat, new_flat, out)
         if self.guard_nonfinite:
             ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
+            if self.guard_grad_norm_max > 0:
+                ok &= grad_norm <= self.guard_grad_norm_max
             new_flat = torch.where(ok, new_flat, state.flat)
             new_opt = AdamState(
                 count=torch.where(ok, new_opt.count, state.opt_state.count),
@@ -176,6 +224,7 @@ class TrainStepFns:
         """Eval-mode loss and token accuracy on `batch` (no update)."""
         _, params = self._compute_copy(state, requires_grad=False)
         obs, actions = batch
+        obs, _ = _strip_task_ids(obs)
         out = torch.func.functional_call(state.policy, params, (obs, actions), {"train": False})
         labels, preds = out["action_labels"], out["action_predictions"]
         return {"loss": out["loss"],
@@ -193,9 +242,11 @@ def optimizer_from_config(config) -> Adam:
     )
 
 
-def train_step_fns_from_config(config, optimizer: Optional[Adam] = None) -> TrainStepFns:
+def train_step_fns_from_config(config, optimizer: Optional[Adam] = None,
+                               health_task_names: Tuple[str, ...] = ()) -> TrainStepFns:
     """The steps `config` describes. Compute in bf16 when the model does or
-    mixed precision is on (which forces bf16 compute, as in JAX)."""
+    mixed precision is on (which forces bf16 compute, as in JAX).
+    `health_task_names` are the feeder's, when it emits task ids."""
     bf16 = config.parallel.mixed_precision or config.model.dtype == "bfloat16"
     return TrainStepFns(
         optimizer or optimizer_from_config(config),
@@ -203,4 +254,8 @@ def train_step_fns_from_config(config, optimizer: Optional[Adam] = None) -> Trai
         compute_dtype=torch.bfloat16 if bf16 else torch.float32,
         accum_steps=config.accum_steps,
         guard_nonfinite=config.resilience.guard,
+        guard_grad_norm_max=config.resilience.guard_grad_norm_max,
+        model_health=config.obs.model_health,
+        health_group_depth=config.obs.health_group_depth,
+        health_task_names=tuple(health_task_names),
     )

@@ -199,8 +199,10 @@ def test_parse_task_weights_equals_jax():
 
 def test_left_out_and_refused_options_raise(packed):
     cache = pack.PackedEpisodeCache(packed, window=WINDOW)
-    with pytest.raises(ValueError, match="emit_task_ids"):
-        SampleAheadFeeder(cache, 4, emit_task_ids=True)
+    # emit_task_ids is ported now: it names the tasks instead of raising
+    # (its stream is held to JAX's in test_torch_obs_train.py).
+    feeder = SampleAheadFeeder(cache, 4, emit_task_ids=True, start=False)
+    assert feeder.health_task_names[-1] == "other"
     with pytest.raises(ValueError, match="single-process"):
         SampleAheadFeeder(cache, 4, refresh_at_epoch=True, process_count=2)
     with pytest.raises(ValueError, match="shuffle"):
