@@ -121,8 +121,8 @@ exits non-zero without a result line:
              to 12 that restores step 10 and books `ckpt_restore`. Prints
              the pack's cost, the ledger's MFU beside phase `train`'s, the
              CLI's goodput buckets and the phase's wall time.
-13. data   — the flagship trained from Language-Table episode files: 256
-             train (four times the episodes a windowed loader keeps
+13. data   — the flagship trained from Language-Table episode files: 128
+             train (twice the episodes a windowed loader keeps
              decoded, so most windows read their episode file, as on a real
              corpus) + 4 val seeded episodes x 20 steps at 180x320 written
              under a temporary directory (removed at the end) and packed by
@@ -141,17 +141,19 @@ exits non-zero without a result line:
              torch, numpy, synthetic): step wall median and range, ms
              blocked on the host iterator and in the upload per step, the
              card's idle share, frames/s, and for numpy the episode reads'
-             share of the wait; 10 more steps per fed turn whose
+             share of the wait; 6 more steps per fed turn whose
              device batch must equal its host batch (>= 20 in all: a torn
              pinned buffer fails); then the train CLI on the
              corpus, 4 steps through the packed cache and a rerun to 6
              through the torch loader that restores step 4, each eval on
              `val` with 8 tensor-core launches per eval batch, and
              `data_manifest.json` equal to the corpus's manifest.
-14. eval   — the closed-loop Language-Table eval of the flagship: the
-             train CLI writes a checkpoint at step 2 under a temporary
-             directory, `python -m rt1_tpu_torch.eval --config language_table
-             --workdir <it> --episodes 2 --max_steps 80` restores it (its
+14. eval   — the closed-loop Language-Table eval of the flagship: phase
+             `train`'s CLI checkpoint (step 6; run alone, the train CLI
+             writes one at step 2 under a temporary directory),
+             `python -m rt1_tpu_torch.eval --config language_table
+             --workdir <it> --episodes 2 --max_steps 80` (its `main`, in this
+             process) restores it (its
              JSON must carry every key and the trainer's step); then in
              process one bf16 episode of 80 control steps of that
              checkpoint (fused attention, BLOCK_8 block2block, 180x320
@@ -168,7 +170,8 @@ exits non-zero without a result line:
              same checkpoint: each step's logits within 1e-3 x max|logit|,
              actions within 1e-6 wherever every action token's top-2 gap
              exceeds that bound; then `--baseline oracle` and `--baseline
-             random` (3 episodes each) through the CLI and one oracle
+             random` (3 episodes each) through the CLI's entry, in process like the
+             checkpoint's run and one oracle
              episode on the `kinematic_arm` backend.
 15. serve_modes — the serving modes at the flagship's width, every engine
              derived in process from the parity phase's seeded f32 master
@@ -214,23 +217,23 @@ exits non-zero without a result line:
              card's memory in use; the replica's own `phases` total split
              from the client's time gives the router's and the HTTP hops'
              share. CPU rehearsal: `phase_fleet('tiny', 'cpu')`.
-17. proof  — the learning proof at the flagship's width (B3 at 128x224,
+17. proof  — (run last) the learning proof at the flagship's width (B3 at 128x224,
              window 6, batch 32, bf16) under a temporary directory, through
              `python -m rt1_tpu_torch.train.learn_proof`: `--stage collect`
              of 8 episodes over 4 workers (BLOCK_4 block2block, ngram,
              180x320; the manifest, `corpus_accounting` and the split
              counts checked), then 2 DART demos (std 0.005, 160 steps) by
              `collect_dataset` in process into their own directory; 256
-             state-regression frames at 128x224 and 20 `pretrain_encoder`
+             state-regression frames at 128x224 and 10 `pretrain_encoder`
              steps at B3's coefficients (batch 32), `save_encoder`;
-             `--stage train` 20 steps from that encoder (the graft line
-             must show); `--stage dagger`, 1 round of 2 episodes + 10 steps
-             (the corpus grows by 2, the checkpoint reaches 30, no graft on
-             the resume); `--stage eval`, 2 episodes of the trained, random
+             `--stage train` 10 steps from that encoder (the graft line
+             must show); `--stage dagger`, 1 round of 1 episode + 5 steps
+             (the corpus grows by 1, the checkpoint reaches 15, no graft on
+             the resume); `--stage eval`, 1 episode of the trained, random
              and oracle arms at seed 10000 (`learn_proof.json` carries the
              JAX summary's keys). The DAgger and eval stages each launch
              the tensor-core kernel 8 times an engine step and no other
-             variant (the CLI's counts). Then 20 timed DAgger and 20 eval
+             variant (the CLI's counts). Then 10 timed DAgger and 10 eval
              control steps of the final checkpoint in process (p50 / p99 /
              max ms, 8 tensor-core launches a step) and 3 more of each
              under torch.profiler. Prints collection episodes/s and
@@ -238,14 +241,56 @@ exits non-zero without a result line:
              train step ms, the control-step quantiles and each stage's
              wall time, beside `nvidia-smi`'s line. CPU rehearsal:
              `phase_proof('tiny', 'cpu')`.
-18. kernels — one line listing the three kernels with their launches on
+18. ops    — the fleet's operations loop at the flagship's width (run
+             before `proof`): a packed seed corpus (4 x 12 steps at
+             256x456, its manifest naming the "hash" embedder); the train
+             CLI to step 2 (the incumbent, `data_manifest.json` stamped);
+             `python -m rt1_tpu_torch.serve --workdir` with `--embedder
+             ngram` must exit non-zero naming the manifest (ROADMAP C3)
+             and with `--allow_embedder_mismatch` answer one `/act`;
+             `python -m rt1_tpu_torch.serve.fleet` with 2 bf16 replicas,
+             `--collector --collector_interval_s 1`, `--capture_dir`,
+             `--promote_from` (gate: block2block, 1 episode a cell,
+             `--gate_max_steps 10`; canary weight 0.5, 3 clean ticks of 2 s,
+             no request floor) and `canary_slo_breach@4`; 4 long sessions
+             and a released 6-step session every 2 s through the router;
+             a live packed-feed trainer on its own corpus; the train CLI
+             resumed once, to steps 4 and 6, in a copy of the workdir while
+             the fleet boots, each step renamed into the watched workdir
+             in its turn (4 once the fleet is armed, 6 once the controller
+             has taken 4): candidate, gate passed, signed verdict,
+             canary, promoted by rolling reload with no restarted session
+             and no failed request; the captured episodes swept into
+             `staging`, a `pack_append@1` torn append that leaves the
+             one-shard corpus readable, the retry, the live trainer's
+             `rt1_flywheel_corpus_windows` growing, its SIGTERM exit 0;
+             step 6 canaried and rolled back (`slo_breach_injected`, the
+             incumbent 4 restored), restarting exactly the sessions bound
+             to the demoted canary (asked of its replica by
+             `/session/export` while the canary runs); `/alerts` shows CanarySLOBreach firing
+             then resolved, `/history?family=rt1_serve_requests_total`
+             points, `/dashboard` HTML, `/metrics` text with `rt1_deploy_*`,
+             `rt1_alert_*`, `rt1_obs_collector_*` through
+             `parse_exposition`; the gate's launches (matrix tensor core
+             only, parity tf32x3 = 8 x the float32 engine's steps) and each
+             replica's (8 tensor-core launches an engine step, no other);
+             `/reload` of the incumbent onto each replica timed; SIGTERM
+             exit 0 with one promotion, one rollback, no failed request and
+             a TSDB snapshot. Prints the gate's seconds (matrix, parity
+             engine builds, parity check), canary-to-promote and -rollback
+             s, reload s a replica, the collector's cycle ms, `/act` p50 /
+             p99 with the collector armed, capture bytes an episode and
+             episodes swept, the fleet process's peak card memory and the
+             phase's wall time. CPU rehearsal: `phase_ops('tiny', 'cpu')`.
+19. kernels — one line listing the three kernels with their launches on
              their path (serve for the tensor-core kernel, the flagship f32
              parity step for tf32x3, the `tiny` bf16 step for the simple
              one), on the eval path (`eval_launches`), in the learning
              proof's DAgger and eval stages (`proof_launches`), in each
              serving mode's bucket-8 drive (`serve_modes_launches`), in
-             each fleet replica (`fleet_launches`) and, for the tensor-core
-             kernel, in the train CLI's evals of phase train_ops
+             each fleet replica (`fleet_launches`), in the operations
+             loop's gate and replicas (`ops_launches`) and, for the
+             tensor-core kernel, in the train CLI's evals of phase train_ops
              (`train_ops_launches`), errors, times and bound.
 
 The last line is `{"ok": true, "device": {...}}`.
@@ -254,11 +299,13 @@ The last line is `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import base64
+import contextlib
 import copy
 import gc
 import json
 import math
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -269,6 +316,7 @@ import urllib.error
 import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()  # the script's own wall clock, imports included
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM 3.35 TB/s; bf16 tensor cores
 # 989 TFLOP/s; float32 outside the tensor cores 67 TFLOP/s. The kernel's
@@ -1458,9 +1506,10 @@ def _timed_step(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def phase_train(config_name: str = "language_table", device: str = "cuda"):
+def phase_train(config_name: str = "language_table", device: str = "cuda", workdir=None):
     """The flagship training path in bf16 on the card: timed steps, loss on
-    a fixed batch, a fused eval step, then the CLI with resume and serve."""
+    a fixed batch, a fused eval step, then the CLI with resume and serve
+    (in `workdir` when given, which then keeps the checkpoints)."""
     import numpy as np
     import torch
 
@@ -1557,9 +1606,26 @@ def phase_train(config_name: str = "language_table", device: str = "cuda"):
         })
     del policy, state, fns, batches, fixed
     torch.cuda.empty_cache()
-    record["cli"] = _train_cli(config_name, device)
+    record["cli"] = _train_cli(config_name, device, workdir)
     emit(record)
     return record
+
+
+def _run_in_process(main, args):
+    """A CLI's `main(argv)` in this process (its JSON stdout lines, its
+    seconds): the entry a user calls without a process start of its own,
+    which would time only the interpreter, torch's import and the CUDA
+    context."""
+    import io
+
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        code = main(list(args))
+    if code != 0:
+        raise AssertionError(f"{main.__module__} {args}: exit code {code}")
+    lines = [json.loads(x) for x in printed.getvalue().splitlines() if x.startswith("{")]
+    return lines, time.perf_counter() - t0
 
 
 def _run_cli(args, timeout_s, module="rt1_tpu_torch.train"):
@@ -1574,16 +1640,19 @@ def _run_cli(args, timeout_s, module="rt1_tpu_torch.train"):
     return lines, time.perf_counter() - t0
 
 
-def _train_cli(config_name, device):
+def _train_cli(config_name, device, workdir=None):
     """The trainer's CLI: 4 steps (checkpoints 2 and 4), a rerun to 6 that
-    restores step 4, then the server on the workdir answering one /act."""
+    restores step 4, then the server on the workdir answering one /act.
+    `workdir` (default: a temporary one) keeps the checkpoints."""
     import numpy as np
 
     from rt1_tpu_torch.configs import get_config
 
     config = get_config(config_name)
     h, w = config.data.height, config.data.width
-    with tempfile.TemporaryDirectory() as workdir:
+    with contextlib.ExitStack() as stack:
+        if workdir is None:
+            workdir = stack.enter_context(tempfile.TemporaryDirectory())
         base = ["--config", config_name, "--workdir", workdir, "--device", device,
                 "--set", "checkpoint_every_steps=2"]
         first, first_s = _run_cli(base + ["--set", "num_steps=4"], TRAIN_CLI_TIMEOUT_S)
@@ -1922,13 +1991,14 @@ def _train_ops_cli(config_name, device, eval_batches, layers):
 
 # The data phase: Language-Table episode files -> loaders -> pinned upload
 # -> the flagship train step.
-# Train episodes: four times CACHE_EPISODES, the episodes a windowed
-# loader (each worker) keeps decoded, so that at most a quarter of the
-# timed windows find theirs decoded.
-DATA_EPISODES = {"train": 256, "val": 4}
+# Train episodes: twice CACHE_EPISODES, the episodes a windowed loader
+# (each worker) keeps decoded, so that at most half of the timed windows
+# find theirs decoded (four times until the script's time limit forced
+# the cut).
+DATA_EPISODES = {"train": 128, "val": 4}
 DATA_STEPS = 20                  # steps an episode, at Language-Table's 180x320
-DATA_WARM, DATA_BATCHES = 10, 20  # batches of each loader alone: drained, then timed
-DATA_CHECK_STEPS = 10            # fed steps per turn whose batch is held to its host batch
+DATA_WARM, DATA_BATCHES = 5, 10   # batches of each loader alone: drained, then timed
+DATA_CHECK_STEPS = 6             # fed steps per turn whose batch is held to its host batch
 DATA_CLI_TIMEOUT_S = 600
 
 
@@ -2274,9 +2344,9 @@ def phase_data(config_name: str = "language_table", device: str = "cuda",
     build_s = time.perf_counter() - t0
     if episodes_per_split is None:
         episodes_per_split = DATA_EPISODES
-        if DATA_EPISODES["train"] < 4 * CACHE_EPISODES:
+        if DATA_EPISODES["train"] < 2 * CACHE_EPISODES:
             raise AssertionError("data: the train corpus must outgrow the decoded-episode "
-                                 f"cache ({CACHE_EPISODES}) four times")
+                                 f"cache ({CACHE_EPISODES}) twice")
     root = tempfile.mkdtemp(prefix="rt1_chip_smoke_data_")
     try:
         config.data.data_dir = root
@@ -2367,7 +2437,6 @@ EVAL_PROFILE_STEPS = 5
 EVAL_REPLAY_STEPS = 12           # the window (6) rolls after step 6
 EVAL_BASELINE_EPISODES = 3
 EVAL_BUDGET_MS = 100.0           # the 10 Hz control period
-EVAL_CLI_TIMEOUT_S = 600
 
 
 def _quantiles(samples):
@@ -2596,28 +2665,35 @@ def _eval_replay(config, workdir, device):
     return record
 
 
-def phase_eval(config_name: str = "language_table", device: str = "cuda"):
-    """The closed-loop eval of the flagship: the eval CLI on a checkpoint the
-    train CLI wrote here, one timed and profiled bf16 episode in process,
-    the f32 card-vs-CPU replay, and the oracle and random baselines and a
+def phase_eval(config_name: str = "language_table", device: str = "cuda", workdir=None):
+    """The closed-loop eval of the flagship: the eval CLI on a checkpoint of
+    the train CLI (phase `train`'s in `workdir` when given, else one trained
+    here to step 2), one timed and profiled bf16 episode in process, the
+    f32 card-vs-CPU replay, and the oracle and random baselines and a
     `kinematic_arm` episode."""
     from rt1_tpu_torch.configs import get_config
     from rt1_tpu_torch.eval.evaluate import OracleEvalPolicy, evaluate_policy
+    from rt1_tpu_torch.eval.main import main as eval_main
+
+    from rt1_tpu_torch.trainer.checkpoints import latest_step
 
     config = get_config(config_name)
-    with tempfile.TemporaryDirectory() as workdir:
-        t0 = time.perf_counter()
-        trained, _ = _run_cli(["--config", config_name, "--workdir", workdir, "--device", device,
-                               "--set", "num_steps=2", "--set", "checkpoint_every_steps=2"],
-                              TRAIN_CLI_TIMEOUT_S)
-        train_s = time.perf_counter() - t0
-        trainer_step = trained[-1].get("checkpoint_step")
-        if trainer_step != 2:
-            raise AssertionError(f"eval: the train CLI ended with {trained[-1]}")
-        lines, cli_s = _run_cli(["--config", config_name, "--workdir", workdir, "--device", device,
-                                 "--episodes", str(EVAL_CLI_EPISODES), "--max_steps",
-                                 str(EVAL_STEPS), "--rewards", "block2block"],
-                                EVAL_CLI_TIMEOUT_S, module="rt1_tpu_torch.eval")
+    with contextlib.ExitStack() as stack:
+        train_s = None
+        if workdir is None:
+            workdir = stack.enter_context(tempfile.TemporaryDirectory())
+            t0 = time.perf_counter()
+            trained, _ = _run_cli(["--config", config_name, "--workdir", workdir, "--device",
+                                   device, "--set", "num_steps=2",
+                                   "--set", "checkpoint_every_steps=2"], TRAIN_CLI_TIMEOUT_S)
+            train_s = time.perf_counter() - t0
+            if trained[-1].get("checkpoint_step") != 2:
+                raise AssertionError(f"eval: the train CLI ended with {trained[-1]}")
+        trainer_step = latest_step(os.path.join(workdir, "checkpoints"))
+        lines, cli_s = _run_in_process(eval_main, [
+            "--config", config_name, "--workdir", workdir, "--device", device,
+            "--episodes", str(EVAL_CLI_EPISODES), "--max_steps", str(EVAL_STEPS),
+            "--rewards", "block2block"])
         result = lines[-1]
         keys = {"successes", "episodes_per_reward", "mean_episode_length", "checkpoint_step"}
         if set(result) != keys or result["checkpoint_step"] != trainer_step or \
@@ -2629,9 +2705,9 @@ def phase_eval(config_name: str = "language_table", device: str = "cuda"):
         replay = _eval_replay(config, workdir, device)
     baselines = {}
     for baseline in ("oracle", "random"):
-        lines, seconds = _run_cli(["--config", config_name, "--device", device, "--baseline",
-                                   baseline, "--episodes", str(EVAL_BASELINE_EPISODES)],
-                                  EVAL_CLI_TIMEOUT_S, module="rt1_tpu_torch.eval")
+        lines, seconds = _run_in_process(eval_main, [
+            "--config", config_name, "--device", device, "--baseline", baseline,
+            "--episodes", str(EVAL_BASELINE_EPISODES)])
         out = lines[-1]
         if out.get("checkpoint_step") != -1 or out.get("episodes_per_reward") != \
                 EVAL_BASELINE_EPISODES or set(out.get("successes", {})) != {"block2block"}:
@@ -2655,8 +2731,8 @@ def phase_eval(config_name: str = "language_table", device: str = "cuda"):
 PROOF_SIZES = {
     "language_table": dict(
         cli=[], coefficients=(1.2, 1.4), episodes=8, workers=4, dart_episodes=2,
-        pretrain_frames=256, pretrain_steps=20, pretrain_batch=32, train_steps=20,
-        dagger_episodes=2, dagger_extra_steps=10, eval_episodes=2, timed_steps=20),
+        pretrain_frames=256, pretrain_steps=10, pretrain_batch=32, train_steps=10,
+        dagger_episodes=1, dagger_extra_steps=5, eval_episodes=1, timed_steps=10),
     "tiny": dict(
         cli=["--height", "32", "--width", "56", "--batch", "2", "--seq_len", "3",
              "--dtype", "float32", "--image_tokenizer", "efficientnet_small",
@@ -3223,6 +3299,482 @@ def phase_fleet(config_name: str = "language_table", device: str = "cuda", direc
     return record
 
 
+OPS_SEED_EPISODES, OPS_SEED_STEPS = 4, 12  # the packed seed corpus, at the config's geometry
+OPS_LONG_SESSIONS = 4            # sessions live across the promotion
+OPS_SHORT_STEPS = 6              # steps of each short session before its /release
+OPS_SHORT_EVERY_S = 2.0          # a short session starts this often
+OPS_LONG_EVERY_S = 0.25          # a long session acts at most this often
+OPS_CLEAN_TICKS = 3              # the canary's clean window (min_canary_requests 0: pinned)
+OPS_POLL_S = 2.0                 # controller tick; > the collector's 1 s, so a scrape
+#                                  sees the breached canary's burn before the rollback
+OPS_GATE_STEPS = 10              # --gate_max_steps: 1 task x 1 episode a column
+OPS_TIMEOUT_S = 600
+
+
+class _OpsTraffic(threading.Thread):
+    """The ops phase's clients: OPS_LONG_SESSIONS sessions that act for
+    the whole phase (no restart allowed across the promotion), and a short
+    session every OPS_SHORT_EVERY_S that acts OPS_SHORT_STEPS times and
+    is released (a captured episode). Records every reply's client ms,
+    failures and `restarted` flags with their time.
+
+    While a canary runs it also notes which sessions are bound to the
+    canary replica (`canary_bound`, by candidate step), asking the replica
+    for the session's snapshot (`/session/export`, a pure read): each long
+    session when the canary is first seen and 1 s later, each new short
+    session after its first act. A rollback may restart those sessions
+    only, and must restart the long ones."""
+
+    def __init__(self, url, frame_b64, embedding):
+        super().__init__(daemon=True)
+        self.url, self.frame_b64, self.embedding = url, frame_b64, embedding
+        self.stop_evt = threading.Event()
+        self.long = [f"ops-long-{i}" for i in range(OPS_LONG_SESSIONS)]
+        self.latencies_ms, self.failures, self.restarts = [], [], []
+        self.ok = self.short_released = 0
+        self.canary_bound = {}
+        self._canary = None          # (candidate step, canary replica url) while one runs
+        self._first_look = None      # (monotonic s, long session -> step on the canary)
+        self._last = {}
+
+    def act(self, sid):
+        t = time.perf_counter()
+        try:
+            code, out = _post(self.url + "/act", {"session_id": sid, "image_b64": self.frame_b64,
+                                                  "embedding": self.embedding,
+                                                  "task": "ops_probe"})
+        except (urllib.error.URLError, OSError) as exc:
+            code, out = 0, {"error": str(exc)}
+        if code != 200 or "action" not in out:
+            self.failures.append({"session": sid, "code": code, "body": str(out)[:300]})
+            return None
+        self.latencies_ms.append((time.perf_counter() - t) * 1e3)
+        self.ok += 1
+        if out.get("restarted"):
+            self.restarts.append({"session": sid, "unix_time": time.time()})
+        return out
+
+    def _note_if_on_canary(self, sid):
+        step, replica_url = self._canary
+        code, _ = _post(replica_url + "/session/export", {"session_id": sid})
+        if code == 200:
+            self.canary_bound.setdefault(step, set()).add(sid)
+
+    def _probe(self, fn, *args):
+        try:
+            fn(*args)
+        except (urllib.error.URLError, OSError) as exc:
+            self.failures.append({"session": None, "code": 0, "body": f"canary probe: {exc}"})
+
+    def _step_on_canary(self, sid):
+        """The session's step count in the canary replica's engine, or None."""
+        code, out = _post(self._canary[1] + "/session/export", {"session_id": sid})
+        return out["snapshot"]["step_index"] if code == 200 else None
+
+    def _note_if_on_canary(self, sid):
+        """A new session: bound to the canary iff its engine holds it."""
+        if self._step_on_canary(sid) is not None:
+            self.canary_bound.setdefault(self._canary[0], set()).add(sid)
+
+    def _watch_canary(self):
+        """A long session is bound to the canary iff the canary's copy of it
+        advances between two looks 1 s apart: a rolling reload's migration
+        can leave a stale copy behind on a replica the router no longer
+        sends the session to."""
+        status = json.loads(_get_text(self.url + "/deploy/status"))
+        if status["state"] != "canary":
+            if self._canary is not None and self._first_look is not None:
+                self.failures.append({"session": None, "code": 0,
+                                      "body": f"canary {self._canary[0]} ended within 1 s"})
+            self._canary = self._first_look = None
+            return
+        step = status["candidate_step"]
+        if self._canary is None or self._canary[0] != step:
+            replicas = json.loads(_get_text(self.url + "/fleet/status"))["replicas"]
+            rid = status["canary_replica_id"]
+            self._canary = (step, next(r["url"] for r in replicas if r["id"] == rid))
+            self._first_look = (time.monotonic(),
+                                {sid: self._step_on_canary(sid) for sid in self.long})
+        elif self._first_look is not None and time.monotonic() - self._first_look[0] >= 1.0:
+            for sid, first in self._first_look[1].items():
+                now = self._step_on_canary(sid)
+                if first is not None and now is not None and now > first:
+                    self.canary_bound.setdefault(step, set()).add(sid)
+            self._first_look = None
+
+    def run(self):
+        short, short_steps, last_short, last_watch = None, 0, 0.0, 0.0
+        while not self.stop_evt.is_set():
+            now = time.monotonic()
+            if now - last_watch >= OPS_LONG_EVERY_S:
+                last_watch = now
+                self._probe(self._watch_canary)
+            for sid in self.long:
+                if now - self._last.get(sid, 0.0) >= OPS_LONG_EVERY_S:
+                    self._last[sid] = now
+                    self.act(sid)
+            if short is None and now - last_short >= OPS_SHORT_EVERY_S:
+                short, short_steps, last_short = f"ops-short-{int(now * 1e3)}", 0, now
+            if short is not None:
+                self.act(short)
+                short_steps += 1
+                if short_steps == 1 and self._canary is not None:
+                    self._probe(self._note_if_on_canary, short)
+                if short_steps >= OPS_SHORT_STEPS:
+                    code, out = _post(self.url + "/release", {"session_id": short})
+                    if code != 200:
+                        self.failures.append({"session": short, "code": code, "body": str(out)})
+                    self.short_released += 1
+                    short = None
+            self.stop_evt.wait(0.02)
+
+
+def _ops_c3(config_name, device, workdir, env, frame_b64):
+    """ROADMAP C3 on the card: `python -m rt1_tpu_torch.serve --workdir`
+    with another embedder than the checkpoint's manifest must refuse,
+    naming the manifest; with --allow_embedder_mismatch it serves."""
+    base = [sys.executable, "-m", "rt1_tpu_torch.serve", "--config", config_name, "--workdir",
+            workdir, "--device", device, "--port", "0", "--embedder", "ngram",
+            "--max_sessions", "1"]
+    refused = subprocess.run(base, cwd=REPO, env=env, capture_output=True, text=True,
+                             timeout=OPS_TIMEOUT_S)
+    if refused.returncode == 0 or "data_manifest" not in refused.stderr or \
+            "--allow_embedder_mismatch" not in refused.stderr:
+        raise AssertionError(f"ops: serve with a mismatched embedder exited "
+                             f"{refused.returncode}: {refused.stderr[-2000:]}")
+    proc = subprocess.Popen(base + ["--allow_embedder_mismatch"], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        ready = _read_ready_line(proc, OPS_TIMEOUT_S)
+        code, out = _post(f"http://127.0.0.1:{ready['port']}/act",
+                          {"session_id": "c3", "instruction": "push the red block",
+                           "image_b64": frame_b64}, timeout=120)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=120)
+    if code != 200 or "action" not in out or proc.returncode != 0 or \
+            ready.get("checkpoint_step") != 2:
+        raise AssertionError(f"ops: --allow_embedder_mismatch did not serve: {code} {out}, "
+                             f"exit {proc.returncode}")
+    return {"refused_exit_code": refused.returncode,
+            "refusal": refused.stderr.strip().splitlines()[-1][:300],
+            "allowed_checkpoint_step": ready["checkpoint_step"]}
+
+
+def _copy_workdir(src, dst):
+    """Copy a train workdir, hard-linking its checkpoint files (hundreds
+    of MB at the flagship) and copying the rest."""
+    def link_or_copy(a, b):
+        if os.path.basename(a) == "state.pt":
+            os.link(a, b)
+        else:
+            shutil.copy2(a, b)
+
+    shutil.copytree(src, dst, copy_function=link_or_copy)
+
+
+def _publish_step(stage_wd, train_wd, step, root, trainer, timeout_s):
+    """Wait for `step`'s checkpoint in the staging workdir, then put it into
+    the watched one in one rename, as the trainer's own save lands it.
+    Returns the seconds waited."""
+    t0 = time.perf_counter()
+    staged = os.path.join(stage_wd, "checkpoints", str(step))
+    _wait_for(lambda: os.path.isfile(os.path.join(staged, "state.pt")) or "s" in trainer,
+              timeout_s, f"the trainer's step {step}")
+    if not os.path.isfile(os.path.join(staged, "state.pt")):
+        raise AssertionError(f"ops: the trainer ended without step {step}: {trainer}")
+    tmp = os.path.join(root, f"publish_{step}")
+    _copy_workdir(staged, tmp)
+    os.rename(tmp, os.path.join(train_wd, "checkpoints", str(step)))
+    return time.perf_counter() - t0
+
+
+def phase_ops(config_name: str = "language_table", device: str = "cuda"):
+    """The fleet's operations loop (metrics plane, flywheel capture, eval-
+    gated continuous deployment) at the config's width on `device`; see the
+    module docstring, phase 18. CPU rehearsal: `phase_ops('tiny', 'cpu')`."""
+    import numpy as np
+
+    from rt1_tpu_torch.configs import get_config
+    from rt1_tpu_torch.data import pack as pack_lib
+    from rt1_tpu_torch.data.episodes import write_manifest
+    from rt1_tpu_torch.deploy import loop as deploy_loop
+    from rt1_tpu_torch.flywheel import loop as fly
+    from rt1_tpu_torch.flywheel.capture import capture_files
+    from rt1_tpu_torch.obs.prometheus import parse_exposition
+
+    t_phase = time.perf_counter()
+    config = get_config(config_name)
+    h, w = config.data.height, config.data.width
+    layers = config.model.num_layers
+    on_card = device == "cuda"
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("RT1_FAULTS", None)
+    rng = np.random.default_rng(11)
+    frame_b64 = base64.b64encode(rng.integers(0, 256, (h, w, 3), np.uint8).tobytes()).decode()
+    embedding = [float(x) for x in rng.standard_normal(512).astype(np.float32)]
+    with tempfile.TemporaryDirectory() as root:
+        logs = os.path.join(root, "logs")
+        train_wd, fly_wd = os.path.join(root, "train"), os.path.join(root, "fly_train")
+        stage_wd = os.path.join(root, "train_stage")
+        capture = os.path.join(root, "capture")
+        data = {k: os.path.join(root, f"data_{k}") for k in ("deploy", "fly")}
+        for d in (logs, train_wd, fly_wd, capture):
+            os.makedirs(d)
+        packs = {}
+        for k, d in data.items():
+            paths = fly.build_corpus(d, OPS_SEED_EPISODES, OPS_SEED_STEPS, h, w)
+            write_manifest(d, embedder="hash", episodes=OPS_SEED_EPISODES)
+            packs[k] = pack_lib.default_pack_dir(d, "train")
+            pack_lib.pack_episodes(paths, packs[k], h, w, config.data.crop_factor)
+        # 1. The incumbent: step 2 of a trainer whose packed corpus stamps
+        # data_manifest.json (embedder "hash").
+        t0 = time.perf_counter()
+        deploy_loop.train_to(config_name, device, train_wd, data["deploy"], 2,
+                             os.path.join(logs, "train.log"))
+        train2_s = time.perf_counter() - t0
+        with open(os.path.join(train_wd, "data_manifest.json")) as f:
+            if json.load(f).get("embedder") != "hash":
+                raise AssertionError("ops: the trainer stamped no hash embedder")
+        # 3a. The candidates: one process resumes the trainer to 4 and on to
+        # 6 in a copy of the workdir while the fleet boots; each step is
+        # published into the watched workdir when its turn comes.
+        _copy_workdir(train_wd, stage_wd)
+        train46 = {}
+
+        def resume_to_6():
+            t = time.perf_counter()
+            try:
+                deploy_loop.train_to(config_name, device, stage_wd, data["deploy"], 6,
+                                     os.path.join(logs, "train.log"))
+            except Exception as exc:  # noqa: BLE001 - re-raised on the main thread
+                train46["error"] = exc
+            train46["s"] = time.perf_counter() - t
+
+        train_thread = threading.Thread(target=resume_to_6, daemon=True)
+        train_thread.start()
+        # 3. The fleet with all three flags armed; the breach is aimed at
+        # the second canary's first tick (the first takes OPS_CLEAN_TICKS).
+        argv = deploy_loop.fleet_argv(
+            config_name, device, train_wd, clean_window_ticks=OPS_CLEAN_TICKS,
+            gate_tasks="block2block", gate_episodes=1, gate_max_steps=OPS_GATE_STEPS,
+            faults=f"canary_slo_breach@{OPS_CLEAN_TICKS + 1}", min_canary_requests=0,
+            poll_interval_s=OPS_POLL_S,
+            extra=["--inference_dtype", "bf16", "--collector", "--collector_interval_s", "1",
+                   "--capture_dir", capture, "--obs_dir", root, "--log_dir", logs,
+                   "--warmup_timeout_s", str(OPS_TIMEOUT_S)])
+        errlog = open(os.path.join(logs, "fleet.err"), "w")
+        t_boot = time.perf_counter()
+        proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=errlog,
+                                text=True, start_new_session=True)
+        traffic = fly_proc = None
+        ok = False
+        try:
+            # 2. C3 while the fleet warms up.
+            c3 = _ops_c3(config_name, device, train_wd, env, frame_b64)
+            ready = _read_ready_line(proc, OPS_TIMEOUT_S)
+            warmup_s = time.perf_counter() - t_boot
+            url = f"http://127.0.0.1:{ready['port']}"
+            if ready.get("deploy", {}).get("incumbent_step") != 2 or not ready.get("collector"):
+                raise AssertionError(f"ops: fleet armed {ready}")
+            traffic = _OpsTraffic(url, frame_b64, embedding)
+            traffic.start()
+            # 5a. The live trainer, on its own corpus, before any append.
+            scrape_port = fly.free_port()
+            fly_log = open(os.path.join(logs, "fly_train.log"), "w")
+            fly_proc = fly.start_live_trainer(config_name, device, fly_wd, data["fly"],
+                                              scrape_port, fly_log)
+            published = {4: _publish_step(stage_wd, train_wd, 4, root, train46, OPS_TIMEOUT_S)}
+            # Step 6 goes in once the controller has taken 4: it can then
+            # only surface at the controller's next idle tick, after 4's
+            # promotion.
+            _wait_for(lambda: (deploy_loop.deploy_status(url) or {}).get("candidates_seen_total"),
+                      OPS_TIMEOUT_S, "the controller to take step 4")
+            published[6] = _publish_step(stage_wd, train_wd, 6, root, train46, OPS_TIMEOUT_S)
+            promoted, status = deploy_loop.wait_terminal(url, OPS_TIMEOUT_S)
+            events = [e["event"] for e in status["timeline"]]
+            if promoted["event"] != "promoted" or promoted["step"] != 4 or events != [
+                    "candidate", "gate_passed", "canary_started", "promoted"]:
+                raise AssertionError(f"ops: promotion timeline {status['timeline']}")
+            canary = status["timeline"][2]
+            if canary["weight"] != 0.5:
+                raise AssertionError(f"ops: canary {canary}")
+            if traffic.restarts or traffic.failures:
+                raise AssertionError(f"ops: across the promotion restarts {traffic.restarts} "
+                                     f"failures {traffic.failures[:3]}")
+            n_promote = len(status["timeline"])
+            # 5. The flywheel: released short sessions captured and swept
+            # into staging; the torn append; the live trainer's pickup.
+            staging = os.path.join(capture, "staging")
+            staged = _wait_for(lambda: capture_files(staging), OPS_TIMEOUT_S,
+                               "captured episodes in staging")
+            episode_bytes = [os.path.getsize(p) for p in staged]
+            with np.load(staged[0]) as ep:
+                keys = sorted(ep.files)
+                if ep["rgb"].shape[1:] != (h, w, 3) or "action_tokens" not in keys:
+                    raise AssertionError(f"ops: captured episode {keys} {ep['rgb'].shape}")
+            first, _ = fly.wait_flywheel_gauges(fly_proc, scrape_port, OPS_TIMEOUT_S)
+            torn = fly.torn_append_chaos(packs["fly"], staged)
+            if not (torn["injected"] and torn["manifest_intact"]):
+                raise AssertionError(f"ops: torn append {torn}")
+            manifest = pack_lib.append_shard(packs["fly"], staged)
+            if len(manifest["shards"]) != 2:
+                raise AssertionError(f"ops: append gave {len(manifest['shards'])} shards")
+            grown, _ = fly.wait_flywheel_gauges(
+                fly_proc, scrape_port, OPS_TIMEOUT_S,
+                grown_from=first["rt1_flywheel_corpus_windows"])
+            fly_rc = fly.stop_process(fly_proc)
+            fly_log.close()
+            if fly_rc != 0:
+                raise AssertionError(f"ops: the live trainer exited {fly_rc} on SIGTERM")
+            # 3b. The breaching candidate: step 6, rolled back.
+            train_thread.join(OPS_TIMEOUT_S)
+            if "error" in train46 or "s" not in train46:
+                raise AssertionError(f"ops: the resume to step 6: {train46}")
+            rolled, status = deploy_loop.wait_terminal(url, OPS_TIMEOUT_S, after=n_promote)
+            restore = rolled.get("restore") or {}
+            if rolled["event"] != "rolled_back" or rolled["step"] != 6 or \
+                    rolled["reason"] != "slo_breach_injected" or rolled["incumbent"] != 4 or \
+                    restore.get("status") != 200 or restore.get("checkpoint_step") != 4:
+                raise AssertionError(f"ops: rollback {rolled}")
+            timeline = status["timeline"]
+            # 4. The metrics plane.
+            def alert_cycle():
+                hist = json.loads(_get_text(url + "/alerts"))["history"]
+                seen = [e["event"] for e in hist if e["alert"] == "CanarySLOBreach"]
+                return seen if seen[:2] == ["firing", "resolved"] else None
+
+            alert_events = _wait_for(alert_cycle, 30, "CanarySLOBreach firing, then resolved")
+            series = json.loads(_get_text(url + "/history"))["series"]
+            family = "rt1_serve_requests_total"
+            if family not in {s["family"] for s in series}:
+                raise AssertionError(f"ops: {family} not in /history")
+            hist = json.loads(_get_text(url + "/history?family=" + family + "&window_s=600"))
+            points = sum(len(s["points"]) for s in hist["series"])
+            dashboard = _get_text(url + "/dashboard")
+            if points < 2 or "<html" not in dashboard.lower():
+                raise AssertionError(f"ops: /history {points} points, /dashboard "
+                                     f"{dashboard[:200]}")
+            parsed = parse_exposition(_get_text(url + "/metrics", accept="text/plain"))
+            names = {name for name, _, _ in parsed.samples}
+            for prefix in ("rt1_deploy_", "rt1_alert_", "rt1_obs_collector_"):
+                if not any(n.startswith(prefix) for n in names):
+                    raise AssertionError(f"ops: no {prefix}* family on /metrics")
+            collector_stats = json.loads(_get_text(url + "/alerts"))["counters"]
+            # 6. The kernels: the gate's in the fleet process (from the
+            # signed verdicts), the replicas' through the fan-out.
+            verdicts = [deploy_loop.verify_verdict(train_wd, p) for p in status["verdicts"]]
+            if [v["candidate_step"] for v in verdicts] != [4, 6] or \
+                    not all(v["signature_ok"] and v["passed"] for v in verdicts):
+                raise AssertionError(f"ops: verdicts {verdicts}")
+            gates = []
+            for p in status["verdicts"]:
+                with open(p) as f:
+                    gates.append(json.load(f))
+            for g in gates:
+                # The matrix's control steps: tensor core only. The parity
+                # check: tf32x3 = 8 x the float32 reference engine's steps,
+                # the bf16 engine's tensor core; never the simple kernel.
+                m, par = g["matrix_attention_launches"], g["parity"]["attention_launches"]
+                ref_tf32x3 = layers * g["parity"]["reference_steps"] if on_card else 0
+                if (m["tensor_core"] > 0) != on_card or m["tf32x3"] or m["simple"] or \
+                        par["tf32x3"] != ref_tf32x3 or (par["tensor_core"] > 0) != on_card or \
+                        par["simple"]:
+                    raise AssertionError(f"ops: gate launches matrix {m} parity {par}")
+            fanned = json.loads(_get_text(url + "/metrics"))["replicas"]
+            replica_launches = {rid: _fleet_launches(snap, on_card, f"replica {rid}")
+                                for rid, snap in fanned.items()}
+            # Rolling-reload seconds a replica: the incumbent onto each, in turn.
+            reload_s = {}
+            for r in json.loads(_get_text(url + "/fleet/status"))["replicas"]:
+                t0 = time.perf_counter()
+                code, out = _post(r["url"] + "/reload", {"step": 4}, timeout=OPS_TIMEOUT_S)
+                _wait_for(lambda: _http(r["url"] + "/readyz")[0] == 200, 120, "readyz")
+                if code != 200:
+                    raise AssertionError(f"ops: reload of replica {r['id']}: {code} {out}")
+                reload_s[r["id"]] = time.perf_counter() - t0
+            memory_mib = _memory_used_mib(on_card)
+            traffic.stop_evt.set()
+            traffic.join(120)
+            for sid in traffic.long:
+                _post(url + "/release", {"session_id": sid})
+            if traffic.failures:
+                raise AssertionError(f"ops: failed requests {traffic.failures[:5]}")
+            # The rollback restarts only sessions bound to the demoted
+            # canary, and each long session that was bound to it.
+            bound = traffic.canary_bound.get(6, set())
+            restarted = {r["session"] for r in traffic.restarts}
+            if restarted - bound or {sid for sid in traffic.long if sid in bound} - restarted:
+                raise AssertionError(f"ops: restarted {sorted(restarted)}, bound to the "
+                                     f"demoted canary {sorted(bound)}")
+            out = fly.stop_and_collect(proc)
+            final = deploy_loop.final_line(out)
+            if proc.returncode != 0 or final is None:
+                raise AssertionError(f"ops: fleet exit code {proc.returncode}")
+            if final["deploy"]["promotions_total"] != 1 or \
+                    final["deploy"]["rollbacks_total"] != 1 or \
+                    final["slo"]["by_class"].get("failed", {}).get("count", 0):
+                raise AssertionError(f"ops: final deploy {final['deploy']} slo {final['slo']}")
+            swept = final["chaos"]["captures_swept"]
+            if not os.path.exists(os.path.join(root, "tsdb_snapshot.jsonl")):
+                raise AssertionError("ops: no TSDB snapshot on shutdown")
+            ok = True
+        finally:
+            if traffic is not None:
+                traffic.stop_evt.set()
+            if fly_proc is not None and fly_proc.poll() is None:
+                fly_proc.kill()
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+            errlog.close()
+            if not ok:
+                for name in sorted(os.listdir(logs)):
+                    with open(os.path.join(logs, name)) as f:
+                        sys.stderr.write(f"--- {name}\n" + f.read()[-3000:])
+    t_of = {e["event"]: e["unix_time"] for e in timeline[:n_promote]}
+    t_rb = {e["event"]: e["unix_time"] for e in timeline[n_promote:]}
+    smi = nvidia_smi() if on_card else None
+    record = {
+        "phase": "ops", "config": config_name, "device": device, "nvidia_smi": smi,
+        "c3": c3, "warmup_s": warmup_s,
+        "train_s": {"to_2": train2_s, "to_4_and_6": train46["s"]},
+        "published_s": published,
+        "gate_s": [{"total": g["gate_seconds"], "matrix": g["matrix_seconds"],
+                    "parity_engine_builds": g["parity"]["build_seconds"],
+                    "parity_check": g["parity"]["check_seconds"]} for g in gates],
+        "gate_matrix": [g["matrix"] for g in gates],
+        "gate_parity": [{k: g["parity"].get(k) for k in ("agreement", "tokens_total", "passed",
+                                                           "max_abs_action_diff")}
+                        for g in gates],
+        "canary_to_promote_s": t_of["promoted"] - t_of["canary_started"],
+        "canary_to_rollback_s": t_rb["rolled_back"] - t_rb["canary_started"],
+        "reload_s_a_replica": reload_s,
+        "collector_cycle_ms": {n: t["last_scrape_duration_s"] * 1e3
+                               for n, t in final["obs"]["collector"]["targets"].items()},
+        "collector_cycles": final["obs"]["collector"]["cycles_total"],
+        "alerts": alert_events, "alert_counters": collector_stats,
+        "act_ms_collector_armed": _quantiles(traffic.latencies_ms),
+        "requests_ok": traffic.ok, "restarts_after_rollback": sorted(restarted),
+        "canary_bound": {step: sorted(b) for step, b in traffic.canary_bound.items()},
+        "capture_bytes_an_episode": sum(episode_bytes) / len(episode_bytes),
+        "episodes_staged_at_append": len(staged), "captures_swept": swept,
+        "flywheel": {"before": first, "after": grown, "torn_append": torn},
+        "fleet_peak_device_bytes": [g.get("peak_device_bytes") for g in gates],
+        "memory_used_mib": memory_mib,
+        "gate_launches": [{"matrix": g["matrix_attention_launches"],
+                           "parity": g["parity"]["attention_launches"],
+                           "parity_reference_steps": g["parity"]["reference_steps"]}
+                          for g in gates],
+        "replica_launches": replica_launches,
+        "wall_s": time.perf_counter() - t_phase,
+    }
+    if smi:
+        print(smi, flush=True)
+    emit(record)
+    return record
+
+
 def _kernel_entry(name, source, launches, path, head, cases):
     """One entry of the `kernels` line: the kernel's numbers at `head` (the
     case of its path's shape) and its largest error over `cases`."""
@@ -3243,7 +3795,7 @@ def _kernel_entry(name, source, launches, path, head, cases):
 
 
 PHASES = ("kernel", "ab", "sweep", "parity", "tiny", "step", "serve", "train_parity", "train",
-          "train_ops", "data", "eval", "serve_modes", "fleet", "proof")
+          "train_ops", "data", "eval", "serve_modes", "fleet", "ops", "proof")
 
 
 def main(argv=None) -> int:
@@ -3279,9 +3831,14 @@ def main(argv=None) -> int:
             ptxas = [line.strip() for line in f if "registers" in line or "spill" in line]
     emit({"phase": "build", "seconds": seconds, "library": os.path.relpath(library, REPO),
           "ptxas": ptxas})
-    done = {}
+    done, seconds = {}, {}
+    # Phase eval evaluates phase train's CLI checkpoint when both run: one
+    # train CLI run fewer.
+    shared = tempfile.mkdtemp(prefix="rt1_chip_smoke_train_") \
+        if {"train", "eval"} <= set(phases) else None
     for phase in PHASES:
         if phase in phases:
+            t_phase = time.perf_counter()
             run = globals()["phase_" + phase]
             # The fleet's latencies print beside the lone server's, the
             # ledger's MFU beside phase train's.
@@ -3289,8 +3846,14 @@ def main(argv=None) -> int:
                 done[phase] = run(direct=done.get("serve"))
             elif phase == "train_ops":
                 done[phase] = run(train=done.get("train"))
+            elif phase in ("train", "eval"):
+                done[phase] = run(workdir=shared)
             else:
                 done[phase] = run()
+            seconds[phase] = time.perf_counter() - t_phase
+    if shared is not None:
+        shutil.rmtree(shared, ignore_errors=True)
+    emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - T_START})
     if set(phases) != set(PHASES):
         print(smi, flush=True)
         emit({"partial": phases, "passed": True})
@@ -3339,6 +3902,16 @@ def main(argv=None) -> int:
                                   "f32_replay": eval_f32[variant]}
         entry["proof_launches"] = {"dagger": proof["dagger"]["launches"][variant],
                                    "eval": proof["eval"]["launches"][variant]}
+    # The operations loop: the gate's matrix and parity engines in the
+    # fleet process (one verdict a candidate), and each replica from its
+    # start to the end of the phase (new processes: 0 at start).
+    ops = done["ops"]
+    for entry, variant in zip(entries, ("tensor_core", "tf32x3", "simple")):
+        entry["ops_launches"] = {
+            "gate_matrix": [g["matrix"][variant] for g in ops["gate_launches"]],
+            "gate_parity": [g["parity"][variant] for g in ops["gate_launches"]],
+            **{f"replica_{rid}": counts[variant]
+               for rid, counts in ops["replica_launches"].items()}}
     # The train CLI's periodic evals in phase train_ops.
     train_ops = done["train_ops"]["cli"]
     entries[0]["train_ops_launches"] = {

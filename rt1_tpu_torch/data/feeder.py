@@ -374,6 +374,28 @@ class SampleAheadFeeder:
             out[f"assembly_ms_mean_w{k}"] = self._assembly_s[k] / n * 1e3 if n else 0.0
         return out
 
+    def flywheel_stats(self) -> Dict[str, float]:
+        """Corpus-growth gauges for the train loop's `flywheel/*` scalars
+        and the `rt1_flywheel_*` Prometheus families: shard count,
+        freshness epoch, corpus size, appended-episode count, and how
+        stale the feeder's view of the manifest is. Lock-free reads."""
+        c = self.cache
+        now = time.time()
+        return {
+            "shards": float(getattr(c, "num_shards", 1)),
+            "freshness_epoch": float(getattr(c, "freshness_epoch", 0)),
+            "corpus_windows": float(len(c.index)),
+            "corpus_steps": float(getattr(c, "total_steps", 0)),
+            "corpus_episodes": float(len(c.episodes)),
+            "corpus_tasks": float(len(set(c.tasks))),
+            "appended_episodes": float(getattr(c, "appended_episodes", 0)),
+            "refreshes": float(getattr(c, "refreshes", 0)),
+            "staleness_s": max(
+                0.0, now - getattr(c, "last_refresh_unix", now)
+            ),
+            "epochs_started": float(len(self._epochs)),
+        }
+
     # ------------------------------------------------------------ lifecycle
 
     def start(self) -> "SampleAheadFeeder":

@@ -33,6 +33,7 @@ import json
 import logging
 import os
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,6 +41,7 @@ import numpy as np
 from rt1_tpu_torch.data import episodes as ep_lib
 from rt1_tpu_torch.data import native
 from rt1_tpu_torch.data.pipeline import _crop_box, crop_resize_frames
+from rt1_tpu_torch.resilience import faults
 
 MANIFEST_NAME = "pack_manifest.json"
 FRAMES_NAME = "frames.bin"
@@ -227,8 +229,12 @@ def append_shard(pack_dir: str, paths: Sequence[str]) -> Dict[str, object]:
     """Append episodes to an existing pack as a new shard: episodes already
     packed (by source fingerprint) are skipped, the rest decoded once into
     `frames_<k>.bin` + sidecars, and the manifest rewritten by a rename
-    with the new shard and `freshness_epoch` + 1. Returns the (possibly
-    unchanged) manifest."""
+    with the new shard and `freshness_epoch` + 1. Shard files are fully on
+    disk BEFORE the manifest rename, so a crash mid-append (fault site
+    `pack_append@N`, N the freshness epoch the append would publish)
+    leaves at worst orphaned shard files next to a valid old manifest:
+    readers never see a torn corpus. Returns the (possibly unchanged)
+    manifest."""
     manifest = load_manifest(pack_dir)
     known = {_fingerprint_key(e.get("source", {})) for e in manifest["episodes"]}
     new_paths = [p for p in sorted(paths) if _fingerprint_key(_fingerprint(p)) not in known]
@@ -243,6 +249,13 @@ def append_shard(pack_dir: str, paths: Sequence[str]) -> Dict[str, object]:
         int(train["height"]), int(train["width"]), train["crop_factor"],
         frame_base=int(manifest["total_steps"]), shard_index=k)
     shard_entry["appended"] = True
+    # Fault site: the shard files are written, the manifest rename has not
+    # happened: the torn-append window readers must be immune to.
+    faults.maybe_fail(
+        "pack_append",
+        index=int(manifest["freshness_epoch"]) + 1,
+        what=f"shard {shard_entry['frames']} in {pack_dir}",
+    )
     manifest["episodes"] = list(manifest["episodes"]) + episodes
     manifest["shards"] = list(manifest["shards"]) + [shard_entry]
     manifest["total_steps"] = int(manifest["total_steps"]) + int(steps)
@@ -406,7 +419,8 @@ class PackedEpisodeCache:
         self.episodes = list(self.manifest["episodes"])
         self.total_steps = int(self.manifest["total_steps"])
         self.freshness_epoch = int(self.manifest.get("freshness_epoch", 0))
-        self.refreshes = 0
+        self.refreshes = 0  # successful mid-run shard pickups
+        self.last_refresh_unix = time.time()
         self._lock = threading.Lock()
         self._shards: List[_OpenShard] = [self._open_shard(s) for s in self.manifest["shards"]]
         self._shard_bases = np.array([s.base for s in self._shards], np.int64)
@@ -434,6 +448,15 @@ class PackedEpisodeCache:
         return len(self._shards)
 
     @property
+    def appended_episodes(self) -> int:
+        """Episodes living in flywheel-appended shards (shard > 0)."""
+        return sum(
+            int(s.get("episodes", 0))
+            for s in self.manifest["shards"]
+            if s.get("appended")
+        )
+
+    @property
     def tasks(self) -> List[str]:
         """Per-episode task ids (`UNKNOWN_TASK` for untagged episodes)."""
         return [e.get("task") or UNKNOWN_TASK for e in self.episodes]
@@ -447,6 +470,7 @@ class PackedEpisodeCache:
                 manifest = load_manifest(self.pack_dir)
             except (OSError, ValueError):
                 return False  # mid-rewrite or gone: keep the current view
+            self.last_refresh_unix = time.time()
             fresh_epoch = int(manifest.get("freshness_epoch", 0))
             if (fresh_epoch <= self.freshness_epoch
                     or len(manifest["episodes"]) < len(self.episodes)

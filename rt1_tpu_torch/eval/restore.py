@@ -161,14 +161,15 @@ def serving_engine(master: RT1Policy, compute_dtype: torch.dtype, device=None,
 def build_serve_engine(config: Config, weights: Optional[str] = None, device=None,
                        attention_impl: Optional[str] = None, workdir: Optional[str] = None,
                        inference_dtype: str = "f32", cached_inference: bool = False,
-                       **engine_kwargs):
+                       step: Optional[int] = None, **engine_kwargs):
     """A multi-session serving engine in one of the serving modes (see the
     module docstring). Returns (engine, checkpoint_step): -1 for random
-    init, None for an .npz, the trainer's step for a workdir."""
+    init, None for an .npz, the trainer's step for a workdir (`step` picks
+    one; default the newest)."""
     quant.check_inference_dtype(inference_dtype)
     if inference_dtype == "bf16":
         config = config_with_model_dtype(config, "bfloat16")
-    master, step = master_policy(config, weights, workdir, attention_impl)
+    master, step = master_policy(config, weights, workdir, attention_impl, step=step)
     engine = serving_engine(master, DTYPES[config.model.dtype], device, inference_dtype,
                             cached_inference, **engine_kwargs)
     return engine, step

@@ -14,6 +14,10 @@ modules of the same names; the port imports nothing of the JAX package):
 * :mod:`flops`      — FLOPs of a step by FlopCounterMode + MFU math.
 * :mod:`slo`        — the serving SLO ledger.
 * :mod:`quantiles`  — the shared percentile math.
+* :mod:`tsdb`       — the bounded ring time-series store of scrape history.
+* :mod:`alerts`     — declarative alert rules over TSDB windows.
+* :mod:`collector`  — the scrape loop feeding the TSDB and the alerts.
+* :mod:`dashboard`  — the `/dashboard` page and the terminal console.
 
 Stdlib only at import (torch inside the functions that need it), so the
 serve fleet's router and stub replica import neither torch nor JAX.

@@ -674,6 +674,54 @@ def render_scalar_gauges(
     return exp.render()
 
 
+def deploy_metric_names(
+    snapshot: Dict[str, Any], prefix: str = "rt1_deploy_"
+) -> List[str]:
+    """Family names `render_deploy_snapshot` emits for `snapshot` (the
+    naming-contract test iterates this against a full gauges payload)."""
+    return [
+        sanitize_name(prefix + key)
+        for key in sorted(snapshot)
+        if isinstance(snapshot[key], str)
+        or (
+            isinstance(snapshot[key], (int, float))
+            and not isinstance(snapshot[key], bool)
+        )
+    ]
+
+
+def render_deploy_snapshot(
+    snapshot: Dict[str, Any], prefix: str = "rt1_deploy_"
+) -> str:
+    """PromotionController.deploy_gauges() -> ``rt1_deploy_*`` text.
+
+    Same typing convention as the serve families: ``*_total`` keys are
+    counters, string values render info-style
+    (``rt1_deploy_state{state="canary"} 1``), everything else numeric is
+    a gauge. Concatenates cleanly after a fleet exposition body (distinct
+    prefix, no family collisions) — the supervisor serves both from one
+    scrape.
+    """
+    exp = TextExposition()
+    for key in sorted(snapshot):
+        value = snapshot[key]
+        name = prefix + key
+        if isinstance(value, str):
+            exp.family(
+                name,
+                "gauge",
+                [({key: value}, 1.0)],
+                f"Deploy controller {key} (info-style).",
+            )
+        elif isinstance(value, bool) or not isinstance(value, (int, float)):
+            continue
+        elif key.endswith("_total"):
+            exp.counter(name, value)
+        else:
+            exp.gauge(name, value)
+    return exp.render()
+
+
 def parse_value(text: str) -> float:
     """Inverse of `format_value`: the three special spellings, then float."""
     if text == "+Inf":

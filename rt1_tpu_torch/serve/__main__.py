@@ -29,7 +29,12 @@ Observability and chaos, as the fleet drives them: `GET /metrics` answers
 Prometheus text to `Accept: text/plain`; `GET /slow_requests` serves the
 exemplar ring of requests at least `--slow_threshold_ms` slow, dumped to
 `--exemplar_path` on drain; `RT1_FAULTS` arms the replica's fault sites
-(`session_restore@N`).
+(`session_restore@N`, `capture_write@N`).
+
+A `--workdir` whose `data_manifest.json` records another instruction
+embedder than `--embedder` is refused unless `--allow_embedder_mismatch`.
+`--capture_dir DIR` writes each served session as an episode `.npz` when
+it is released, reset, terminated or drained (`flywheel/capture.py`).
 
 Prints one JSON ready-line (`{"status": "serving", "port": ...}`) once every
 bucket is warmed and the socket is bound, then serves until SIGTERM/SIGINT,
@@ -71,6 +76,9 @@ def parse_args(argv):
                    help="'continuous' rolls requests into the next step (two in flight); "
                         "'cycle' waits for a full batch or a 10 ms deadline.")
     p.add_argument("--embedder", default="hash", help="Instruction embedder: hash | ngram.")
+    p.add_argument("--allow_embedder_mismatch", action="store_true",
+                   help="Serve a --workdir checkpoint even when its data_manifest.json records "
+                        "another instruction embedder than --embedder.")
     p.add_argument("--buckets", default="auto",
                    help="Batch-size buckets, comma-separated (e.g. '1,2,4,8'); 'auto' = powers "
                         "of two up to max_sessions. Every bucket is warmed at start.")
@@ -97,6 +105,15 @@ def parse_args(argv):
                         "(GET /slow_requests); 0 keeps the most recent window of all.")
     p.add_argument("--exemplar_path", default="",
                    help="Dump the slow-request exemplar ring here (JSONL) on drain.")
+    p.add_argument("--capture_dir", default="",
+                   help="Data flywheel: capture completed sessions as episode .npz files into "
+                        "this directory (flywheel/capture.py). Off when empty: serving records "
+                        "nothing unless an operator opts in.")
+    p.add_argument("--capture_max_episodes", type=int, default=512,
+                   help="Capture disk ring: keep at most this many episode files (oldest "
+                        "pruned).")
+    p.add_argument("--capture_max_steps", type=int, default=512,
+                   help="Capture per-session step bound; steps beyond it are dropped.")
     return p.parse_args(argv)
 
 
@@ -149,6 +166,19 @@ def main(argv=None) -> int:
     # plan before spawning).
     faults.install_from("")
     config = get_config(args.config)
+    if args.workdir and not args.allow_embedder_mismatch:
+        # Same guard as the eval CLI: a checkpoint served with another
+        # instruction embedder than it was trained on decodes foreign
+        # embeddings and answers 200 OK with wrong actions.
+        from rt1_tpu_torch.data.episodes import check_embedder_compatibility
+
+        check_embedder_compatibility(
+            args.workdir,
+            args.embedder,
+            context="checkpoint data_manifest; pass --allow_embedder_mismatch to override",
+            manifest_name="data_manifest.json",
+        )
+    embedder = get_embedder(args.embedder)
     engine, step = build_serve_engine(
         config,
         weights=args.weights,
@@ -159,7 +189,7 @@ def main(argv=None) -> int:
         cached_inference=args.cached_inference,
         max_sessions=args.max_sessions,
         buckets=parse_buckets(args.buckets, args.max_sessions),
-        embedder=get_embedder(args.embedder),
+        embedder=embedder,
     )
 
     def reload_fn(reload_step):
@@ -167,6 +197,19 @@ def main(argv=None) -> int:
         # the same seeded weights).
         return load_standby_variables(config, weights=args.weights, workdir=args.workdir,
                                       step=reload_step)
+
+    # Flywheel capture shares the engine's embedder, so text-only clients
+    # still yield episodes that carry their instruction's embedding.
+    capture = None
+    if args.capture_dir:
+        from rt1_tpu_torch.flywheel import EpisodeCaptureSink
+
+        capture = EpisodeCaptureSink(
+            args.capture_dir,
+            max_episodes=args.capture_max_episodes,
+            max_steps=args.capture_max_steps,
+            embed_fn=embedder,
+        )
 
     app = ServeApp(
         engine,
@@ -180,6 +223,7 @@ def main(argv=None) -> int:
         snapshot_every=args.session_snapshot_every,
         slow_threshold_ms=args.slow_threshold_ms,
         exemplar_path=args.exemplar_path or None,
+        capture=capture,
     )
     app.start(warmup=True)
     if args.watch_checkpoints_s > 0 and args.workdir:

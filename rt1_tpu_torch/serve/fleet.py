@@ -43,9 +43,26 @@ session-affine `Router` (`serve/router.py`), and runs a supervision loop:
   a per-dtype replica-second ledger; weighted by `DTYPE_COST_WEIGHTS` it
   becomes the fleet's cost units.
 
-What waits, and refuses its flag with the ROADMAP item that brings it: the
-deploy controller (`--promote_from`), the metrics plane (`--collector`) and
-flywheel capture (`--capture_dir`).
+* **Metrics plane** (`--collector`). An in-process collector scrapes the
+  fleet's own `/metrics` fan-out (and `/deploy/status` when promotion is
+  armed) into a bounded ring TSDB every `--collector_interval_s`,
+  evaluates the default alert ruleset (multi-window SLO burn, replica
+  loss, compile drift, flap/storm detectors) after each cycle, and lights
+  up `/alerts`, `/history` and `/dashboard` on the router port. Firing
+  alerts land in the same evidence stream as the slow-request exemplars;
+  on shutdown the TSDB snapshots into `<obs_dir>/tsdb_snapshot.jsonl`.
+  Unarmed, every surface is byte-identical to the fleet without it.
+* **Flywheel capture** (`--capture_dir`). Each real replica captures its
+  served sessions as episodes under `<capture_dir>/replica_<id>`; the
+  scrape loop sweeps completed files into `<capture_dir>/staging`, the
+  one directory `data/pack.py::append_shard` packs from.
+* **Continuous deployment** (`--promote_from`, `deploy/`). A controller
+  watches the train workdir for new checkpoints, gates each offline (the
+  eval matrix against the incumbent, then the serving parity check, on
+  `--device`), canaries a passing one onto one replica at
+  `--canary_weight`, promotes it fleet-wide by rolling reload after a
+  clean burn window, and rolls it back on a breach. Stub fleets auto-pass
+  the gate.
 
 The supervisor owns processes, the router owns routing state; they meet at
 the shared `Replica` objects. The supervisor and the router import neither
@@ -55,6 +72,7 @@ torch nor JAX; only a non-stub fleet imports torch, once, to check that its
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import signal
@@ -126,6 +144,7 @@ class FleetSupervisor:
         base_dtype_fn: Optional[Callable[[int], str]] = None,
         reclaim_grace_s: float = 0.5,
         reclaim_timeout_s: float = 30.0,
+        capture_root: Optional[str] = None,
     ):
         self.router = router
         self._spawn_argv_fn = spawn_argv_fn
@@ -160,6 +179,21 @@ class FleetSupervisor:
         # (fleet main's final status line, while the scraper still runs).
         self._exemplar_lock = threading.Lock()
         self.last_exemplars: Dict[int, Dict[str, Any]] = {}
+        # Firing/resolving alerts ride the same evidence stream: the
+        # AlertManager's callbacks land transitions here (collector
+        # thread), so "what was alerting when the fleet died" survives
+        # into the final status line even if /alerts was never scraped.
+        # deque(maxlen) keeps appends atomic and the log bounded.
+        self.alert_events: "collections.deque" = collections.deque(
+            maxlen=256
+        )
+        # Data flywheel: each replica captures episodes into
+        # <capture_root>/replica_<id>; the scrape loop sweeps completed
+        # files into <capture_root>/staging, the ONE dir the packer appends
+        # from, fed by N replicas that keep writing across kills and
+        # respawns.
+        self.capture_root = capture_root
+        self.captures_swept = 0
         # Elastic fleet: the autoscaler decides, this
         # supervisor spawns/drains/reaps. `None` keeps the fixed-N
         # behavior byte-identical. Surge replicas (ids >= the initial
@@ -437,6 +471,7 @@ class FleetSupervisor:
         while not self._stop.is_set():
             try:
                 self._scrape_exemplars()
+                self.sweep_captures()
             except Exception as exc:  # noqa: BLE001 - keep scraping
                 print(
                     json.dumps(
@@ -469,6 +504,39 @@ class FleetSupervisor:
                     body["scraped_at"] = time.time()
                     body["generation"] = replica.restarts
                     self.last_exemplars[replica.id] = body
+
+    def note_alert(self, event: Dict[str, Any]) -> None:
+        """AlertManager on_fire/on_resolve hook — alert transitions into
+        the fleet's crash-surviving evidence stream."""
+        self.alert_events.append(dict(event))
+
+    def replica_capture_dir(self, replica_id: int) -> Optional[str]:
+        if self.capture_root is None:
+            return None
+        return os.path.join(self.capture_root, f"replica_{replica_id}")
+
+    def capture_staging_dir(self) -> Optional[str]:
+        if self.capture_root is None:
+            return None
+        return os.path.join(self.capture_root, "staging")
+
+    def sweep_captures(self) -> int:
+        """Move completed per-replica capture files into the staging dir
+        (same-filesystem renames; a SIGKILLed replica's already-renamed
+        episodes survive it, exactly like the exemplar scrape)."""
+        if self.capture_root is None:
+            return 0
+        from rt1_tpu_torch.flywheel.capture import sweep_captures
+
+        moved = sweep_captures(
+            [
+                self.replica_capture_dir(r.id)
+                for r in self.router.replicas()
+            ],
+            self.capture_staging_dir(),
+        )
+        self.captures_swept += moved
+        return moved
 
     def _respawn(self, replica: Replica) -> None:
         # Close the dead generation's cost window FIRST: a replica past
@@ -867,6 +935,7 @@ class FleetSupervisor:
             "replica_restarts": self.restarts_total,
             "scale_ups": self.scale_ups,
             "scale_downs": self.scale_downs,
+            "captures_swept": self.captures_swept,
             "faults_fired": (
                 faults.active().fired_counts() if faults.active() else {}
             ),
@@ -969,6 +1038,7 @@ def replica_argv_builder(args) -> Callable[..., List[str]]:
         return build
 
     device = getattr(args, "device", "cuda")
+    capture_root = getattr(args, "capture_dir", "")
 
     def build(replica_id: int, dtype: Optional[str] = None) -> List[str]:
         argv = [
@@ -990,21 +1060,21 @@ def replica_argv_builder(args) -> Callable[..., List[str]]:
                 "--session_snapshot_dir", snapshot_dir,
                 "--snapshot_max_age_s", str(snapshot_max_age),
             ])
+        if capture_root:
+            # Per-replica capture dir; the supervisor sweeps completed
+            # files into <capture_dir>/staging for the packer.
+            argv.extend([
+                "--capture_dir",
+                os.path.join(capture_root, f"replica_{replica_id}"),
+            ])
+        if getattr(args, "allow_embedder_mismatch", False):
+            argv.append("--allow_embedder_mismatch")
         if args.random_init:
             argv.append("--random_init")
         else:
             argv.extend(["--workdir", args.workdir])
         return argv
     return build
-
-
-#: Flags of the JAX fleet whose subsystem the port has not brought yet:
-#: each refuses with the ROADMAP item that will bring it.
-NOT_PORTED_FLAGS = {
-    "promote_from": "the deploy controller (--promote_from) is not ported yet: ROADMAP A13",
-    "collector": "the metrics plane (--collector) is not ported yet: ROADMAP A14",
-    "capture_dir": "flywheel capture (--capture_dir) is not ported yet: ROADMAP A15",
-}
 
 
 def main(argv=None) -> int:
@@ -1130,12 +1200,80 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--slo_p99_ms", type=float, default=2500.0,
         help="Router SLO: answered-request p99 objective (ms).")
-    parser.add_argument("--promote_from", default="",
-                        help="Not ported yet: " + NOT_PORTED_FLAGS["promote_from"])
-    parser.add_argument("--collector", action="store_true",
-                        help="Not ported yet: " + NOT_PORTED_FLAGS["collector"])
-    parser.add_argument("--capture_dir", default="",
-                        help="Not ported yet: " + NOT_PORTED_FLAGS["capture_dir"])
+    parser.add_argument(
+        "--capture_dir", default="",
+        help="Data flywheel: per-replica episode capture under "
+             "<dir>/replica_<id>, swept into <dir>/staging by the "
+             "supervisor (real replicas only; the model-free stub serves "
+             "no observations worth capturing).")
+    parser.add_argument(
+        "--allow_embedder_mismatch", action="store_true",
+        help="Forwarded to every replica: serve a --workdir checkpoint "
+             "whose data_manifest.json records another embedder.")
+    # Metrics plane: default off keeps surfaces byte-identical.
+    parser.add_argument(
+        "--collector", action="store_true",
+        help="Arm the metrics plane: an in-process collector scrapes "
+             "this fleet's own /metrics (and /deploy/status when "
+             "promotion is armed) into a ring TSDB, evaluates the "
+             "default alert ruleset each cycle, and serves /alerts, "
+             "/history and /dashboard on the router port.")
+    parser.add_argument(
+        "--collector_interval_s", type=float, default=2.0,
+        help="Scrape cadence — which is also the alert-evaluation "
+             "cadence, like a Prometheus rule group.")
+    parser.add_argument(
+        "--obs_dir", default="",
+        help="Where the armed collector writes tsdb_snapshot.jsonl on "
+             "shutdown for the post-mortem (default: "
+             "--workdir when set; neither set = no snapshot).")
+    parser.add_argument(
+        "--promote_from", default="",
+        help="Continuous deployment (deploy/): watch this train "
+             "workdir for new checkpoints, gate them offline, canary "
+             "onto one replica at --canary_weight, promote fleet-wide "
+             "after a clean burn window, auto-rollback on breach. Stub "
+             "fleets auto-pass the offline gate (the supervisor process "
+             "stays torch-free); real fleets run the eval-matrix + parity "
+             "gate against --config on --device.")
+    parser.add_argument(
+        "--canary_weight", type=float, default=0.25,
+        help="Fraction of FRESH sessions routed to the canary replica "
+             "(existing sessions keep their affinity).")
+    parser.add_argument(
+        "--burn_threshold", type=float, default=2.0,
+        help="Canary rolling error-budget burn rate that counts as a "
+             "breach (must also strictly exceed the incumbent fleet's).")
+    parser.add_argument(
+        "--breach_ticks", type=int, default=2,
+        help="Consecutive breach ticks before auto-rollback.")
+    parser.add_argument(
+        "--clean_window_ticks", type=int, default=5,
+        help="Consecutive clean ticks before fleet-wide promotion.")
+    parser.add_argument(
+        "--min_canary_requests", type=int, default=8,
+        help="Evidence floor: hold the canary verdict until it has "
+             "served this many requests (breaches still fire).")
+    parser.add_argument(
+        "--deploy_poll_interval_s", type=float, default=1.0,
+        help="Promotion-controller tick interval.")
+    parser.add_argument(
+        "--gate_episodes", type=int, default=2,
+        help="Eval-matrix episodes per task cell in the promotion gate "
+             "(real fleets only).")
+    parser.add_argument(
+        "--gate_tasks", default="",
+        help="Comma list of reward-family tasks for the promotion gate "
+             "(empty = every canonical family).")
+    parser.add_argument(
+        "--gate_max_steps", type=int, default=80,
+        help="Max env steps per gate eval episode.")
+    parser.add_argument(
+        "--deploy_incumbent_step", type=int, default=-1,
+        help="Checkpoint step the fleet is currently serving (the gate "
+             "baseline and rollback target). -1 = auto: the newest step "
+             "in --promote_from at arm time; only checkpoints appearing "
+             "AFTER that are candidates.")
     parser.add_argument("--faults", default="",
                         help="Chaos plan, e.g. 'replica_kill@1,"
                              "serve_reload@2' (RT1_FAULTS appended).")
@@ -1149,9 +1287,6 @@ def main(argv=None) -> int:
     parser.add_argument("--verbose", action="store_true")
     args = parser.parse_args(argv)
 
-    for flag, message in NOT_PORTED_FLAGS.items():
-        if getattr(args, flag):
-            parser.error(message)
     if not args.stub and not args.config:
         parser.error("--config is required unless --stub")
     try:
@@ -1237,6 +1372,7 @@ def main(argv=None) -> int:
         surge_dtype=args.surge_dtype or None,
         base_dtype_fn=lambda rid: replica_dtype_for(args, rid),
         reclaim_grace_s=args.reclaim_grace_s,
+        capture_root=(args.capture_dir or None) if not args.stub else None,
     )
     # Elastic-drain seam: POST /scale_down on the router drives the
     # supervisor's migrating drain (sessions carried to survivors before
@@ -1244,9 +1380,156 @@ def main(argv=None) -> int:
     router.scale_down_fn = supervisor.manual_scale_down
     supervisor.start(wait_ready=True)
 
+    controller = None
+    if args.promote_from:
+        from rt1_tpu_torch.deploy.controller import PromotionController
+        from rt1_tpu_torch.deploy.decision import CanaryPolicy
+        from rt1_tpu_torch.deploy.watcher import latest_checkpoint_step
+
+        if args.deploy_incumbent_step >= 0:
+            incumbent = args.deploy_incumbent_step
+        else:
+            # Auto: whatever is newest at arm time is what the fleet is
+            # (presumed) serving — only LATER checkpoints are candidates.
+            incumbent = latest_checkpoint_step(
+                os.path.join(args.promote_from, "checkpoints")
+            )
+        if args.stub:
+            # The supervisor process stays torch-free with stub replicas:
+            # the offline gate auto-passes (canary burn + rollback paths
+            # are what a stub deploy cycle exercises).
+            def gate_fn(candidate_step, incumbent_step):
+                return {
+                    "gate": "auto_pass_stub",
+                    "passed": True,
+                    "candidate_step": candidate_step,
+                    "incumbent_step": incumbent_step,
+                }
+        else:
+            from rt1_tpu_torch.deploy.gate import build_gate_fn, load_config
+
+            gate_tasks = [t for t in args.gate_tasks.split(",") if t]
+            gate_fn = build_gate_fn(
+                load_config(args.config),
+                args.promote_from,
+                tasks=gate_tasks or None,
+                episodes_per_cell=args.gate_episodes,
+                max_episode_steps=args.gate_max_steps,
+                inference_dtype=args.inference_dtype,
+                embedder=args.embedder,
+                device=args.device,
+            )
+        try:
+            canary_policy = CanaryPolicy(
+                burn_threshold=args.burn_threshold,
+                breach_ticks=args.breach_ticks,
+                clean_window_ticks=args.clean_window_ticks,
+                min_canary_requests=args.min_canary_requests,
+                canary_weight=args.canary_weight,
+            )
+        except ValueError as exc:
+            parser.error(str(exc))
+        controller = PromotionController(
+            router,
+            args.promote_from,
+            gate_fn=gate_fn,
+            policy=canary_policy,
+            incumbent_step=incumbent,
+            poll_interval_s=args.deploy_poll_interval_s,
+        )
+        router.deploy_gauges_fn = controller.deploy_gauges
+        router.deploy_status_fn = controller.summary
+        controller.start()
+
     httpd = make_router_server(
         router, host=args.host, port=args.port, quiet=not args.verbose
     )
+
+    tsdb = None
+    alert_manager = None
+    collector = None
+    if args.collector:
+        from rt1_tpu_torch.obs.alerts import AlertManager, default_ruleset
+        from rt1_tpu_torch.obs.collector import Collector, Target
+        from rt1_tpu_torch.obs.dashboard import render_dashboard_html
+        from rt1_tpu_torch.obs.tsdb import SNAPSHOT_BASENAME, TSDB
+
+        tsdb = TSDB()
+        alert_manager = AlertManager(
+            tsdb,
+            default_ruleset(),
+            on_fire=supervisor.note_alert,
+            on_resolve=supervisor.note_alert,
+        )
+        # The collector scrapes the fleet's OWN router port — the same
+        # exposition text any external Prometheus would see, so the
+        # history it stores can never disagree with the live scrape.
+        router_url = (
+            f"http://{httpd.server_address[0]}:{httpd.server_address[1]}"
+        )
+        obs_targets = [Target("fleet", router_url + "/metrics")]
+        if controller is not None:
+            obs_targets.append(
+                Target(
+                    "deploy",
+                    router_url + "/deploy/status",
+                    kind="json",
+                    prefix="rt1_deploy_status",
+                )
+            )
+        collector = Collector(
+            tsdb,
+            obs_targets,
+            interval_s=args.collector_interval_s,
+            alert_manager=alert_manager,
+        )
+
+        def _history(params: Dict[str, str]) -> Dict[str, Any]:
+            # /history: no family = the series listing; family= one
+            # family's windowed points across every label instance.
+            # KeyError/ValueError propagate into the router's 400.
+            window_s = float(params.get("window_s", 900.0))
+            family = params.get("family", "")
+            if not family:
+                return {
+                    "window_s": window_s,
+                    "series": tsdb.series_index(),
+                    "stats": tsdb.stats(),
+                }
+            series = [
+                {
+                    "family": family,
+                    "labels": labels,
+                    "points": tsdb.points(
+                        family, labels=labels or None, window_s=window_s
+                    ),
+                }
+                for labels in tsdb.instances(family)
+            ]
+            if not series:
+                raise KeyError(family)
+            return {
+                "window_s": window_s, "family": family, "series": series,
+            }
+
+        router.alerts_status_fn = alert_manager.status
+        router.history_fn = _history
+        router.obs_metrics_text_fn = lambda: (
+            alert_manager.prometheus_text() + collector.prometheus_text()
+        )
+        router.dashboard_html_fn = lambda: render_dashboard_html(
+            tsdb,
+            alert_manager=alert_manager,
+            collector=collector,
+            fleet_status=router.fleet_status(probe_metrics=False),
+            deploy_status=(
+                controller.deploy_gauges()
+                if controller is not None
+                else None
+            ),
+        )
+        collector.start()
+
 
     stop_once = threading.Event()
 
@@ -1279,6 +1562,16 @@ def main(argv=None) -> int:
                     else None
                 ),
                 "admission": admission is not None,
+                "collector": bool(args.collector),
+                "deploy": (
+                    {
+                        "promote_from": args.promote_from,
+                        "incumbent_step": controller.incumbent_step,
+                        "canary_weight": args.canary_weight,
+                    }
+                    if controller is not None
+                    else None
+                ),
                 "faults": args.faults or os.environ.get(faults.ENV_VAR, ""),
             }
         ),
@@ -1288,6 +1581,20 @@ def main(argv=None) -> int:
         httpd.serve_forever()
     finally:
         httpd.server_close()
+        if controller is not None:
+            # Stop deciding BEFORE the drain flips: a promote/rollback
+            # racing the shutdown would reload replicas mid-teardown.
+            controller.stop()
+        if collector is not None:
+            # Stop scraping before teardown: a cycle racing the drain
+            # would count shutdown 503s as target failures, and the
+            # snapshot should capture the incident, not the funeral.
+            collector.stop()
+            obs_dir = args.obs_dir or args.workdir
+            if obs_dir:
+                tsdb.write_snapshot(
+                    os.path.join(obs_dir, SNAPSHOT_BASENAME)
+                )
         router.draining = True
         final = {
             "status": "stopped",
@@ -1301,8 +1608,30 @@ def main(argv=None) -> int:
             # The fleet's own judgement + crash-surviving exemplars.
             "slo": router.slo.summary(),
             "slow_requests": supervisor.slow_request_evidence(),
+            # Promotion evidence (None without --promote_from): the full
+            # gate/canary/promote/rollback timeline.
+            "deploy": (
+                controller.summary() if controller is not None else None
+            ),
+            # Metrics-plane evidence (None unless --collector): final
+            # alert state + full transition history, per-target scrape
+            # bookkeeping, and the TSDB's own bounds counters.
+            "obs": (
+                {
+                    "alerts": alert_manager.status(),
+                    "alert_events": list(supervisor.alert_events),
+                    "collector": collector.stats(),
+                    "tsdb": tsdb.stats(),
+                }
+                if collector is not None
+                else None
+            ),
         }
         supervisor.stop()
+        # Replicas drained on SIGTERM (writing their in-flight capture
+        # buffers); one last sweep moves those into staging.
+        supervisor.sweep_captures()
+        final["chaos"]["captures_swept"] = supervisor.captures_swept
         print(json.dumps(final), flush=True)
     return 0
 

@@ -376,12 +376,31 @@ class Router:
         self._canary_id: Optional[int] = None
         self._canary_weight = 0.0
         self._fresh_placements = 0  # Bresenham counter, reset per canary
+        # Deployment seam: fleet main points these at the
+        # PromotionController when --promote_from is armed. The router
+        # itself stays deploy-agnostic: when unset, /metrics and the
+        # status surface are byte-identical to a fleet without a
+        # controller.
+        self.deploy_gauges_fn: Optional[Callable[[], Dict[str, Any]]] = None
+        self.deploy_status_fn: Optional[Callable[[], Dict[str, Any]]] = None
+        # Observability seam: fleet main points these at the
+        # collector/TSDB/AlertManager when --collector is armed. Same
+        # contract as the deploy seam: all None keeps every surface
+        # (/alerts, /history, /dashboard, the appended rt1_alert_* /
+        # rt1_obs_collector_* scrape families) absent and the unarmed
+        # router byte-identical.
+        self.alerts_status_fn: Optional[Callable[[], Dict[str, Any]]] = None
         # Elastic-drain seam: fleet main points this at the supervisor's
         # manual scale-down so `POST /scale_down` drives the migrating
         # drain end to end. Unset = 404 (routers without a supervisor).
         self.scale_down_fn: Optional[
             Callable[[Dict[str, Any]], Dict[str, Any]]
         ] = None
+        self.history_fn: Optional[
+            Callable[[Dict[str, str]], Dict[str, Any]]
+        ] = None
+        self.dashboard_html_fn: Optional[Callable[[], str]] = None
+        self.obs_metrics_text_fn: Optional[Callable[[], str]] = None
 
     # ------------------------------------------------------------ registry
 
@@ -1274,16 +1293,29 @@ class Router:
                 for rid, entry in self.replica_slo_snapshot().items()
             },
         }
+        if self.deploy_gauges_fn is not None:
+            out["deploy"] = self.deploy_gauges_fn()
         return out
 
     def fleet_metrics_prometheus(self) -> str:
         """One exposition body for the whole fleet: router families at
-        their usual names + ``rt1_serve_replica_*{replica_id="N"}``."""
-        return obs_prometheus.render_fleet_snapshot(
+        their usual names + ``rt1_serve_replica_*{replica_id="N"}`` —
+        plus the ``rt1_deploy_*`` families when a promotion controller
+        is attached (one scrape target tells the whole rollout story)."""
+        text = obs_prometheus.render_fleet_snapshot(
             self.metrics_snapshot(),
             self.probe_replica_metrics(),
             replica_slo=self.replica_slo_snapshot(),
         )
+        if self.deploy_gauges_fn is not None:
+            text += obs_prometheus.render_deploy_snapshot(
+                self.deploy_gauges_fn()
+            )
+        if self.obs_metrics_text_fn is not None:
+            # rt1_alert_* + rt1_obs_collector_* families when the metrics
+            # plane is armed: the ops scrape carries its own health.
+            text += self.obs_metrics_text_fn()
+        return text
 
     def fleet_slow_requests(self) -> Dict[str, Any]:
         """Fan out `/slow_requests`: every live replica's exemplar ring,
@@ -1377,6 +1409,21 @@ class _RouterHandler(BaseHTTPRequestHandler):
         self.wfile.write(body)
 
     def do_GET(self):  # noqa: N802 - stdlib casing
+        if self.path.startswith("/history"):
+            # /history[?family=...&window_s=...]: TSDB read-out (armed
+            # fleets only; the query string selects one series window).
+            if self.router.history_fn is None:
+                self._reply(404, {"error": "no metrics collector armed"})
+                return
+            from urllib.parse import parse_qs, urlparse
+
+            query = parse_qs(urlparse(self.path).query)
+            params = {k: v[-1] for k, v in query.items()}
+            try:
+                self._reply(200, self.router.history_fn(params))
+            except (KeyError, ValueError) as exc:
+                self._reply(400, {"error": str(exc)})
+            return
         if self.path == "/healthz":
             self._reply(200, self.router.healthz())
         elif self.path == "/readyz":
@@ -1388,6 +1435,25 @@ class _RouterHandler(BaseHTTPRequestHandler):
             self._reply(200, self.router.fleet_slow_requests())
         elif self.path == "/slo":
             self._reply(200, self.router.slo.summary())
+        elif self.path == "/deploy/status":
+            if self.router.deploy_status_fn is None:
+                self._reply(404, {"error": "no promotion controller armed"})
+            else:
+                self._reply(200, self.router.deploy_status_fn())
+        elif self.path == "/alerts":
+            if self.router.alerts_status_fn is None:
+                self._reply(404, {"error": "no metrics collector armed"})
+            else:
+                self._reply(200, self.router.alerts_status_fn())
+        elif self.path == "/dashboard":
+            if self.router.dashboard_html_fn is None:
+                self._reply(404, {"error": "no metrics collector armed"})
+            else:
+                self._reply_text(
+                    200,
+                    self.router.dashboard_html_fn(),
+                    "text/html; charset=utf-8",
+                )
         elif self.path == "/metrics":
             # ONE scrape target for the whole fleet: the router's own
             # families plus every replica's curated fields, fanned out on

@@ -159,8 +159,13 @@ class ServeApp:
         slow_threshold_ms: float = 0.0,
         slow_capacity: int = 128,
         exemplar_path: Optional[str] = None,
+        capture=None,
     ):
         self.engine = engine
+        # Opt-in flywheel episode capture (`flywheel/capture.py::
+        # EpisodeCaptureSink`, wired from `--capture_dir`). None, the
+        # default, leaves every serve path as it was: one `is None` check.
+        self.capture = capture
         self.image_shape = tuple(image_shape)
         self.embed_dim = EMBEDDING_DIM
         self.metrics = ServeMetrics()
@@ -302,6 +307,22 @@ class ServeApp:
         if "error" in result:
             raise result["error"]
         self.metrics.observe_task_request(task, new_session=result.get("session_started", False))
+        if self.capture is not None:
+            # After the engine answered: capture sees only served steps,
+            # and a sink failure never fails the request (record_step
+            # counts its own errors). The frame is the request's own
+            # decoded buffer, which nothing else reuses.
+            self.capture.record_step(
+                session_id,
+                image=obs["image"],
+                action=result["action"],
+                action_tokens=result.get("action_tokens"),
+                embedding=obs.get("natural_language_embedding"),
+                instruction=obs.get("instruction"),
+                task=task,
+                session_started=result.get("session_started", False),
+                terminate=bool(result.get("terminate_episode", 0)),
+            )
         self._note_act(session_id, obs, result)
         if restored:
             result.update(restored)
@@ -309,8 +330,10 @@ class ServeApp:
 
     def reset(self, session_id: str) -> int:
         """A fresh window: the step counter restarts and the ring's copy
-        of the abandoned episode goes."""
+        of the abandoned episode goes; a captured episode in flight ends."""
         slot = self.engine.reset(session_id)
+        if self.capture is not None:
+            self.capture.finalize(session_id, "reset")
         with self._meta_lock:
             meta = self._session_meta.get(session_id)
             if meta is not None:
@@ -321,8 +344,11 @@ class ServeApp:
 
     def release(self, session_id: str, keep_snapshot: bool = False) -> None:
         """Forget a session; `keep_snapshot` keeps its ring file (the
-        session continues on the replica that imported it)."""
+        session continues on the replica that imported it, and its captured
+        episode ends as "migrated", not "released")."""
         self.engine.release(session_id)
+        if self.capture is not None:
+            self.capture.finalize(session_id, "migrated" if keep_snapshot else "released")
         with self._meta_lock:
             self._session_meta.pop(session_id, None)
         if self.snapshot_ring is not None and not keep_snapshot:
@@ -481,6 +507,10 @@ class ServeApp:
             asyncio.run_coroutine_threadsafe(self.batcher.drain(), self._loop).result(timeout=timeout)
             self._loop.call_soon_threadsafe(self._loop.stop)
             self._loop_thread.join(timeout=timeout)
+        if self.capture is not None:
+            # Sessions cut off by shutdown are still served data: write
+            # them (outcome "drain") before the process exits.
+            self.capture.drain()
         if self.exemplar_path and len(self.exemplars):
             try:
                 self.exemplars.dump(self.exemplar_path, reason="drain")
@@ -550,6 +580,9 @@ class ServeApp:
             migration_import_failures_total=self.migration_import_failures,
             migration_restores_total=self.migration_restores,
             migration_restore_failures_total=self.migration_restore_failures,
+            # Flywheel capture gauges (rt1_serve_capture_*): the enabled
+            # flag is always present so dashboards tell "off" from "zero".
+            **(self.capture.stats() if self.capture is not None else {"capture_enabled": 0}),
         )
 
     def metrics_snapshot(self) -> Dict[str, Any]:

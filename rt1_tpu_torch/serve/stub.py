@@ -83,6 +83,7 @@ class StubReplicaApp:
         scheduler: str = "continuous",
         act_concurrency: int = 0,
         cached_inference: bool = False,
+        mimic_capture: bool = False,
         session_snapshot_dir=None,
         snapshot_max_age_s: float = 600.0,
     ):
@@ -119,6 +120,15 @@ class StubReplicaApp:
         # as cached steps, resets/reloads/slot reclaims invalidate, a
         # reload "rebuilds" every live session's cache.
         self.cached_inference = cached_inference
+        # Flywheel-capture gauge mimicry (default off — the real stub
+        # captures nothing, and an unarmed stub's /metrics must stay
+        # byte-identical): episode boundaries (reset/release of a known
+        # session) count as written episodes, open sessions mirror the
+        # session table, and the error/prune counters exist at zero so
+        # the fleet fan-out renders every rt1_serve_replica_capture_*
+        # family the default alert rules watch.
+        self.mimic_capture = mimic_capture
+        self.capture_episodes = 0
         self.cache_invalidations = {"swap": 0, "reset": 0, "evict": 0}
         self.cache_cached_steps = 0
         self.cache_rebuild_steps = 0
@@ -280,6 +290,8 @@ class StubReplicaApp:
             if session_id in self._sessions:
                 if self.cached_inference:
                     self.cache_invalidations["reset"] += 1
+                if self.mimic_capture:
+                    self.capture_episodes += 1  # episode boundary
             self._sessions[session_id] = 0
             slot = list(self._sessions).index(session_id)
         if self.snapshot_ring is not None:
@@ -291,6 +303,8 @@ class StubReplicaApp:
         session_id = payload.get("session_id")
         with self._lock:
             known = self._sessions.pop(session_id, None)
+            if known is not None and self.mimic_capture:
+                self.capture_episodes += 1  # episode boundary
         if known is None:
             return 404, {"error": f"unknown session {session_id!r}"}
         # keep_snapshot: migration cleanup releasing the source's stale
@@ -545,6 +559,20 @@ class StubReplicaApp:
                 )
                 else {}
             ),
+            # Capture-family mimicry rides ONLY behind the flag: keys
+            # absent by default keeps the unarmed stub's /metrics (and
+            # the fleet fan-out built from it) byte-identical.
+            **(
+                {
+                    "capture_enabled": 1,
+                    "capture_episodes_total": self.capture_episodes,
+                    "capture_open_sessions": active,
+                    "capture_write_errors_total": 0,
+                    "capture_pruned_total": 0,
+                }
+                if self.mimic_capture
+                else {}
+            ),
         }
 
     def metrics_snapshot(self) -> Dict[str, Any]:
@@ -675,6 +703,12 @@ def main(argv=None) -> int:
         choices=["continuous", "cycle"],
         help="Advertised batch scheduler (protocol double only).")
     parser.add_argument(
+        "--mimic_capture", action="store_true",
+        help="Advertise the flywheel-capture gauge families with "
+             "deterministic values (protocol double for a capture-armed "
+             "replica; lets fleet tests and ops rehearsals exercise the "
+             "rt1_serve_replica_capture_* fan-out with no model).")
+    parser.add_argument(
         "--cached_inference", action="store_true",
         help="Advertise KV-cached incremental decode and mimic its "
              "counter families (protocol double for the real replica's "
@@ -709,6 +743,7 @@ def main(argv=None) -> int:
         scheduler=args.scheduler,
         act_concurrency=args.act_concurrency,
         cached_inference=args.cached_inference,
+        mimic_capture=args.mimic_capture,
         session_snapshot_dir=args.session_snapshot_dir or None,
         snapshot_max_age_s=args.snapshot_max_age_s,
     )

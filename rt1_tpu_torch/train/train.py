@@ -247,6 +247,12 @@ class TrainFeed:
         """The feeder's gauges, or None for a source without them."""
         return getattr(self.host, "stats", None)
 
+    def flywheel_stats(self):
+        """The feeder's corpus-growth gauges callable (shards, freshness
+        epoch, corpus size, staleness), or None when the feed is not the
+        packed feeder."""
+        return getattr(self.host, "flywheel_stats", None)
+
     def peek(self):
         if not self._ahead:
             self._ahead.append(next(self._batches))
@@ -374,6 +380,10 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
         live = {"train": TrainFeed(config, dev, timeline, config.seed, initial_step, log)}
         cleanup.callback(lambda: live["train"].close())
         feeder_stats = live["train"].stats()
+        # Flywheel corpus gauges (shards / freshness epoch / corpus size /
+        # staleness) when the packed feeder feeds: rt1_flywheel_* on the
+        # scrape and flywheel/* in metrics.jsonl.
+        flywheel_stats = live["train"].flywheel_stats()
         fns = train_step_fns_from_config(
             config, optimizer,
             health_task_names=getattr(live["train"].host, "health_task_names", ()) or ())
@@ -443,7 +453,13 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
                     scalars.update(fault_plan.counters())
                 if ledger is not None:
                     scalars.update(ledger.scalars())
-                return obs.prometheus.render_scalar_gauges(scalars)
+                body = obs.prometheus.render_scalar_gauges(scalars)
+                # rt1_flywheel_*: live on every scrape, so a shard pickup
+                # shows the moment the feeder takes it.
+                if flywheel_stats is not None:
+                    body += obs.prometheus.render_scalar_gauges(
+                        flywheel_stats(), prefix="rt1_flywheel_")
+                return body
 
             metrics_server = obs.MetricsServer(_render_prometheus, host=obs_opts.prometheus_host,
                                                port=obs_opts.prometheus_port)
@@ -510,6 +526,8 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
                         scalars.update(ledger.scalars())
                     if feeder_stats is not None:
                         scalars.update({f"feeder/{k}": v for k, v in feeder_stats().items()})
+                    if flywheel_stats is not None:
+                        scalars.update({f"flywheel/{k}": v for k, v in flywheel_stats().items()})
                     scalars.update(resilience.retry.counters())
                     if coordinator is not None:
                         scalars.update(coordinator.counters())
@@ -561,6 +579,7 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
                     live["train"].close()
                     live["train"] = TrainFeed(config, dev, timeline, fresh_seed, target, log)
                     feeder_stats = live["train"].stats()
+                    flywheel_stats = live["train"].flywheel_stats()
                     obs.trace.counter("guard_rollbacks", step_guard.rollbacks)
                     if ledger is not None:
                         ledger.mark_rollback()

@@ -19,8 +19,12 @@ in about a second. On it run:
   session -> replica map, `restarted` flags, stub actions and steps, and
   the same Prometheus family names and label sets;
 * the CLI: `python -m rt1_tpu_torch.serve.fleet --stub` with a
-  `replica_kill` chaos tick, the refused flags, and the refusal of a CUDA
-  fleet where there is no card; the cost weights from the port's own
+  `replica_kill` chaos tick; the operations loop's three flags, each
+  arming on a stub fleet (`--collector`: `/alerts`, `/history`,
+  `/dashboard`; `--capture_dir`: the replicas' capture dirs swept into
+  `staging`; `--promote_from`: `/deploy/status` and a promotion) and
+  absent on an unarmed one; the refusal of a CUDA fleet where there is no
+  card; the cost weights from the port's own
   flagship bytes; and that the router, supervisor and stub import no torch.
 """
 
@@ -527,15 +531,164 @@ def test_fleet_cli_with_stubs_and_a_chaos_kill():
     assert final["autoscale"]["cost_weights"] == DTYPE_COST_WEIGHTS
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--promote_from", "/tmp/wd"], "ROADMAP A13"),
-    (["--collector"], "ROADMAP A14"),
-    (["--capture_dir", "/tmp/cap"], "ROADMAP A15"),
-])
-def test_fleet_refuses_what_is_not_ported(flag, item, capsys):
-    with pytest.raises(SystemExit):
-        pfleet.main(["--stub", *flag])
-    assert item in capsys.readouterr().err
+def _fleet_cli(extra, timeout_s=30):
+    """`python -m rt1_tpu_torch.serve.fleet --stub --replicas 2` with
+    `extra` flags: (process, its ready line, the router's url)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("RT1_FAULTS", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rt1_tpu_torch.serve.fleet", "--stub", "--replicas", "2",
+         "--port", "0", "--poll_interval_s", "0.1", *extra],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, text=True, start_new_session=True)
+    ready = _read_json_line(proc, timeout_s)
+    assert ready["status"] == "serving", ready
+    return proc, ready, f"http://127.0.0.1:{ready['port']}"
+
+
+def _stop_fleet_cli(proc):
+    try:
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        assert proc.returncode == 0
+        return json.loads(out.strip().splitlines()[-1])
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=10)
+
+
+def _families(text, prefix):
+    return {name for name, _, _ in prom.parse_exposition(text).samples if name.startswith(prefix)}
+
+
+def test_unarmed_fleet_serves_no_ops_surfaces(fleet):
+    """Without the three flags `/alerts`, `/history`, `/dashboard` and
+    `/deploy/status` are 404s and the scrape carries none of their
+    families, as on the JAX fleet."""
+    _, _, url = fleet
+    for path in ("/alerts", "/history", "/dashboard", "/deploy/status"):
+        assert _get(url + path)[0] == 404, path
+    code, text = _get(url + "/metrics", {"Accept": "text/plain"})
+    assert code == 200
+    for prefix in ("rt1_deploy_", "rt1_alert_", "rt1_obs_collector_"):
+        assert not _families(text, prefix)
+
+
+def test_fleet_collector_arms_alerts_history_dashboard(tmp_path):
+    """`--collector` on a stub fleet: the collector scrapes the router's own
+    `/metrics`, and `/alerts`, `/history` (a family's points), `/dashboard`
+    answer; the scrape carries `rt1_alert_*` and `rt1_obs_collector_*`; the
+    TSDB snapshot lands in `--obs_dir` at SIGTERM."""
+    proc, ready, url = _fleet_cli(["--collector", "--collector_interval_s", "0.2",
+                                   "--obs_dir", str(tmp_path)])
+    try:
+        assert ready["collector"] is True and ready["deploy"] is None
+        assert _act(url, "c")[0] == 200
+
+        def has_history():
+            code, body = _get(url + "/history")
+            return code == 200 and any(s["family"] == "rt1_serve_requests_total"
+                                       for s in body["series"])
+
+        _wait_until(has_history, 15.0, "the collector's first cycles")
+        code, hist = _get(url + "/history?family=rt1_serve_requests_total&window_s=60")
+        assert code == 200 and hist["series"][0]["points"]
+        assert _get(url + "/history?family=no_such_family")[0] == 400
+        code, alerts = _get(url + "/alerts")
+        assert code == 200 and {"ReplicaDown", "CanarySLOBreach"} <= {
+            r["name"] for r in alerts["rules"]}
+        code, page = _get(url + "/dashboard")
+        assert code == 200 and "<html" in page.lower()
+        code, text = _get(url + "/metrics", {"Accept": "text/plain"})
+        assert _families(text, "rt1_alert_") and _families(text, "rt1_obs_collector_")
+    finally:
+        final = _stop_fleet_cli(proc)
+    assert final["obs"]["collector"]["cycles_total"] > 0
+    assert os.path.exists(tmp_path / "tsdb_snapshot.jsonl")
+
+
+def test_fleet_capture_dir_arms_replicas_and_sweeps_into_staging(tmp_path):
+    """`--capture_dir`: each real replica gets `<dir>/replica_<id>` (a flag
+    the serve CLI takes), and the supervisor sweeps completed episodes from
+    those dirs into `<dir>/staging`. On stub replicas with
+    `--mimic_capture` (which serve no observations, so the files are
+    written here as a replica's sink would write them) the capture gauges
+    ride the fan-out as `rt1_serve_replica_capture_*`."""
+    import argparse
+
+    import numpy as np
+
+    from rt1_tpu_torch.flywheel import EpisodeCaptureSink
+    from rt1_tpu_torch.serve.__main__ import parse_args
+
+    root = str(tmp_path / "capture")
+    real = argparse.Namespace(stub=False, config="tiny", max_sessions=8, embedder="hash",
+                              slow_threshold_ms=0.0, inference_dtype="f32", replica_dtypes="",
+                              scheduler="continuous", buckets="auto", session_snapshot_dir="",
+                              snapshot_max_age_s=600.0, random_init=True, workdir="",
+                              device="cpu", capture_dir=root, allow_embedder_mismatch=True)
+    argv = pfleet.replica_argv_builder(real)(1)
+    parsed = parse_args(argv[3:])
+    assert parsed.capture_dir == os.path.join(root, "replica_1")
+    assert parsed.allow_embedder_mismatch
+    f = _port_fleet(2, argv_fn=lambda rid: _stub_argv(rid) + ["--mimic_capture"],
+                    capture_root=root, exemplar_scrape_interval_s=0.1)
+    try:
+        for rid in (0, 1):
+            sink = EpisodeCaptureSink(f.supervisor.replica_capture_dir(rid))
+            for j in range(3):
+                sink.record_step(f"s{rid}", image=np.full((8, 8, 3), j, np.uint8),
+                                 action=[0.0, 0.0], embedding=np.ones(512, np.float32))
+            assert sink.finalize(f"s{rid}", "released")
+        staging = f.supervisor.capture_staging_dir()
+        _wait_until(lambda: f.supervisor.captures_swept == 2, 10.0, "the capture sweep")
+        assert len([n for n in os.listdir(staging) if n.endswith(".npz")]) == 2
+        assert f.supervisor.summary()["captures_swept"] == 2
+        _act(f.url, "m")
+        code, text = _get(f.url + "/metrics", {"Accept": "text/plain"})
+        assert {"rt1_serve_replica_capture_enabled",
+                "rt1_serve_replica_capture_episodes_total"} <= _families(
+                    text, "rt1_serve_replica_capture_")
+    finally:
+        f.close()
+
+
+def test_fleet_promote_from_arms_the_deploy_controller(tmp_path):
+    """`--promote_from` on a stub fleet: the incumbent is the newest step at
+    arm time, `/deploy/status` answers, a later checkpoint is gated (the
+    stub fleet's auto-pass), canaried and promoted, the scrape carries
+    `rt1_deploy_*`, and the final line carries the deploy summary."""
+    ckpts = tmp_path / "checkpoints"
+    for step in (2, 3):
+        (ckpts / str(step)).mkdir(parents=True)
+    (ckpts / "2" / "state.pt").write_bytes(b"x")  # 3 is a save in flight
+    proc, ready, url = _fleet_cli(["--promote_from", str(tmp_path), "--min_canary_requests",
+                                   "0", "--clean_window_ticks", "1",
+                                   "--deploy_poll_interval_s", "0.1"])
+    try:
+        assert ready["deploy"] == {"promote_from": str(tmp_path), "incumbent_step": 2,
+                                   "canary_weight": 0.25}
+        code, status = _get(url + "/deploy/status")
+        assert code == 200 and status["state"] == "idle" and status["timeline"] == []
+        (ckpts / "4").mkdir()
+        (ckpts / "4" / "state.pt").write_bytes(b"x")
+
+        def promoted():
+            body = _get(url + "/deploy/status")[1]
+            return [e["event"] for e in body["timeline"]][-1:] == ["promoted"]
+
+        _wait_until(promoted, 20.0, "the promotion of step 4")
+        events = [e["event"] for e in _get(url + "/deploy/status")[1]["timeline"]]
+        assert events == ["candidate", "gate_passed", "canary_started", "promoted"]
+        code, text = _get(url + "/metrics", {"Accept": "text/plain"})
+        assert {"rt1_deploy_promotions_total", "rt1_deploy_state",
+                "rt1_deploy_incumbent_step"} <= _families(text, "rt1_deploy_")
+        assert prom.parse_exposition(text).value("rt1_deploy_incumbent_step") == 4.0
+    finally:
+        final = _stop_fleet_cli(proc)
+    assert final["deploy"]["promotions_total"] == 1
+    assert final["deploy"]["incumbent_step"] == 4
+    assert os.path.exists(tmp_path / "deploy" / "verdict_4.json")
 
 
 def test_cuda_fleet_refuses_without_a_card(monkeypatch):

@@ -181,3 +181,61 @@ def test_server_act_reset_metrics():
         httpd.server_close()
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+def _serve_cli(args):
+    """`python -m rt1_tpu_torch.serve` with `args` on the CPU, port 0:
+    (its ready line, /act of one frame) then SIGTERM; the exit code must
+    be 0."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen([sys.executable, "-m", "rt1_tpu_torch.serve", "--config", "tiny",
+                             "--device", "cpu", "--port", "0", *args], cwd=repo,
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        ready = json.loads(proc.stdout.readline())
+        frame = np.zeros((H, W, 3), np.uint8)
+        code, out = _post(f"http://127.0.0.1:{ready['port']}/act",
+                          {"session_id": "c3", "instruction": "push the red star",
+                           "image_b64": base64.b64encode(frame.tobytes()).decode()})
+    finally:
+        proc.terminate()
+        assert proc.wait(timeout=60) == 0
+    return ready, code
+
+
+def test_serve_cli_refuses_a_checkpoint_of_another_embedder(tmp_path):
+    """ROADMAP C3, as the JAX serve CLI guards it (`rt1_tpu/serve/
+    __main__.py:92-104`): a `--workdir` whose `data_manifest.json` says
+    `ngram` refuses `--embedder hash`, naming the manifest and the flag;
+    `--allow_embedder_mismatch` serves it; `--random_init` reads no
+    manifest."""
+    import os
+    import subprocess
+    import sys
+
+    import pytest
+
+    from rt1_tpu_torch.serve.__main__ import main
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    wd = str(tmp_path / "wd")
+    subprocess.run([sys.executable, "-m", "rt1_tpu_torch.train", "--config", "tiny",
+                    "--workdir", wd, "--device", "cpu", "--set", "num_steps=2",
+                    "--set", "eval_every_steps=0"], cwd=repo, check=True,
+                   capture_output=True, timeout=300)
+    with open(os.path.join(wd, "data_manifest.json"), "w") as f:
+        json.dump({"embedder": "ngram"}, f)
+    with pytest.raises(ValueError, match="data_manifest.*allow_embedder_mismatch"):
+        main(["--config", "tiny", "--workdir", wd, "--device", "cpu", "--port", "0"])
+    with pytest.raises(ValueError, match="'ngram' but 'hash'"):
+        main(["--config", "tiny", "--workdir", wd, "--device", "cpu", "--embedder", "hash"])
+    ready, code = _serve_cli(["--workdir", wd, "--allow_embedder_mismatch"])
+    assert ready["status"] == "serving" and ready["checkpoint_step"] == 2 and code == 200
+    ready, code = _serve_cli(["--workdir", wd, "--embedder", "ngram"])
+    assert ready["checkpoint_step"] == 2 and code == 200
+    ready, code = _serve_cli(["--random_init"])
+    assert ready["checkpoint_step"] == -1 and code == 200
