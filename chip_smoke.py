@@ -91,8 +91,9 @@ exits non-zero without a result line:
              step; 30 steps on one fixed batch whose last 5 losses average
              below the first 5; an eval step with fused attention (8
              tensor-core launches, no other); then `python -m rt1_tpu_torch.train
-             --config language_table` for 4 steps with a checkpoint every 2,
-             a rerun to 6 steps that must report restoring step 4, and
+             --config language_table` (its `main`, in process) for 4 steps
+             with a checkpoint every 2, a rerun to 6 steps that must report
+             restoring step 4, and
              `python -m rt1_tpu_torch.serve --workdir` answering one `/act`.
 12. train_ops — the trainer's resilience and observability at the
              flagship's width (bf16 on f32 masters, batch 8, synthetic
@@ -130,8 +131,8 @@ exits non-zero without a result line:
              (`native/window_sampler.cc`, built here by g++) held to its
              plain version at 180x320 -> 256x456 and the packed gather to
              plain slices (exact); frames/s of each loader alone at batch 8,
-             window 6 (numpy; torch at 2 and 4 workers, pinned, and at 4
-             unpinned; packed at 1, 2 and 4 threads), each after the
+             window 6 (numpy; torch at 4 workers, pinned; packed at 1, 2
+             and 4 threads), each after the
              corpus's pages are dropped from the OS page cache, the numpy
              loader with its episode reads a batch, their ms and their
              share; the bf16 train step
@@ -144,8 +145,11 @@ exits non-zero without a result line:
              share of the wait; 6 more steps per fed turn whose
              device batch must equal its host batch (>= 20 in all: a torn
              pinned buffer fails); then the train CLI on the
-             corpus, 4 steps through the packed cache and a rerun to 6
-             through the torch loader that restores step 4, each eval on
+             corpus (its `main`, in process), 4 steps through the packed
+             cache and a rerun to 6
+             through the default `tf` loader (the torch loader drawing
+             through tf.data's bounded shuffle buffer, 2048 of the
+             corpus's windows) that restores step 4, each eval on
              `val` with 8 tensor-core launches per eval batch, and
              `data_manifest.json` equal to the corpus's manifest.
 14. eval   — the closed-loop Language-Table eval of the flagship: phase
@@ -198,7 +202,7 @@ exits non-zero without a result line:
 16. fleet  — the serving fleet: `python -m rt1_tpu_torch.serve.fleet
              --replicas 2 --config language_table --random_init
              --inference_dtype bf16 --faults replica_kill@1` (the router on
-             an ephemeral port, a chaos tick every 20 s): both replicas
+             an ephemeral port, a chaos tick every 12 s): both replicas
              warm up; 4 sessions x 8 `/act` steps of 256x456 frames through
              the router (`"debug": true`) answer 200 with the
              `X-RT1-Request-Id` sent; each
@@ -282,7 +286,39 @@ exits non-zero without a result line:
              p99 with the collector armed, capture bytes an episode and
              episodes swept, the fleet process's peak card memory and the
              phase's wall time. CPU rehearsal: `phase_ops('tiny', 'cpu')`.
-19. kernels — one line listing the three kernels with their launches on
+19. loadgen — the serving load generator, `python -m
+             rt1_tpu_torch.serve.loadgen`, in its seven modes against bf16
+             flagship replicas (run before `chaos`), in four lanes at once:
+             (a) a replica started with `--max_batch 8 --max_delay_ms 5
+             --max_queue 32 --pipeline_depth 2 --request_timeout_s 30`
+             (its `/healthz` `batcher` must show them), `--traced` at 8
+             sessions x 16 steps (128 ok, 0 request-id mismatches), then
+             `--overhead_ab 2`, then `--occupancy_sweep --sweep_levels 1,8
+             --sweep_rounds 1` (compile count pinned at the bucket count);
+             (b) `--quant_ab bf16,int8` (the f32 reference added) with
+             token agreement >= 0.99 each; (c) `--fleet 2 --faults
+             replica_kill@1` over 8 s of 4 traced sessions (one restart,
+             both replicas ready at the end), then `--migration_ab` (stub
+             fleets: 0 durable window resets, token-identical
+             continuations); (d) `--traffic_schedule spike` at 1-3
+             replicas (int8 surge) against 3 fixed, phases of 3 s. Every
+             mode must report `requests_failed == 0`. Each mode's p50 /
+             p99 ms, req/s, seconds, and each replica's launches by
+             variant (`--replica_metrics`: one variant, 8 an engine step,
+             warm-up included, the others 0).
+20. chaos  — `python -m rt1_tpu_torch.resilience.chaos_train --device cuda`
+             (its `main`, in process; its three train runs are `tiny`
+             subprocesses): every assertion of the JAX drill; then
+             `python -m rt1_tpu_torch.obs.run_report` over chaos A's
+             workdir (goodput, flight recorder and scalar sections with
+             data) and over phase loadgen's records (the serve section);
+             a 3-step flagship fit through the train CLI's `main` with
+             `--sweep_trial 1 --set model.photometric_augmentation=True`
+             (lr 5e-4 at the start line, finite losses); the native
+             episode reader (g++ -lz) against `np.load` on 16 seeded
+             180x320 episodes (the data phase's writer) and 4 compressed
+             copies: equal arrays, and reads a second each way.
+21. kernels — one line listing the three kernels with their launches on
              their path (serve for the tensor-core kernel, the flagship f32
              parity step for tf32x3, the `tiny` bf16 step for the simple
              one), on the eval path (`eval_launches`), in the learning
@@ -291,7 +327,8 @@ exits non-zero without a result line:
              each fleet replica (`fleet_launches`), in the operations
              loop's gate and replicas (`ops_launches`) and, for the
              tensor-core kernel, in the train CLI's evals of phase train_ops
-             (`train_ops_launches`), errors, times and bound.
+             (`train_ops_launches`), in each replica the load generator
+             reached (`loadgen_launches`), errors, times and bound.
 
 The last line is `{"ok": true, "device": {...}}`.
 """
@@ -1647,6 +1684,7 @@ def _train_cli(config_name, device, workdir=None):
     import numpy as np
 
     from rt1_tpu_torch.configs import get_config
+    from rt1_tpu_torch.train.__main__ import main as train_main
 
     config = get_config(config_name)
     h, w = config.data.height, config.data.width
@@ -1655,10 +1693,11 @@ def _train_cli(config_name, device, workdir=None):
             workdir = stack.enter_context(tempfile.TemporaryDirectory())
         base = ["--config", config_name, "--workdir", workdir, "--device", device,
                 "--set", "checkpoint_every_steps=2"]
-        first, first_s = _run_cli(base + ["--set", "num_steps=4"], TRAIN_CLI_TIMEOUT_S)
+        # In process (the script's time limit): the CLI's `main`.
+        first, first_s = _run_in_process(train_main, base + ["--set", "num_steps=4"])
         if first[0].get("restored_step") is not None or first[-1].get("checkpoint_step") != 4:
             raise AssertionError(f"train CLI: first run {first[0]} ... {first[-1]}")
-        second, second_s = _run_cli(base + ["--set", "num_steps=6"], TRAIN_CLI_TIMEOUT_S)
+        second, second_s = _run_in_process(train_main, base + ["--set", "num_steps=6"])
         if second[0].get("restored_step") != 4 or second[-1].get("checkpoint_step") != 6:
             raise AssertionError(f"train CLI: rerun {second[0]} ... {second[-1]}")
         env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -2274,22 +2313,29 @@ def _tensors_equal(a, b):
 
 def _data_cli(root, config_name, device, manifest, num_layers):
     """The trainer's CLI on the corpus: 4 steps through the packed cache with
-    eval on val (fused attention), then a rerun to 6 through the torch
-    loader that restores step 4."""
+    eval on val (fused attention), then a rerun to 6 through the config's
+    default loader, `tf` (the torch loader through the bounded shuffle
+    buffer), that restores step 4."""
+    from rt1_tpu_torch.configs import get_config
+    from rt1_tpu_torch.train.__main__ import main as train_main
+
     on_card = device.startswith("cuda")
+    data = get_config(config_name).data
+    if data.loader != "tf" or data.packed_cache:
+        raise AssertionError(f"data CLI: the rerun is to take the default tf loader, not "
+                             f"loader={data.loader} packed_cache={data.packed_cache}")
     with tempfile.TemporaryDirectory() as workdir:
         base = ["--config", config_name, "--workdir", workdir, "--device", device,
                 "--set", f"data.data_dir={root}", "--set", "checkpoint_every_steps=2",
                 "--set", "eval_every_steps=2", "--set", "eval_batches=1",
                 "--set", "log_every_steps=2", "--set", "model.attention_impl=fused"]
-        first, first_s = _run_cli(base + ["--set", "data.packed_cache=True", "--set",
-                                          "num_steps=4"], DATA_CLI_TIMEOUT_S)
-        second, second_s = _run_cli(base + ["--set", "data.loader=torch", "--set",
-                                            "num_steps=6"], DATA_CLI_TIMEOUT_S)
+        first, first_s = _run_in_process(train_main, base + [
+            "--set", "data.packed_cache=True", "--set", "num_steps=4"])
+        second, second_s = _run_in_process(train_main, base + ["--set", "num_steps=6"])
         with open(os.path.join(workdir, "data_manifest.json")) as f:
             stamped = json.load(f)
     runs = []
-    for lines, loader, restored, last in ((first, "packed", None, 4), (second, "torch", 4, 6)):
+    for lines, loader, restored, last in ((first, "packed", None, 4), (second, "tf", 4, 6)):
         start = next(x for x in lines if x.get("status") == "start")
         evals = [x for x in lines if "eval_loss" in x]
         expected = num_layers if on_card else 0
@@ -2297,11 +2343,13 @@ def _data_cli(root, config_name, device, manifest, num_layers):
                if x["eval_attention_launches_tensor_core"] != expected * x["eval_batches"]
                or x["eval_attention_launches_tf32x3"] or x["eval_attention_launches_simple"]]
         stale = [x for x in lines if x.get("status") == "packed_cache_stale"]
-        if start["data_loader"] != loader or start["restored_step"] != restored or stale or \
+        stream = "torch" if loader == "tf" else loader  # tf is the torch loader's buffered order
+        if start["data_loader"] != stream or start["restored_step"] != restored or stale or \
                 bad or not evals or lines[-1].get("checkpoint_step") != last:
             raise AssertionError(f"data CLI ({loader}): start {start}, evals {evals}, stale "
                                  f"{stale}, end {lines[-1]}")
-        runs.append({"data_loader": loader, "restored_step": restored,
+        runs.append({"data_loader": loader, "shuffle_buffer": data.shuffle_buffer
+                     if loader == "tf" else None, "restored_step": restored,
                      "eval_steps": [x["step"] for x in evals],
                      "eval_attention_launches_tensor_core": [
                          x["eval_attention_launches_tensor_core"] for x in evals],
@@ -2366,13 +2414,11 @@ def phase_data(config_name: str = "language_table", device: str = "cuda",
         _drop_page_cache(root)
         ds = windowed()
         alone = {"numpy": _time_loader(ds.numpy_batches(b, seed=0), frames_per_batch, ds)}
-        # As the trainer runs it (pinned on the card), and once unpinned.
-        for workers, pin in ((2, True), (4, True), (4, False)):
-            name = f"torch_{workers}_workers" + ("" if pin else "_unpinned")
-            _drop_page_cache(root)
-            alone[name] = _time_loader(loader_batches(windowed().as_torch_loader(
-                b, seed=0, num_workers=workers, pin_memory=pin and dev.type == "cuda")),
-                frames_per_batch)
+        # As the trainer runs it: 4 workers, pinned on the card (2 workers
+        # and 4 unpinned were cut for the script's time limit).
+        _drop_page_cache(root)
+        alone["torch_4_workers"] = _time_loader(loader_batches(windowed().as_torch_loader(
+            b, seed=0, num_workers=4, pin_memory=dev.type == "cuda")), frames_per_batch)
         del ds
         for threads in (1, 2, 4):
             _drop_page_cache(root)
@@ -3047,7 +3093,7 @@ def phase_proof(config_name: str = "language_table", device: str = "cuda"):
 FLEET_REPLICAS = 2
 FLEET_SESSIONS = 4
 FLEET_STEPS = 8
-FLEET_CHAOS_INTERVAL_S = 20.0    # the kill's tick, counted from the fleet's first all-ready
+FLEET_CHAOS_INTERVAL_S = 12.0    # the kill's tick, counted from the fleet's first all-ready
 FLEET_TIMEOUT_S = 600            # a replica's warm-up, and the respawn's
 
 
@@ -3775,6 +3821,380 @@ def phase_ops(config_name: str = "language_table", device: str = "cuda"):
     return record
 
 
+# The serving load generator (`python -m rt1_tpu_torch.serve.loadgen`) in
+# its seven modes against flagship replicas, in four lanes at once (one
+# card, the host's cores shared): lane A the flags replica (plain
+# `--traced`, `--overhead_ab`) then `--occupancy_sweep`; lane B
+# `--quant_ab`; lane C the fleet's chaos then `--migration_ab` (stub
+# fleets); lane D the elastic `--traffic_schedule`.
+LOADGEN_FLAGS = ("--max_batch", "8", "--max_delay_ms", "5", "--max_queue", "32",
+                 "--pipeline_depth", "2", "--request_timeout_s", "30")
+LOADGEN_BATCHER = {"max_batch": 8, "max_delay_s": 0.005, "max_queue": 32, "pipeline_depth": 2,
+                   "request_timeout_s": 30.0}
+LOADGEN_SESSIONS = 8
+LOADGEN_STEPS = 16
+# Cut in depth to the script's time limit (PERF.md §4): JAX's loadgen
+# defaults are 32 steps, 24 parity frames, phases of 6 s.
+LOADGEN_SWEEP_STEPS = 4
+LOADGEN_QUANT_STEPS = 2
+LOADGEN_PARITY_STEPS = 16
+LOADGEN_FLEET_S = 5.0            # the chaos window, driven by 4 sessions
+LOADGEN_CHAOS_INTERVAL_S = 3.0
+LOADGEN_PHASE_S = 2.0            # a traffic phase (the spike's edge half of it)
+LOADGEN_TIMEOUT_S = 600
+LOADGEN_VARIANTS = ("tensor_core", "tf32x3", "simple")
+
+
+def _loadgen(args, outdir, name, timeout_s=LOADGEN_TIMEOUT_S):
+    """One `python -m rt1_tpu_torch.serve.loadgen` run: its record (also at
+    `outdir`/<output name>), its seconds and the replicas it reached."""
+    metrics_path = os.path.join(outdir, f"replica_metrics_{name}.jsonl")
+    lines, seconds = _run_cli([*args, "--replica_metrics", metrics_path], timeout_s,
+                              module="rt1_tpu_torch.serve.loadgen")
+    record = lines[-1]
+    if record.get("requests_failed") != 0:
+        raise AssertionError(f"loadgen {name}: requests_failed {record.get('requests_failed')}")
+    replicas = []
+    if os.path.exists(metrics_path):
+        with open(metrics_path) as f:
+            replicas = [json.loads(line) for line in f if line.strip()]
+    return record, seconds, replicas
+
+
+def _replica_launches(row, on_card, what):
+    """A replica's fused-attention launches by variant from its /metrics
+    (`--replica_metrics` row); on the card exactly one variant launches,
+    8 a batched engine step (warm-up included), the others 0."""
+    if "error" in row:
+        raise AssertionError(f"{what}: /metrics unreadable: {row['error']}")
+    counts = {v: int(row[f"attention_launches_{v}_total"]) for v in LOADGEN_VARIANTS}
+    steps = int(row["engine_steps_total"])
+    if on_card:
+        running = [v for v in LOADGEN_VARIANTS if counts[v]]
+        if len(running) != 1 or counts[running[0]] != 8 * steps or steps <= 0:
+            raise AssertionError(f"{what}: launches {counts}, expected 8 x {steps} of one variant")
+    elif any(counts.values()):
+        raise AssertionError(f"{what}: {counts} launches on the CPU")
+    return {**counts, "engine_steps": steps}
+
+
+def _mode_row(record, seconds, replicas, on_card, **keys):
+    return {"p50_ms": record.get("latency_p50_ms"), "p99_ms": record.get("latency_p99_ms"),
+            "req_per_sec": record.get("value") if record.get("unit") == "req/s" else None,
+            "seconds": seconds, "requests_failed": record["requests_failed"],
+            "launches": {r["label"]: _replica_launches(r, on_card, r["label"]) for r in replicas},
+            **keys}
+
+
+def _loadgen_lane_a(config_name, device, outdir, on_card):
+    """The flags replica: its /healthz batcher, plain `--traced`,
+    `--overhead_ab 2`; then `--occupancy_sweep --sweep_levels 1,8`."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "rt1_tpu_torch.serve", "--config", config_name, "--random_init",
+           "--port", "0", "--device", device, "--inference_dtype", "bf16", *LOADGEN_FLAGS]
+    modes = {}
+    with tempfile.TemporaryFile(mode="w+") as errlog:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=errlog,
+                                text=True)
+        try:
+            t0 = time.perf_counter()
+            ready = _read_ready_line(proc, LOADGEN_TIMEOUT_S)
+            startup_s = time.perf_counter() - t0
+            url = f"http://127.0.0.1:{ready['port']}"
+            _, health = _http(url + "/healthz")
+            if health.get("batcher") != LOADGEN_BATCHER:
+                raise AssertionError(f"loadgen: /healthz batcher {health.get('batcher')}, "
+                                     f"expected {LOADGEN_BATCHER}")
+            record, seconds, replicas = _loadgen(
+                ["--url", url, "--sessions", str(LOADGEN_SESSIONS), "--steps",
+                 str(LOADGEN_STEPS), "--traced", "--output",
+                 os.path.join(outdir, "BENCH_serving.json"), "--slo_summary",
+                 os.path.join(outdir, "slo_summary_traced.json")], outdir, "traced")
+            if record["requests_ok"] != LOADGEN_SESSIONS * LOADGEN_STEPS or \
+                    record["request_id_mismatches"] != 0:
+                raise AssertionError(f"loadgen traced: {record['requests_ok']} ok, "
+                                     f"{record['request_id_mismatches']} id mismatches")
+            modes["traced"] = _mode_row(record, seconds, replicas, on_card,
+                                        startup_s=startup_s,
+                                        mean_batch_occupancy=record["mean_batch_occupancy"])
+            record, seconds, replicas = _loadgen(
+                ["--url", url, "--sessions", str(LOADGEN_SESSIONS), "--steps",
+                 str(LOADGEN_STEPS), "--overhead_ab", "2", "--output",
+                 os.path.join(outdir, "BENCH_serve_trace_overhead.json")], outdir, "overhead_ab")
+            modes["overhead_ab"] = _mode_row(record, seconds, replicas, on_card,
+                                             tracing_overhead_pct=record["value"],
+                                             best_req_per_sec=record["best_req_per_sec"])
+            proc.send_signal(signal.SIGTERM)
+            if proc.wait(timeout=120) != 0:
+                raise AssertionError(f"loadgen: flags replica exit code {proc.returncode}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            if proc.returncode not in (0, None):
+                errlog.seek(0)
+                sys.stderr.write(errlog.read()[-8000:])
+    record, seconds, replicas = _loadgen(
+        ["--occupancy_sweep", "--sweep_levels", "1,8", "--sweep_rounds", "1", "--steps",
+         str(LOADGEN_SWEEP_STEPS), "--config", config_name, "--device", device,
+         "--inference_dtype", "bf16", "--output",
+         os.path.join(outdir, "BENCH_serve_batching.json")], outdir, "occupancy_sweep")
+    if not record["compile_count_pinned_at_bucket_count"]:
+        raise AssertionError(f"loadgen occupancy_sweep: compile counts {record['per_side']}")
+    modes["occupancy_sweep"] = _mode_row(
+        record, seconds, replicas, on_card, speedup_full=record["value"],
+        per_level={side: {level: {k: row[k] for k in ("req_per_sec", "latency_p50_ms",
+                                                        "latency_p99_ms",
+                                                        "mean_batch_occupancy")}
+                          for level, row in rec["levels"].items()}
+                   for side, rec in record["per_side"].items()})
+    return modes
+
+
+def _loadgen_lane_b(config_name, device, outdir, on_card):
+    """`--quant_ab bf16,int8` (f32 added as the reference)."""
+    modes = {}
+    record, seconds, replicas = _loadgen(
+        ["--quant_ab", "bf16,int8", "--config", config_name, "--device", device,
+         "--sessions", str(LOADGEN_SESSIONS), "--steps", str(LOADGEN_QUANT_STEPS),
+         "--parity_steps", str(LOADGEN_PARITY_STEPS), "--byte_report_config", config_name,
+         "--output", os.path.join(outdir, "BENCH_serve_quant.json")], outdir, "quant_ab")
+    agreement = {d: row["parity"]["agreement"] for d, row in record["per_dtype"].items()}
+    if min(agreement.values()) < 0.99:
+        raise AssertionError(f"loadgen quant_ab: token agreement {agreement} < 0.99")
+    modes["quant_ab"] = _mode_row(
+        record, seconds, replicas, on_card, agreement=agreement,
+        per_dtype={d: {k: row[k] for k in ("req_per_sec", "latency_p50_ms", "latency_p99_ms",
+                                           "param_bytes_device")}
+                   for d, row in record["per_dtype"].items()},
+        int8_reduction=record["value"])
+    return modes
+
+
+def _loadgen_lane_c(config_name, device, outdir, on_card):
+    """`--fleet 2 --faults replica_kill@1`, then `--migration_ab` on stub
+    fleets."""
+    modes = {}
+    record, seconds, replicas = _loadgen(
+        ["--fleet", "2", "--faults", "replica_kill@1", "--config", config_name, "--device",
+         device, "--inference_dtype", "bf16", "--sessions", "4", "--duration",
+         str(LOADGEN_FLEET_S), "--chaos_interval_s", str(LOADGEN_CHAOS_INTERVAL_S),
+         "--traced", "--output", os.path.join(outdir, "BENCH_serve_fleet.json")],
+        outdir, "fleet")
+    if record["replica_restarts_total"] != 1 or record["replicas_ready_at_end"] != 2:
+        raise AssertionError(f"loadgen fleet: {record['replica_restarts_total']} restarts, "
+                             f"{record['replicas_ready_at_end']} ready at the end")
+    modes["fleet"] = _mode_row(record, seconds, replicas, on_card,
+                               restarted=record["requests_restarted"],
+                               restarts=record["replica_restarts_total"])
+    record, seconds, replicas = _loadgen(
+        ["--migration_ab", "--sessions", "4", "--steps", "2", "--output",
+         os.path.join(outdir, "BENCH_serve_migration.json")], outdir, "migration_ab")
+    if not (record["zero_window_resets"] and record["token_identical_continuations"]):
+        raise AssertionError(f"loadgen migration_ab: {record['value']} resets on the durable "
+                             f"side, token identical {record['token_identical_continuations']}")
+    modes["migration_ab"] = _mode_row(record, seconds, replicas, on_card,
+                                      window_resets=record["value"],
+                                      legacy_window_resets=record["legacy_window_resets"])
+    return modes
+
+
+def _loadgen_lane_d(config_name, device, outdir, on_card):
+    """`--traffic_schedule spike` at 1-3 replicas (elastic) against 3
+    (fixed)."""
+    modes = {}
+    record, seconds, replicas = _loadgen(
+        ["--traffic_schedule", "spike", "--config", config_name, "--device", device,
+         "--inference_dtype", "bf16", "--min_replicas", "1", "--max_replicas", "3",
+         "--surge_dtype", "int8", "--phase_duration", str(LOADGEN_PHASE_S),
+         "--schedule_base_sessions", "2", "--schedule_peak_sessions", "8", "--output",
+         os.path.join(outdir, "BENCH_serve_elastic.json")], outdir, "traffic_schedule")
+    sides = record["sides"]
+    modes["traffic_schedule"] = _mode_row(
+        record, seconds, replicas, on_card, cost_ratio=record["value"],
+        peak_p99_ms={side: rec["spike"]["peak_p99_ms"] for side, rec in sides.items()},
+        replicas_after={side: [row["replicas_after"] for row in rec["spike"]["phases"]]
+                        for side, rec in sides.items()},
+        scale_events=len(sides["elastic"]["spike"]["scale_events"]),
+        compile_pinned=record["compile_pinned_at_bucket_count"])
+    return modes
+
+
+def phase_loadgen(config_name: str = "language_table", device: str = "cuda", outdir=None):
+    """The load generator's seven modes against the port's replicas; every
+    mode must report `requests_failed == 0`. Leaves its records in
+    `outdir` for phase chaos's run report (a temporary directory, removed,
+    when None)."""
+    on_card = device == "cuda"
+    own = outdir is None
+    outdir = outdir or tempfile.mkdtemp(prefix="rt1_chip_smoke_loadgen_")
+    lanes = {"a": _loadgen_lane_a, "b": _loadgen_lane_b, "c": _loadgen_lane_c,
+             "d": _loadgen_lane_d}
+    results, errors = {}, {}
+
+    def run(name, lane):
+        try:
+            results[name] = lane(config_name, device, outdir, on_card)
+        except BaseException as exc:  # noqa: BLE001 - re-raised below, named
+            errors[name] = exc
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=item) for item in lanes.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall_s = time.perf_counter() - t0
+    try:
+        if errors:
+            for name, exc in errors.items():
+                print(f"loadgen lane {name}: {exc!r}", file=sys.stderr)
+            raise AssertionError(f"loadgen: lanes {sorted(errors)} failed: "
+                                 f"{next(iter(errors.values()))}")
+        modes = {mode: row for lane in results.values() for mode, row in lane.items()}
+        record = {"phase": "loadgen", "config": config_name, "device": device,
+                  "nvidia_smi": nvidia_smi() if on_card else None, "modes": modes,
+                  "wall_s": wall_s, "lanes": {k: list(v) for k, v in results.items()}}
+        emit(record)
+        return record
+    finally:
+        if own:
+            shutil.rmtree(outdir, ignore_errors=True)
+
+
+# The trainer's leftovers: the chaos drill, the run report over its
+# workdir and over the load generator's records, a flagship fit with the
+# photometric augmentation and a sweep trial, and the native episode reader.
+CHAOS_FIT_STEPS = 3
+CHAOS_READER_EPISODES = 16
+CHAOS_REPORT_SECTIONS = {
+    "train": ("## Where the hours went", "## Flight recorder", "## Last training scalars"),
+    "serve": ("## Serve post-mortem",),
+}
+
+
+def _report_sections(text, wanted, what):
+    """Each `wanted` heading's section of a run report, which must hold
+    more than its not-found note."""
+    out = {}
+    for heading in wanted:
+        if heading not in text:
+            raise AssertionError(f"chaos: the {what} report has no {heading!r} section")
+        body = text.split(heading, 1)[1].split("\n## ", 1)[0]
+        if "not found" in body or "No metrics.jsonl" in body or "No serving artifacts" in body:
+            raise AssertionError(f"chaos: the {what} report's {heading!r} section is empty:"
+                                 f"{body[:400]}")
+        out[heading.lstrip("# ")] = len(body.splitlines())
+    return out
+
+
+def _reader_check(root, config):
+    """The native reader against `np.load` on seeded episodes (the data
+    phase's writer, seed 0; each also saved compressed): equal arrays and
+    dtypes, and reads a second each way."""
+    import numpy as np
+
+    from rt1_tpu_torch.data import episodes, native
+
+    t0 = time.perf_counter()
+    native.build_reader()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(CHAOS_READER_EPISODES):
+        ep = episodes.generate_synthetic_episode(rng, num_steps=DATA_STEPS)
+        path = os.path.join(root, f"episode_{i:05d}.npz")
+        episodes.save_episode(path, ep)
+        paths.append(path)
+        if i < 4:
+            packed = os.path.join(root, f"compressed_{i:05d}.npz")
+            np.savez_compressed(packed, **ep)
+            paths.append(packed)
+    for path in paths:
+        mine = native.load_episode_native(path)
+        with np.load(path) as z:
+            ref = {k: z[k] for k in z.files}
+        if sorted(mine) != sorted(ref) or any(
+                mine[k].dtype != ref[k].dtype or not np.array_equal(mine[k], ref[k])
+                for k in ref):
+            raise AssertionError(f"chaos: the native reader differs from np.load on {path}")
+    plain = [p for p in paths if "episode_" in p]
+    rates = {}
+    for kind, read in (("native", native.load_episode_native),
+                       ("np_load", lambda p: dict(np.load(p)))):
+        t0 = time.perf_counter()
+        for path in plain:
+            read(path)
+        rates[f"{kind}_reads_per_s"] = len(plain) / (time.perf_counter() - t0)
+    return {"files": len(paths), "compressed": 4, "build_s": build_s, **rates,
+            "episode_bytes": os.path.getsize(plain[0])}
+
+
+def phase_chaos(config_name: str = "language_table", device: str = "cuda", loadgen_dir=None):
+    """The chaos drill, the run reports, a flagship fit with the photometric
+    augmentation under sweep trial 1, and the native episode reader."""
+    from rt1_tpu_torch.configs import SWEEPS, get_config
+    from rt1_tpu_torch.obs import run_report
+    from rt1_tpu_torch.resilience import chaos_train
+    from rt1_tpu_torch.train.__main__ import main as train_main
+
+    config = get_config(config_name)
+    root = tempfile.mkdtemp(prefix="rt1_chip_smoke_chaos_")
+    try:
+        t0 = time.perf_counter()
+        import io
+
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            drill = chaos_train.main(["--workdir", os.path.join(root, "drill"), "--seed", "0",
+                                      "--device", device])
+        drill_s = time.perf_counter() - t0
+        reports = {}
+        chaos_dir = os.path.join(root, "drill", "chaos")
+        text = run_report.main(["--workdir", chaos_dir, "--out",
+                                os.path.join(root, "report_chaos.md")])
+        reports["chaos_a"] = _report_sections(text, CHAOS_REPORT_SECTIONS["train"], "chaos A")
+        if loadgen_dir is not None:
+            text = run_report.main(["--workdir", loadgen_dir, "--out",
+                                    os.path.join(root, "report_loadgen.md")])
+            reports["loadgen"] = _report_sections(text, CHAOS_REPORT_SECTIONS["serve"],
+                                                  "loadgen")
+        from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
+
+        # The flagship's sweep trial 1 (lr 5e-4, seed 42); `tiny` (the CPU
+        # rehearsal) has no sweep.
+        trial_args = ["--sweep_trial", "1"] if config_name in SWEEPS else []
+        reset_launch_counts()
+        lines, fit_s = _run_in_process(train_main, [
+            "--config", config_name, "--device", device, "--workdir",
+            os.path.join(root, "fit"), *trial_args,
+            "--set", "model.photometric_augmentation=True",
+            "--set", f"num_steps={CHAOS_FIT_STEPS}", "--set", "log_every_steps=1",
+            "--set", f"checkpoint_every_steps={CHAOS_FIT_STEPS}",
+            "--set", f"eval_every_steps={10 * CHAOS_FIT_STEPS}"])
+        trial = next((r for r in lines if r.get("status") == "sweep_trial"), None)
+        start = next(r for r in lines if r.get("status") == "start")
+        if trial_args and (trial["overrides"] != {"learning_rate": 5e-4, "seed": 42}
+                           or start["learning_rate"] != 5e-4):
+            raise AssertionError(f"chaos: sweep trial 1 applied {trial}, trained at "
+                                 f"{start['learning_rate']}")
+        losses = [r["loss"] for r in lines if "loss" in r]
+        steps = [r["step"] for r in lines if "loss" in r]
+        if steps[-1:] != [CHAOS_FIT_STEPS] or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"chaos: the augmented fit logged steps {steps}, losses {losses}")
+        reader = _reader_check(os.path.join(root, "reader"), config)
+        record = {"phase": "chaos", "config": config_name, "device": device,
+                  "drill": drill, "drill_s": drill_s, "reports": reports,
+                  "fit": {"seconds": fit_s, "losses": losses,
+                          "learning_rate": start["learning_rate"],
+                          "attention_launches": dict(fused_attention.launches_by_variant)},
+                  "reader": reader}
+        emit(record)
+        return record
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _kernel_entry(name, source, launches, path, head, cases):
     """One entry of the `kernels` line: the kernel's numbers at `head` (the
     case of its path's shape) and its largest error over `cases`."""
@@ -3795,7 +4215,7 @@ def _kernel_entry(name, source, launches, path, head, cases):
 
 
 PHASES = ("kernel", "ab", "sweep", "parity", "tiny", "step", "serve", "train_parity", "train",
-          "train_ops", "data", "eval", "serve_modes", "fleet", "ops", "proof")
+          "train_ops", "data", "eval", "serve_modes", "fleet", "ops", "loadgen", "chaos", "proof")
 
 
 def main(argv=None) -> int:
@@ -3836,6 +4256,9 @@ def main(argv=None) -> int:
     # train CLI run fewer.
     shared = tempfile.mkdtemp(prefix="rt1_chip_smoke_train_") \
         if {"train", "eval"} <= set(phases) else None
+    # Phase chaos's run report reads phase loadgen's records when both run.
+    loadgen_dir = tempfile.mkdtemp(prefix="rt1_chip_smoke_loadgen_") \
+        if {"loadgen", "chaos"} <= set(phases) else None
     for phase in PHASES:
         if phase in phases:
             t_phase = time.perf_counter()
@@ -3848,11 +4271,16 @@ def main(argv=None) -> int:
                 done[phase] = run(train=done.get("train"))
             elif phase in ("train", "eval"):
                 done[phase] = run(workdir=shared)
+            elif phase == "loadgen":
+                done[phase] = run(outdir=loadgen_dir)
+            elif phase == "chaos":
+                done[phase] = run(loadgen_dir=loadgen_dir)
             else:
                 done[phase] = run()
             seconds[phase] = time.perf_counter() - t_phase
-    if shared is not None:
-        shutil.rmtree(shared, ignore_errors=True)
+    for directory in (shared, loadgen_dir):
+        if directory is not None:
+            shutil.rmtree(directory, ignore_errors=True)
     emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - T_START})
     if set(phases) != set(PHASES):
         print(smi, flush=True)
@@ -3917,6 +4345,13 @@ def main(argv=None) -> int:
     entries[0]["train_ops_launches"] = {
         "evals": [launches["tensor_core"] for launches in train_ops["eval_launches"]],
         "eval_batches": train_ops["eval_batches"]}
+    # Each replica the load generator's modes reached, from its start to
+    # the mode's end (new processes: 0 at start).
+    loadgen = done["loadgen"]["modes"]
+    for entry, variant in zip(entries, ("tensor_core", "tf32x3", "simple")):
+        entry["loadgen_launches"] = {
+            mode: {label: counts[variant] for label, counts in row["launches"].items()}
+            for mode, row in loadgen.items() if row["launches"]}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

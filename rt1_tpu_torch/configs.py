@@ -49,6 +49,9 @@ class ModelConfig:
     # "dense" | "fused" ("pallas", the JAX package's name for the fused
     # kernel, maps to "fused"). Training always takes the dense path.
     attention_impl: str = "dense"
+    # Per-video colour jitter in the train forward, after the crop
+    # (`ops/augment.py`).
+    photometric_augmentation: bool = False
     # A state-regression-pretrained encoder (`train/pretrain_vision.py::
     # save_encoder`) grafted into the tokenizer on a fresh start; None
     # trains the tower from its random init.
@@ -67,9 +70,9 @@ class DataConfig:
     # (the loop's own thread); "tf", the JAX package's default, maps to
     # "torch"; "rlds_tf" needs TensorFlow and raises.
     loader: str = "tf"
-    # tf.data's shuffle buffer in JAX. The port's loaders draw a full
-    # permutation per epoch (a buffer as large as the corpus), so any
-    # other value raises.
+    # loader="tf": tf.data's shuffle buffer, min(windows, shuffle_buffer),
+    # over the repeated index stream (`pipeline.buffered_shuffle`); the
+    # torch and numpy loaders draw a full permutation per epoch.
     shuffle_buffer: int = 2048
     num_workers: int = 4                  # port only: the torch loader's processes
     prefetch_factor: int = 2              # port only: batches in flight per worker
@@ -236,16 +239,41 @@ def tiny() -> Config:
     )
 
 
+def language_table_sweep():
+    """The flagship's hyperparameter sweep (`sweep()` of the JAX config
+    file): {dotted-config-key: value} overrides, one dict a trial."""
+    return [
+        {"learning_rate": lr, "seed": seed}
+        for lr in (1e-3, 5e-4, 1e-4)
+        for seed in (42,)
+    ]
+
+
 CONFIGS = {"language_table": language_table, "tiny": tiny}
+SWEEPS = {"language_table": language_table_sweep}
+
+
+def _config_key(name: str) -> str:
+    key = os.path.splitext(os.path.basename(name))[0]
+    if key not in CONFIGS:
+        raise ValueError(f"unknown config {name!r}; choose from {sorted(CONFIGS)}")
+    return key
 
 
 def get_config(name: str) -> Config:
     """A config by name ("language_table" | "tiny") or by the path of the
     JAX package's config file of that name."""
-    key = os.path.splitext(os.path.basename(name))[0]
-    if key not in CONFIGS:
-        raise ValueError(f"unknown config {name!r}; choose from {sorted(CONFIGS)}")
-    return CONFIGS[key]()
+    return CONFIGS[_config_key(name)]()
+
+
+def sweep(name: str):
+    """The sweep of the config `name` names (a list of override dicts);
+    raises ValueError for a config that defines none, as JAX's trainer
+    does."""
+    key = _config_key(name)
+    if key not in SWEEPS:
+        raise ValueError(f"{name} defines no sweep()")
+    return SWEEPS[key]()
 
 
 def _parse_value(text: str, current, key: str, hint):

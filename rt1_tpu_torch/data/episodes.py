@@ -15,7 +15,8 @@ and ``task`` (UTF-8 bytes of the task id), which the packer carries into
 its manifest.
 
 One uncompressed `.npz` per episode, written by `np.savez` and read by
-`np.load`: the same files the JAX package writes and reads.
+the native reader (`data/native.py`; `np.load` with
+`RT1_TPU_NO_NATIVE=1`): the same files the JAX package writes and reads.
 `read_reference_episode` reads the reference's pickled list-of-step-dicts
 `.npy`. `write_manifest` stamps a dataset's `manifest.json`,
 `read_manifest` reads it and `check_embedder_compatibility` holds its
@@ -62,6 +63,13 @@ def save_episode(path: str, ep: Episode) -> None:
 
 
 def load_episode(path: str) -> Episode:
+    """Every array of the episode file at `path`, read by the native
+    reader (`native.load_episode_native`, built with g++ at first use; a
+    failed build raises); `RT1_TPU_NO_NATIVE=1` reads it with `np.load`."""
+    if not os.environ.get("RT1_TPU_NO_NATIVE"):
+        from rt1_tpu_torch.data import native
+
+        return native.load_episode_native(path)
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
 

@@ -15,8 +15,9 @@ Loaders:
   same seed (under its native sampler).
 * `as_torch_loader` — a `torch.utils.data.DataLoader` (the role tf.data
   plays in JAX): worker processes started by `forkserver`, a shuffle from a
-  `torch.Generator` seeded by `seed`, and each worker's crops from a
-  generator of its own seeded by (seed, worker, epoch).
+  `torch.Generator` seeded by `seed` (or tf.data's bounded shuffle buffer),
+  and each window's crops from a generator seeded by (seed, epoch, window
+  index), whichever worker reads it.
 
 `device_feeder` moves host batches to the card: staged into pinned memory,
 copied on a stream of its own with up to `depth` batches in flight, and
@@ -27,10 +28,12 @@ uint8; the model converts them on the card (`ops/image.py`).
 from __future__ import annotations
 
 import collections
+import itertools
 import multiprocessing
+import os
 import threading
 import time
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -175,20 +178,28 @@ class WindowedEpisodeDataset:
         prefetch_factor: Optional[int] = 2,
         pin_memory: bool = False,
         num_epochs: Optional[int] = None,
+        shuffle_buffer: Optional[int] = None,
     ) -> torch.utils.data.DataLoader:
         """A DataLoader of batches of torch tensors (the nested dict of
         `numpy_batches`), `num_epochs` epochs (None: without end).
 
         Each epoch is a permutation from one `torch.Generator` seeded by
         `seed` (arange without `shuffle`), cut into full batches (an epoch's remainder is
-        dropped, as `drop_last=True` does). Workers start by
-        `forkserver`; a worker draws its crops from a
-        generator seeded by (seed, worker id, epoch), so no two workers draw
-        the same crops, and `num_workers=0` draws as worker 0. `pin_memory`
+        dropped, as `drop_last=True` does). With `shuffle_buffer` (the
+        `data.loader="tf"` path) the order is instead tf.data's
+        `repeat().shuffle(min(n, shuffle_buffer))` over the window indices:
+        `buffered_shuffle` of the repeated stream, whose draws span epoch
+        boundaries, cut into batches. Workers start by
+        `forkserver`; the crops of window `idx` in epoch `e` come from a
+        generator seeded by (seed, e, idx), so they depend neither on the
+        worker count nor on the order the keys arrive in. `pin_memory`
         pins each batch for the upload (`device_feeder` copies pinned
         tensors directly)."""
         native.build()  # once, here, rather than racing in every worker
-        batches = _EpochBatches(len(self.index), batch_size, shuffle, seed, num_epochs)
+        if not os.environ.get("RT1_TPU_NO_NATIVE"):
+            native.build_reader()
+        batches = _EpochBatches(len(self.index), batch_size, shuffle, seed, num_epochs,
+                                shuffle_buffer)
         kwargs = {}
         if num_workers > 0:
             # forkserver: each worker forks from a fresh single-threaded
@@ -216,16 +227,57 @@ def loader_batches(loader: torch.utils.data.DataLoader) -> Iterator:
             shutdown()
 
 
+def buffered_shuffle(items: Iterable, buffer_size: int, seed: int) -> Iterator:
+    """tf.data's `shuffle(buffer_size, seed)` over `items`: fill a buffer
+    with the first `buffer_size` items, then each draw takes a uniformly
+    chosen buffered item and refills its place with the stream's next one;
+    when the stream ends, the buffer drains in random order. Draw t is an
+    item from stream positions below t + buffer_size; buffer_size 1 keeps
+    the stream's order."""
+    if buffer_size < 1:
+        raise ValueError(f"buffer_size must be >= 1, got {buffer_size}")
+    rng = np.random.default_rng(seed)
+    stream = iter(items)
+    buffer = list(itertools.islice(stream, buffer_size))
+    while buffer:
+        j = int(rng.integers(len(buffer)))
+        item = buffer[j]
+        try:
+            buffer[j] = next(stream)
+        except StopIteration:
+            buffer[j] = buffer[-1]
+            buffer.pop()
+        yield item
+
+
 class _EpochBatches(torch.utils.data.Sampler):
     """Batches of (epoch, window index) keys; see `as_torch_loader`."""
 
-    def __init__(self, n, batch_size, shuffle, seed, num_epochs):
+    def __init__(self, n, batch_size, shuffle, seed, num_epochs, shuffle_buffer=None):
         if batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
         self.n, self.batch_size, self.shuffle, self.seed = n, batch_size, shuffle, seed
         self.num_epochs = num_epochs
+        self.shuffle_buffer = shuffle_buffer
+
+    def _buffered(self):
+        """The repeated index stream through `buffered_shuffle`, keyed by
+        each item's epoch in the stream, cut into full batches."""
+        n = self.n
+        positions = itertools.count() if self.num_epochs is None \
+            else range(n * self.num_epochs)
+        keys = buffered_shuffle(((p // n, p % n) for p in positions),
+                                min(n, self.shuffle_buffer), self.seed)
+        while True:
+            batch = list(itertools.islice(keys, self.batch_size))
+            if len(batch) < self.batch_size:
+                return
+            yield batch
 
     def __iter__(self):
+        if self.shuffle and self.shuffle_buffer:
+            yield from self._buffered()
+            return
         g = torch.Generator().manual_seed(self.seed)
         epoch = 0
         while self.num_epochs is None or epoch < self.num_epochs:
@@ -238,25 +290,18 @@ class _EpochBatches(torch.utils.data.Sampler):
 
 class _WindowView(torch.utils.data.Dataset):
     """Map-style view of a WindowedEpisodeDataset keyed by (epoch, index),
-    with the crop generator of (seed, worker, epoch)."""
+    each key's crops drawn from a generator seeded by (seed, epoch, index)."""
 
     def __init__(self, dataset: WindowedEpisodeDataset, seed: int):
         self.dataset = dataset
         self.seed = seed
-        self._rng_key = None
-        self._rng = None
 
     def __len__(self) -> int:
         return len(self.dataset)
 
     def __getitem__(self, key):
         epoch, idx = key
-        info = torch.utils.data.get_worker_info()
-        rng_key = (0 if info is None else info.id, epoch)
-        if rng_key != self._rng_key:
-            self._rng_key = rng_key
-            self._rng = np.random.default_rng([self.seed, *rng_key])
-        return self.dataset.get_window(idx, self._rng)
+        return self.dataset.get_window(idx, np.random.default_rng([self.seed, epoch, idx]))
 
 
 def _collate(samples: List[Batch]) -> Dict[str, Dict[str, torch.Tensor]]:

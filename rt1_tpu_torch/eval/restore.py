@@ -82,6 +82,7 @@ def build_policy(config: Config, attention_impl: Optional[str] = None) -> RT1Pol
         attention_impl=normalize_attention_impl(attention_impl or m.attention_impl),
         dropout_rate=m.dropout_rate,
         crop_ratio=reg.crop_ratio,
+        photometric_augmentation=m.photometric_augmentation,
         focal_gamma=m.focal_gamma,
         aux_mse_weight=m.aux_mse_weight,
         # JAX's build_model passes every tokenizer but B3's as a def.

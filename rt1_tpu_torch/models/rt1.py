@@ -6,7 +6,8 @@ JAX module's `__call__`: ONE transformer pass over the T*(I+A) sequence,
 action-token CE on the logits one position before each action token,
 scaled as the reference does (`/(b*t*(I+A))`, the JAX module's
 `loss_scale="reference"`), optionally focal-modulated and with the
-soft-argmax MSE auxiliary. Train mode crops (`crop_ratio`, from `rngs["crop"]`), drops out
+soft-argmax MSE auxiliary. Train mode crops (`crop_ratio`, from `rngs["crop"]`), jitters
+colour with `photometric_augmentation` (`rngs["augment"]`), drops out
 (`rngs["dropout"]`), applies stochastic depth
 (`rngs["stochastic_depth"]`) and uses BatchNorm's batch statistics; the
 generators are passed in, never drawn from the global one.
@@ -21,7 +22,7 @@ Unlike the JAX module, whose `seq_idx` is one scalar for the whole batch
 the port steps a batch of streams at different phases at once: `seq_idx`
 is a `(b,)` tensor, and the roll, the insert, the step-logit gather and
 the action write all act per row. A batch whose rows share a phase is
-exactly the JAX computation. Photometric augmentation is not ported.
+exactly the JAX computation.
 
 `infer_step_cached` is the incremental step against a per-stream K/V
 cache (`initial_state(b, cached=True)`): it runs the transformer over the
@@ -45,6 +46,7 @@ from torch import nn
 from rt1_tpu_torch.models import action_tokenizer
 from rt1_tpu_torch.models.image_tokenizer import RT1ImageTokenizer
 from rt1_tpu_torch.models.transformer import CausalTransformer
+from rt1_tpu_torch.ops import augment
 from rt1_tpu_torch.ops import image as image_ops
 from rt1_tpu_torch.ops.dropout import Rngs
 
@@ -117,6 +119,7 @@ class RT1Policy(nn.Module):
         attention_impl: str = "dense",
         dropout_rate: float = 0.1,
         crop_ratio: float = 0.07,
+        photometric_augmentation: bool = False,
         focal_gamma: float = 0.0,
         aux_mse_weight: float = 0.0,
         tokenizer_flax_name: Optional[str] = None,
@@ -125,6 +128,8 @@ class RT1Policy(nn.Module):
         if action_decode not in ("argmax", "expected"):
             raise ValueError(f"action_decode must be 'argmax' or 'expected', got {action_decode!r}")
         self.crop_ratio = crop_ratio
+        self.photometric_augmentation = photometric_augmentation
+        self.photometric_config = augment.PhotometricConfig()  # the reference's ranges
         self.focal_gamma = focal_gamma
         self.aux_mse_weight = aux_mse_weight
         self.action_space = dict(action_space)
@@ -209,12 +214,20 @@ class RT1Policy(nn.Module):
     def _tokenize_images(self, image: torch.Tensor, context: Optional[torch.Tensor],
                          train: bool = False, rngs: Rngs = None) -> torch.Tensor:
         """image (b, t, H, W, 3), context (b, t, D) or (b, D) -> (b, t, I, E).
-        Train mode crops (unless `crop_ratio` is 0) with `rngs["crop"]`."""
+        Train mode crops (unless `crop_ratio` is 0) with `rngs["crop"]`,
+        then, with `photometric_augmentation`, jitters colour with one level
+        per call from `rngs["augment"]` (else `rngs["crop"]`)."""
         if context is not None and context.dim() == 2:
             context = context[:, None, :].expand(-1, image.shape[1], -1)
+        rngs = rngs or {}
         do_crop = train and self.crop_ratio > 0
         image = image_ops.convert_dtype_and_crop_images(
-            image, generator=(rngs or {}).get("crop"), ratio=self.crop_ratio, train=do_crop)
+            image, generator=rngs.get("crop"), ratio=self.crop_ratio, train=do_crop)
+        if train and self.photometric_augmentation:
+            generator = rngs.get("augment", rngs.get("crop"))
+            if generator is None:
+                raise ValueError("photometric augmentation needs rngs['augment'] or rngs['crop']")
+            image = augment.photometric_distortions(image, generator, self.photometric_config)
         return self.image_tokenizer(image, context=context, train=train, rngs=rngs)
 
     def _assemble(self, context_image_tokens: torch.Tensor) -> torch.Tensor:

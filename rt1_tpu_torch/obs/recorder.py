@@ -269,3 +269,35 @@ class ExemplarRing:
             for rec in records:
                 f.write(json.dumps(rec) + "\n")
         return path
+
+
+def _read_jsonl_dump(path: str, header_key: str) -> Dict[str, Any]:
+    """{"header": ..., "records": [...]} of a JSONL dump whose first line
+    holds `header_key`; a truncated final line (a write cut by a hard
+    kill) ends the records."""
+    header: Dict[str, Any] = {}
+    records: List[Dict[str, Any]] = []
+    with open(path) as f:
+        for i, line in enumerate(f):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                obj = json.loads(line)
+            except json.JSONDecodeError:
+                break
+            if i == 0 and header_key in obj:
+                header = obj[header_key]
+            else:
+                records.append(obj)
+    return {"header": header, "records": records}
+
+
+def read_exemplars(path: str) -> Dict[str, Any]:
+    """An `ExemplarRing.dump` file -> {"header": ..., "records": [...]}."""
+    return _read_jsonl_dump(path, "slow_requests")
+
+
+def read_dump(path: str) -> Dict[str, Any]:
+    """A `FlightRecorder.dump` file -> {"header": ..., "records": [...]}."""
+    return _read_jsonl_dump(path, "flight_recorder")

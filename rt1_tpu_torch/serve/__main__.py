@@ -36,6 +36,11 @@ embedder than `--embedder` is refused unless `--allow_embedder_mismatch`.
 `--capture_dir DIR` writes each served session as an episode `.npz` when
 it is released, reset, terminated or drained (`flywheel/capture.py`).
 
+The batcher takes JAX's flags: `--max_batch` (0 = `--max_sessions`, and
+clamped to it), `--max_delay_ms`, `--max_queue`, `--pipeline_depth` and
+`--request_timeout_s`; `/healthz` reports them under `batcher`.
+`--verbose` logs a line per request.
+
 Prints one JSON ready-line (`{"status": "serving", "port": ...}`) once every
 bucket is warmed and the socket is bound, then serves until SIGTERM/SIGINT,
 which drains accepted requests, prints a final `{"status": "drained", ...}`
@@ -72,9 +77,21 @@ def parse_args(argv):
     p.add_argument("--max_sessions", type=int, default=8,
                    help="Concurrent session slots = the largest device batch; "
                         "batches ride power-of-two buckets up to it.")
+    p.add_argument("--max_batch", type=int, default=0,
+                   help="Largest batch the batcher forms (0 = max_sessions; clamped to it).")
+    p.add_argument("--max_delay_ms", type=float, default=10.0,
+                   help="[cycle] the longest a request waits for batchmates; [continuous] the "
+                        "cap on coalescing a re-forming burst (a lone client never waits).")
+    p.add_argument("--max_queue", type=int, default=64,
+                   help="Bounded admission queue; beyond it /act answers 503 busy.")
     p.add_argument("--scheduler", choices=("continuous", "cycle"), default="continuous",
-                   help="'continuous' rolls requests into the next step (two in flight); "
-                        "'cycle' waits for a full batch or a 10 ms deadline.")
+                   help="'continuous' rolls requests into the next step (--pipeline_depth in "
+                        "flight); 'cycle' waits for a full batch or the --max_delay_ms deadline.")
+    p.add_argument("--pipeline_depth", type=int, default=2,
+                   help="[continuous] batches in flight: 2 prepares batch N+1 while N runs.")
+    p.add_argument("--request_timeout_s", type=float, default=60.0,
+                   help="Server-side budget of one request.")
+    p.add_argument("--verbose", action="store_true", help="Log a line per request to stderr.")
     p.add_argument("--embedder", default="hash", help="Instruction embedder: hash | ngram.")
     p.add_argument("--allow_embedder_mismatch", action="store_true",
                    help="Serve a --workdir checkpoint even when its data_manifest.json records "
@@ -214,7 +231,12 @@ def main(argv=None) -> int:
     app = ServeApp(
         engine,
         image_shape=(config.data.height, config.data.width, 3),
+        max_batch=args.max_batch or None,
+        max_delay_s=args.max_delay_ms / 1e3,
+        max_queue=args.max_queue,
         scheduler=args.scheduler,
+        pipeline_depth=args.pipeline_depth,
+        request_timeout_s=args.request_timeout_s,
         replica_id=args.replica_id,
         reload_fn=reload_fn,
         checkpoint_step=step if step is not None else -1,
@@ -228,7 +250,7 @@ def main(argv=None) -> int:
     app.start(warmup=True)
     if args.watch_checkpoints_s > 0 and args.workdir:
         start_checkpoint_watcher(app, args.workdir, args.watch_checkpoints_s, served_step=step)
-    httpd = make_server(app, host=args.host, port=args.port)
+    httpd = make_server(app, host=args.host, port=args.port, quiet=not args.verbose)
     install_signal_handlers(app, httpd)
     print(
         json.dumps(

@@ -102,13 +102,14 @@ import threading
 import time
 import urllib.error
 import urllib.request
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from rt1_tpu_torch.obs import prometheus as obs_prometheus
 from rt1_tpu_torch.obs import trace as obs_trace
 from rt1_tpu_torch.obs.slo import OUTCOMES, SLOLedger, SLOObjectives
 from rt1_tpu_torch.serve import migrate, reqtrace
+from rt1_tpu_torch.serve.httpd import HTTPServer
 from rt1_tpu_torch.serve.metrics import ServeMetrics
 
 # Replica lifecycle as the router sees it. STARTING covers spawn ->
@@ -1542,12 +1543,11 @@ class _RouterHandler(BaseHTTPRequestHandler):
 
 def make_router_server(
     router: Router, host: str = "127.0.0.1", port: int = 0, quiet: bool = True
-) -> ThreadingHTTPServer:
-    """Bind a ThreadingHTTPServer to `router` (port 0 = ephemeral)."""
+) -> HTTPServer:
+    """Bind an `httpd.HTTPServer` to `router` (port 0 = ephemeral)."""
     handler = type(
         "BoundRouterHandler", (_RouterHandler,),
         {"router": router, "quiet": quiet},
     )
-    httpd = ThreadingHTTPServer((host, port), handler)
-    httpd.daemon_threads = True
+    httpd = HTTPServer((host, port), handler)
     return httpd

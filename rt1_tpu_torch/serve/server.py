@@ -65,7 +65,7 @@ import json
 import signal
 import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,6 +76,7 @@ from rt1_tpu_torch.obs.recorder import ExemplarRing
 from rt1_tpu_torch.parallel.flash_attention import fused_attention
 from rt1_tpu_torch.resilience import faults
 from rt1_tpu_torch.serve import migrate, reqtrace
+from rt1_tpu_torch.serve.httpd import HTTPServer
 from rt1_tpu_torch.serve.batcher import BusyError, ContinuousBatcher, DrainingError, MicroBatcher
 from rt1_tpu_torch.serve.engine import (
     EMBEDDING_DIM,
@@ -84,15 +85,6 @@ from rt1_tpu_torch.serve.engine import (
     SlotContentionError,
 )
 from rt1_tpu_torch.serve.metrics import ServeMetrics
-
-# The JAX server's defaults: a bounded admission queue (beyond it, 503
-# busy), the longest a request waits for batchmates, two batches in flight
-# under the continuous scheduler, and the server-side request budget.
-MAX_QUEUE = 64
-MAX_DELAY_S = 0.010
-PIPELINE_DEPTH = 2
-REQUEST_TIMEOUT_S = 60.0
-
 
 class RequestError(ValueError):
     """Malformed client payload -> HTTP 400."""
@@ -149,7 +141,12 @@ class ServeApp:
         engine: PolicyEngine,
         *,
         image_shape: Sequence[int],
+        max_batch: Optional[int] = None,
+        max_delay_s: float = 0.010,
+        max_queue: int = 64,
         scheduler: str = "continuous",
+        pipeline_depth: int = 2,
+        request_timeout_s: float = 60.0,
         replica_id: int = 0,
         reload_fn=None,
         checkpoint_step: int = -1,
@@ -169,7 +166,7 @@ class ServeApp:
         self.image_shape = tuple(image_shape)
         self.embed_dim = EMBEDDING_DIM
         self.metrics = ServeMetrics()
-        self.request_timeout_s = REQUEST_TIMEOUT_S
+        self.request_timeout_s = request_timeout_s
         self.replica_id = replica_id
         # Slow-request exemplar ring: request id + phase breakdown for
         # every request past the threshold (0 = all, ring-bounded), served
@@ -208,14 +205,23 @@ class ServeApp:
         if scheduler not in ("continuous", "cycle"):
             raise ValueError(f"scheduler must be 'continuous' or 'cycle', got {scheduler!r}")
         self.scheduler = scheduler
-        # batch_key: one session's requests never share a batch.
+        # A flush larger than the slot count would make the engine refuse
+        # the whole batch: clamp, as JAX does (None or 0 = max_sessions).
+        self.max_batch = min(max_batch or engine.max_sessions, engine.max_sessions)
+        self.max_delay_s = max_delay_s
+        self.max_queue = max_queue
+        self.pipeline_depth = pipeline_depth
+        # batch_key: one session's requests never share a batch. The
+        # continuous scheduler takes `max_delay_s` as its demand-coalesce
+        # cap (a lone client still dispatches at once), the cycle scheduler
+        # as its deadline.
         if scheduler == "continuous":
             self.batcher = ContinuousBatcher(
                 self._process,
-                max_batch=engine.max_sessions,
-                max_queue=MAX_QUEUE,
-                pipeline_depth=PIPELINE_DEPTH,
-                coalesce_delay_s=MAX_DELAY_S,
+                max_batch=self.max_batch,
+                max_queue=max_queue,
+                pipeline_depth=pipeline_depth,
+                coalesce_delay_s=max_delay_s,
                 batch_key=lambda item: item[0],
                 metrics=self.metrics,
                 on_batch=self._mark_batch_formed,
@@ -223,9 +229,9 @@ class ServeApp:
         else:
             self.batcher = MicroBatcher(
                 self._process,
-                max_batch=engine.max_sessions,
-                max_delay_s=MAX_DELAY_S,
-                max_queue=MAX_QUEUE,
+                max_batch=self.max_batch,
+                max_delay_s=max_delay_s,
+                max_queue=max_queue,
                 batch_key=lambda item: item[0],
                 metrics=self.metrics,
                 on_batch=self._mark_batch_formed,
@@ -536,6 +542,14 @@ class ServeApp:
             "cached_inference": self.engine.cached_inference,
             "checkpoint_generation": self.checkpoint_generation,
             "session_snapshots": self.snapshot_ring is not None,
+            # The batcher's settings (`--max_batch` ... `--request_timeout_s`).
+            "batcher": {
+                "max_batch": self.max_batch,
+                "max_delay_s": self.max_delay_s,
+                "max_queue": self.max_queue,
+                "pipeline_depth": self.pipeline_depth,
+                "request_timeout_s": self.request_timeout_s,
+            },
         }
 
     def readyz(self) -> Tuple[int, Dict[str, Any]]:
@@ -597,8 +611,11 @@ class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     app: ServeApp = None  # bound by make_server
 
-    def log_message(self, fmt, *args):  # noqa: D102 - stdlib hook: no per-request lines
-        pass
+    quiet: bool = True
+
+    def log_message(self, fmt, *args):  # noqa: D102 - stdlib hook
+        if not self.quiet:
+            super().log_message(fmt, *args)
 
     def _reply(self, code: int, payload: Dict[str, Any]) -> None:
         body = json.dumps(payload).encode("utf-8")
@@ -822,15 +839,16 @@ class _Handler(BaseHTTPRequestHandler):
         self._reply(200, out)
 
 
-def make_server(app: ServeApp, host: str = "127.0.0.1", port: int = 0) -> ThreadingHTTPServer:
-    """Bind a ThreadingHTTPServer to `app` (port 0 = ephemeral)."""
-    handler = type("BoundHandler", (_Handler,), {"app": app})
-    httpd = ThreadingHTTPServer((host, port), handler)
-    httpd.daemon_threads = True
+def make_server(app: ServeApp, host: str = "127.0.0.1", port: int = 0,
+                quiet: bool = True) -> HTTPServer:
+    """Bind an `httpd.HTTPServer` to `app` (port 0 = ephemeral); `quiet`
+    False logs a line per request to stderr."""
+    handler = type("BoundHandler", (_Handler,), {"app": app, "quiet": quiet})
+    httpd = HTTPServer((host, port), handler)
     return httpd
 
 
-def install_signal_handlers(app: ServeApp, httpd: ThreadingHTTPServer) -> None:
+def install_signal_handlers(app: ServeApp, httpd: HTTPServer) -> None:
     """SIGTERM/SIGINT -> drain accepted requests, then stop the server."""
 
     def _shutdown(signum, frame):  # noqa: ARG001 - signal signature

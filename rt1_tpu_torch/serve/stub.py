@@ -41,7 +41,7 @@ import json
 import sys
 import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Any, Dict, Tuple
 
 from rt1_tpu_torch.obs import prometheus as obs_prometheus
@@ -49,6 +49,7 @@ from rt1_tpu_torch.obs import trace as obs_trace
 from rt1_tpu_torch.obs.recorder import ExemplarRing
 from rt1_tpu_torch.resilience import faults
 from rt1_tpu_torch.serve import migrate, reqtrace
+from rt1_tpu_torch.serve.httpd import HTTPServer
 from rt1_tpu_torch.serve.metrics import ServeMetrics
 
 IMAGE_SHAPE = (8, 14, 3)  # tiny but nonzero: loadgen reads this contract
@@ -661,10 +662,9 @@ class _StubHandler(BaseHTTPRequestHandler):
 
 def make_stub_server(
     app: StubReplicaApp, host: str = "127.0.0.1", port: int = 0
-) -> ThreadingHTTPServer:
+) -> HTTPServer:
     handler = type("BoundStubHandler", (_StubHandler,), {"app": app})
-    httpd = ThreadingHTTPServer((host, port), handler)
-    httpd.daemon_threads = True
+    httpd = HTTPServer((host, port), handler)
     return httpd
 
 

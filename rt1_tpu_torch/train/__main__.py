@@ -16,9 +16,15 @@ the packed cache; pack each split once first):
       --set data.data_dir=/data/lt --set data.packed_cache=True
 
 Without `data.packed_cache` (or with a stale pack) the episodes go through
-the windowed loader: `data.loader=tf` or `torch` (a DataLoader of
-`data.num_workers` processes, the default) or `numpy` (the loop's own
-thread). With `data.data_dir` empty the loop trains on synthetic batches.
+the windowed loader: `data.loader=tf` (the default: the torch loader in
+the order of tf.data's `shuffle(min(windows, data.shuffle_buffer))`) or
+`torch` (a DataLoader of `data.num_workers` processes, a permutation an
+epoch) or `numpy` (the loop's own thread). With `data.data_dir` empty the
+loop trains on synthetic batches.
+
+`--sweep_trial N` applies trial N of the config's hyperparameter sweep
+(`configs.sweep`: the flagship's learning rates 1e-3, 5e-4, 1e-4) before
+the `--set` overrides and logs it as a `sweep_trial` line.
 
 Override any config field with `--set key=value` (repeatable), e.g.
 `--set num_steps=6 --set model.dropout_rate=0`; `--set
@@ -47,6 +53,7 @@ preemption.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 
@@ -57,6 +64,8 @@ def parse_args(argv):
                    help="language_table | tiny (or the path of the JAX config file of that name)")
     p.add_argument("--workdir", required=True, help="Checkpoints and metrics.jsonl go here.")
     p.add_argument("--device", default="cuda", help="cuda | cpu")
+    p.add_argument("--sweep_trial", type=int, default=-1,
+                   help="Apply trial N of the config's sweep() before --set (-1: none).")
     p.add_argument("--set", dest="overrides", action="append", default=[], metavar="KEY=VALUE",
                    help="Override a config field (dotted key), repeatable.")
     return p.parse_args(argv)
@@ -66,9 +75,13 @@ def main(argv=None) -> int:
     args = parse_args(sys.argv[1:] if argv is None else argv)
 
     from rt1_tpu_torch.configs import apply_override, get_config
-    from rt1_tpu_torch.train.train import train_and_evaluate
+    from rt1_tpu_torch.train.train import apply_sweep_trial, train_and_evaluate
 
     config = get_config(args.config)
+    if args.sweep_trial >= 0:
+        overrides = apply_sweep_trial(config, args.config, args.sweep_trial)
+        print(json.dumps({"status": "sweep_trial", "trial": args.sweep_trial,
+                          "overrides": overrides}), flush=True)
     for assignment in args.overrides:
         apply_override(config, assignment)
     train_and_evaluate(config, args.workdir, device=args.device)

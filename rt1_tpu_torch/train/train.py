@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from rt1_tpu_torch import obs, resilience, resolve_device
-from rt1_tpu_torch.configs import Config, DataConfig
+from rt1_tpu_torch.configs import Config, apply_override, sweep
 from rt1_tpu_torch.convert import init_weights
 from rt1_tpu_torch.data import pack as pack_lib
 from rt1_tpu_torch.data.episodes import read_manifest
@@ -71,6 +71,18 @@ from rt1_tpu_torch.trainer.state import TrainState, create_train_state
 from rt1_tpu_torch.trainer.train import optimizer_from_config, train_step_fns_from_config
 
 EMBEDDING_DIM = 512
+
+
+def apply_sweep_trial(config: Config, config_name: str, trial: int) -> Dict:
+    """Apply trial `trial` of the config's sweep (`configs.sweep`) onto
+    `config` in place; returns its overrides."""
+    trials = sweep(config_name)
+    if not 0 <= trial < len(trials):
+        raise ValueError(f"--sweep_trial {trial} out of range [0, {len(trials)})")
+    overrides = trials[trial]
+    for key, value in overrides.items():
+        apply_override(config, f"{key}={value}")
+    return overrides
 
 
 def build_model(config: Config, device=None):
@@ -186,10 +198,6 @@ def dataset_batches(config: Config, split: str = "train", seed: Optional[int] = 
     if d.clip_tokens:
         raise ValueError("data.clip_tokens (CLIP BPE instruction tokens for LAVA) is not ported "
                          "yet")
-    if d.shuffle_buffer != DataConfig.shuffle_buffer:
-        raise ValueError(f"data.shuffle_buffer={d.shuffle_buffer}: tf.data's shuffle buffer has no "
-                         "counterpart in the port, whose loaders draw a full permutation per "
-                         f"epoch; leave it at {DataConfig.shuffle_buffer}")
     loader = loader_name(config)
     stream_seed = config.seed if seed is None else seed
     paths = sorted(glob.glob(os.path.join(d.data_dir, split, "episode_*.np*")))
@@ -204,7 +212,10 @@ def dataset_batches(config: Config, split: str = "train", seed: Optional[int] = 
     if loader == "torch":
         return DataStream(loader_batches(ds.as_torch_loader(
             config.per_host_batch_size, seed=stream_seed, num_workers=d.num_workers,
-            prefetch_factor=d.prefetch_factor, pin_memory=pin_memory)), "torch")
+            prefetch_factor=d.prefetch_factor, pin_memory=pin_memory,
+            # JAX's tf.data loader shuffles through a bounded buffer; the
+            # torch and numpy loaders keep a full permutation an epoch.
+            shuffle_buffer=d.shuffle_buffer if d.loader == "tf" else None)), "torch")
     return DataStream(ds.numpy_batches(config.per_host_batch_size, seed=stream_seed), "numpy")
 
 
@@ -476,7 +487,8 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
 
         cleanup.callback(_write_goodput)
         log({"status": "start", "device": str(dev), "restored_step": initial_step or None,
-             "num_steps": config.num_steps,
+             "num_steps": config.num_steps, "learning_rate": config.learning_rate,
+             "seed": config.seed,
              "compute_dtype": str(fns.compute_dtype).split(".")[-1],
              "parameters": sum(p.numel() for p in policy.parameters()),
              "data_loader": live["train"].loader,

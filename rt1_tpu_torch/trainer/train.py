@@ -24,8 +24,9 @@ float32 einsum would run in bf16 again. The gradient arrives in the
 compute dtype and is taken to float32; the optimizer steps the float32
 masters.
 
-Randomness: the crop, dropout and stochastic depth each draw from a
-`torch.Generator` of their own on the step's device, seeded from
+Randomness: the crop, dropout, stochastic depth and (with
+`photometric_augmentation` on) the photometric augmentation each draw from
+a `torch.Generator` of their own on the step's device, seeded from
 `(seed, step)` (and the micro-batch under accumulation), so a resumed run
 draws what an unbroken one would have.
 
@@ -66,15 +67,20 @@ from rt1_tpu_torch.trainer.optim import Adam, AdamState, global_norm
 from rt1_tpu_torch.trainer.state import TrainState
 
 Batch = Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
-RNG_STREAMS = ("crop", "dropout", "stochastic_depth")
+RNG_STREAMS = ("crop", "dropout", "stochastic_depth", "augment")
 
 
-def step_rngs(seed: int, step: int, device, micro: int = 0) -> Dict[str, torch.Generator]:
+def step_rngs(seed: int, step: int, device, micro: int = 0,
+              augment: bool = False) -> Dict[str, torch.Generator]:
     """One generator per random stream on `device`, seeded from
-    (seed, step, stream, micro)."""
+    (seed, step, stream index, micro); the `augment` stream only when
+    `augment` (its index is the last, so the others' seeds do not depend on
+    it)."""
     device = torch.device(device)
     rngs = {}
     for index, name in enumerate(RNG_STREAMS):
+        if name == "augment" and not augment:
+            continue
         words = np.random.SeedSequence([seed, step, index, micro]).generate_state(2, np.uint32)
         g = torch.Generator(device=device)
         g.manual_seed((int(words[0]) << 31) ^ int(words[1]))
@@ -110,6 +116,7 @@ class TrainStepFns:
     model_health: bool = False
     health_group_depth: int = 2
     health_task_names: Tuple[str, ...] = ()
+    photometric_augmentation: bool = False
     _health: Optional[HealthPack] = dataclasses.field(default=None, init=False, repr=False)
 
     def __post_init__(self):
@@ -155,16 +162,17 @@ class TrainStepFns:
         the current masters, accumulated over `accum_steps` micro-batches;
         the BatchNorm statistics advance as in a step. `grads_by_name`
         unflattens the gradient."""
-        device = state.flat.device
+        device, augment = state.flat.device, self.photometric_augmentation
         if self.accum_steps == 1:
-            return self._grad(state, batch, step_rngs(self.seed, step, device))
+            return self._grad(state, batch, step_rngs(self.seed, step, device, augment=augment))
         # The reference loss scale makes a micro-batch's loss accum times
         # the full batch's: the extra /accum.
         extra = float(self.accum_steps)
         grad, loss, mse = None, 0.0, 0.0
         for i, micro in enumerate(_split(batch, self.accum_steps)):
             l_i, g_i, out_i = self._grad(state, micro,
-                                         step_rngs(self.seed, step, device, micro=i + 1))
+                                         step_rngs(self.seed, step, device, micro=i + 1,
+                                                   augment=augment))
             grad = g_i if grad is None else grad + g_i
             loss = loss + l_i
             mse = mse + out_i.get("aux_mse", 0.0)
@@ -258,4 +266,5 @@ def train_step_fns_from_config(config, optimizer: Optional[Adam] = None,
         model_health=config.obs.model_health,
         health_group_depth=config.obs.health_group_depth,
         health_task_names=tuple(health_task_names),
+        photometric_augmentation=config.model.photometric_augmentation,
     )

@@ -6,7 +6,8 @@
   dataset_batches`) for the numpy loader and for the packed cache, byte
   for byte (the JAX side resizes with its native sampler).
 * The data config's shared fields keep the JAX config's defaults;
-  `loader="tf"` maps to the torch loader; a stale pack falls back to the
+  `loader="tf"` maps to the torch loader (through tf.data's bounded
+  shuffle buffer, at any `shuffle_buffer`); a stale pack falls back to the
   windowed loader with a JSON line; `rlds_tf` and `clip_tokens` raise.
 * `python -m rt1_tpu_torch.train --config tiny --device cpu --set
   data.data_dir=...` trains 4 steps from files through the packed cache
@@ -142,11 +143,17 @@ def test_loader_names_and_refusals(data_dir):
     assert stream.loader == "torch"
     assert next(stream.batches)["observations"]["image"].dtype == torch.uint8
     for key, value, match in (("loader", "rlds_tf", "TensorFlow"), ("clip_tokens", True, "CLIP"),
-                              ("loader", "grain", "loader"),
-                              ("shuffle_buffer", 512, "shuffle_buffer")):
+                              ("loader", "grain", "loader")):
         bad, _ = _configs(data_dir, **{key: value})
         with pytest.raises(ValueError, match=match):
             dataset_batches(bad, "train")
+    # Another shuffle buffer is no refusal: loader "tf" draws through it
+    # (tf.data's bounded buffer; buffer 1 keeps the stream's order).
+    buffered, _ = _configs(data_dir, loader="tf", num_workers=0, shuffle_buffer=1)
+    stream = dataset_batches(buffered, "train")
+    assert stream.loader == "torch"
+    assert next(stream.batches)["observations"]["image"].dtype == torch.uint8
+    stream.batches.close()
     with pytest.raises(FileNotFoundError):
         dataset_batches(cfg, "test")
 

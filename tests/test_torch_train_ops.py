@@ -160,13 +160,16 @@ def test_synthetic_batches_and_rngs_are_functions_of_seed_and_step():
     obs, actions = a
     assert obs["image"].shape == (8, 3, 32, 56, 3) and 0 <= obs["image"].min() < obs["image"].max() < 1
     assert actions["action"].abs().max() <= 0.1 and set(actions["terminate_episode"].unique().tolist()) <= {0, 1}
-    draws = {name: torch.rand(4, generator=g) for name, g in step_rngs(1, 2, "cpu").items()}
-    again = {name: torch.rand(4, generator=g) for name, g in step_rngs(1, 2, "cpu").items()}
-    other = {name: torch.rand(4, generator=g) for name, g in step_rngs(1, 3, "cpu").items()}
-    assert set(draws) == {"crop", "dropout", "stochastic_depth"}
-    for name in draws:
-        assert torch.equal(draws[name], again[name]) and not torch.equal(draws[name], other[name])
-    assert len({tuple(v.tolist()) for v in draws.values()}) == 3
+    for augment, streams in ((False, {"crop", "dropout", "stochastic_depth"}),
+                             (True, {"crop", "dropout", "stochastic_depth", "augment"})):
+        draws, again, other = ({name: torch.rand(4, generator=g)
+                                for name, g in step_rngs(1, step, "cpu", augment=augment).items()}
+                               for step in (2, 2, 3))
+        assert set(draws) == streams
+        for name in draws:
+            assert torch.equal(draws[name], again[name]) and not torch.equal(draws[name],
+                                                                             other[name])
+        assert len({tuple(v.tolist()) for v in draws.values()}) == len(streams)
 
 
 def test_global_norm_is_accurate_on_a_long_float32_vector():
