@@ -119,7 +119,8 @@ exits non-zero without a result line:
              `goodput_summary.json` summing to 1 within 1e-6 with `mfu_pct`
              > 0, `flight_record.jsonl` with the reason `preempt`, 8
              tensor-core launches per eval batch and no other) and a rerun
-             to 12 that restores step 10 and books `ckpt_restore`. Prints
+             to 12 (its `main`, in process) that restores step 10 and books
+             `ckpt_restore`. Prints
              the pack's cost, the ledger's MFU beside phase `train`'s, the
              CLI's goodput buckets and the phase's wall time.
 13. data   — the flagship trained from Language-Table episode files: 128
@@ -139,7 +140,8 @@ exits non-zero without a result line:
              fed by each loader through `device_feeder` (pinned, two
              batches in flight on a copy stream) in turns with the
              synthetic stream (synthetic, numpy, torch, packed, packed,
-             torch, numpy, synthetic): step wall median and range, ms
+             torch, numpy, synthetic; 3 warm-up and 5 timed steps a turn,
+             then 5 more under one synchronisation): step wall median and range, ms
              blocked on the host iterator and in the upload per step, the
              card's idle share, frames/s, and for numpy the episode reads'
              share of the wait; 6 more steps per fed turn whose
@@ -156,7 +158,7 @@ exits non-zero without a result line:
              `train`'s CLI checkpoint (step 6; run alone, the train CLI
              writes one at step 2 under a temporary directory),
              `python -m rt1_tpu_torch.eval --config language_table
-             --workdir <it> --episodes 2 --max_steps 80` (its `main`, in this
+             --workdir <it> --episodes 1 --max_steps 80` (its `main`, in this
              process) restores it (its
              JSON must carry every key and the trainer's step); then in
              process one bf16 episode of 80 control steps of that
@@ -174,19 +176,54 @@ exits non-zero without a result line:
              same checkpoint: each step's logits within 1e-3 x max|logit|,
              actions within 1e-6 wherever every action token's top-2 gap
              exceeds that bound; then `--baseline oracle` and `--baseline
-             random` (3 episodes each) through the CLI's entry, in process like the
+             random` (2 episodes each) through the CLI's entry, in process like the
              checkpoint's run and one oracle
              episode on the `kinematic_arm` backend.
-15. serve_modes — the serving modes at the flagship's width, every engine
+15. moe    — the flagship with the Switch-routed expert FFN (`--set
+             model.ffn_impl=moe`: 4 experts, capacity factor 2.0, expert
+             hidden 512) on its seeded random weights: a bf16 bucket-8
+             engine (fused attention) over 3 + 10 timed + 3 profiled steps
+             of 8 sessions (host ms, busy ms, idle share, 8 tensor-core
+             launches a step and no other); each session's step alone
+             against the same step beside 7 others (logits within 2e-2 x
+             max|logit|, tokens equal beyond twice that, routes of >= 99 %
+             of the token-layer pairs identical) and the drops of the
+             whole-bucket routing beside the per-session ones; the int8
+             and cached engines in float32 on the card against the same
+             mode on the CPU through `serve/parity.py`'s token agreement
+             (2 canned episodes of window + 2 steps, >= 0.99), JAX's gates
+             (int8 against f32, the cached fill against the windowed
+             engine) and the share of routes int8 leaves alone, reported,
+             and each mode's resident bytes; the float32 `infer_step` on the
+             card against the CPU (`phase_parity`: 1e-3 x max|logit|, one
+             tf32x3 launch a layer); 3 bf16 train steps at batch 8 with
+             remat off and on (finite loss and `moe_aux_loss`, every
+             router's gradient nonzero, step ms, peak card memory, which
+             remat must lower), and one float32 step at batch 2 each way
+             whose losses agree within 1e-6 relative.
+16. lava   — the LAVA family at the reference's widths (`--set
+             model.family=lava`: d_model 128, 2 cross-attention and 2
+             temporal layers, pyramid (2, 3, 4), dense ResNet 256 x 8,
+             256x456, window 6, batch 8, float32): the train CLI's `main`
+             in process, 4 steps and a checkpoint (finite losses, an eval);
+             the eval CLI's `main` from it, 1 episode of at most 10 control
+             steps (their ms); the "clip" encoder with `data.clip_tokens`
+             on the byte-level tokenizer from 4 + 1 seeded episodes with
+             their instruction text, 2 steps; then each variant
+             (conv_maxpool, clip, resnet) once at batch 2 on the card
+             against the CPU in float32 (TF32 off) within 1e-4 of the
+             output's scale, with the card's forward ms (the resnet
+             encoder's forward among them).
+17. serve_modes — the serving modes at the flagship's width, every engine
              derived in process from the parity phase's seeded f32 master
              weights: card vs CPU in float32 (TF32 off): the int8 tree bit
-             for bit, and step logits over window + 3 steps of the int8
+             for bit, and step logits over window + 1 steps of the int8
              windowed step and of the cached step, then `rebuild_cache`
              and one more cached step, within 1e-3 x max|logit| (tf32x3
              launches 8 a windowed step, 0 cached); the JAX engine's gates
              through `serve/parity.py` at 0.99 in float32 (int8 against
              f32, the cached fill against the windowed engine), bf16
-             agreement and the cached steady state reported; 3 + 20 timed
+             agreement and the cached steady state reported; 3 + 10 timed
              + 5 profiled bucket-8 steps of 8 sessions in four modes (f32
              compute, bf16, int8 at bf16, cached at bf16), in turns and
              back (the second turn beside the first): host ms p50 /
@@ -199,7 +236,7 @@ exits non-zero without a result line:
              live sessions), `/session/export`, `/release`,
              `/session/import` under a new id (its next action = the
              original's), the `/metrics` gauges, SIGTERM exit 0.
-16. fleet  — the serving fleet: `python -m rt1_tpu_torch.serve.fleet
+18. fleet  — the serving fleet: `python -m rt1_tpu_torch.serve.fleet
              --replicas 2 --config language_table --random_init
              --inference_dtype bf16 --faults replica_kill@1` (the router on
              an ephemeral port, a chaos tick every 12 s): both replicas
@@ -221,7 +258,7 @@ exits non-zero without a result line:
              card's memory in use; the replica's own `phases` total split
              from the client's time gives the router's and the HTTP hops'
              share. CPU rehearsal: `phase_fleet('tiny', 'cpu')`.
-17. proof  — (run last) the learning proof at the flagship's width (B3 at 128x224,
+19. proof  — (run last) the learning proof at the flagship's width (B3 at 128x224,
              window 6, batch 32, bf16) under a temporary directory, through
              `python -m rt1_tpu_torch.train.learn_proof`: `--stage collect`
              of 8 episodes over 4 workers (BLOCK_4 block2block, ngram,
@@ -245,7 +282,7 @@ exits non-zero without a result line:
              train step ms, the control-step quantiles and each stage's
              wall time, beside `nvidia-smi`'s line. CPU rehearsal:
              `phase_proof('tiny', 'cpu')`.
-18. ops    — the fleet's operations loop at the flagship's width (run
+20. ops    — the fleet's operations loop at the flagship's width (run
              before `proof`): a packed seed corpus (4 x 12 steps at
              256x456, its manifest naming the "hash" embedder); the train
              CLI to step 2 (the incumbent, `data_manifest.json` stamped);
@@ -286,7 +323,7 @@ exits non-zero without a result line:
              p99 with the collector armed, capture bytes an episode and
              episodes swept, the fleet process's peak card memory and the
              phase's wall time. CPU rehearsal: `phase_ops('tiny', 'cpu')`.
-19. loadgen — the serving load generator, `python -m
+21. loadgen — the serving load generator, `python -m
              rt1_tpu_torch.serve.loadgen`, in its seven modes against bf16
              flagship replicas (run before `chaos`), in four lanes at once:
              (a) a replica started with `--max_batch 8 --max_delay_ms 5
@@ -306,7 +343,7 @@ exits non-zero without a result line:
              p99 ms, req/s, seconds, and each replica's launches by
              variant (`--replica_metrics`: one variant, 8 an engine step,
              warm-up included, the others 0).
-20. chaos  — `python -m rt1_tpu_torch.resilience.chaos_train --device cuda`
+22. chaos  — `python -m rt1_tpu_torch.resilience.chaos_train --device cuda`
              (its `main`, in process; its three train runs are `tiny`
              subprocesses): every assertion of the JAX drill; then
              `python -m rt1_tpu_torch.obs.run_report` over chaos A's
@@ -318,7 +355,7 @@ exits non-zero without a result line:
              episode reader (g++ -lz) against `np.load` on 16 seeded
              180x320 episodes (the data phase's writer) and 4 compressed
              copies: equal arrays, and reads a second each way.
-21. kernels — one line listing the three kernels with their launches on
+23. kernels — one line listing the three kernels with their launches on
              their path (serve for the tensor-core kernel, the flagship f32
              parity step for tf32x3, the `tiny` bf16 step for the simple
              one), on the eval path (`eval_launches`), in the learning
@@ -328,7 +365,9 @@ exits non-zero without a result line:
              loop's gate and replicas (`ops_launches`) and, for the
              tensor-core kernel, in the train CLI's evals of phase train_ops
              (`train_ops_launches`), in each replica the load generator
-             reached (`loadgen_launches`), errors, times and bound.
+             reached (`loadgen_launches`), in the MoE flagship's bf16
+             engine and float32 step (`moe_launches`), errors, times and
+             bound.
 
 The last line is `{"ok": true, "device": {...}}`.
 """
@@ -797,18 +836,20 @@ def phase_sweep(values=(8, 3, 2, 1)):
 
 
 def phase_parity(device: str = "cuda", config_name: str = "language_table", batch: int = 2,
-                 phase: str = "parity"):
-    """A policy (the flagship by default) at f32 on `device` (fused kernel,
-    tf32x3) vs the CPU (plain)."""
+                 phase: str = "parity", sets=()):
+    """A policy (the flagship by default, with the `sets` overrides) at f32
+    on `device` (fused kernel, tf32x3) vs the CPU (plain)."""
     import numpy as np
     import torch
 
-    from rt1_tpu_torch.configs import get_config
+    from rt1_tpu_torch.configs import apply_override, get_config
     from rt1_tpu_torch.eval.restore import load_policy
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     config = get_config(config_name)
+    for assignment in sets:
+        apply_override(config, assignment)
     config.model.dtype = "float32"
     rng = np.random.default_rng(1)
     h, w = config.data.height, config.data.width
@@ -850,7 +891,8 @@ def phase_parity(device: str = "cuda", config_name: str = "language_table", batc
     gap = top2[..., 0] - top2[..., 1]
     unexplained = int((~agree & (gap > 2 * bound)).sum())
     record = {
-        "phase": phase, "config": config_name, "batch": batch, "dtype": "float32",
+        "phase": phase, "config": config_name, "sets": list(sets), "batch": batch,
+        "dtype": "float32",
         "tf32": False, "attention": "fused (card) vs plain (cpu)",
         "max_abs_logit_diff": diff, "bound": bound, "max_abs_logit": scale,
         "max_abs_image_token": token_scale, "image_token_rel_diff": token_rel_diff,
@@ -1099,7 +1141,7 @@ def phase_serve(config_name: str = "language_table", device: str = "cuda"):
 # steps, and the int8 + cached server's /reload and session moves.
 SERVE_MODES_BUCKET = 8
 SERVE_MODES_CPU_BATCH = 2      # rows of the card-vs-CPU replay
-SERVE_MODES_WARMUP, SERVE_MODES_TIMED, SERVE_MODES_PROFILED = 3, 20, 5
+SERVE_MODES_WARMUP, SERVE_MODES_TIMED, SERVE_MODES_PROFILED = 3, 10, 5
 SERVE_MODES_FLAGS = ("--inference_dtype", "int8", "--cached_inference")
 
 
@@ -1129,7 +1171,7 @@ def _logit_check(what, logits, cpu_logits, tokens, cpu_tokens):
 
 
 def _replay_steps(policy, dev, frames, emb, cached):
-    """Step `policy` over `frames` (window + 3 steps, then, cached, a
+    """Step `policy` over `frames` (window + 1 steps, then, cached, a
     rebuild and one more step): per step (logits, tokens) on the CPU."""
     import torch
 
@@ -1250,7 +1292,7 @@ def phase_serve_modes(config_name: str = "language_table", device: str = "cuda")
     derived from it in process):
 
     1. card vs CPU, float32 compute (TF32 off): the int8 tree bit for bit;
-       step logits over window + 3 steps of the int8 windowed step and of
+       step logits over window + 1 steps of the int8 windowed step and of
        the cached step (then `rebuild_cache` and one more cached step)
        within the parity phase's tolerance;
     2. the JAX engine's gates through `serve/parity.py` at 0.99, f32
@@ -1301,11 +1343,11 @@ def phase_serve_modes(config_name: str = "language_table", device: str = "cuda")
                              f"{tree_diff[:8]} ({len(tree_diff)} leaves)")
     rng = np.random.default_rng(5)
     b = SERVE_MODES_CPU_BATCH
-    frames = [rng.uniform(0, 1, (b, h, w, 3)).astype(np.float32) for _ in range(window + 4)]
+    frames = [rng.uniform(0, 1, (b, h, w, 3)).astype(np.float32) for _ in range(window + 2)]
     emb = rng.standard_normal((b, 512)).astype(np.float32)
     replay = {}
     for name, mode, cached in (("int8_f32", "int8", False), ("cached_f32", "f32", True)):
-        n = window + (4 if cached else 3)
+        n = window + (2 if cached else 1)
         reset_launch_counts()
         on = _replay_steps(card[mode].policy, device, frames[:n], emb, cached)
         launches = dict(fused_attention.launches_by_variant)
@@ -1665,15 +1707,54 @@ def _run_in_process(main, args):
     return lines, time.perf_counter() - t0
 
 
+CLI_DUMP_GRACE_S = 15     # a timed-out command's processes printing their stacks
+
+
 def _run_cli(args, timeout_s, module="rt1_tpu_torch.train"):
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    """`python -m module args` in a process group of its own, with
+    faulthandler armed in it and in every process it starts. Past
+    `timeout_s` the whole group gets SIGABRT, so each process (a fleet's
+    supervisor and replicas too) prints every thread's stack before it
+    dies; what the command printed goes to stderr and, whole, to
+    `chiprun_out/cli_timeout_<module>_<pid>.txt`, and TimeoutExpired is
+    raised. No process of the group outlives the call. Core files are off
+    (this process's limit, which the group inherits): SIGABRT writes none."""
+    import resource
+
+    resource.setrlimit(resource.RLIMIT_CORE, (0, resource.getrlimit(resource.RLIMIT_CORE)[1]))
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               PYTHONFAULTHANDLER="1")
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
-                          env=env, capture_output=True, text=True, timeout=timeout_s)
+    proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGABRT)
+        try:
+            out, err = proc.communicate(timeout=CLI_DUMP_GRACE_S)
+        except subprocess.TimeoutExpired:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            out, err = proc.communicate()
+        path = os.path.join(REPO, "chiprun_out", f"cli_timeout_{module}_{proc.pid}.txt")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(f"{module} {args}: cut at {timeout_s} s\n--- stdout\n{out}\n--- stderr\n{err}")
+        sys.stderr.write(f"{module} {args}: cut at {timeout_s} s; its stdout ends\n{out[-4000:]}\n"
+                         f"its stderr (the stacks) ends\n{err[-16000:]}\nwhole: {path}\n")
+        raise subprocess.TimeoutExpired(proc.args, timeout_s, output=out, stderr=err) from None
+    finally:
+        # A process of the group still alive past the command (a leaked
+        # replica) does not outlive the call.
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
     if proc.returncode != 0:
-        sys.stderr.write(proc.stderr[-8000:])
+        sys.stderr.write(err[-8000:])
         raise AssertionError(f"{module} {args}: exit code {proc.returncode}")
-    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
     return lines, time.perf_counter() - t0
 
 
@@ -1975,8 +2056,11 @@ def phase_train_ops(config_name: str = "language_table", device: str = "cuda", t
 
 
 def _train_ops_cli(config_name, device, eval_batches, layers):
-    """`python -m rt1_tpu_torch.train` through `TRAIN_OPS_CLI`'s faults,
-    then a rerun to 12 without them."""
+    """`python -m rt1_tpu_torch.train` through `TRAIN_OPS_CLI`'s faults (a
+    process of its own: it takes a SIGTERM), then a rerun to 12 without
+    them (its `main`, in process)."""
+    from rt1_tpu_torch.train.__main__ import main as train_main
+
     with tempfile.TemporaryDirectory() as workdir:
         base = ["--config", config_name, "--workdir", workdir, "--device", device]
         first, first_s = _run_cli(
@@ -2010,8 +2094,9 @@ def _train_ops_cli(config_name, device, eval_batches, layers):
         if not all(checks.values()):
             raise AssertionError(f"train_ops CLI: {checks}; done {done}; goodput {goodput}; "
                                  f"evals {launches}")
-        second, second_s = _run_cli(base + _sets(TRAIN_OPS_CLI + ("resilience.faults=",)),
-                                    TRAIN_CLI_TIMEOUT_S)
+        # The rerun needs no signal of its own: its `main`, in process.
+        second, second_s = _run_in_process(train_main,
+                                           base + _sets(TRAIN_OPS_CLI + ("resilience.faults=",)))
         with open(os.path.join(workdir, "goodput_summary.json")) as f:
             resumed = json.load(f)
         start = next(r for r in second if r.get("status") == "start")
@@ -2038,6 +2123,7 @@ DATA_EPISODES = {"train": 128, "val": 4}
 DATA_STEPS = 20                  # steps an episode, at Language-Table's 180x320
 DATA_WARM, DATA_BATCHES = 5, 10   # batches of each loader alone: drained, then timed
 DATA_CHECK_STEPS = 6             # fed steps per turn whose batch is held to its host batch
+DATA_TIMED = 5                   # timed steps a fed turn, each way (phase train times 10)
 DATA_CLI_TIMEOUT_S = 600
 
 
@@ -2232,8 +2318,8 @@ class _HostRecorder:
 
 def _fed_run(fns, state, step, next_batch, feeder, dev, frames_per_batch, recorder=None,
              dataset=None):
-    """TRAIN_WARMUP + TRAIN_TIMED train steps, each fed by `next_batch()`,
-    synchronised per step; then the loop's rate over TRAIN_TIMED steps with
+    """TRAIN_WARMUP + DATA_TIMED train steps, each fed by `next_batch()`,
+    synchronised per step; then the loop's rate over DATA_TIMED steps with
     one synchronisation; the profiler's idle share over 3 steps; with a
     recorder, DATA_CHECK_STEPS more steps whose batch must equal its host
     batch. With the `dataset` the feed reads in this process, the episode
@@ -2255,17 +2341,17 @@ def _fed_run(fns, state, step, next_batch, feeder, dev, frames_per_batch, record
     w0, u0 = (feeder.wait_s, feeder.upload_s) if feeder else (0.0, 0.0)
     r0, s0 = (dataset.episode_reads, dataset.episode_read_s) if dataset else (0, 0.0)
     walls = []
-    for _ in range(TRAIN_TIMED):
+    for _ in range(DATA_TIMED):
         t0 = time.perf_counter()
         one_step()
         _sync(dev)
         walls.append((time.perf_counter() - t0) * 1e3)
-    per = 1e3 / TRAIN_TIMED
+    per = 1e3 / DATA_TIMED
     wait_ms = (feeder.wait_s - w0) * per if feeder else None
     upload_ms = (feeder.upload_s - u0) * per if feeder else None
     reads = (dataset.episode_reads - r0, (dataset.episode_read_s - s0) * per) if dataset else None
     t0 = time.perf_counter()
-    for _ in range(TRAIN_TIMED):
+    for _ in range(DATA_TIMED):
         one_step()
     _sync(dev)
     loop_s = time.perf_counter() - t0
@@ -2274,9 +2360,9 @@ def _fed_run(fns, state, step, next_batch, feeder, dev, frames_per_batch, record
                                "all": walls},
               "wait_ms_per_step": wait_ms, "upload_ms_per_step": upload_ms,
               "frames_per_s": frames_per_batch / (median / 1e3),
-              "loop_frames_per_s": TRAIN_TIMED * frames_per_batch / loop_s}
+              "loop_frames_per_s": DATA_TIMED * frames_per_batch / loop_s}
     if reads is not None:
-        record.update({"episode_reads_per_step": reads[0] / TRAIN_TIMED,
+        record.update({"episode_reads_per_step": reads[0] / DATA_TIMED,
                        "episode_read_ms_per_step": reads[1],
                        "episode_read_share_of_wait": reads[1] / wait_ms if wait_ms else None})
     if dev.type == "cuda":
@@ -2477,11 +2563,11 @@ def phase_data(config_name: str = "language_table", device: str = "cuda",
 
 
 # The eval phase: the closed-loop Language-Table eval of the flagship.
-EVAL_CLI_EPISODES = 2
+EVAL_CLI_EPISODES = 1
 EVAL_STEPS = 80                  # the protocol's episode budget
 EVAL_PROFILE_STEPS = 5
 EVAL_REPLAY_STEPS = 12           # the window (6) rolls after step 6
-EVAL_BASELINE_EPISODES = 3
+EVAL_BASELINE_EPISODES = 2
 EVAL_BUDGET_MS = 100.0           # the 10 Hz control period
 
 
@@ -2512,8 +2598,8 @@ def _record_logits(policy):
     logits = []
     infer_step = policy.infer_step
 
-    def recording(obs, state):
-        out, new_state = infer_step(obs, state)
+    def recording(obs, state, **kwargs):
+        out, new_state = infer_step(obs, state, **kwargs)
         logits.append(out["action_logits"][0].double().cpu())
         return out, new_state
 
@@ -3842,6 +3928,8 @@ LOADGEN_FLEET_S = 5.0            # the chaos window, driven by 4 sessions
 LOADGEN_CHAOS_INTERVAL_S = 3.0
 LOADGEN_PHASE_S = 2.0            # a traffic phase (the spike's edge half of it)
 LOADGEN_TIMEOUT_S = 600
+LOADGEN_STUB_WARMUP_S = 120      # a stub fleet's boot (seconds normally)
+LOADGEN_STUB_TIMEOUT_S = 300     # the stub-only migration A/B (~12-25 s normally)
 LOADGEN_VARIANTS = ("tensor_core", "tf32x3", "simple")
 
 
@@ -3987,9 +4075,19 @@ def _loadgen_lane_c(config_name, device, outdir, on_card):
     modes["fleet"] = _mode_row(record, seconds, replicas, on_card,
                                restarted=record["requests_restarted"],
                                restarts=record["replica_restarts_total"])
+    # Stub fleets (no card, no kernel), one attempt. A hang (one run sat
+    # 600 s, ROADMAP C) ends at the time limit with every process's stacks
+    # (`_run_cli`); a fleet that does not heal or drain in time is a
+    # `timeout:` event of the record, and fails here.
     record, seconds, replicas = _loadgen(
-        ["--migration_ab", "--sessions", "4", "--steps", "2", "--output",
-         os.path.join(outdir, "BENCH_serve_migration.json")], outdir, "migration_ab")
+        ["--migration_ab", "--sessions", "4", "--steps", "2",
+         "--fleet_warmup_timeout_s", str(LOADGEN_STUB_WARMUP_S), "--output",
+         os.path.join(outdir, "BENCH_serve_migration.json")], outdir, "migration_ab",
+        timeout_s=LOADGEN_STUB_TIMEOUT_S)
+    timeouts = {side: [e["event"] for e in s["events"] if e["event"].startswith("timeout:")]
+                for side, s in record["sides"].items()}
+    if any(timeouts.values()):
+        raise AssertionError(f"loadgen migration_ab: waits that ran out {timeouts}")
     if not (record["zero_window_resets"] and record["token_identical_continuations"]):
         raise AssertionError(f"loadgen migration_ab: {record['value']} resets on the durable "
                              f"side, token identical {record['token_identical_continuations']}")
@@ -4195,6 +4293,510 @@ def phase_chaos(config_name: str = "language_table", device: str = "cuda", loadg
         shutil.rmtree(root, ignore_errors=True)
 
 
+# The moe phase: the flagship with the Switch-routed expert FFN (4 experts,
+# capacity factor 2.0, expert hidden 512), and remat.
+MOE_SETS = ("model.ffn_impl=moe",)
+MOE_BUCKET = 8
+MOE_WARMUP, MOE_TIMED, MOE_PROFILED = 3, 10, 3
+MOE_TRAIN_STEPS = 3               # bf16 train steps at batch 8, each way of remat
+MOE_ROUTE_AGREEMENT = 0.99        # routes of a session alone = beside 7 others
+MOE_F32_LOSS_TOL = 1e-6           # relative: float32 loss with remat against without
+MOE_F32_GRAD_TOL = 1e-6           # relative (norm of the difference): the float32 gradient
+                                  # and the BatchNorm statistics, remat on against off
+MOE_PARITY_EPISODES = 2           # canned episodes of window + 2 steps (JAX's gate: 4 x 8)
+
+
+def _moe_config(config_name, *sets):
+    from rt1_tpu_torch.configs import apply_override, get_config
+
+    config = get_config(config_name)
+    for assignment in MOE_SETS + sets:
+        apply_override(config, assignment)
+    return config
+
+
+def _moe_routes(policy, run):
+    """(run()'s result, the routes of each MoE layer call in order: (the
+    float32 router's argmax (b, s), kept (b, s))), recorded by forward
+    hooks; a dropped token's FFN output is exactly 0."""
+    import torch
+
+    from rt1_tpu_torch.models.moe import MoEFeedForward
+
+    routes = []
+
+    def hook(module, args, output):
+        logits = torch.nn.functional.linear(args[0].float(), module.gate.weight.float())
+        routes.append((logits.argmax(-1).cpu(), (output[0] != 0).any(-1).cpu()))
+
+    hooks = [m.register_forward_hook(hook) for m in policy.modules()
+             if isinstance(m, MoEFeedForward)]
+    try:
+        result = run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return result, routes
+
+
+def _moe_sessions(policy, dev, frames, emb):
+    """Each session's step alone against the same step beside the others
+    (per-session routing, the serving engine's): logits within the bf16
+    tolerance, tokens equal wherever the top-2 gap exceeds twice it, and
+    the routes (expert and kept) of at least MOE_ROUTE_AGREEMENT of the
+    token-layer pairs identical; and the whole-bucket routing's drops
+    beside the per-session ones."""
+    import torch
+
+    b = frames.shape[0]
+    obs = {"image": torch.from_numpy(frames).to(dev),
+           "natural_language_embedding": torch.from_numpy(emb).to(dev)}
+    with torch.no_grad():
+        (beside, _), r_beside = _moe_routes(
+            policy, lambda: policy.infer_step(obs, policy.initial_state(b), per_row=True))
+        (whole, _), r_whole = _moe_routes(
+            policy, lambda: policy.infer_step(obs, policy.initial_state(b), per_row=False))
+        alone = []
+        for i in range(b):
+            one = {k: v[i:i + 1] for k, v in obs.items()}
+            (out, _), routes = _moe_routes(
+                policy, lambda: policy.infer_step(one, policy.initial_state(1), per_row=True))
+            alone.append((out, routes))
+    logits = beside["action_logits"].float().cpu()
+    bound = TOL["bfloat16"] * max(1.0, float(logits.abs().max()))
+    diff, flips, same, total = 0.0, 0, 0, 0
+    for i, (out, routes) in enumerate(alone):
+        got = out["action_logits"][0].float().cpu()
+        diff = max(diff, float((got - logits[i]).abs().max()))
+        top2 = logits[i].topk(2, dim=-1).values
+        agree = out["action_tokens"][0].cpu() == beside["action_tokens"][i].cpu()
+        flips += int((~agree & (top2[..., 0] - top2[..., 1] > 2 * bound)).sum())
+        for (e_all, k_all), (e_one, k_one) in zip(r_beside, routes):
+            same += int(((e_all[i] == e_one[0]) & (k_all[i] == k_one[0])).sum())
+            total += e_one[0].numel()
+    record = {"sessions": b, "max_abs_logit_diff": diff, "bound": bound,
+              "token_flips_beyond_bound": flips, "route_agreement": same / total,
+              "routes_compared": total,
+              "dropped_per_session_routing": int(sum(int((~k).sum()) for _, k in r_beside)),
+              "dropped_whole_bucket_routing": int(sum(int((~k).sum()) for _, k in r_whole)),
+              "whole_bucket_token_agreement": float(
+                  (whole["action_tokens"] == beside["action_tokens"]).float().mean())}
+    if diff > bound or flips or same / total < MOE_ROUTE_AGREEMENT:
+        raise AssertionError(f"moe: a session alone differs from the same session beside "
+                             f"{b - 1} others: {record}")
+    return record
+
+
+def _moe_train(config_name, dev, remat, dtype, batch, steps, keep=False):
+    """`steps` train steps of the MoE flagship at `dtype` (float32 masters)
+    on synthetic batches, dropout and stochastic depth on: losses,
+    `moe_aux_loss`, step ms, peak card memory and the routers' gradient max
+    on the last step. With `keep`, (that record, the last step's flat
+    gradient, its routers' gradients by name, the BatchNorm statistics
+    after the steps)."""
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.models.moe import router_names
+    from rt1_tpu_torch.train.train import build_model, synthetic_batch
+    from rt1_tpu_torch.trainer.state import create_train_state
+    from rt1_tpu_torch.trainer.train import optimizer_from_config, train_step_fns_from_config
+
+    config = _moe_config(config_name, f"model.remat={remat}", f"model.dtype={dtype}",
+                         f"per_host_batch_size={batch}", "obs.model_health=False")
+    policy = build_model(config, dev)
+    optimizer = optimizer_from_config(config)
+    state = create_train_state(policy, optimizer)
+    fns = train_step_fns_from_config(config, optimizer)
+    batches = [synthetic_batch(config, config.seed, i, dev) for i in range(steps)]
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    walls, losses, aux = [], [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        metrics = fns.train_step(state, batches[i], i, keep_grad=i == steps - 1)
+        _sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        aux.append(float(metrics["moe_aux_loss"]))
+    grads = fns.grads_by_name(state, metrics["grad"])
+    routers = {n: grads[n] for n in router_names(policy)}
+    router = {n: float(g.abs().max()) for n, g in routers.items()}
+    record = {"remat": remat, "dtype": dtype, "batch": batch, "losses": losses,
+              "moe_aux_loss": aux, "grad_norm": float(metrics["grad_norm"]),
+              "step_ms": walls, "step_ms_median_after_first": float(np.median(walls[1:]))
+              if steps > 1 else walls[0],
+              "peak_memory_bytes": torch.cuda.max_memory_allocated() if dev.type == "cuda"
+              else None,
+              "router_grad_max": router}
+    kept = (metrics["grad"], routers, state.flat_buffers.clone()) if keep else None
+    del policy, state, fns, optimizer, batches, grads, metrics
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if not (np.isfinite(losses).all() and np.isfinite(aux).all()):
+        raise AssertionError(f"moe train: non-finite loss or aux loss: {record}")
+    if len(router) != config.model.num_layers or not all(v > 0 for v in router.values()):
+        raise AssertionError(f"moe train: a router got no gradient: {router}")
+    return (record, *kept) if keep else record
+
+
+def _rel_diff(a, b):
+    """|a - b| / |b| in float64 (norms of tensors); 0 for two empty ones
+    (`tiny` has no BatchNorm)."""
+    import torch
+
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    if a.numel() == b.numel() == 0:
+        return 0.0
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def phase_moe(config_name: str = "language_table", device: str = "cuda"):
+    """The flagship with `model.ffn_impl=moe` (4 experts, capacity 2.0,
+    hidden 512) on its seeded random weights: a bf16 bucket-8 engine (fused
+    attention; host ms, busy ms, 8 tensor-core launches a step), each
+    session routed alone (`_moe_sessions`), the int8 and cached engines
+    on the card against the same mode on the CPU through `serve/parity.py`
+    at 0.99 in float32, JAX's two gates and the routes int8 changes
+    (reported), each mode's resident bytes,
+    the float32 `infer_step` on the card against the CPU (`phase_parity`:
+    one tf32x3 launch a layer), and bf16 train steps at batch 8 with remat
+    off and on (finite loss and aux loss, every router's gradient nonzero,
+    step ms, peak memory lower with remat), then one float32 step each way
+    (cuDNN deterministic) whose loss, flat gradient, routers' gradients and
+    BatchNorm statistics must agree: what a broken recompute (masks drawn
+    again, statistics updated twice) would change."""
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.eval.restore import master_policy, serving_engine
+    from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
+    from rt1_tpu_torch.serve import parity
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    config = _moe_config(config_name)
+    h, w = config.data.height, config.data.width
+    shape = (h, w, 3)
+    master, _ = master_policy(config, None, None, attention_impl="fused")
+    layers = master.num_layers
+
+    def engine(mode, compute, cached=False, on=dev, sessions=MOE_BUCKET):
+        return serving_engine(copy.deepcopy(master), compute, on, inference_dtype=mode,
+                              cached_inference=cached, max_sessions=sessions,
+                              buckets=sorted({1, sessions}))
+
+    # 1. The bf16 engine, bucket 8.
+    eng = engine("f32", torch.bfloat16)
+    rng = np.random.default_rng(7)
+    frames = rng.uniform(0, 1, (MOE_BUCKET,) + shape).astype(np.float32)
+    emb = rng.standard_normal((MOE_BUCKET, 512)).astype(np.float32)
+    items = [(f"m-{i}", {"image": frames[i], "natural_language_embedding": emb[i]})
+             for i in range(MOE_BUCKET)]
+    reset_launch_counts()  # this drive's launches only
+    steps0 = eng.steps_total
+    for _ in range(MOE_WARMUP):
+        eng.act_batch(items)
+    walls = []
+    for _ in range(MOE_TIMED):
+        t0 = time.perf_counter()
+        eng.act_batch(items)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    prof = device_profile(lambda: eng.act_batch(items), iters=MOE_PROFILED) if on_card else None
+    steps = eng.steps_total - steps0
+    launches = dict(fused_attention.launches_by_variant)
+    expected = {"tensor_core": layers * steps if on_card else 0, "tf32x3": 0, "simple": 0}
+    if launches != expected:
+        raise AssertionError(f"moe serve: launches {launches}, expected {expected}")
+    serve = {"bucket": MOE_BUCKET, "engine_steps": steps, "host_ms": _quantiles(walls),
+             "launches_by_variant": launches,
+             "tensor_core_per_step": launches["tensor_core"] / steps,
+             "serving_param_bytes": eng.serving_param_bytes}
+    if prof is not None:
+        serve.update(device_busy_ms=prof["busy_ms"], profiled_wall_ms=prof["wall_ms"],
+                     idle_share=1.0 - prof["busy_ms"] / prof["wall_ms"],
+                     device_launches=prof["launches"])
+    sessions = _moe_sessions(eng.policy, dev, frames, emb)
+    bytes_by_mode = {"bf16": eng.serving_param_bytes}
+    del eng
+    gc.collect()
+
+    # 2. The serving modes in float32: each of int8 and cached on the card
+    # against the same mode on the CPU through serve/parity.py (>= 0.99);
+    # JAX's own gates (int8 against f32, the cached fill against the
+    # windowed engine) and the routes int8 changes, reported: an MoE's
+    # argmax routing and per-call capacity turn int8 noise, and the cached
+    # block's own capacity, into other experts (ROADMAP C; the readings
+    # equal JAX's on the same weights, tests/test_torch_moe.py).
+    window = config.model.time_sequence_length
+    episodes = parity.canned_episodes(shape, episodes=MOE_PARITY_EPISODES, steps=window + 2)
+    f32 = engine("f32", torch.float32)
+    card_vs_cpu, jax_gates = {}, {}
+    for mode, cached in (("int8", False), ("cached", True)):
+        dtype = "int8" if mode == "int8" else "f32"
+        card = engine(dtype, torch.float32, cached)
+        cpu = engine(dtype, torch.float32, cached, on="cpu", sessions=1)
+        t0 = time.perf_counter()
+        stats = parity.action_token_agreement(card, cpu, episodes)
+        card_vs_cpu[mode] = dict(stats, seconds=time.perf_counter() - t0)
+        if mode == "int8":
+            jax_gates["int8_vs_f32"] = parity.action_token_agreement(f32, card, episodes)
+            with torch.no_grad():
+                obs = {"image": torch.from_numpy(frames).to(dev),
+                       "natural_language_embedding": torch.from_numpy(emb).to(dev)}
+                _, r_f32 = _moe_routes(f32.policy, lambda: f32.policy.infer_step(
+                    obs, f32.policy.initial_state(MOE_BUCKET), per_row=True))
+                _, r_int8 = _moe_routes(card.policy, lambda: card.policy.infer_step(
+                    obs, card.policy.initial_state(MOE_BUCKET), per_row=True))
+            same = sum(int(((a == c) & (b == d)).sum()) for (a, b), (c, d) in zip(r_f32, r_int8))
+            jax_gates["int8_vs_f32"]["route_agreement"] = same / sum(
+                a.numel() for a, _ in r_f32)
+            bytes_by_mode["int8"] = card.serving_param_bytes
+        else:
+            fill = [episode[:window] for episode in episodes]
+            jax_gates["cached_vs_windowed_fill"] = parity.action_token_agreement(f32, card, fill)
+            bytes_by_mode["cached_cache_per_slot"] = card.cache_bytes_per_slot
+        del card, cpu
+        gc.collect()
+    bytes_by_mode["f32"] = f32.serving_param_bytes
+    del f32, master
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    low = {m: s["agreement"] for m, s in card_vs_cpu.items()
+           if s["agreement"] < parity.PARITY_THRESHOLD}
+    if low:
+        emit({"phase": "moe", "card_vs_cpu": card_vs_cpu, "failed": low})
+        raise AssertionError(f"moe: card against CPU below {parity.PARITY_THRESHOLD}: {low}")
+
+    # 3. Float32 infer_step, card vs CPU (its launch rule holds on a card).
+    f32_parity = phase_parity(device, config_name, phase="moe_parity", sets=MOE_SETS) \
+        if on_card else {"launches_by_variant": dict.fromkeys(expected, 0)}
+
+    # 4. Training: bf16 at batch 8, remat off and on; float32 each way.
+    train = {remat: _moe_train(config_name, dev, remat, "bfloat16", config.per_host_batch_size,
+                               MOE_TRAIN_STEPS) for remat in (False, True)}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        f32_train, kept = {}, {}
+        for remat in (False, True):
+            f32_train[remat], *kept[remat] = _moe_train(config_name, dev, remat, "float32", 2, 1,
+                                                       keep=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (grad_off, routers_off, bn_off), (grad_on, routers_on, bn_on) = kept[False], kept[True]
+    loss_off, loss_on = f32_train[False]["losses"][0], f32_train[True]["losses"][0]
+    norm_off, norm_on = f32_train[False]["grad_norm"], f32_train[True]["grad_norm"]
+    remat_check = {
+        "peak_memory_bytes": {"off": train[False]["peak_memory_bytes"],
+                              "on": train[True]["peak_memory_bytes"]},
+        "f32_loss": {"off": loss_off, "on": loss_on,
+                     "rel_diff": abs(loss_on - loss_off) / abs(loss_off)},
+        "f32_grad_norm": {"off": norm_off, "on": norm_on,
+                          "rel_diff": abs(norm_on - norm_off) / abs(norm_off)},
+        "f32_grad_rel_diff": _rel_diff(grad_on, grad_off),
+        "f32_router_grad_rel_diff": max(_rel_diff(routers_on[n], routers_off[n])
+                                        for n in routers_off),
+        "f32_batchnorm_stats_rel_diff": _rel_diff(bn_on, bn_off),
+        "batchnorm_stats_numel": bn_off.numel(),
+        "f32_grad_bit_equal": bool(torch.equal(grad_on, grad_off)),
+        "tolerance": {"loss": MOE_F32_LOSS_TOL, "grad_and_stats": MOE_F32_GRAD_TOL},
+    }
+    del kept, grad_off, routers_off, bn_off, grad_on, routers_on, bn_on
+    record = {"phase": "moe", "config": config_name, "sets": list(MOE_SETS),
+              "nvidia_smi": nvidia_smi() if on_card else None, "serve": serve,
+              "sessions": sessions,
+              "card_vs_cpu": {"threshold": parity.PARITY_THRESHOLD, **card_vs_cpu},
+              "jax_gates": jax_gates,
+              "bytes_by_mode": bytes_by_mode,
+              "f32_parity": {k: f32_parity[k] for k in (
+                  "max_abs_logit_diff", "bound", "action_token_agreement",
+                  "launches_by_variant") if k in f32_parity},
+              "train": {"remat_off": train[False], "remat_on": train[True]},
+              "f32_train": {"remat_off": f32_train[False], "remat_on": f32_train[True]},
+              "remat": remat_check, "seconds": time.perf_counter() - t_phase}
+    emit(record)
+    if on_card and not train[True]["peak_memory_bytes"] < train[False]["peak_memory_bytes"]:
+        raise AssertionError(f"moe: remat did not lower the peak memory: {remat_check}")
+    if remat_check["f32_loss"]["rel_diff"] > MOE_F32_LOSS_TOL:
+        raise AssertionError(f"moe: the float32 loss differs with remat: {remat_check}")
+    off = {k: remat_check[k] for k in ("f32_grad_rel_diff", "f32_router_grad_rel_diff",
+                                       "f32_batchnorm_stats_rel_diff")
+           if not remat_check[k] <= MOE_F32_GRAD_TOL}
+    if off:
+        raise AssertionError(f"moe: remat changed the float32 gradient or statistics: {off}")
+    return record
+
+
+# The lava phase: the LAVA family at the reference's SequenceLAVMSE widths,
+# through the train and eval CLIs' entries, in process.
+LAVA_SETS = ("model.family=lava",)
+LAVA_TRAIN_STEPS = 4
+LAVA_EVAL_STEPS = 10
+LAVA_CLIP_STEPS = 2
+LAVA_CLIP_EPISODES = {"train": 4, "val": 1}
+LAVA_CLIP_EPISODE_STEPS = 8
+LAVA_CPU_BATCH = 2
+LAVA_REL_TOL = 1e-4               # card vs CPU, float32 (TF32 off), of max|action|
+LAVA_INSTRUCTION = "push the red star to the blue cube"
+
+
+def _lava_card_vs_cpu(config_name, device, variant):
+    """One float32 forward of the LAVA `variant` ((image encoder, language
+    encoder)) at full width from the seeded init, on the card and on the
+    CPU (TF32 off): outputs within LAVA_REL_TOL of their scale, and the
+    card's forward ms."""
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.configs import apply_override, get_config
+    from rt1_tpu_torch.text.clip_bpe import default_tokenizer
+    from rt1_tpu_torch.train.train import build_model
+
+    image_encoder, lang_encoder = variant
+    config = get_config(config_name)
+    for assignment in LAVA_SETS + (f"model.lava.image_encoder={image_encoder}",
+                                   f"model.lava.lang_encoder={lang_encoder}"):
+        apply_override(config, assignment)
+    b, t = LAVA_CPU_BATCH, config.model.time_sequence_length
+    rng = np.random.default_rng(9)
+    obs = {"rgb": rng.uniform(0, 1, (b, t, config.data.height, config.data.width, 3))
+           .astype(np.float32),
+           "natural_language_embedding": rng.standard_normal((b, t, 512)).astype(np.float32)}
+    if lang_encoder == "clip":
+        tokens = default_tokenizer(config.model.lava.text_context).tokenize_text(
+            [LAVA_INSTRUCTION, "Move the green circle left"])
+        obs["instruction_tokenized_clip"] = np.repeat(tokens[:, None], t, axis=1)
+    outs = {}
+    for dev in (device, "cpu"):
+        policy = build_model(config, dev).eval()
+        inputs = {k: torch.from_numpy(v).to(dev) for k, v in obs.items()}
+        with torch.no_grad():
+            policy(inputs)  # warm: cuDNN's first call picks its algorithms
+            _sync(torch.device(dev))
+            t0 = time.perf_counter()
+            out = policy(inputs)
+            _sync(torch.device(dev))
+        outs[dev] = (out.double().cpu(), (time.perf_counter() - t0) * 1e3)
+        del policy
+    (got, card_ms), (ref, cpu_ms) = outs[device], outs["cpu"]
+    scale = float(ref.abs().max())
+    diff = float((got - ref).abs().max())
+    record = {"image_encoder": image_encoder, "lang_encoder": lang_encoder, "batch": b,
+              "max_abs_diff": diff, "max_abs_output": scale, "bound": LAVA_REL_TOL * scale,
+              "forward_ms": {"card": card_ms, "cpu": cpu_ms}}
+    if not (torch.isfinite(got).all() and diff <= LAVA_REL_TOL * scale):
+        raise AssertionError(f"lava {variant}: card vs CPU {record}")
+    return record
+
+
+def _lava_clip_corpus(root):
+    """Seeded episodes (180x320) with their instruction text, for the
+    "clip" encoder's tokens."""
+    import numpy as np
+
+    from rt1_tpu_torch.data import episodes
+
+    rng = np.random.default_rng(11)
+    for split, n in LAVA_CLIP_EPISODES.items():
+        os.makedirs(os.path.join(root, split))
+        for i in range(n):
+            ep = episodes.generate_synthetic_episode(rng, num_steps=LAVA_CLIP_EPISODE_STEPS)
+            ep["instruction_text"] = episodes.encode_instruction_text(LAVA_INSTRUCTION)
+            episodes.save_episode(os.path.join(root, split, f"episode_{i:05d}.npz"), ep)
+
+
+def phase_lava(config_name: str = "language_table", device: str = "cuda"):
+    """LAVA at the reference's widths (d_model 128, 2 + 2 layers, pyramid
+    (2, 3, 4), dense ResNet 256 x 8, 256x456, window 6, batch 8, float32):
+    `python -m rt1_tpu_torch.train --set model.family=lava` (its `main`, in
+    process) for 4 steps and a checkpoint; `python -m rt1_tpu_torch.eval`
+    from it, 1 episode of at most 10 steps, with the control step's ms;
+    the "clip" variant with `data.clip_tokens=true` on the byte-level
+    tokenizer for 2 steps from seeded episodes; and each of the three
+    variants (conv_maxpool, clip, resnet) once on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.eval import main as eval_main
+    from rt1_tpu_torch.eval.policy import LavaEvalPolicy
+    from rt1_tpu_torch.train.__main__ import main as train_main
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    sets = [x for a in LAVA_SETS for x in ("--set", a)]
+    with tempfile.TemporaryDirectory() as root:
+        workdir = os.path.join(root, "lava")
+        base = ["--config", config_name, "--workdir", workdir, "--device", device] + sets
+        train, train_s = _run_in_process(train_main, base + [
+            "--set", f"num_steps={LAVA_TRAIN_STEPS}", "--set", "checkpoint_every_steps=4",
+            "--set", "eval_every_steps=4", "--set", "eval_batches=1",
+            "--set", "log_every_steps=2"])
+        start = next(x for x in train if x.get("status") == "start")
+        losses = [x["loss"] for x in train if "loss" in x]
+        evals = [x["eval_loss"] for x in train if "eval_loss" in x]
+        if (start["compute_dtype"] != "float32" or not losses or not evals
+                or not np.isfinite(losses + evals).all() or train[-1].get("checkpoint_step") != 4):
+            raise AssertionError(f"lava train CLI: {start}; losses {losses}; evals {evals}; "
+                                 f"{train[-1]}")
+        # The eval CLI, its control steps timed in place.
+        control_ms = []
+        action = LavaEvalPolicy.action
+
+        def timed_action(self, observation):
+            t0 = time.perf_counter()
+            out = action(self, observation)
+            control_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        LavaEvalPolicy.action = timed_action
+        try:
+            result, eval_s = _run_in_process(eval_main.main, [
+                "--config", config_name, "--workdir", workdir, "--device", device, *sets,
+                "--episodes", "1", "--max_steps", str(LAVA_EVAL_STEPS)])
+        finally:
+            LavaEvalPolicy.action = action
+        result = result[-1]
+        if result.get("checkpoint_step") != 4 or not 1 <= len(control_ms) <= LAVA_EVAL_STEPS:
+            raise AssertionError(f"lava eval CLI: {result}, {len(control_ms)} control steps")
+        # The clip variant from episode files.
+        data_dir = os.path.join(root, "clip_data")
+        _lava_clip_corpus(data_dir)
+        clip, clip_s = _run_in_process(train_main, [
+            "--config", config_name, "--workdir", os.path.join(root, "clip"),
+            "--device", device, *sets, "--set", "model.lava.lang_encoder=clip",
+            "--set", "data.clip_tokens=true", "--set", f"data.data_dir={data_dir}",
+            "--set", "data.loader=numpy", "--set", f"num_steps={LAVA_CLIP_STEPS}",
+            "--set", "checkpoint_every_steps=2", "--set", "eval_every_steps=2",
+            "--set", "eval_batches=1", "--set", "log_every_steps=1"])
+        clip_losses = [x["loss"] for x in clip if "loss" in x]
+        if len(clip_losses) != LAVA_CLIP_STEPS or not np.isfinite(clip_losses).all() \
+                or clip[-1].get("checkpoint_step") != LAVA_CLIP_STEPS:
+            raise AssertionError(f"lava clip train CLI: {clip_losses}; {clip[-1]}")
+    card_vs_cpu = [_lava_card_vs_cpu(config_name, device, v) for v in (
+        ("conv_maxpool", "embedding_in_obs"), ("conv_maxpool", "clip"),
+        ("resnet", "embedding_in_obs"))]
+    record = {"phase": "lava", "config": config_name, "sets": list(LAVA_SETS),
+              "nvidia_smi": nvidia_smi() if dev.type == "cuda" else None,
+              "train_cli": {"seconds": train_s, "losses": losses, "eval_losses": evals,
+                            "parameters": start["parameters"],
+                            "checkpoint_step": train[-1]["checkpoint_step"]},
+              "eval_cli": {"seconds": eval_s, "result": result,
+                           "control_steps": len(control_ms), "control_ms": _quantiles(control_ms)},
+              "clip_train_cli": {"seconds": clip_s, "losses": clip_losses,
+                                 "tokenizer_vocab": 514},
+              "card_vs_cpu": card_vs_cpu, "tolerance_rel": LAVA_REL_TOL,
+              "seconds": time.perf_counter() - t_phase}
+    emit(record)
+    return record
+
+
 def _kernel_entry(name, source, launches, path, head, cases):
     """One entry of the `kernels` line: the kernel's numbers at `head` (the
     case of its path's shape) and its largest error over `cases`."""
@@ -4215,7 +4817,8 @@ def _kernel_entry(name, source, launches, path, head, cases):
 
 
 PHASES = ("kernel", "ab", "sweep", "parity", "tiny", "step", "serve", "train_parity", "train",
-          "train_ops", "data", "eval", "serve_modes", "fleet", "ops", "loadgen", "chaos", "proof")
+          "train_ops", "data", "eval", "moe", "lava", "serve_modes", "fleet", "ops", "loadgen",
+          "chaos", "proof")
 
 
 def main(argv=None) -> int:
@@ -4340,6 +4943,14 @@ def main(argv=None) -> int:
             "gate_parity": [g["parity"][variant] for g in ops["gate_launches"]],
             **{f"replica_{rid}": counts[variant]
                for rid, counts in ops["replica_launches"].items()}}
+    # The MoE flagship's: its bf16 bucket-8 engine and its float32
+    # infer_step (counts set to 0 before each).
+    moe = done["moe"]
+    for entry, variant in zip(entries, ("tensor_core", "tf32x3", "simple")):
+        entry["moe_launches"] = {
+            "serve_bf16": moe["serve"]["launches_by_variant"][variant],
+            "serve_engine_steps": moe["serve"]["engine_steps"],
+            "f32_infer_step": moe["f32_parity"]["launches_by_variant"][variant]}
     # The train CLI's periodic evals in phase train_ops.
     train_ops = done["train_ops"]["cli"]
     entries[0]["train_ops_launches"] = {

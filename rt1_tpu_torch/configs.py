@@ -1,5 +1,5 @@
 """Configs as plain dataclasses (counterparts of
-`rt1_tpu/train/configs/language_table.py` and `tiny.py`).
+`rt1_tpu/train/configs/language_table.py`, `tiny.py` and `lava_tiny.py`).
 
 The `model.*` fields, `data.height/width`, the training schedule,
 `resilience.*`, `obs.*` (field for field) and `parallel.mixed_precision`
@@ -56,6 +56,44 @@ class ModelConfig:
     # save_encoder`) grafted into the tokenizer on a fresh start; None
     # trains the tower from its random init.
     pretrained_encoder: Optional[str] = None
+    # "rt1" | "lava" (`build_family`).
+    family: str = "rt1"
+    # Decoder FFN: "dense" (the reference's single square Dense) | "moe"
+    # (the Switch-routed expert FFN, `models/moe.py`), whose load-balancing
+    # loss enters the train loss at `moe_aux_weight`.
+    ffn_impl: str = "dense"
+    num_experts: int = 4
+    moe_aux_weight: float = 0.01
+    moe_capacity_factor: float = 2.0
+    moe_ff_dim: Optional[int] = None   # expert hidden width; None: d_model
+    # Recompute each decoder layer and each MBConv block in the backward
+    # pass instead of storing its activations.
+    remat: bool = False
+    lava: "LavaConfig" = dataclasses.field(default_factory=lambda: LavaConfig())
+
+
+@dataclasses.dataclass
+class LavaConfig:
+    """`config.model.lava` (used when `model.family == "lava"`): the
+    reference's SequenceLAVMSE widths, and the in-graph CLIP text tower's
+    (`lang_encoder == "clip"`), whose defaults fit the byte-level
+    `text.clip_bpe.default_tokenizer` (vocab 514)."""
+    action_size: int = 2
+    d_model: int = 128
+    num_layers: int = 2
+    temporal_num_layers: int = 2
+    num_heads: int = 2
+    pyramid_fuse_layers: Tuple[int, ...] = (2, 3, 4)
+    image_encoder: str = "conv_maxpool"      # "conv_maxpool" | "resnet"
+    lang_encoder: str = "embedding_in_obs"   # "embedding_in_obs" | "clip"
+    dense_resnet_width: int = 256
+    dense_resnet_num_blocks: int = 8
+    text_vocab: int = 514
+    text_context: int = 77
+    text_width: int = 512
+    text_layers: int = 12
+    text_heads: int = 8
+    text_embed_dim: int = 512
 
 
 @dataclasses.dataclass
@@ -76,8 +114,12 @@ class DataConfig:
     shuffle_buffer: int = 2048
     num_workers: int = 4                  # port only: the torch loader's processes
     prefetch_factor: int = 2              # port only: batches in flight per worker
-    # CLIP BPE instruction tokens for LAVA: not ported yet (raises).
+    # Emit `instruction_tokenized_clip` (CLIP BPE of each episode's
+    # instruction text) for the LAVA "clip" language encoder.
     clip_tokens: bool = False
+    # CLIP's merges file (bpe_simple_vocab_16e6.txt[.gz]); None: the
+    # byte-level tokenizer (model.lava.text_vocab must then be 514).
+    clip_bpe_path: Optional[str] = None
     # The packed mmap frame cache and the sample-ahead feeder: build the
     # pack with `python -m rt1_tpu_torch.data.pack_dataset`; a missing or
     # stale pack falls back to `loader` (logged as a JSON line).
@@ -249,7 +291,27 @@ def language_table_sweep():
     ]
 
 
-CONFIGS = {"language_table": language_table, "tiny": tiny}
+def lava_tiny() -> Config:
+    """The CPU smoke config of the LAVA family
+    (`rt1_tpu/train/configs/lava_tiny.py`): `tiny` with a 16-wide LAVA at
+    64x64, which divides through the five-level conv-maxpool pyramid."""
+    config = tiny()
+    config.model.family = "lava"
+    lv = config.model.lava
+    lv.d_model = 16
+    lv.dense_resnet_width = 32
+    lv.dense_resnet_num_blocks = 1
+    lv.num_heads = 2
+    lv.text_width = 16
+    lv.text_layers = 2
+    lv.text_heads = 2
+    lv.text_embed_dim = 16
+    config.data.height = 64
+    config.data.width = 64
+    return config
+
+
+CONFIGS = {"language_table": language_table, "tiny": tiny, "lava_tiny": lava_tiny}
 SWEEPS = {"language_table": language_table_sweep}
 
 
@@ -261,7 +323,7 @@ def _config_key(name: str) -> str:
 
 
 def get_config(name: str) -> Config:
-    """A config by name ("language_table" | "tiny") or by the path of the
+    """A config by name ("language_table" | "tiny" | "lava_tiny") or by the path of the
     JAX package's config file of that name."""
     return CONFIGS[_config_key(name)]()
 

@@ -10,7 +10,15 @@ into the port's `state_dict`. It is the inverse of
 * Dense kernels `(in, out)` -> Linear weights `(out, in)`;
 * BatchNorm `scale, bias` and statistics `mean, var` -> `weight, bias,
   running_mean, running_var`; LayerNorm `scale` -> `weight`;
-* the position `Embed` table -> `Embedding.weight`.
+* the position `Embed` table -> `Embedding.weight`;
+* the MoE expert stacks `moe/wi`, `moe/wo` keep their layout and name
+  (and an int8 tree's `wi_scale`, `wo_scale` theirs); the router
+  `moe/gate/kernel` is a Dense kernel;
+* LAVA's attention (flax `MultiHeadDotProductAttention`): the
+  DenseGeneral kernels `(d, h, k)` of query/key/value and `(h, k, d)` of
+  `out` become Linear weights `(h*k, d)` / `(d, h*k)`, their `(h, k)`
+  biases flatten; CLIP's `positional_embedding` and `text_projection`
+  keep their layout and name.
 
 The port names its submodules after the flax ones, so a flax path maps to
 a torch key by two renames: the tokenizer passed as `image_tokenizer_def`
@@ -34,7 +42,9 @@ and must land on its key.
 `init_weights` is the port's random init, in flax's initializer families:
 lecun-normal kernels and zero biases, zero FiLM projections, LayerNorm
 and BatchNorm at identity (scale 1, bias 0, mean 0, var 1), from a seeded
-`torch.Generator`. The numbers differ from JAX's.
+`torch.Generator`; LAVA's dense layers normal(0.05) (`init_std`), a
+ResNet block's last BatchNorm scale 0 (`init_scale`), CLIP's raw
+parameters normal (`normal_init`). The numbers differ from JAX's.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from torch import nn
 
 from rt1_tpu_torch.models.efficientnet import BatchNorm
 from rt1_tpu_torch.models.film import FilmConditioning
+from rt1_tpu_torch.models.moe import MoEFeedForward
 
 _MODULE_RENAMES = {"image_tokenizer_def": "image_tokenizer", "EfficientNet_0": "net"}
 _FLAX_NAMES = {v: k for k, v in _MODULE_RENAMES.items()}
@@ -58,6 +69,10 @@ _FLAX_LEAVES = {
     "running_var": ("batch_stats", "var"),
     "weight_scale": ("quant", "kernel_scale"),
 }
+# Parameters that keep JAX's layout and name: the MoE expert stacks and
+# CLIP's two raw parameters; and the experts' int8 scales.
+_RAW_PARAMS = ("wi", "wo", "positional_embedding", "text_projection")
+_MOE_SCALES = ("wi_scale", "wo_scale")
 # flax's truncated_normal keeps [-2, 2] and rescales so the variance is 1.
 _TRUNC_STD = 0.87962566103423978
 
@@ -75,6 +90,8 @@ def _convert_leaf(collection: str, path: Tuple[str, ...], value: np.ndarray):
     *modules, leaf = path
     modules = [_MODULE_RENAMES.get(m, m) for m in modules]
     if collection == "quant":
+        if leaf in _MOE_SCALES:
+            return ".".join(modules + [leaf]), value
         if leaf != "kernel_scale":
             raise ValueError(f"unknown quant leaf {'/'.join(path)}")
         return ".".join(modules + ["weight_scale"]), value
@@ -88,13 +105,19 @@ def _convert_leaf(collection: str, path: Tuple[str, ...], value: np.ndarray):
             value = np.transpose(value, (3, 2, 0, 1))
         elif value.ndim == 2:  # (in, out) -> (out, in)
             value = value.T
+        elif value.ndim == 3 and modules[-1] == "out":  # DenseGeneral (h, k, out)
+            value = value.reshape(-1, value.shape[-1]).T
+        elif value.ndim == 3:  # DenseGeneral (in, h, k)
+            value = value.reshape(value.shape[0], -1).T
         else:
             raise ValueError(f"kernel {'/'.join(path)} has rank {value.ndim}")
         return ".".join(modules + ["weight"]), value
     if leaf in ("scale", "embedding"):
         return ".".join(modules + ["weight"]), value
-    if leaf == "bias":
-        return ".".join(modules + ["bias"]), value
+    if leaf in _RAW_PARAMS:  # parameters kept in JAX's layout and name
+        return ".".join(modules + [leaf]), value
+    if leaf == "bias":  # a DenseGeneral's (h, k) bias flattens
+        return ".".join(modules + ["bias"]), value.reshape(-1) if value.ndim == 2 else value
     raise ValueError(f"unknown parameter leaf {'/'.join(path)}")
 
 
@@ -122,6 +145,10 @@ def state_dict_from_flax(
 
 def _flax_leaf(owner: nn.Module, leaf: str) -> Tuple[str, str]:
     """(collection, flax leaf name) of a torch leaf of `owner`."""
+    if leaf in _RAW_PARAMS:
+        return "params", leaf
+    if leaf in _MOE_SCALES:
+        return "quant", leaf
     if leaf == "weight":
         if isinstance(owner, nn.Embedding):
             return "params", "embedding"
@@ -195,7 +222,11 @@ def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random init in flax's families (see the module docstring)."""
     for module in model.modules():
-        if isinstance(module, nn.Linear):
+        if isinstance(module, nn.Linear) and getattr(module, "init_std", None):
+            # LAVA's dense layers: normal(init_std) kernels and biases.
+            nn.init.normal_(module.weight, std=module.init_std, generator=generator)
+            nn.init.normal_(module.bias, std=module.init_std, generator=generator)
+        elif isinstance(module, nn.Linear):
             _lecun_normal_(module.weight, module.in_features, generator)
             if module.bias is not None:
                 nn.init.zeros_(module.bias)
@@ -204,6 +235,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             _lecun_normal_(module.weight, kh * kw * module.in_channels // module.groups, generator)
             if module.bias is not None:
                 nn.init.zeros_(module.bias)
+        elif isinstance(module, MoEFeedForward):
+            # variance_scaling(1, fan_in, truncated_normal, batch_axis=0):
+            # each expert's fan-in is its own input width.
+            for w in (module.wi, module.wo):
+                _lecun_normal_(w, w.shape[-2], generator)
         elif isinstance(module, nn.Embedding):
             nn.init.normal_(module.weight, std=1.0 / math.sqrt(module.num_embeddings),
                             generator=generator)
@@ -213,6 +249,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             if isinstance(module, BatchNorm):
                 module.running_mean.zero_()
                 module.running_var.fill_(1.0)
+                if getattr(module, "init_scale", None) == 0.0:
+                    nn.init.zeros_(module.weight)
+        for name, std in getattr(module, "normal_init", {}).items():
+            nn.init.normal_(getattr(module, name), std=std, generator=generator)
     # FiLM starts as the identity: both projections at zero.
     for module in model.modules():
         if isinstance(module, FilmConditioning):

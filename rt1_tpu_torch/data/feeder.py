@@ -318,6 +318,10 @@ class SampleAheadFeeder:
                 entry = self.cache.episodes[self.cache.index[int(idx)][0]]
                 tid[j] = self._task_index.get(entry.get("task") or UNKNOWN_TASK, other)
             observations[TASK_ID_KEY] = tid
+        if self.cache._clip_tokenizer is not None:
+            tokens = np.stack([self.cache.episode_clip_tokens(self.cache.index[int(i)][0])
+                               for i in indices])
+            observations["instruction_tokenized_clip"] = np.tile(tokens[:, None, :], (1, w, 1))
         return {"observations": observations,
                 "actions": {"terminate_episode": terms, "action": actions}}
 

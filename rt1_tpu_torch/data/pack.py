@@ -380,13 +380,14 @@ def default_pack_dir(data_dir: str, split: str) -> str:
 class _OpenShard:
     """One shard's open mmaps: frames + step-aligned meta."""
 
-    __slots__ = ("frames", "meta", "base", "steps")
+    __slots__ = ("frames", "meta", "base", "steps", "text")
 
-    def __init__(self, frames, meta, base, steps):
+    def __init__(self, frames, meta, base, steps, text=None):
         self.frames = frames
         self.meta = meta
         self.base = base
         self.steps = steps
+        self.text = text  # the shard's instruction-text bytes, or None
 
 
 class PackedEpisodeCache:
@@ -402,8 +403,12 @@ class PackedEpisodeCache:
     mid-batch are safe.
     """
 
-    def __init__(self, pack_dir: str, window: int = 6):
+    def __init__(self, pack_dir: str, window: int = 6, clip_tokenizer=None):
         self.pack_dir = pack_dir
+        # Optional `text.clip_bpe.ClipBPETokenizer`: the feeder's windows
+        # gain "instruction_tokenized_clip" from the packed instruction text.
+        self._clip_tokenizer = clip_tokenizer
+        self._clip_token_cache: Dict[int, np.ndarray] = {}
         self.manifest = load_manifest(pack_dir)
         problems = verify_shards(pack_dir, self.manifest)
         if problems:
@@ -438,7 +443,29 @@ class PackedEpisodeCache:
         meta = {k: np.load(os.path.join(self.pack_dir, shard_meta_name(k, suffix)),
                            mmap_mode="r")
                 for k in META_MEMBERS}
-        return _OpenShard(frames, meta, base=int(shard["frame_base"]), steps=steps)
+        text = None
+        if shard.get("has_text"):
+            text = np.load(os.path.join(self.pack_dir, shard_meta_name(TEXT_MEMBER, suffix)),
+                           mmap_mode="r")
+        return _OpenShard(frames, meta, base=int(shard["frame_base"]), steps=steps, text=text)
+
+    def episode_clip_tokens(self, ep_i: int) -> np.ndarray:
+        """(context,) int32 CLIP BPE frame of episode `ep_i`'s instruction."""
+        with self._lock:
+            tokens = self._clip_token_cache.get(ep_i)
+        if tokens is None:
+            entry = self.episodes[ep_i]
+            shard = self._shards[int(entry.get("shard", 0))]
+            if shard.text is None or "text_offset" not in entry:
+                raise KeyError(f"episode {ep_i} in {self.pack_dir} has no 'instruction_text'; "
+                               "re-pack from a corpus collected with rt1_tpu_torch.data.collect "
+                               "to use clip_tokens")
+            off, ln = int(entry["text_offset"]), int(entry["text_len"])
+            text = ep_lib.decode_instruction_text(shard.text[off:off + ln])
+            tokens = self._clip_tokenizer.tokenize_text(text)[0].astype(np.int32)
+            with self._lock:
+                self._clip_token_cache[ep_i] = tokens
+        return tokens
 
     def __len__(self) -> int:
         return len(self.index)

@@ -55,8 +55,15 @@ class WindowedEpisodeDataset:
         crop_factor: Optional[float] = 0.95,
         height: int = 256,
         width: int = 456,
+        clip_tokenizer=None,
     ):
         self.paths = list(paths)
+        # Optional `text.clip_bpe.ClipBPETokenizer`: windows gain an
+        # "instruction_tokenized_clip" (window, context) int32 observation,
+        # the episode's instruction text in every frame, for LAVA's CLIP
+        # text tower.
+        self._clip_tokenizer = clip_tokenizer
+        self._clip_token_cache: Dict[int, np.ndarray] = {}
         self.window = window
         self.crop_factor = crop_factor
         self.height = height
@@ -132,16 +139,33 @@ class WindowedEpisodeDataset:
             embeds.append(self._padded_step(ep, j, "instruction"))
             actions.append(self._padded_step(ep, j, "action"))
             terms.append(np.int32(bool(self._padded_step(ep, j, "is_terminal"))))
+        observations = {
+            "image": crop_resize_frames(frames, boxes, self.height, self.width),
+            "natural_language_embedding": np.stack(embeds).astype(np.float32),
+        }
+        if self._clip_tokenizer is not None:
+            observations["instruction_tokenized_clip"] = np.tile(
+                self._episode_clip_tokens(ep_i), (self.window, 1))
         return {
-            "observations": {
-                "image": crop_resize_frames(frames, boxes, self.height, self.width),
-                "natural_language_embedding": np.stack(embeds).astype(np.float32),
-            },
+            "observations": observations,
             "actions": {
                 "terminate_episode": np.asarray(terms, np.int32),
                 "action": np.stack(actions).astype(np.float32),
             },
         }
+
+    def _episode_clip_tokens(self, ep_i: int) -> np.ndarray:
+        """(context,) int32 CLIP BPE frame of the episode's instruction."""
+        tokens = self._clip_token_cache.get(ep_i)
+        if tokens is None:
+            ep = self._episode(ep_i)
+            if "instruction_text" not in ep:
+                raise KeyError(f"{self.paths[ep_i]} has no 'instruction_text' member; "
+                               "re-collect with rt1_tpu_torch.data.collect to use clip_tokenizer")
+            text = ep_lib.decode_instruction_text(ep["instruction_text"])
+            tokens = self._clip_tokenizer.tokenize_text(text)[0].astype(np.int32)
+            self._clip_token_cache[ep_i] = tokens
+        return tokens
 
     # ------------------------------------------------------------------ loaders
 

@@ -1,6 +1,7 @@
 """Checkpoint evaluation CLI (counterpart of `rt1_tpu/eval/main.py`).
 
-Restores the newest checkpoint of the port's trainer from `--workdir`,
+Restores the newest checkpoint of the port's trainer from `--workdir`
+(RT-1 or, with `model.family="lava"`, LAVA: `load_policy_from_workdir`),
 runs the closed-loop protocol (`evaluate.py`) and prints the result as
 one JSON line: `successes`, `episodes_per_reward`, `mean_episode_length`
 and `checkpoint_step`. Parity source: reference
@@ -42,7 +43,8 @@ def parse_args(argv):
     p = argparse.ArgumentParser(prog="python -m rt1_tpu_torch.eval", description=DESCRIPTION,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", required=True,
-                   help="language_table | tiny (or the path of the JAX config file of that name)")
+                   help="language_table | tiny | lava_tiny (or the path of the JAX config file "
+                        "of that name); --set model.family=lava evaluates a LAVA checkpoint")
     p.add_argument("--workdir", default="/tmp/rt1_tpu_torch",
                    help="The trainer's workdir: its newest checkpoint is evaluated.")
     p.add_argument("--set", dest="overrides", action="append", default=[], metavar="KEY=VALUE",
@@ -70,16 +72,37 @@ def parse_args(argv):
     return p.parse_args(argv)
 
 
+def eval_policy_for(config, model):
+    """(the eval policy of `model`, the history keys its observation needs
+    or None for the default): `RT1EvalPolicy`, or `LavaEvalPolicy` per
+    `config.model.family` (the "clip" encoder tokenizes the instruction,
+    so the history carries it)."""
+    from rt1_tpu_torch.eval.policy import LAVA_CLIP_HISTORY_KEYS, LavaEvalPolicy, RT1EvalPolicy
+
+    if config.model.family != "lava":
+        return RT1EvalPolicy(model), None
+    clip_tokenizer = history_keys = None
+    if config.model.lava.lang_encoder == "clip":
+        from rt1_tpu_torch.train.train import make_clip_tokenizer
+
+        clip_tokenizer, history_keys = make_clip_tokenizer(config), LAVA_CLIP_HISTORY_KEYS
+    policy = LavaEvalPolicy(model, sequence_length=config.model.time_sequence_length,
+                            clip_tokenizer=clip_tokenizer)
+    return policy, history_keys
+
+
 def load_policy_from_workdir(config, workdir, device=None, attention_impl=None):
-    """(RT1EvalPolicy over the newest checkpoint in `workdir`, its step).
-    Raises FileNotFoundError on an empty workdir: evaluating random weights
-    silently would be worse than failing."""
-    from rt1_tpu_torch.eval.policy import RT1EvalPolicy
+    """(the eval policy over the newest checkpoint in `workdir`, its step,
+    its history keys or None): RT-1 (`RT1EvalPolicy`, rolling network
+    state) or LAVA (`LavaEvalPolicy`, a history-window forward) per
+    `config.model.family`. Raises FileNotFoundError on an empty workdir:
+    evaluating random weights silently would be worse than failing."""
     from rt1_tpu_torch.eval.restore import load_policy_and_step
 
-    policy, step = load_policy_and_step(config, device=device, attention_impl=attention_impl,
-                                        workdir=workdir)
-    return RT1EvalPolicy(policy), step
+    model, step = load_policy_and_step(config, device=device, attention_impl=attention_impl,
+                                       workdir=workdir)
+    policy, history_keys = eval_policy_for(config, model)
+    return policy, step, history_keys
 
 
 def main(argv=None) -> int:
@@ -101,12 +124,23 @@ def main(argv=None) -> int:
             args.workdir, args.embedder,
             context="checkpoint data_manifest; pass --allow_embedder_mismatch to override",
             manifest_name="data_manifest.json")
+    history_keys = None
     if args.baseline == "oracle":
         policy, step = OracleEvalPolicy(seed=args.seed), -1
     elif args.baseline == "random":
         policy, step = RandomEvalPolicy(seed=args.seed), -1
     else:
-        policy, step = load_policy_from_workdir(config, args.workdir, device, args.attention)
+        policy, step, history_keys = load_policy_from_workdir(config, args.workdir, device,
+                                                              args.attention)
+    env_kwargs = dict(
+        target_height=config.data.height,
+        target_width=config.data.width,
+        random_crop_factor=config.data.crop_factor,
+        sequence_length=config.model.time_sequence_length,
+        backend=args.backend,
+    )
+    if history_keys is not None:
+        env_kwargs["history_keys"] = history_keys
     results = evaluate_policy(
         policy,
         reward_names=tuple(args.rewards or ("block2block",)),
@@ -115,13 +149,7 @@ def main(argv=None) -> int:
         block_mode=blocks.BlockMode(args.block_mode),
         seed=args.seed,
         embedder=args.embedder,
-        env_kwargs=dict(
-            target_height=config.data.height,
-            target_width=config.data.width,
-            random_crop_factor=config.data.crop_factor,
-            sequence_length=config.model.time_sequence_length,
-            backend=args.backend,
-        ),
+        env_kwargs=env_kwargs,
     )
     results["checkpoint_step"] = step
     print(json.dumps(results), flush=True)

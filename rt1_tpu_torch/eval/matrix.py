@@ -2,8 +2,7 @@
 
 The port's copy of `rt1_tpu/eval/matrix.py` (the port imports nothing of
 the JAX package); it keeps the JAX module's names, gauges and record, and
-restores the port trainer's checkpoints. Only the RT-1 family is ported:
-a LAVA config raises, naming ROADMAP A12.
+restores the port trainer's checkpoints, of either family (RT-1 or LAVA).
 
 The fleet's observability (request tracing, SLOs, health packs) can see
 *how fast* and *how healthy* the system is, but nothing answered *which
@@ -224,26 +223,22 @@ def policy_for_checkpoint(
     """(policy, restored_step, history_keys) for one checkpoint step.
 
     The per-step twin of `eval/main.py:load_policy_from_workdir` (which is
-    pinned to the newest checkpoint): explicit step, on `device` (default
-    cuda), always the fused attention kernel, so every control step of a
-    gate runs it. A LAVA config raises: that family is ROADMAP A12.
+    pinned to the newest checkpoint): same family dispatch, explicit step,
+    on `device` (default cuda); an RT-1 policy always takes the fused
+    attention kernel, so every control step of a gate runs it.
     """
-    if getattr(config.model, "family", "rt1") == "lava":
-        raise ValueError(
-            "model.family='lava': the LAVA eval policy is not ported yet "
-            "(ROADMAP A12)"
-        )
     from rt1_tpu_torch import resolve_device
-    from rt1_tpu_torch.eval.policy import RT1EvalPolicy
-    from rt1_tpu_torch.eval.restore import DTYPES, master_policy
+    from rt1_tpu_torch.eval.main import eval_policy_for
+    from rt1_tpu_torch.eval.restore import compute_dtype, master_policy
 
     model, restored = master_policy(
         config, None, workdir, "fused", step=step
     )
     model = model.to(
-        device=resolve_device(device), dtype=DTYPES[config.model.dtype]
+        device=resolve_device(device), dtype=compute_dtype(config)
     ).eval().requires_grad_(False)
-    return RT1EvalPolicy(model), restored, None
+    policy, history_keys = eval_policy_for(config, model)
+    return policy, restored, history_keys
 
 
 def run_matrix(

@@ -40,7 +40,8 @@ def parse_args(argv):
                                 description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", required=True,
-                   help="language_table | tiny (or the path of the JAX config file of that name)")
+                   help="language_table | tiny | lava_tiny (or the path of the JAX config file "
+                        "of that name)")
     p.add_argument("--workdir", default="/tmp/rt1_tpu", help="Checkpoint directory.")
     p.add_argument("--checkpoints", default="all",
                    help="Which checkpoint steps to evaluate: 'all', 'latest:N', or a "
@@ -88,9 +89,6 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     config = get_config(args.config)
-    if getattr(config.model, "family", "rt1") == "lava":
-        raise ValueError("model.family='lava': the LAVA eval policy is not ported yet "
-                         "(ROADMAP A12)")
     t0 = time.time()
     tasks = tuple(args.tasks) or matrix_lib.default_task_names()
 

@@ -16,6 +16,9 @@ them once, on the device (`models/quant.py::serving_preparer`):
 * `"int8"`: the quant plan's int8 leaves quantized per output channel on
   the device (scales float32), the rest cast to the compute dtype.
 
+The MoE routers (`moe.Router`) stay float32 in every mode; bf16 rounds
+their values.
+
 The engine keeps the master spec and the preparer, so `/reload` takes an
 f32 master (`load_standby_variables`) and prepares it the same way.
 """
@@ -33,6 +36,7 @@ from rt1_tpu_torch.configs import Config
 from rt1_tpu_torch.convert import flax_paths, init_weights, load_flax_variables, load_npz
 from rt1_tpu_torch.models import quant
 from rt1_tpu_torch.models.image_tokenizer import RT1ImageTokenizer
+from rt1_tpu_torch.models.moe import router_names
 from rt1_tpu_torch.models.rt1 import RT1Policy
 from rt1_tpu_torch.models.tiny_tokenizer import TinyImageTokenizer
 from rt1_tpu_torch.models.transformer import normalize_attention_impl
@@ -44,10 +48,57 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 RANDOM_INIT_SEED = 0
 
 
-def build_policy(config: Config, attention_impl: Optional[str] = None) -> RT1Policy:
+FAMILIES = ("rt1", "lava")
+
+
+def build_lava_policy(config: Config):
+    """`SequenceLAVMSE` of `config.model.lava` (JAX's `build_family`), its
+    window `model.time_sequence_length`, with the CLIP text tower of the
+    `text_*` fields when `lang_encoder` is "clip"."""
+    from rt1_tpu_torch.models.lava import SequenceLAVMSE
+    from rt1_tpu_torch.models.lava.clip_text import CLIPTextEncoder
+
+    lv = config.model.lava
+    text_encoder = None
+    if lv.lang_encoder == "clip":
+        text_encoder = CLIPTextEncoder(vocab_size=lv.text_vocab, context_length=lv.text_context,
+                                       width=lv.text_width, num_layers=lv.text_layers,
+                                       num_heads=lv.text_heads, embed_dim=lv.text_embed_dim)
+    return SequenceLAVMSE(
+        action_size=lv.action_size,
+        dense_resnet_width=lv.dense_resnet_width,
+        dense_resnet_num_blocks=lv.dense_resnet_num_blocks,
+        lava_num_layers=lv.num_layers,
+        lava_sequence_length=config.model.time_sequence_length,
+        lava_temporal_transformer_num_layers=lv.temporal_num_layers,
+        lava_d_model=lv.d_model,
+        lava_num_heads=lv.num_heads,
+        lava_pyramid_fuse_layers=tuple(lv.pyramid_fuse_layers),
+        lava_image_encoder=lv.image_encoder,
+        lava_lang_encoder=lv.lang_encoder,
+        text_encoder=text_encoder,
+    )
+
+
+def is_lava(config: Config) -> bool:
+    if config.model.family not in FAMILIES:
+        raise ValueError(f"Unknown model family: {config.model.family!r}")
+    return config.model.family == "lava"
+
+
+def compute_dtype(config: Config) -> torch.dtype:
+    """The dtype the family computes in: `model.dtype` for RT-1; float32
+    for LAVA, which has no dtype field (JAX's modules default to it)."""
+    return torch.float32 if is_lava(config) else DTYPES[config.model.dtype]
+
+
+def build_policy(config: Config, attention_impl: Optional[str] = None):
     """The policy `config.model` (with `config.regularization`) describes,
-    on the CPU in float32, with default (not yet initialised) weights.
+    on the CPU in float32, with default (not yet initialised) weights:
+    `RT1Policy`, or `SequenceLAVMSE` for `model.family="lava"`.
     `attention_impl` overrides the config's ("dense" | "fused" | "pallas")."""
+    if is_lava(config):
+        return build_lava_policy(config)
     m = config.model
     reg = config.regularization
     if not m.use_token_learner:
@@ -64,6 +115,7 @@ def build_policy(config: Config, attention_impl: Optional[str] = None) -> RT1Pol
             width_coefficient=coeff[0],
             depth_coefficient=coeff[1],
             drop_connect_rate=reg.drop_connect_rate,
+            remat=m.remat,
         )
     else:
         raise ValueError(f"unknown image_tokenizer {m.image_tokenizer!r}")
@@ -87,6 +139,11 @@ def build_policy(config: Config, attention_impl: Optional[str] = None) -> RT1Pol
         aux_mse_weight=m.aux_mse_weight,
         # JAX's build_model passes every tokenizer but B3's as a def.
         tokenizer_flax_name="image_tokenizer" if m.image_tokenizer == "efficientnet_b3" else None,
+        ffn_impl=m.ffn_impl,
+        num_experts=m.num_experts,
+        moe_capacity_factor=m.moe_capacity_factor,
+        moe_ff_dim=m.moe_ff_dim,
+        remat=m.remat,
     )
 
 
@@ -129,8 +186,8 @@ def load_policy_and_step(config: Config, weights: Optional[str] = None, device=N
     of a checkpoint raises FileNotFoundError)."""
     dev = resolve_device(device)
     policy, step = master_policy(config, weights, workdir, attention_impl)
-    dtype = DTYPES[config.model.dtype]
-    return policy.to(device=dev, dtype=dtype).eval().requires_grad_(False), step
+    policy = policy.to(device=dev, dtype=compute_dtype(config))
+    return policy.eval().requires_grad_(False), step
 
 
 def config_with_model_dtype(config: Config, dtype: str) -> Config:
@@ -149,7 +206,8 @@ def serving_engine(master: RT1Policy, compute_dtype: torch.dtype, device=None,
     quant.check_inference_dtype(inference_dtype)
     dev = resolve_device(device)
     master_state = {k: v.detach().clone() for k, v in master.state_dict().items()}
-    prepare = quant.serving_preparer(inference_dtype, flax_paths(master), compute_dtype, dev)
+    prepare = quant.serving_preparer(inference_dtype, flax_paths(master), compute_dtype, dev,
+                                     routers=router_names(master))
     serving = prepare(master_state)
     policy = master.to(device=dev, dtype=compute_dtype)
     quant.quantize_layers_(policy, serving)
@@ -168,6 +226,10 @@ def build_serve_engine(config: Config, weights: Optional[str] = None, device=Non
     init, None for an .npz, the trainer's step for a workdir (`step` picks
     one; default the newest)."""
     quant.check_inference_dtype(inference_dtype)
+    if is_lava(config):
+        raise ValueError("model.family='lava' is evaluated (`python -m rt1_tpu_torch.eval`), "
+                         "not served: the serving engine steps RT-1's rolling window, and the "
+                         "JAX package serves no LAVA policy either")
     if inference_dtype == "bf16":
         config = config_with_model_dtype(config, "bfloat16")
     master, step = master_policy(config, weights, workdir, attention_impl, step=step)

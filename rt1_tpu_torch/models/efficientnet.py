@@ -17,6 +17,8 @@ normalises with batch statistics and updates the running ones as flax does
 (momentum 0.9 on the BIASED batch variance), and applies row-mode
 stochastic depth to the residual blocks at `drop_connect_rate * b /
 total_repeats`, drawing from the generator passed as `rngs["stochastic_depth"]`.
+`remat=True` recomputes each MBConv block in the backward pass
+(`ops/remat.py`), as JAX's `nn.remat(MBConvBlock)` does.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from torch import nn
 from rt1_tpu_torch.models.film import FilmConditioning
 from rt1_tpu_torch.models.quant import QuantConv2d
 from rt1_tpu_torch.ops.dropout import Rngs
+from rt1_tpu_torch.ops.remat import checkpoint, recomputing
 
 # Table-1 base (B0) config.
 BLOCKS_ARGS: Tuple[Dict[str, Any], ...] = (
@@ -108,6 +111,8 @@ class BatchNorm(nn.Module):
             x, mean, var, weight, bias,
             training=True, momentum=1.0 - self.MOMENTUM, eps=self.eps,
         )
+        if recomputing():  # the first run of a remat block wrote them
+            return y
         with torch.no_grad():
             var_flax = var * ((n - 1) / n) + self.running_var * (self.MOMENTUM / n)
             self.running_mean.copy_(mean)
@@ -190,8 +195,9 @@ class EfficientNet(nn.Module):
 
     def __init__(self, width_coefficient: float, depth_coefficient: float,
                  include_film: bool = False, context_dim: int = 512,
-                 depth_divisor: int = 8, drop_connect_rate: float = 0.2):
+                 depth_divisor: int = 8, drop_connect_rate: float = 0.2, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.width_coefficient = width_coefficient
         self.depth_coefficient = depth_coefficient
         self.depth_divisor = depth_divisor
@@ -238,7 +244,11 @@ class EfficientNet(nn.Module):
                      train: bool = False, rngs: Rngs = None) -> torch.Tensor:
         x = self.stem(x, train)
         for i in range(self.num_blocks):
-            x = getattr(self, f"block_{i}")(x, train, rngs)
+            block = getattr(self, f"block_{i}")
+            if self.remat and train:
+                x = checkpoint(block, x, train, rngs, rngs=rngs)
+            else:
+                x = block(x, train, rngs)
             if self.include_film:
                 x = getattr(self, f"film_{i}")(x, context, channel_dim=1)
         return self.top(x, train)

@@ -20,12 +20,12 @@ from rt1_tpu_torch.ops.dropout import Rngs
 class EfficientNetEncoder(nn.Module):
     def __init__(self, token_embedding_size: int = 512, early_film: bool = True,
                  width_coefficient: float = 1.2, depth_coefficient: float = 1.4,
-                 context_dim: int = 512, drop_connect_rate: float = 0.2):
+                 context_dim: int = 512, drop_connect_rate: float = 0.2, remat: bool = False):
         super().__init__()
         self.early_film = early_film
         self.net = EfficientNet(width_coefficient, depth_coefficient,
                                 include_film=early_film, context_dim=context_dim,
-                                drop_connect_rate=drop_connect_rate)
+                                drop_connect_rate=drop_connect_rate, remat=remat)
         self.conv1x1 = QuantConv2d(self.net.top_ch, token_embedding_size, 1, bias=False)
         self.film = FilmConditioning(context_dim, token_embedding_size)
 

@@ -20,7 +20,7 @@ class RT1ImageTokenizer(nn.Module):
     def __init__(self, embedding_output_dim: int = 512, use_token_learner: bool = True,
                  num_tokens: int = 8, width_coefficient: float = 1.2,
                  depth_coefficient: float = 1.4, context_dim: int = 512,
-                 drop_connect_rate: float = 0.2):
+                 drop_connect_rate: float = 0.2, remat: bool = False):
         super().__init__()
         self.embedding_output_dim = embedding_output_dim
         self.use_token_learner = use_token_learner
@@ -32,6 +32,7 @@ class RT1ImageTokenizer(nn.Module):
             depth_coefficient=depth_coefficient,
             context_dim=context_dim,
             drop_connect_rate=drop_connect_rate,
+            remat=remat,
         )
         if use_token_learner:
             self.token_learner = TokenLearner(embedding_output_dim, num_tokens=num_tokens)

@@ -1,0 +1,147 @@
+"""Switch-routed expert feed-forward (counterpart of `rt1_tpu/models/moe.py`).
+
+Top-1 routing with a fixed per-expert capacity, in the JAX module's dense
+formulation (no gather or scatter):
+
+  gates    = softmax(x @ w_gate)                  (t, E), float32
+  dispatch = one_hot(top1) * within-capacity mask  (t, E, C)
+  buffers  = einsum('tec,td->ecd')                 (E, C, d)
+  expert   = gelu(buffers @ wi) @ wo               batched over E
+  out      = einsum('tec,ecd->td')                 gate-weighted combine
+
+Routing is exactly JAX's: the router runs in float32 whatever the compute
+dtype, argmax ties go to the first expert, a token's queue position is a
+cumsum over the flattened (b, s) order, `capacity = int(factor * t / E)
+or 1`, and tokens past an expert's capacity get combine weight 0 (they
+fall through the block's residual). The GELU is the tanh form
+(`jax.nn.gelu`'s default); dispatch and combine run in the compute dtype,
+with the gate cast to it before the multiply.
+
+Capacity binds per CALL, over its `t` tokens. `per_row=True` routes each
+row of the batch as a call of its own (capacity over that row's tokens,
+queues per row): the JAX serving engine vmaps a batch-1 step, so there a
+session's routing never depends on the other sessions of its bucket or on
+the padding lanes, and the port's engine, which steps a bucket as one
+batch, asks for that. Training and a direct `infer_step` route the whole
+call, as JAX does.
+
+`aux_loss` is the Switch load-balancing loss, E * sum_e (fraction routed
+to e) * (mean gate of e), in float32 (of the whole call; per row it is the
+mean over rows, unused: only training reads it).
+
+The stacked experts keep JAX's layout, `wi` (E, d, ff) and `wo` (E, ff,
+d), as plain parameters. For int8 serving (`models/quant.py`) they
+quantize per output column over every other axis, one scale per column
+shared by the experts (`wi_scale` (ff,), `wo_scale` (d,)), as JAX's
+`quantize_per_channel` does on the same arrays; the float32 router is
+never quantized.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+QUANT_PARAMS = ("wi", "wo")
+
+
+class Router(nn.Linear):
+    """The routing Dense (no bias). A float cast of the model (`.to(dtype)`,
+    `.bfloat16()`) leaves its weight float32 and exact, as JAX's
+    `dtype=float32` Dense keeps float32 params whatever the model's dtype.
+    A bf16 serving tree holds its values rounded to bfloat16 (still at
+    float32, `quant.serving_preparer`); it computes in float32 either way."""
+
+    def _apply(self, fn, recurse=True):
+        def keep_float32(t):
+            out = fn(t)
+            if out.is_floating_point() and out.dtype != torch.float32:
+                return t.to(device=out.device, dtype=torch.float32)
+            return out
+
+        return super()._apply(keep_float32, recurse)
+
+
+def router_names(model: nn.Module) -> List[str]:
+    """The parameter names of `model`'s MoE routers, the leaves that stay
+    float32 when the rest computes in bfloat16."""
+    return [f"{name}.{leaf}" if name else leaf
+            for name, module in model.named_modules() if isinstance(module, Router)
+            for leaf, _ in module.named_parameters()]
+
+
+class MoEFeedForward(nn.Module):
+    """Top-1 routed expert FFN: d_model -> ff_dim (gelu) -> d_model."""
+
+    def __init__(self, d_model: int, num_experts: int = 4, ff_dim: Optional[int] = None,
+                 capacity_factor: float = 2.0):
+        super().__init__()
+        ff = ff_dim or d_model
+        self.num_experts = num_experts
+        self.capacity_factor = capacity_factor
+        self.gate = Router(d_model, num_experts, bias=False)
+        self.wi = nn.Parameter(torch.empty(num_experts, d_model, ff))
+        self.wo = nn.Parameter(torch.empty(num_experts, ff, d_model))
+        self.register_buffer("wi_scale", None)
+        self.register_buffer("wo_scale", None)
+        self._compute_dtype = torch.float32
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.wi.dtype if self.wi.is_floating_point() else self._compute_dtype
+
+    def expert_weight(self, name: str) -> torch.Tensor:
+        """`wi` or `wo` in the compute dtype; an int8 one dequantized in
+        float32 through its per-column scale first."""
+        w = getattr(self, name)
+        if w.dtype != torch.int8:
+            return w
+        scale = getattr(self, name + "_scale")
+        if scale is None:
+            raise ValueError(f"MoEFeedForward.{name} is int8 but {name}_scale is not set")
+        return (w.to(scale.dtype) * scale).to(self._compute_dtype)
+
+    def set_int8_(self, name: str, q: torch.Tensor, scale: torch.Tensor) -> None:
+        """Hold `q` (int8, the parameter's shape) and its (last-dim) scale in
+        place of the float `wi` or `wo`."""
+        w = getattr(self, name)
+        if q.dtype != torch.int8 or tuple(q.shape) != tuple(w.shape):
+            raise ValueError(f"int8 {name} {tuple(q.shape)}/{q.dtype} does not fit {tuple(w.shape)}")
+        self._compute_dtype = self.compute_dtype
+        setattr(self, name, nn.Parameter(q, requires_grad=False))
+        setattr(self, name + "_scale", scale)
+
+    def forward(self, x: torch.Tensor, per_row: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: (b, s, d) -> (out (b, s, d) in the compute dtype, aux_loss
+        float32 scalar)."""
+        b, s, d = x.shape
+        e = self.num_experts
+        dtype = self.compute_dtype
+        groups, t = (b, s) if per_row else (1, b * s)
+        tokens = x.reshape(groups, t, d)
+        gate_logits = F.linear(tokens.float(), self.gate.weight.float())
+        gates = torch.softmax(gate_logits, dim=-1)                      # (g, t, e)
+        expert_idx = torch.argmax(gates, dim=-1)                        # first max on ties
+        expert_gate = torch.amax(gates, dim=-1)
+        one_hot = F.one_hot(expert_idx, e).to(torch.float32)            # (g, t, e)
+        density = one_hot.mean(dim=1)
+        density_proxy = gates.mean(dim=1)
+        aux_loss = ((density * density_proxy).sum(dim=-1) * e).mean()
+
+        capacity = int(self.capacity_factor * t / e) or 1
+        position_in_expert = (torch.cumsum(one_hot, dim=1) - 1.0) * one_hot
+        slots = torch.arange(capacity, device=x.device, dtype=torch.float32)
+        # A position >= capacity matches no slot: the token is dropped.
+        pos_one_hot = (position_in_expert.sum(dim=-1)[..., None] == slots).to(torch.float32)
+        dispatch = (one_hot[..., None] * pos_one_hot[..., None, :]).to(dtype)  # (g, t, e, c)
+
+        buffers = torch.einsum("gtec,gtd->gecd", dispatch, tokens.to(dtype))
+        h = F.gelu(torch.einsum("gecd,edf->gecf", buffers, self.expert_weight("wi")),
+                   approximate="tanh")
+        expert_out = torch.einsum("gecf,efd->gecd", h, self.expert_weight("wo"))
+        combine = dispatch * expert_gate.to(dtype)[..., None, None]
+        out = torch.einsum("gtec,gecd->gtd", combine, expert_out)
+        return out.reshape(b, s, d), aux_loss

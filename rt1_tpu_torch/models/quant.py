@@ -18,7 +18,10 @@ plan of `rt1_tpu/parallel/plan.py`).
   JAX `quant` collection's `<module>/kernel_scale`). Torch layouts put the
   output channel at dim 0 (Linear (out, in), Conv2d (cout, cin/g, kh, kw)),
   where flax puts it last, so the max runs over every other dim; the int8
-  values and scales equal JAX's bit for bit after transposition.
+  values and scales equal JAX's bit for bit after transposition. The MoE
+  expert stacks keep JAX's layout (`wi` (E, d, ff), `wo` (E, ff, d)), so
+  theirs is the last dim: one scale per output column, shared by the
+  experts, as `<moe>.wi_scale` / `wo_scale` (JAX's `quant/.../moe/wi_scale`).
 * **Which leaves.** The rules below decide each leaf by the same regexes
   over its FLAX path, which `convert.flax_paths` derives from the
   converter's own mapping.
@@ -178,19 +181,30 @@ class QuantConv2d(_Quantizable, nn.Conv2d):
 # ------------------------------------------------------------ quantization
 
 
-def quantize_per_channel(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_per_channel(w: torch.Tensor, channel_dim: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-output-channel int8 quantization of `w`, output
-    channel at dim 0: (w_int8, scale (cout,) float32), `w ~ w_int8 * scale`."""
+    channel at `channel_dim` (0 for torch's Linear/Conv2d layouts, -1 for
+    the MoE experts' JAX layout): (w_int8, scale (cout,) float32),
+    `w ~ w_int8 * scale`."""
     w = torch.as_tensor(w).float()
     if w.dim() < 2:
         raise ValueError(f"per-channel quantization needs rank >= 2, got shape {tuple(w.shape)}")
-    amax = w.abs().amax(dim=tuple(range(1, w.dim())))
+    channel_dim %= w.dim()
+    amax = w.abs().amax(dim=tuple(d for d in range(w.dim()) if d != channel_dim))
     # A tensor divisor, not the Python int: CUDA divides by a host scalar
     # as a multiply by its reciprocal, which is not numpy's rounding.
     scale = torch.where(amax > 0, amax / torch.full_like(amax, INT8_MAX), torch.ones_like(amax))
-    q = torch.clamp(torch.round(w / scale.view((-1,) + (1,) * (w.dim() - 1))),
-                    -INT8_MAX, INT8_MAX).to(torch.int8)
+    shape = [1] * w.dim()
+    shape[channel_dim] = -1
+    q = torch.clamp(torch.round(w / scale.view(shape)), -INT8_MAX, INT8_MAX).to(torch.int8)
     return q, scale
+
+
+def channel_dim(key: str) -> int:
+    """The output-channel dim of a state_dict leaf: 0 for a layer's
+    `weight` (torch layouts), -1 for a parameter kept in JAX's layout (the
+    MoE experts `wi`, `wo`)."""
+    return 0 if key.endswith(".weight") else -1
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -216,7 +230,7 @@ def quantize_tree(state: Mapping[str, torch.Tensor], paths: Mapping[str, str],
     for key, value in state.items():
         value = torch.as_tensor(value)
         if _is_int8_leaf(paths[key], value, rules):
-            out[key], out[scale_key(key)] = quantize_per_channel(value)
+            out[key], out[scale_key(key)] = quantize_per_channel(value, channel_dim(key))
             n += 1
         else:
             out[key] = value
@@ -237,33 +251,55 @@ def cast_tree(state: Mapping[str, torch.Tensor], dtype: torch.dtype = torch.bflo
 
 
 def serving_preparer(inference_dtype: str, paths: Mapping[str, str], compute_dtype: torch.dtype,
-                     device, rules: Optional[Sequence[Tuple[str, str]]] = None
+                     device, rules: Optional[Sequence[Tuple[str, str]]] = None,
+                     routers: Sequence[str] = ()
                      ) -> Callable[[Mapping[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """The f32-master -> serving state_dict transform of an engine mode, on
     `device`. f32 casts to the compute dtype (the port holds its weights
     there; JAX keeps f32 masters and casts at use: same outputs, other
     bytes); bf16 casts every float leaf to bfloat16; int8 quantizes on the
-    device and casts the rest to the compute dtype, scales staying f32."""
+    device and casts the rest to the compute dtype, scales staying f32.
+    The MoE `routers` (`moe.router_names`) stay float32, as the model holds
+    them: exact in f32 and int8, as a `dtype=float32` Dense computes on
+    JAX's f32 masters; rounded to bfloat16 in bf16, as JAX's `cast_tree`
+    casts them too."""
     check_inference_dtype(inference_dtype)
+    routers = list(routers)
 
     def prepare(master: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         on_device = {k: torch.as_tensor(v).to(device) for k, v in master.items()}
         if inference_dtype == "bf16":
-            return cast_tree(on_device, torch.bfloat16)
+            served = cast_tree(on_device, torch.bfloat16)
+            served.update({k: served[k].float() for k in routers})
+            return served
         if inference_dtype == "int8":
             served = quantize_tree(on_device, paths, rules)
             scales = [k for k in served if k not in on_device]
-            return cast_tree(served, compute_dtype, skip=scales)
-        return cast_tree(on_device, compute_dtype)
+            return cast_tree(served, compute_dtype, skip=scales + routers)
+        return cast_tree(on_device, compute_dtype, skip=routers)
 
     return prepare
 
 
 def quantize_layers_(model: nn.Module, serving: Mapping[str, torch.Tensor]) -> int:
-    """Give every quantizable layer whose weight is int8 in `serving` the
-    int8 weight and scale it holds; returns the number of layers."""
+    """Give every quantizable layer whose weight is int8 in `serving`, and
+    every MoE expert stack, the int8 weight and scale it holds; returns the
+    number of leaves."""
+    from rt1_tpu_torch.models.moe import QUANT_PARAMS, MoEFeedForward
+
     n = 0
     for name, module in model.named_modules():
+        if isinstance(module, MoEFeedForward):
+            for leaf in QUANT_PARAMS:
+                key = f"{name}.{leaf}" if name else leaf
+                value = serving.get(key)
+                if value is not None and value.dtype == torch.int8:
+                    scale = serving.get(scale_key(key))
+                    if scale is None:
+                        raise ValueError(f"{key} is int8 but {scale_key(key)} is missing")
+                    module.set_int8_(leaf, value, scale)
+                    n += 1
+            continue
         if not isinstance(module, _Quantizable):
             continue
         key = f"{name}.weight" if name else "weight"
@@ -296,12 +332,12 @@ def quant_byte_report(config, rules: Optional[Sequence[Tuple[str, str]]] = None)
     with torch.device("meta"):
         policy = build_policy(config)
     f32 = bf16 = int8 = quantized = 0
-    for _, path, value in _ranked_paths(policy):
+    for key, path, value in _ranked_paths(policy):
         n = int(np.prod(value.shape))
         f32 += 4 * n
         bf16 += 2 * n
         if _is_int8_leaf(path, value, rules):
-            int8 += n + 4 * int(value.shape[0])
+            int8 += n + 4 * int(value.shape[channel_dim(key)])
             quantized += 1
         else:
             int8 += 4 * n

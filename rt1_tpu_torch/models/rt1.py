@@ -123,6 +123,11 @@ class RT1Policy(nn.Module):
         focal_gamma: float = 0.0,
         aux_mse_weight: float = 0.0,
         tokenizer_flax_name: Optional[str] = None,
+        ffn_impl: str = "dense",
+        num_experts: int = 4,
+        moe_capacity_factor: float = 2.0,
+        moe_ff_dim: Optional[int] = None,
+        remat: bool = False,
     ):
         super().__init__()
         if action_decode not in ("argmax", "expected"):
@@ -164,7 +169,13 @@ class RT1Policy(nn.Module):
             max_seq_len=max(256, self.sequence_tokens),
             attention_impl=attention_impl,
             dropout_rate=dropout_rate,
+            ffn_impl=ffn_impl,
+            num_experts=num_experts,
+            moe_capacity_factor=moe_capacity_factor,
+            moe_ff_dim=moe_ff_dim,
+            remat=remat,
         )
+        self.ffn_impl = ffn_impl
         mask = rt1_attention_mask(
             time_sequence_length, self.tokens_per_image, self.tokens_per_action
         )
@@ -249,15 +260,19 @@ class RT1Policy(nn.Module):
         (b, t, ...) labels. Returns the JAX aux dict: loss (scalar),
         action_loss (b, t), cross_entropy (b, t, A), action_labels (b, t, A),
         action_logits (b, t, A, vocab) and action_predictions (b, t, A), plus
-        aux_mse when `aux_mse_weight > 0`."""
+        aux_mse when `aux_mse_weight > 0` and, with the MoE FFN,
+        moe_aux_loss: the mean over layers of their load-balancing losses
+        (the trainer adds it to the train loss; "loss" stays the task
+        loss, as JAX's model output does)."""
         image = observations["image"]
         context = observations.get("natural_language_embedding")
         b, t = image.shape[0], image.shape[1]
         if t != self.time_sequence_length:
             raise ValueError(f"window {t} != time_sequence_length {self.time_sequence_length}")
         context_image_tokens = self._tokenize_images(image, context, train, rngs)
-        logits = self.transformer(self._assemble(context_image_tokens),
-                                  attention_mask=self.attention_mask, train=train, rngs=rngs)
+        logits, aux_losses = self.transformer(self._assemble(context_image_tokens),
+                                              attention_mask=self.attention_mask, train=train,
+                                              rngs=rngs, return_aux=True)
         labels = action_tokenizer.tokenize(self.action_space, actions, self.vocab_size)
         action_logits = logits.index_select(1, self.pred_positions).reshape(
             b, t, self.tokens_per_action, self.vocab_size)
@@ -292,6 +307,8 @@ class RT1Policy(nn.Module):
             # relies on it); "aux_mse" stays raw.
             out["loss"] = loss + self.aux_mse_weight * mse / num_items
             out["aux_mse"] = mse
+        if aux_losses:
+            out["moe_aux_loss"] = torch.stack(aux_losses).mean()
         return out
 
     def _advance_window(self, observation, state):
@@ -312,15 +329,19 @@ class RT1Policy(nn.Module):
         return img_state, act_state, time_step, seq_idx
 
     def infer_step(
-        self, observation: Dict[str, torch.Tensor], state: Dict[str, torch.Tensor]
+        self, observation: Dict[str, torch.Tensor], state: Dict[str, torch.Tensor],
+        per_row: bool = False,
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """One control step for a batch of streams, each at its own phase.
 
         observation: {'image': (b, H, W, 3), 'natural_language_embedding': (b, D)}.
         Returns ({'action_tokens', 'action_logits', <detokenized action>},
-        new_state)."""
+        new_state). `per_row` routes a MoE FFN per row (capacity over one
+        stream's tokens: the JAX engine's vmapped batch-1 step), else over
+        the whole batch (a direct JAX `infer_step`)."""
         img_state, act_state, time_step, seq_idx = self._advance_window(observation, state)
-        logits = self.transformer(self._assemble(img_state), attention_mask=self.attention_mask)
+        logits = self.transformer(self._assemble(img_state), attention_mask=self.attention_mask,
+                                  per_row=per_row)
         start = time_step * self.single_step_tokens + self.tokens_per_image - 1  # (b,)
         index = start[:, None] + torch.arange(self.tokens_per_action, device=start.device)
         step_logits = torch.gather(
@@ -339,11 +360,13 @@ class RT1Policy(nn.Module):
         return output, new_state
 
     def infer_step_cached(
-        self, observation: Dict[str, torch.Tensor], state: Dict[str, torch.Tensor]
+        self, observation: Dict[str, torch.Tensor], state: Dict[str, torch.Tensor],
+        per_row: bool = False,
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """`infer_step` against the `kv_cache` state leaf: the transformer
         runs over the new frame's step block only (see the module
-        docstring). Same observation, state and output contract."""
+        docstring). Same observation, state, output and `per_row` contract;
+        a MoE FFN's capacity binds over the new block's positions."""
         step = self.single_step_tokens
         full = state["seq_idx"] == self.time_sequence_length
         kv = state["kv_cache"]
@@ -359,7 +382,7 @@ class RT1Policy(nn.Module):
         q_start = time_step * step  # (b,)
         block_rows = q_start[:, None] + torch.arange(step, device=q_start.device)
         dec_mask = self.attention_mask[block_rows]  # (b, I+A, S)
-        logits, new_kv = self.transformer.decode(block, dec_mask, kv, q_start)
+        logits, new_kv = self.transformer.decode(block, dec_mask, kv, q_start, per_row)
         i0 = self.tokens_per_image - 1
         step_logits = logits[:, i0:i0 + self.tokens_per_action]  # (b, A, vocab)
         tokens = torch.argmax(step_logits, dim=-1).to(torch.int32)
@@ -376,11 +399,14 @@ class RT1Policy(nn.Module):
 
     def rebuild_cache(self, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Every K/V cache row recomputed from the stored image tokens: one
-        full-window pass, the math of `infer_step`'s (dense, not the kernel)."""
+        full-window pass, the math of `infer_step`'s (dense, not the kernel);
+        a MoE FFN routes each stream's window on its own (`per_row`), as the
+        JAX engine's rebuild does, vmapped over batch-1 states."""
         kv = state["kv_cache"]
         start = torch.zeros((kv.shape[0],), dtype=torch.long, device=kv.device)
         _, new_kv = self.transformer.decode(self._assemble(state["context_image_tokens"]),
-                                            self.attention_mask, torch.zeros_like(kv), start)
+                                            self.attention_mask, torch.zeros_like(kv), start,
+                                            per_row=True)
         return dict(state, kv_cache=new_kv)
 
     def infer_step_autoregressive(

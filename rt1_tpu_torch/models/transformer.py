@@ -5,7 +5,8 @@
 * N pre-norm blocks: LayerNorm (eps 1e-6) -> tf.keras-style multi-head
   attention with per-head width `key_dim` decoupled from d_model ->
   residual; LayerNorm -> ONE Dense(d_model -> d_model) with no activation
-  (the reference's quirk) -> dropout -> residual;
+  (the reference's quirk), or with `ffn_impl="moe"` the Switch-routed
+  expert FFN (`models/moe.py`) -> dropout -> residual;
 * output head Dense(d_model -> vocab).
 
 Attention has two paths, each the counterpart of its JAX path:
@@ -47,11 +48,14 @@ import torch
 from torch import nn
 
 from rt1_tpu_torch.ops.dropout import Rngs, dropout
+from rt1_tpu_torch.ops.remat import checkpoint
+from rt1_tpu_torch.models.moe import MoEFeedForward
 from rt1_tpu_torch.models.quant import QuantLinear
 from rt1_tpu_torch.parallel.flash_attention import fused_attention
 
 NEG_INF = -1e9
 ATTENTION_IMPLS = ("dense", "fused")
+FFN_IMPLS = ("dense", "moe")
 
 
 def normalize_attention_impl(impl: str) -> str:
@@ -118,69 +122,106 @@ class TFMultiHeadAttention(nn.Module):
 
 
 class TransformerLayer(nn.Module):
-    """Pre-norm block: x + MHA(LN(x)); x + FFN(LN(x))."""
+    """Pre-norm block: x + MHA(LN(x)); x + FFN(LN(x)).
+
+    `ffn_impl="dense"` is the reference's single square Dense (`ff`);
+    `"moe"` is the Switch-routed expert FFN (`moe`, `models/moe.py`). Each
+    call returns `(x, aux)`: the MoE's load-balancing loss, None for the
+    dense FFN (JAX sows it into "intermediates"). `per_row` routes each
+    row on its own (the serving engine's per-session capacity)."""
 
     def __init__(self, key_dim: int, num_heads: int, d_model: int, attention_impl: str = "dense",
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, ffn_impl: str = "dense", num_experts: int = 4,
+                 moe_capacity_factor: float = 2.0, moe_ff_dim: Optional[int] = None):
         super().__init__()
+        if ffn_impl not in FFN_IMPLS:
+            raise ValueError(f"ffn_impl must be one of {FFN_IMPLS}, got {ffn_impl!r}")
         self.dropout_rate = dropout_rate
         self.norm_1 = nn.LayerNorm(d_model, eps=1e-6)
         self.attn = TFMultiHeadAttention(num_heads, key_dim, d_model, attention_impl, dropout_rate)
         self.norm_2 = nn.LayerNorm(d_model, eps=1e-6)
-        self.ff = QuantLinear(d_model, d_model)
+        if ffn_impl == "moe":
+            self.moe = MoEFeedForward(d_model, num_experts, moe_ff_dim, moe_capacity_factor)
+        else:
+            self.ff = QuantLinear(d_model, d_model)
+
+    def _ffn(self, y: torch.Tensor, per_row: bool):
+        if hasattr(self, "moe"):
+            return self.moe(y, per_row)
+        return self.ff(y), None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                train: bool = False, rngs: Rngs = None) -> torch.Tensor:
+                train: bool = False, rngs: Rngs = None, per_row: bool = False):
         x = x + self.attn(self.norm_1(x), mask, train, rngs)
-        return x + dropout(self.ff(self.norm_2(x)), self.dropout_rate, train, rngs)
+        y, aux = self._ffn(self.norm_2(x), per_row)
+        return x + dropout(y, self.dropout_rate, train, rngs), aux
 
-    def decode(self, x, mask, kv_cache, cache_index):
+    def decode(self, x, mask, kv_cache, cache_index, per_row: bool = False):
         """The block over new positions against the layer's (b, 2, cache_len,
         h, key_dim) cache; returns (x, updated cache)."""
         y, kv_cache = self.attn.decode(self.norm_1(x), mask, kv_cache, cache_index)
         x = x + y
-        return x + self.ff(self.norm_2(x)), kv_cache
+        y, _ = self._ffn(self.norm_2(x), per_row)
+        return x + y, kv_cache
 
 
 class CausalTransformer(nn.Module):
-    """Token-in, vocab-logits-out decoder."""
+    """Token-in, vocab-logits-out decoder. `remat=True` recomputes each
+    layer in the backward pass (`ops/remat.py`), as JAX's `nn.remat` of
+    the block does."""
 
     def __init__(self, input_emb: int, num_layers: int = 8, key_dim: int = 128,
                  num_heads: int = 8, d_model: int = 512, vocab_size: int = 256,
                  max_seq_len: int = 256, attention_impl: str = "dense",
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, ffn_impl: str = "dense", num_experts: int = 4,
+                 moe_capacity_factor: float = 2.0, moe_ff_dim: Optional[int] = None,
+                 remat: bool = False):
         super().__init__()
         self.num_layers = num_layers
         self.max_seq_len = max_seq_len
+        self.remat = remat
         self.token_emb = nn.Linear(input_emb, d_model)
         self.position_emb = nn.Embedding(max_seq_len, d_model)
         for i in range(num_layers):
             self.add_module(
                 f"layer_{i}",
-                TransformerLayer(key_dim, num_heads, d_model, attention_impl, dropout_rate),
+                TransformerLayer(key_dim, num_heads, d_model, attention_impl, dropout_rate,
+                                 ffn_impl, num_experts, moe_capacity_factor, moe_ff_dim),
             )
         self.output_tokens = nn.Linear(d_model, vocab_size)
 
     def forward(self, inputs: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
-                train: bool = False, rngs: Rngs = None) -> torch.Tensor:
-        """inputs: (b, s, input_emb) -> logits (b, s, vocab_size)."""
+                train: bool = False, rngs: Rngs = None, per_row: bool = False,
+                return_aux: bool = False):
+        """inputs: (b, s, input_emb) -> logits (b, s, vocab_size); with
+        `return_aux`, (logits, the MoE layers' aux losses in layer order)."""
         b, s, _ = inputs.shape
         if s > self.max_seq_len:
             raise ValueError(f"sequence length {s} exceeds max_seq_len={self.max_seq_len}")
         x = self.token_emb(inputs.to(self.token_emb.weight.dtype))
         x = x + self.position_emb.weight[:s][None]
+        aux_losses = []
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, attention_mask, train, rngs)
-        return self.output_tokens(x)
+            layer = getattr(self, f"layer_{i}")
+            if self.remat and train:
+                x, aux = checkpoint(layer, x, attention_mask, train, rngs, per_row, rngs=rngs)
+            else:
+                x, aux = layer(x, attention_mask, train, rngs, per_row)
+            if aux is not None:
+                aux_losses.append(aux)
+        logits = self.output_tokens(x)
+        return (logits, aux_losses) if return_aux else logits
 
     def decode(self, inputs: torch.Tensor, attention_mask: torch.Tensor, kv_cache: torch.Tensor,
-               cache_index: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               cache_index: torch.Tensor, per_row: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """inputs: (b, s, input_emb), the new positions of each row, embedded
         at `cache_index + arange(s)`; attention_mask: (s, cache_len) or (b, s,
         cache_len); kv_cache: (b, layers, 2, cache_len, heads, key_dim);
         cache_index: (b,). Returns (logits (b, s, vocab), updated cache).
         The whole sequence with `cache_index` 0 and the square mask
-        recomputes every cache row (the engine's rebuild)."""
+        recomputes every cache row (the engine's rebuild). A MoE FFN routes
+        the new positions only, so its capacity binds over them, as in
+        JAX's cached step."""
         b, s, _ = inputs.shape
         if s > self.max_seq_len:
             raise ValueError(f"sequence length {s} exceeds max_seq_len={self.max_seq_len}")
@@ -190,6 +231,6 @@ class CausalTransformer(nn.Module):
         caches = []
         for i in range(self.num_layers):
             x, layer_cache = getattr(self, f"layer_{i}").decode(
-                x, attention_mask, kv_cache[:, i], cache_index)
+                x, attention_mask, kv_cache[:, i], cache_index, per_row)
             caches.append(layer_cache)
         return self.output_tokens(x), torch.stack(caches, dim=1)

@@ -24,9 +24,9 @@ the lock; `collect_batch` waits for the results outside it, so a
 double-buffering frontend can enqueue batch N+1 while N runs. Sessions
 riding an uncollected step are protected from LRU eviction.
 
-The instruction-embedding cache is keyed on the raw text (the JAX engine
-keys on CLIP BPE ids, which folds case and spacing variants into one
-entry): cache hits differ, outputs do not.
+The instruction-embedding cache is keyed on the instruction's CLIP BPE ids
+(`_embed_key`, as in JAX), which folds case and spacing variants into one
+entry.
 
 Serving modes, as in the JAX engine:
 
@@ -161,6 +161,7 @@ class PolicyEngine:
         self.action_maximum = action_maximum
         self._embedder = embedder
         self._embed_cache: collections.OrderedDict = collections.OrderedDict()
+        self._tokenizer = None  # the cache keys' CLIP BPE, built at first use
         self.embed_calls = 0  # embedder invocations (cache misses)
 
         self._state = policy.initial_state(max_sessions, cached=self.cached_inference)
@@ -189,23 +190,39 @@ class PolicyEngine:
 
     # ------------------------------------------------------------ embedding
 
+    def _embed_key(self, text: str) -> bytes:
+        """The embedding cache's key for `text`: its CLIP BPE ids (the
+        byte-level `default_tokenizer`), so case and whitespace variants
+        that tokenize alike share one entry; past the 77-token context, the
+        raw bytes. Shared by the hit path and the migration helpers, so
+        they never disagree (JAX's `_embed_key`)."""
+        if self._tokenizer is None:
+            from rt1_tpu_torch.text.clip_bpe import default_tokenizer
+
+            self._tokenizer = default_tokenizer()
+        try:
+            return self._tokenizer.tokenize_text(text).tobytes()
+        except ValueError:  # longer than the 77-token CLIP context
+            return b"raw\x00" + text.encode("utf-8")
+
     def _embed_instruction(self, text: str) -> np.ndarray:
-        """Instruction text -> embedding, LRU-cached on the raw text."""
+        """Instruction text -> embedding, LRU-cached on `_embed_key`."""
         if self._embedder is None:
             raise SessionError(
                 "request carried an 'instruction' string but the engine has "
                 "no embedder; pass embedder= (rt1_tpu_torch.eval.embedding."
                 "get_embedder) or send 'natural_language_embedding' directly"
             )
+        key = self._embed_key(text)
         with self._embed_lock:
-            cached = self._embed_cache.get(text)
+            cached = self._embed_cache.get(key)
             if cached is not None:
-                self._embed_cache.move_to_end(text)
+                self._embed_cache.move_to_end(key)
                 return cached
         vec = np.asarray(self._embedder(text), np.float32)
         with self._embed_lock:
             self.embed_calls += 1
-            self._embed_cache[text] = vec
+            self._embed_cache[key] = vec
             while len(self._embed_cache) > EMBED_CACHE_SIZE:
                 self._embed_cache.popitem(last=False)
         return vec
@@ -215,8 +232,9 @@ class PolicyEngine:
         LRU refresh (the session exporter reads it)."""
         if self._embedder is None:
             return None
+        key = self._embed_key(text)
         with self._embed_lock:
-            cached = self._embed_cache.get(text)
+            cached = self._embed_cache.get(key)
         return None if cached is None else np.asarray(cached, np.float32)
 
     def seed_embedding(self, text: str, vec) -> None:
@@ -225,9 +243,10 @@ class PolicyEngine:
         `embed_calls`."""
         if self._embedder is None:
             return
+        key = self._embed_key(text)
         with self._embed_lock:
-            if text not in self._embed_cache:
-                self._embed_cache[text] = np.asarray(vec, np.float32)
+            if key not in self._embed_cache:
+                self._embed_cache[key] = np.asarray(vec, np.float32)
                 while len(self._embed_cache) > EMBED_CACHE_SIZE:
                     self._embed_cache.popitem(last=False)
 
@@ -252,7 +271,10 @@ class PolicyEngine:
             active_t = torch.from_numpy(active).to(dev)
             lanes = {k: v.index_select(0, slots_t) for k, v in self._state.items()}
             step = self.policy.infer_step_cached if self.cached_inference else self.policy.infer_step
-            out, stepped = step(obs_t, lanes)
+            # A MoE FFN routes each lane on its own: a session's capacity
+            # and dropped tokens never depend on its bucket-mates or on the
+            # padding lanes (the JAX engine vmaps a batch-1 step).
+            out, stepped = step(obs_t, lanes, per_row=True)
             for k, full in self._state.items():
                 new = stepped[k].to(full.dtype)
                 gate = active_t.view((-1,) + (1,) * (new.dim() - 1))

@@ -218,6 +218,12 @@ class FleetSupervisor:
         # Replicas mid-reclaim: the supervision loop must not "heal" a
         # deliberate drain (their process exit is expected, not a death).
         self._reclaiming: set = set()
+        # Orders a respawn against a reclaim's start and end: the loop
+        # checks a snapshot of the routing table, so without it a reclaim
+        # that ends inside one pass (replica removed, id no longer in
+        # `_reclaiming`) had its exited process "healed" into a new one
+        # that no router entry tracks and `stop()` never ends.
+        self._lifecycle_lock = threading.Lock()
         self._reclaim_threads: List[threading.Thread] = []
         self._accrual_lock = threading.Lock()
         self._replica_seconds: Dict[str, float] = {}
@@ -539,15 +545,23 @@ class FleetSupervisor:
         return moved
 
     def _respawn(self, replica: Replica) -> None:
-        # Close the dead generation's cost window FIRST: a replica past
-        # the restart budget stays DEAD forever, and an open window would
-        # keep accruing replica-seconds for a process that isn't running.
-        self._accrue(replica)
-        if self.restarts_total >= self.max_restarts:
-            return  # crash-looping fleet: stop burning the host
-        self.restarts_total += 1
-        replica.restarts += 1
-        self._spawn(replica)
+        with self._lifecycle_lock:
+            if self._stop.is_set():
+                return  # stopping: `stop()` ends what runs, heals nothing
+            if replica.id in self._reclaiming or not any(
+                r is replica for r in self.router.replicas()
+            ):
+                return  # reclaimed: the drain reaps it, the slot is gone
+            # Close the dead generation's cost window FIRST: a replica
+            # past the restart budget stays DEAD forever, and an open
+            # window would keep accruing replica-seconds for a process
+            # that isn't running.
+            self._accrue(replica)
+            if self.restarts_total >= self.max_restarts:
+                return  # crash-looping fleet: stop burning the host
+            self.restarts_total += 1
+            replica.restarts += 1
+            self._spawn(replica)
 
     # ---------------------------------------------------------- autoscaling
 
@@ -676,7 +690,8 @@ class FleetSupervisor:
             return
         candidates.sort(key=lambda r: (r.tier != TIER_SURGE, -r.id))
         victim = candidates[0]
-        self._reclaiming.add(victim.id)
+        with self._lifecycle_lock:
+            self._reclaiming.add(victim.id)
         self.scale_downs += 1
         self._reclaim_threads = [
             t for t in self._reclaim_threads if t.is_alive()
@@ -724,7 +739,8 @@ class FleetSupervisor:
                 raise ValueError("no reclaimable replica")
             candidates.sort(key=lambda r: (r.tier != TIER_SURGE, -r.id))
             victim = candidates[0]
-        self._reclaiming.add(victim.id)
+        with self._lifecycle_lock:
+            self._reclaiming.add(victim.id)
         self.scale_downs += 1
         self._reclaim_threads = [
             t for t in self._reclaim_threads if t.is_alive()
@@ -810,10 +826,11 @@ class FleetSupervisor:
                 event["exit_code"] = victim.proc.returncode
         finally:
             self._accrue(victim)
-            self.router.remove_replica(victim.id)
-            event["replicas_after"] = len(self.router.replicas())
-            self._record_scale_event(event)
-            self._reclaiming.discard(victim.id)
+            with self._lifecycle_lock:
+                self.router.remove_replica(victim.id)
+                event["replicas_after"] = len(self.router.replicas())
+                self._record_scale_event(event)
+                self._reclaiming.discard(victim.id)
 
     # ----------------------------------------------------- cost accounting
 

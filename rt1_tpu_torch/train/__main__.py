@@ -26,6 +26,14 @@ loop trains on synthetic batches.
 (`configs.sweep`: the flagship's learning rates 1e-3, 5e-4, 1e-4) before
 the `--set` overrides and logs it as a `sweep_trial` line.
 
+Other models: `--set model.ffn_impl=moe` (the Switch-routed expert FFN;
+its load-balancing loss joins the train loss, `moe_aux_loss` in the
+metrics), `--set model.remat=true` (recompute each decoder layer and
+MBConv block in the backward pass), `--set model.family=lava` or `--config
+lava_tiny` (the LAVA family on its MSE loss, in float32;
+`--set model.lava.lang_encoder=clip --set data.clip_tokens=true` feeds its
+CLIP text tower from the episodes' instruction text).
+
 Override any config field with `--set key=value` (repeatable), e.g.
 `--set num_steps=6 --set model.dropout_rate=0`; `--set
 model.attention_impl=fused` runs the eval steps' attention through the
@@ -61,7 +69,8 @@ def parse_args(argv):
     p = argparse.ArgumentParser(prog="python -m rt1_tpu_torch.train", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", required=True,
-                   help="language_table | tiny (or the path of the JAX config file of that name)")
+                   help="language_table | tiny | lava_tiny (or the path of the JAX config file "
+                        "of that name)")
     p.add_argument("--workdir", required=True, help="Checkpoints and metrics.jsonl go here.")
     p.add_argument("--device", default="cuda", help="cuda | cpu")
     p.add_argument("--sweep_trial", type=int, default=-1,

@@ -1,8 +1,10 @@
 """The training loop (counterpart of `rt1_tpu/train/train.py`).
 
 `train_and_evaluate(config, workdir)` builds the policy the config
-describes (`build_model`: the `efficientnet_b3`, `efficientnet_small` and
-`tiny` tokenizers), initialises it from `config.seed` or restores the
+describes (`build_model`: RT-1 with the `efficientnet_b3`,
+`efficientnet_small` and `tiny` tokenizers, the dense or MoE decoder FFN
+and optional remat; or, with `model.family="lava"`, `SequenceLAVMSE` on
+`trainer/bc.py`'s MSE loss), initialises it from `config.seed` or restores the
 newest checkpoint under `<workdir>/checkpoints`, then steps: a metrics
 line every `log_every_steps` (to `<workdir>/metrics.jsonl` and the
 caller's `log`), an eval every `eval_every_steps`, a checkpoint every
@@ -11,7 +13,9 @@ caller's `log`), an eval every `eval_every_steps`, a checkpoint every
 Data, with `config.data.data_dir` set: episode files under
 `<data_dir>/train` (`dataset_batches`) through the packed cache and the
 sample-ahead feeder (`data.packed_cache=True` and a fresh pack), else the
-windowed loader (`data.loader`: "torch", the DataLoader, or "numpy"),
+windowed loader; with `data.clip_tokens` each window carries its
+episode's instruction as CLIP BPE ids (`instruction_tokenized_clip`,
+`make_clip_tokenizer`) for LAVA's "clip" encoder (`data.loader`: "torch", the DataLoader, or "numpy"),
 moved to the device by `device_feeder` with two batches in flight. The
 dataset's `manifest.json`, where it has one, is copied to
 `<workdir>/data_manifest.json`. Eval draws `eval_batches` batches from the
@@ -87,7 +91,9 @@ def apply_sweep_trial(config: Config, config_name: str, trial: int) -> Dict:
 
 def build_model(config: Config, device=None):
     """The policy of `config.model` in float32 on `device`, initialised
-    from `config.seed` (flax's initializer families, `convert.init_weights`)."""
+    from `config.seed` (flax's initializer families, `convert.init_weights`):
+    `RT1Policy`, or `SequenceLAVMSE` for `model.family="lava"` (JAX's
+    `build_family`)."""
     policy = build_policy(config)
     init_weights(policy, torch.Generator().manual_seed(config.seed))
     return policy.to(resolve_device(device))
@@ -115,6 +121,45 @@ def synthetic_batch(config: Config, seed: int, index: int, device) -> tuple:
         "action": torch.rand((b, t, 2), generator=g, device=device) * 0.2 - 0.1,
     }
     return obs, actions
+
+
+def make_clip_tokenizer(config: Config):
+    """The CLIP BPE tokenizer matching the text tower (JAX's
+    `_make_clip_tokenizer`): `data.clip_bpe_path`'s merges (vocab 49408),
+    else the byte-level tokenizer (vocab 514). Its vocab must equal
+    `model.lava.text_vocab`, checked here rather than deep in a step."""
+    from rt1_tpu_torch.text.clip_bpe import ClipBPETokenizer, default_tokenizer
+
+    lv = config.model.lava
+    path = config.data.clip_bpe_path
+    if path:
+        tokenizer = ClipBPETokenizer.from_bpe_file(path, context_length=lv.text_context)
+    else:
+        tokenizer = default_tokenizer(context_length=lv.text_context)
+    vocab = len(tokenizer.encoder)
+    if vocab != lv.text_vocab:
+        raise ValueError(
+            f"model.lava.text_vocab={lv.text_vocab} but the tokenizer "
+            f"({'merges file' if path else 'byte-level default'}) has vocab {vocab}; "
+            f"set text_vocab={vocab}")
+    return tokenizer
+
+
+def check_clip_token_config(config: Config) -> None:
+    """The LAVA "clip" encoder consumes `instruction_tokenized_clip`, which
+    only `data.clip_tokens=True` produces, and only from episode files (the
+    synthetic batches have no instruction text); producing it for any other
+    model ships a dead tensor every step (JAX's `_check_clip_token_config`)."""
+    lava_clip = config.model.family == "lava" and config.model.lava.lang_encoder == "clip"
+    if lava_clip and not config.data.clip_tokens:
+        raise ValueError("model.lava.lang_encoder='clip' requires data.clip_tokens=True "
+                         "(the pipeline must emit instruction_tokenized_clip)")
+    if config.data.clip_tokens and not lava_clip:
+        raise ValueError("data.clip_tokens=True but no model consumes "
+                         "instruction_tokenized_clip (set model.lava.lang_encoder='clip')")
+    if lava_clip and not config.data.data_dir:
+        raise ValueError("model.lava.lang_encoder='clip' needs data.data_dir: the tokens come "
+                         "from the episodes' instruction text")
 
 
 def _print_json(record: Dict) -> None:
@@ -170,6 +215,7 @@ def _packed_batches(config: Config, split: str, paths, seed: int,
         return None
     build = _retrying(config)
     cache = build(pack_lib.PackedEpisodeCache, pack_dir, window=config.model.time_sequence_length,
+                  clip_tokenizer=make_clip_tokenizer(config) if d.clip_tokens else None,
                   name="packed_cache_open")
     # Task weights, the mid-run pickup of appended shards and the per-task
     # ids of the health pack: train only; eval streams stay the unweighted
@@ -181,7 +227,9 @@ def _packed_batches(config: Config, split: str, paths, seed: int,
         stall_timeout_s=d.feeder_stall_timeout_s,
         refresh_at_epoch=train and d.packed_refresh,
         task_weights=parse_task_weights(d.task_weights) if train else None,
-        emit_task_ids=train and config.obs.model_health, name="feeder_construct")
+        # The per-task ids feed the RT-1 health pack's token statistics.
+        emit_task_ids=train and config.obs.model_health and config.model.family == "rt1",
+        name="feeder_construct")
 
 
 def dataset_batches(config: Config, split: str = "train", seed: Optional[int] = None,
@@ -195,9 +243,6 @@ def dataset_batches(config: Config, split: str = "train", seed: Optional[int] = 
     loader's batches for the upload. Raises FileNotFoundError when the
     split has no episodes."""
     d = config.data
-    if d.clip_tokens:
-        raise ValueError("data.clip_tokens (CLIP BPE instruction tokens for LAVA) is not ported "
-                         "yet")
     loader = loader_name(config)
     stream_seed = config.seed if seed is None else seed
     paths = sorted(glob.glob(os.path.join(d.data_dir, split, "episode_*.np*")))
@@ -208,7 +253,9 @@ def dataset_batches(config: Config, split: str = "train", seed: Optional[int] = 
         if feeder is not None:
             return DataStream(feeder, "packed")
     ds = WindowedEpisodeDataset(paths, window=config.model.time_sequence_length,
-                                crop_factor=d.crop_factor, height=d.height, width=d.width)
+                                crop_factor=d.crop_factor, height=d.height, width=d.width,
+                                clip_tokenizer=make_clip_tokenizer(config) if d.clip_tokens
+                                else None)
     if loader == "torch":
         return DataStream(loader_batches(ds.as_torch_loader(
             config.per_host_batch_size, seed=stream_seed, num_workers=d.num_workers,
@@ -371,6 +418,7 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
             log({"status": "fault_plan", "specs": sorted(fault_plan.fired_counts())})
         step_guard = resilience.StepGuard(res_opts.guard_options()) if res_opts.guard else None
 
+        check_clip_token_config(config)
         policy = build_model(config, dev)
         ckpt = checkpoint_manager(config, workdir,
                                   on_io=ledger.note_io if ledger is not None else None)
@@ -602,10 +650,13 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
                 if eval_next is not None and (step + 1) % config.eval_every_steps == 0:
                     before = dict(fused_attention.launches_by_variant)
                     results = [scalars_from_metrics(fns.eval_step(state, b)) for b in eval_next()]
+                    accuracy = {}
+                    if "token_accuracy" in results[0]:  # RT-1's token heads
+                        accuracy["eval_token_accuracy"] = float(
+                            np.mean([r["token_accuracy"] for r in results]))
                     log(writer.write(step + 1, {
                         "eval_loss": float(np.mean([r["loss"] for r in results])),
-                        "eval_token_accuracy": float(np.mean([r["token_accuracy"]
-                                                              for r in results])),
+                        **accuracy,
                         "eval_batches": len(results),
                         # Fused-attention kernel launches in this eval, by variant.
                         **{f"eval_attention_launches_{v}": n - before[v]

@@ -94,6 +94,9 @@ def create_train_state(policy: nn.Module, optimizer: Adam) -> TrainState:
     device = params[0].device
     layout = FlatLayout(params)
     flat = layout.adopt(params)
+    bind = getattr(optimizer, "bind", None)
+    if bind is not None:  # an optimizer with per-parameter rules (`bc.FrozenAdam`)
+        bind(names, layout, device)
     buffers = floating_buffers(policy)
     return TrainState(
         step=torch.zeros((), dtype=torch.int64, device=device),

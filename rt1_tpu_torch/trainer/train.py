@@ -6,11 +6,17 @@
 * `train_step(state, batch, step)` runs forward and backward in train mode
   and one optimizer update, in place, and returns the metrics `loss`,
   `grad_norm` and (without accumulation) `action_loss_mean`, plus
-  `aux_mse` when the auxiliary is on and `guard_skips_cum` with the guard,
+  `aux_mse` when the auxiliary is on, `moe_aux_loss` with the MoE FFN
+  (whose weighted load-balancing loss the train loss includes; a mean
+  over micro-batches under accumulation) and `guard_skips_cum` with the guard,
   as device tensors: nothing waits for the card until the caller reads
   them (`trainer.metrics.scalars_from_metrics`).
 * `eval_step(state, batch)` runs the eval-mode forward and returns `loss`
-  and `token_accuracy`.
+  and `token_accuracy` (the loss alone for another family's `loss_fn`).
+
+`loss_fn` plugs another model family into both steps: the LAVA family's
+MSE (`trainer/bc.py::make_bc_step_loss_fn`), as JAX's
+`make_train_step_fns(loss_fn=...)` does.
 
 Precision: the masters stay float32 (`state.flat`, which the policy's
 parameters view; the update is written into it). Each step casts them
@@ -57,11 +63,12 @@ per-example loss and accuracy by task.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from rt1_tpu_torch.models.moe import router_names
 from rt1_tpu_torch.obs.health import PACK_KEY, TASK_ID_KEY, HealthPack, param_paths
 from rt1_tpu_torch.trainer.optim import Adam, AdamState, global_norm
 from rt1_tpu_torch.trainer.state import TrainState
@@ -117,6 +124,15 @@ class TrainStepFns:
     health_group_depth: int = 2
     health_task_names: Tuple[str, ...] = ()
     photometric_augmentation: bool = False
+    # The MoE FFN's load-balancing loss (the policy's "moe_aux_loss", the
+    # mean over layers) enters the train loss at this weight.
+    moe_aux_weight: float = 0.01
+    # parallel.mixed_precision: every leaf, the routers too, computes from
+    # its bf16 copy (JAX's `_bf16_compute_copy`).
+    mixed_precision: bool = False
+    # Another family's loss (`trainer/bc.py::make_bc_step_loss_fn`):
+    # (policy, params, obs, actions, train, rngs) -> {"loss", ...}.
+    loss_fn: Optional[Callable] = None
     _health: Optional[HealthPack] = dataclasses.field(default=None, init=False, repr=False)
 
     def __post_init__(self):
@@ -127,7 +143,8 @@ class TrainStepFns:
         """The pack of `state`'s layout, built at first use. Action
         statistics need the unaccumulated step's logits, as in JAX."""
         if self._health is None:
-            action_dims = state.policy.tokens_per_action if self.accum_steps == 1 else 0
+            rt1 = self.accum_steps == 1 and self.loss_fn is None
+            action_dims = state.policy.tokens_per_action if rt1 else 0
             self._health = HealthPack(param_paths(state.policy), state.layout.padded,
                                       state.flat.device, depth=self.health_group_depth,
                                       action_dims=action_dims,
@@ -139,23 +156,52 @@ class TrainStepFns:
         return self._health_pack(state).names if self.model_health else ()
 
     def _compute_copy(self, state: TrainState, requires_grad: bool):
-        """(the flat compute copy of the masters, its views by name)."""
+        """(the flat compute copy of the masters, its views by name, the
+        float32 copies of the MoE routers by parameter index). The routers keep
+        float32 weights unless mixed precision casts every leaf, as JAX's
+        modules keep a `dtype=float32` Dense's params."""
         copy = state.flat.detach().to(self.compute_dtype, copy=True)
         copy.requires_grad_(requires_grad)
-        return copy, dict(zip(state.names, state.layout.views(copy)))
+        views = state.layout.views(copy)
+        kept = {}
+        if self.compute_dtype != torch.float32 and not self.mixed_precision:
+            masters = state.layout.views(state.flat)
+            routers = set(router_names(state.policy))
+            for i, name in enumerate(state.names):
+                if name in routers:
+                    kept[i] = masters[i].detach().clone().requires_grad_(requires_grad)
+                    views[i] = kept[i]
+        return copy, dict(zip(state.names, views)), kept
 
     def _grad(self, state: TrainState, batch: Batch, rngs: Mapping[str, torch.Generator]):
         """Loss, float32 flat gradient and aux dict of one (micro-)batch."""
-        copy, params = self._compute_copy(state, requires_grad=True)
+        copy, params, kept = self._compute_copy(state, requires_grad=True)
         obs, actions = batch
         obs, task_ids = _strip_task_ids(obs)
-        out = torch.func.functional_call(state.policy, params, (obs, actions),
-                                         {"train": True, "rngs": rngs})
-        (grad,) = torch.autograd.grad(out["loss"], copy)
+        out = self.forward(state.policy, params, obs, actions, rngs)
+        grads = torch.autograd.grad(out["loss"], [copy, *kept.values()])
+        grad = grads[0].to(torch.float32)
+        if kept:
+            grad_views = state.layout.views(grad)
+            for i, g in zip(kept, grads[1:]):
+                grad_views[i].copy_(g)
         out = {k: v.detach() for k, v in out.items()}
         if task_ids is not None and self.health_task_names:
             out["task_ids"] = task_ids
-        return out["loss"], grad.to(torch.float32), out
+        return out["loss"], grad, out
+
+    def forward(self, policy, params, obs, actions, rngs) -> Dict[str, torch.Tensor]:
+        """The train-mode loss dict of `policy` at `params`: the RT-1
+        policy's, whose MoE load-balancing loss joins the loss here (train
+        only: the eval loss stays the task loss), or the `loss_fn` of
+        another family."""
+        if self.loss_fn is not None:
+            return self.loss_fn(policy, params, obs, actions, True, rngs)
+        out = torch.func.functional_call(policy, params, (obs, actions),
+                                         {"train": True, "rngs": rngs})
+        if "moe_aux_loss" in out:
+            out = dict(out, loss=out["loss"] + self.moe_aux_weight * out["moe_aux_loss"])
+        return out
 
     def value_and_grad(self, state: TrainState, batch: Batch, step: int):
         """(loss, flat float32 gradient, aux dict) of the train-mode loss at
@@ -166,9 +212,10 @@ class TrainStepFns:
         if self.accum_steps == 1:
             return self._grad(state, batch, step_rngs(self.seed, step, device, augment=augment))
         # The reference loss scale makes a micro-batch's loss accum times
-        # the full batch's: the extra /accum.
-        extra = float(self.accum_steps)
-        grad, loss, mse = None, 0.0, 0.0
+        # the full batch's: the extra /accum. Another family's mean loss
+        # (LAVA's MSE) needs none, as in JAX.
+        extra = float(self.accum_steps) if self.loss_fn is None else 1.0
+        grad, loss, mse, moe = None, 0.0, 0.0, 0.0
         for i, micro in enumerate(_split(batch, self.accum_steps)):
             l_i, g_i, out_i = self._grad(state, micro,
                                          step_rngs(self.seed, step, device, micro=i + 1,
@@ -176,11 +223,15 @@ class TrainStepFns:
             grad = g_i if grad is None else grad + g_i
             loss = loss + l_i
             mse = mse + out_i.get("aux_mse", 0.0)
+            moe = moe + out_i.get("moe_aux_loss", 0.0)
         grad = grad / (self.accum_steps * extra)
         loss = loss / (self.accum_steps * extra)
         out = {"loss": loss}
+        # The monitors are means over the micro-batches.
         if "aux_mse" in out_i:
             out["aux_mse"] = mse / self.accum_steps
+        if "moe_aux_loss" in out_i:
+            out["moe_aux_loss"] = moe / self.accum_steps
         return loss, grad, out
 
     @staticmethod
@@ -204,6 +255,8 @@ class TrainStepFns:
             metrics["action_loss_mean"] = out["action_loss"].mean()
         if "aux_mse" in out:
             metrics["aux_mse"] = out["aux_mse"]
+        if "moe_aux_loss" in out:  # the routing-collapse monitor
+            metrics["moe_aux_loss"] = out["moe_aux_loss"]
         if self.model_health:
             metrics[PACK_KEY] = self._health_pack(state).compute(
                 grad, new_flat - state.flat, new_flat, out)
@@ -230,9 +283,11 @@ class TrainStepFns:
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         """Eval-mode loss and token accuracy on `batch` (no update)."""
-        _, params = self._compute_copy(state, requires_grad=False)
+        _, params, _ = self._compute_copy(state, requires_grad=False)
         obs, actions = batch
         obs, _ = _strip_task_ids(obs)
+        if self.loss_fn is not None:
+            return {"loss": self.loss_fn(state.policy, params, obs, actions, False, None)["loss"]}
         out = torch.func.functional_call(state.policy, params, (obs, actions), {"train": False})
         labels, preds = out["action_labels"], out["action_predictions"]
         return {"loss": out["loss"],
@@ -253,9 +308,16 @@ def optimizer_from_config(config) -> Adam:
 def train_step_fns_from_config(config, optimizer: Optional[Adam] = None,
                                health_task_names: Tuple[str, ...] = ()) -> TrainStepFns:
     """The steps `config` describes. Compute in bf16 when the model does or
-    mixed precision is on (which forces bf16 compute, as in JAX).
+    mixed precision is on (which forces bf16 compute, as in JAX); the LAVA
+    family computes in float32 on `trainer/bc.py`'s loss.
     `health_task_names` are the feeder's, when it emits task ids."""
     bf16 = config.parallel.mixed_precision or config.model.dtype == "bfloat16"
+    loss_fn = None
+    if config.model.family == "lava":
+        # LAVA computes in float32 (it has no dtype field) on its MSE loss.
+        from rt1_tpu_torch.trainer.bc import make_bc_step_loss_fn
+
+        bf16, loss_fn = False, make_bc_step_loss_fn()
     return TrainStepFns(
         optimizer or optimizer_from_config(config),
         seed=config.seed,
@@ -267,4 +329,7 @@ def train_step_fns_from_config(config, optimizer: Optional[Adam] = None,
         health_group_depth=config.obs.health_group_depth,
         health_task_names=tuple(health_task_names),
         photometric_augmentation=config.model.photometric_augmentation,
+        moe_aux_weight=config.model.moe_aux_weight,
+        mixed_precision=config.parallel.mixed_precision,
+        loss_fn=loss_fn,
     )

@@ -96,8 +96,8 @@ class _RecordingSteps(dict):
 def _record_port_logits(policy, logits):
     infer_step = policy.infer_step
 
-    def recording(obs, state):
-        out, new_state = infer_step(obs, state)
+    def recording(obs, state, **kwargs):  # the engine passes per_row
+        out, new_state = infer_step(obs, state, **kwargs)
         logits.append(out["action_logits"][0].double().numpy())
         return out, new_state
 

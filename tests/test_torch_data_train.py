@@ -32,7 +32,7 @@ from rt1_tpu.train.configs import tiny as jax_tiny
 from rt1_tpu_torch.configs import apply_override, get_config
 from rt1_tpu_torch.data import episodes, pack
 from rt1_tpu_torch.data.pipeline import device_feeder
-from rt1_tpu_torch.train.train import dataset_batches, train_and_evaluate
+from rt1_tpu_torch.train.train import check_clip_token_config, dataset_batches, train_and_evaluate
 
 torch.set_num_threads(2)
 
@@ -142,11 +142,15 @@ def test_loader_names_and_refusals(data_dir):
     stream = dataset_batches(cfg, "train")
     assert stream.loader == "torch"
     assert next(stream.batches)["observations"]["image"].dtype == torch.uint8
-    for key, value, match in (("loader", "rlds_tf", "TensorFlow"), ("clip_tokens", True, "CLIP"),
-                              ("loader", "grain", "loader")):
+    for key, value, match in (("loader", "rlds_tf", "TensorFlow"), ("loader", "grain", "loader")):
         bad, _ = _configs(data_dir, **{key: value})
         with pytest.raises(ValueError, match=match):
             dataset_batches(bad, "train")
+    # CLIP tokens are ported (LAVA's "clip" encoder); an RT-1 run that asks
+    # for them is refused at the config seam, as JAX's trainer refuses it.
+    bad, _ = _configs(data_dir, clip_tokens=True)
+    with pytest.raises(ValueError, match="instruction_tokenized_clip"):
+        check_clip_token_config(bad)
     # Another shuffle buffer is no refusal: loader "tf" draws through it
     # (tf.data's bounded buffer; buffer 1 keeps the stream's order).
     buffered, _ = _configs(data_dir, loader="tf", num_workers=0, shuffle_buffer=1)

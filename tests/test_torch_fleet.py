@@ -397,6 +397,38 @@ def test_elastic_scale_up_down_cycle():
         f.close()
 
 
+def test_a_reclaimed_or_stopping_replica_is_never_respawned():
+    """The supervision loop checks a snapshot of the routing table. A
+    reclaim that ends inside one pass (replica removed, its id no longer
+    draining) must not get its exited process respawned: the new process
+    would be in no router entry, so `stop()` would never end it (a stub
+    replica left so held a CLI's stderr pipe open). A registered replica
+    whose process died is still respawned, unless the fleet is stopping."""
+    router = Router()
+    supervisor = FleetSupervisor(router, lambda rid: [sys.executable, "-c", "pass"], 2)
+    spawned = []
+    supervisor._spawn = spawned.append
+
+    def exited(rid):
+        replica = pfleet.Replica(rid)
+        replica.proc = subprocess.Popen([sys.executable, "-c", "pass"])
+        replica.proc.wait()
+        return router.add_replica(replica)
+
+    drained, live = exited(1), exited(0)
+    snapshot = router.replicas()  # the loop's pass begins
+    supervisor._reclaiming.add(drained.id)
+    router.remove_replica(drained.id)  # the reclaim ends inside the pass
+    supervisor._reclaiming.discard(drained.id)
+    for replica in snapshot:
+        supervisor._check_replica(replica)
+    assert spawned == [live] and supervisor.restarts_total == 1
+    assert drained.restarts == 0 and live.restarts == 1
+    supervisor._stop.set()
+    supervisor._check_replica(live)
+    assert spawned == [live] and supervisor.restarts_total == 1
+
+
 def test_admission_spike_sheds_with_429():
     f = _port_fleet(1, router_kw=dict(admission=AdmissionController(rate_per_client=5.0,
                                                                     burst=3.0)))

@@ -152,3 +152,38 @@ def test_fleet_modules_are_among_those_imported():
                  "rt1_tpu_torch.serve.router", "rt1_tpu_torch.serve.stub",
                  "rt1_tpu_torch.serve.fleet"):
         assert name in names, name
+
+
+MOE_AND_LAVA_MODULES = (
+    "rt1_tpu_torch.models.moe", "rt1_tpu_torch.ops.remat", "rt1_tpu_torch.text",
+    "rt1_tpu_torch.text.clip_bpe", "rt1_tpu_torch.models.lava",
+    "rt1_tpu_torch.models.lava.blocks", "rt1_tpu_torch.models.lava.resnet",
+    "rt1_tpu_torch.models.lava.clip_text", "rt1_tpu_torch.models.lava.lava",
+    "rt1_tpu_torch.models.lava.pixel", "rt1_tpu_torch.trainer.bc",
+)
+
+
+def test_moe_and_lava_modules_are_among_those_imported():
+    names = set(_port_modules())
+    for name in MOE_AND_LAVA_MODULES:
+        assert name in names, name
+
+
+def test_clip_bpe_runs_without_the_regex_package():
+    """The card's machine has no `regex`: with it blocked too, the port's
+    CLIP BPE takes the stdlib split and still tokenizes."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    probe = _PROBE.replace('"matplotlib", "rt1_tpu")', '"matplotlib", "rt1_tpu", "regex")')
+    probe = probe.split("import rt1_tpu_torch\n")[0] + (
+        "from rt1_tpu_torch.text import clip_bpe\n"
+        "assert clip_bpe._re is None\n"
+        "print('IDS', clip_bpe.default_tokenizer().tokenize_text(\"It's red\")[0][:6].tolist())\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    from rt1_tpu_torch.text import clip_bpe
+
+    want = clip_bpe.default_tokenizer().tokenize_text("It's red")[0][:6].tolist()
+    assert f"IDS {want}" in proc.stdout, proc.stdout

@@ -163,9 +163,12 @@ def test_matrix_cli_on_the_cpu(tiny_workdir, tmp_path):
 
 
 def test_lava_family_raises_naming_a12(tiny_workdir):
+    """ROADMAP A12 (the LAVA family) is ported: a LAVA config no longer
+    raises for want of a port, only for a checkpoint that is not LAVA's
+    (here RT-1's); `tests/test_torch_lava.py` runs a LAVA cell."""
     from rt1_tpu_torch.configs import get_config
 
     config = get_config("tiny")
     config.model.family = "lava"
-    with pytest.raises(ValueError, match="A12"):
+    with pytest.raises(RuntimeError, match="state_dict"):
         port_matrix.policy_for_checkpoint(config, tiny_workdir, 2, device="cpu")

@@ -107,5 +107,9 @@ def test_configs_match_jax(name, jax_module):
     jcfg = jax_module.get_config()
     cfg = get_config(f"rt1_tpu/train/configs/{name}.py")
     for field in cfg.model.__dataclass_fields__:
+        if field == "lava":  # a nested config: field by field
+            for sub in cfg.model.lava.__dataclass_fields__:
+                assert getattr(cfg.model.lava, sub) == jcfg.model.lava[sub], f"lava.{sub}"
+            continue
         assert getattr(cfg.model, field) == jcfg.model[field], field
     assert (cfg.data.height, cfg.data.width) == (jcfg.data.height, jcfg.data.width)
