@@ -128,7 +128,8 @@ exits non-zero without a result line:
              decoded, so most windows read their episode file, as on a real
              corpus) + 4 val seeded episodes x 20 steps at 180x320 written
              under a temporary directory (removed at the end) and packed by
-             `python -m rt1_tpu_torch.data.pack_dataset`; the window sampler
+             `python -m rt1_tpu_torch.data.pack_dataset` (its `main`, in
+             process); the window sampler
              (`native/window_sampler.cc`, built here by g++) held to its
              plain version at 180x320 -> 256x456 and the packed gather to
              plain slices (exact); frames/s of each loader alone at batch 8,
@@ -141,7 +142,8 @@ exits non-zero without a result line:
              batches in flight on a copy stream) in turns with the
              synthetic stream (synthetic, numpy, torch, packed, packed,
              torch, numpy, synthetic; 3 warm-up and 5 timed steps a turn,
-             then 5 more under one synchronisation): step wall median and range, ms
+             then 5 more under one synchronisation; each turn's seconds):
+             step wall median and range, ms
              blocked on the host iterator and in the upload per step, the
              card's idle share, frames/s, and for numpy the episode reads'
              share of the wait; 6 more steps per fed turn whose
@@ -214,6 +216,26 @@ exits non-zero without a result line:
              against the CPU in float32 (TF32 off) within 1e-4 of the
              output's scale, with the card's forward ms (the resnet
              encoder's forward among them).
+16b. parallel — multi-process training (`rt1_tpu_torch/parallel/`) on the
+             card's world of one: (a) an NCCL process group of one rank in
+             process, 3 flagship bf16 train steps at batch 8 under
+             `parallel.dp=1` through the collective path (gradient, loss
+             and monitors reduced on one-rank groups) against the plain
+             step on the same weights and batches, cuDNN deterministic:
+             loss, flat gradient, BatchNorm statistics and masters equal
+             bit for bit, each step's ms both ways; (b) `python -m
+             torch.distributed.run --nproc_per_node 1` on the train CLI
+             (the smoke config, NCCL) through `_run_cli`'s process-group
+             guard: 2 steps and a sharded checkpoint; then the CLI's
+             `main` in process, in an NCCL world of one, to step 3
+             resuming step 2; (c) a 2-rank gloo group on
+             the host CPU writes the flagship's seed-0 state under fsdp=2
+             (sharded, manifest last); the card restores it into a bf16
+             bucket-8 engine (a config asking fsdp=2, which one card cannot
+             hold: plain placement) and a float32 `infer_step`, beside the
+             same from the unsharded state: logits and actions equal bit
+             for bit, 8 tensor-core launches a bf16 engine step, 8 tf32x3
+             launches the float32 step.
 17. serve_modes — the serving modes at the flagship's width, every engine
              derived in process from the parity phase's seeded f32 master
              weights: card vs CPU in float32 (TF32 off): the int8 tree bit
@@ -266,7 +288,8 @@ exits non-zero without a result line:
              counts checked), then 2 DART demos (std 0.005, 160 steps) by
              `collect_dataset` in process into their own directory; 256
              state-regression frames at 128x224 and 10 `pretrain_encoder`
-             steps at B3's coefficients (batch 32), `save_encoder`;
+             steps at B3's coefficients (batch 32), `save_encoder`; the
+             CLI's `main` in process (a process start each fewer) for
              `--stage train` 10 steps from that encoder (the graft line
              must show); `--stage dagger`, 1 round of 1 episode + 5 steps
              (the corpus grows by 1, the checkpoint reaches 15, no graft on
@@ -366,8 +389,9 @@ exits non-zero without a result line:
              tensor-core kernel, in the train CLI's evals of phase train_ops
              (`train_ops_launches`), in each replica the load generator
              reached (`loadgen_launches`), in the MoE flagship's bf16
-             engine and float32 step (`moe_launches`), errors, times and
-             bound.
+             engine and float32 step (`moe_launches`), in the engine and
+             float32 step restored from the fsdp=2 checkpoint
+             (`parallel_launches`), errors, times and bound.
 
 The last line is `{"ok": true, "device": {...}}`.
 """
@@ -2152,10 +2176,13 @@ def _write_corpus(root, config, episodes_per_split, steps, seed=0):
     with open(os.path.join(root, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     write_s = time.perf_counter() - t0
+    from rt1_tpu_torch.data import pack_dataset
+
     d = config.data
-    lines, pack_s = _run_cli(["--data_dir", root, "--height", str(d.height), "--width",
-                              str(d.width), "--crop_factor", str(d.crop_factor)],
-                             DATA_CLI_TIMEOUT_S, module="rt1_tpu_torch.data.pack_dataset")
+    # The packer's `main` in process (a process start fewer).
+    lines, pack_s = _run_in_process(pack_dataset.main, [
+        "--data_dir", root, "--height", str(d.height), "--width", str(d.width),
+        "--crop_factor", str(d.crop_factor)])
     sizes = {}
     for dirpath, _, names in os.walk(root):
         part = "pack" if dirpath.endswith("_packed") else "episodes"
@@ -2517,8 +2544,10 @@ def phase_data(config_name: str = "language_table", device: str = "cuda",
         state = create_train_state(policy, optimizer)
         fns = train_step_fns_from_config(config, optimizer)
         fed, step = {}, 0
+        # Mirrored, so warm-up and drift over the run weigh on each loader alike.
         turns = ("synthetic", "numpy", "torch", "packed", "packed", "torch", "numpy", "synthetic")
         for turn, loader in enumerate(turns):
+            turn_t0 = time.perf_counter()
             if loader == "synthetic":
                 record, step = _fed_run(
                     fns, state, step, lambda i: synthetic_batch(config, config.seed, i, dev),
@@ -2543,6 +2572,7 @@ def phase_data(config_name: str = "language_table", device: str = "cuda",
                                             dev, frames_per_batch, recorder, dataset)
                 finally:
                     feeder.close()
+            record["turn_s"] = time.perf_counter() - turn_t0
             fed[f"{turn}_{loader}"] = record
         held = sum(r.get("batches_held_to_host", 0) for r in fed.values())
         if held < 20:
@@ -2995,7 +3025,8 @@ def _timed_control_steps(config, policy, device, steps, dagger):
 
 def phase_proof(config_name: str = "language_table", device: str = "cuda"):
     """The learning proof through `python -m rt1_tpu_torch.train.learn_proof`
-    at the config's width: collect (4 workers) plus DART demos in process,
+    at the config's width (its collection stage a CLI, its train, DAgger and
+    eval stages its `main` in process): collect (4 workers) plus DART demos in process,
     vision pretraining and its encoder, train from the graft, one DAgger
     round, the three-arm eval; then timed and profiled DAgger and eval
     control steps."""
@@ -3008,6 +3039,7 @@ def phase_proof(config_name: str = "language_table", device: str = "cuda"):
     from rt1_tpu_torch.eval.policy import RT1EvalPolicy
     from rt1_tpu_torch.eval.proof import build_proof_summary
     from rt1_tpu_torch.eval.restore import load_policy_and_step
+    from rt1_tpu_torch.train import learn_proof
     from rt1_tpu_torch.train.learn_proof import LearnProof, parse_args
     from rt1_tpu_torch.train.pretrain_vision import (generate_state_regression_dataset,
                                                       pretrain_encoder, save_encoder)
@@ -3078,16 +3110,19 @@ def phase_proof(config_name: str = "language_table", device: str = "cuda"):
         run = common + ["--num_steps", str(sizes["train_steps"]),
                         "--pretrained_encoder", enc_path]
         log_every = max(1, sizes["train_steps"] // 4)
-        lines, stage_s["train"] = _proof_cli(run + ["--stage", "train",
-                                                    "--set", f"log_every_steps={log_every}"])
+        # The train, DAgger and eval stages' `main` in this process (a
+        # process start each fewer, for the 1200 s limit); collection
+        # keeps its CLI and its worker processes.
+        lines, stage_s["train"] = _run_in_process(learn_proof.main, run + [
+            "--stage", "train", "--set", f"log_every_steps={log_every}"])
         if {"status": "grafted_pretrained_encoder", "path": enc_path} not in lines:
             raise AssertionError("proof train: no graft line in the trainer's log")
         trained = _stage_line(lines, "train", "step")
         rates = [r["steps_per_sec"] for r in lines if "steps_per_sec" in r]
         if trained["step"] != sizes["train_steps"] or not rates:
             raise AssertionError(f"proof train: {trained}, rates {rates}")
-        lines, stage_s["dagger"] = _proof_cli(
-            run + ["--stage", "dagger", "--dagger_rounds", "1",
+        lines, stage_s["dagger"] = _run_in_process(
+            learn_proof.main, run + ["--stage", "dagger", "--dagger_rounds", "1",
                    "--dagger_episodes", str(sizes["dagger_episodes"]),
                    "--dagger_extra_steps", str(sizes["dagger_extra_steps"])])
         if any(r.get("status") == "grafted_pretrained_encoder" for r in lines):
@@ -3104,8 +3139,8 @@ def phase_proof(config_name: str = "language_table", device: str = "cuda"):
         if (manifest["episodes"], manifest["dagger_episodes"]) != \
                 (corpus, sizes["dagger_episodes"]):
             raise AssertionError(f"proof dagger: manifest {manifest}")
-        lines, stage_s["eval"] = _proof_cli(run + ["--stage", "eval", "--eval_episodes",
-                                                   str(sizes["eval_episodes"])])
+        lines, stage_s["eval"] = _run_in_process(learn_proof.main, run + [
+            "--stage", "eval", "--eval_episodes", str(sizes["eval_episodes"])])
         evaluated = _stage_line(lines, "eval", "summary")
         _check_launches("eval", evaluated, layers, on_card)
         with open(os.path.join(workdir, "learn_proof.json")) as f:
@@ -4797,6 +4832,336 @@ def phase_lava(config_name: str = "language_table", device: str = "cuda"):
     return record
 
 
+PARALLEL_STEPS = 3                # flagship bf16 train steps at batch 8, each way
+PARALLEL_BUCKET = 8
+PARALLEL_ENGINE_STEPS = 2         # bucket-8 engine steps of each restored engine
+PARALLEL_CLI = ("--standalone", "--nproc_per_node", "1", "-m", "rt1_tpu_torch.train",
+                "--config", "tiny", "--set", "parallel.distributed.enabled=true",
+                "--set", "checkpoint_every_steps=2", "--set", "eval_every_steps=2")
+PARALLEL_CLI_TIMEOUT_S = 300
+PARALLEL_SAVE_TIMEOUT_S = 300
+
+
+def _parallel_fsdp_save(rank, world, init, workdir, config_name):
+    """One rank of the host CPU's gloo group: the flagship's state from
+    seed 0, no step, under fsdp=`world`, saved sharded as step 0. A spawn
+    target (this module is its child's main)."""
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // (2 * world)))  # beside (a) and (b)
+    sys.path.insert(0, REPO)
+    from rt1_tpu_torch.configs import apply_override, get_config
+    from rt1_tpu_torch.parallel import distributed, mesh
+    from rt1_tpu_torch.parallel.plan import ShardingPlan
+    from rt1_tpu_torch.train.train import build_model
+    from rt1_tpu_torch.trainer.checkpoints import CheckpointManager
+    from rt1_tpu_torch.trainer.state import create_train_state, shard_train_state
+    from rt1_tpu_torch.trainer.train import optimizer_from_config
+
+    config = get_config(config_name)
+    for assignment in ("seed=0", f"parallel.fsdp={world}", "parallel.distributed.enabled=true",
+                       f"parallel.distributed.coordinator_address=file://{init}",
+                       f"parallel.distributed.process_id={rank}",
+                       f"parallel.distributed.num_processes={world}"):
+        apply_override(config, assignment)
+    distributed.initialize_from_config(config, device="cpu")
+    try:
+        grid = mesh.RankGrid(ShardingPlan.from_config(config).mesh)
+        state = create_train_state(build_model(config, "cpu"), optimizer_from_config(config))
+        shard_train_state(state, grid.index("fsdp"), grid.size("fsdp"))
+        CheckpointManager(os.path.join(workdir, "checkpoints"), grid=grid).save(0, state)
+    finally:
+        distributed.shutdown()
+
+
+def _parallel_world_one(config_name, dev, root):
+    """(a) An NCCL world of one, in this process: PARALLEL_STEPS flagship
+    bf16 train steps at batch 8 under parallel.dp=1 through the collective
+    path (`TrainStepFns(grid=...)`: the gradient all-reduced, the loss and
+    monitors reduced, on a one-rank group) against the same steps without a
+    process group, from the same weights and batches, cuDNN deterministic:
+    loss, flat gradient, BatchNorm statistics and updated masters equal bit
+    for bit; each step timed both ways (CUDA-synchronised wall ms)."""
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.configs import apply_override, get_config
+    from rt1_tpu_torch.parallel import distributed, mesh
+    from rt1_tpu_torch.parallel.plan import ShardingPlan
+    from rt1_tpu_torch.train.train import build_model, synthetic_batch
+    from rt1_tpu_torch.trainer.state import create_train_state
+    from rt1_tpu_torch.trainer.train import optimizer_from_config, train_step_fns_from_config
+
+    config = get_config(config_name)
+    config.obs.model_health = False  # phase train's step
+    for assignment in ("parallel.dp=1", "parallel.distributed.enabled=true",
+                       f"parallel.distributed.coordinator_address=file://{root}/nccl_init",
+                       "parallel.distributed.process_id=0",
+                       "parallel.distributed.num_processes=1"):
+        apply_override(config, assignment)
+    if not distributed.initialize_from_config(config, dev):
+        raise AssertionError("parallel: the NCCL world of one did not initialise")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        import torch.distributed as dist
+
+        backend = dist.get_backend()
+        grid = mesh.RankGrid(ShardingPlan.from_config(config).mesh)
+        if not grid.distributed or grid.world != 1:
+            raise AssertionError(f"parallel: {grid}")
+        runs = {}
+        for way, g in (("plain", None), ("collective", grid)):
+            optimizer = optimizer_from_config(config)
+            state = create_train_state(build_model(config, dev), optimizer)
+            runs[way] = (state, train_step_fns_from_config(config, optimizer, grid=g))
+        batches = [synthetic_batch(config, config.seed, i, dev) for i in range(PARALLEL_STEPS)]
+        walls = {"plain": [], "collective": []}
+        equal, losses = [], []
+        for step in range(PARALLEL_STEPS):
+            out = {}
+            order = ("plain", "collective") if step % 2 == 0 else ("collective", "plain")
+            for way in order:
+                state, fns = runs[way]
+                _sync(dev)
+                t0 = time.perf_counter()
+                metrics = fns.train_step(state, batches[step], step, keep_grad=True)
+                _sync(dev)
+                walls[way].append((time.perf_counter() - t0) * 1e3)
+                out[way] = (metrics, state)
+            (mp, sp), (mc, sc) = out["plain"], out["collective"]
+            same = {"loss": torch.equal(mp["loss"], mc["loss"]),
+                    "grad": torch.equal(mp["grad"], mc["grad"]),
+                    "grad_norm": torch.equal(mp["grad_norm"], mc["grad_norm"]),
+                    "batch_stats": torch.equal(sp.flat_buffers, sc.flat_buffers),
+                    "masters": torch.equal(sp.flat, sc.flat)}
+            equal.append(same)
+            losses.append(float(mp["loss"]))
+            if not all(same.values()) or not torch.isfinite(mp["loss"]):
+                raise AssertionError(f"parallel: the NCCL world-1 step {step} differs from the "
+                                     f"plain step: {same}, loss {float(mp['loss'])} / "
+                                     f"{float(mc['loss'])}")
+        record = {"backend": backend, "steps": PARALLEL_STEPS, "equal": equal, "losses": losses,
+                  "step_ms": {way: {"all": w, "median_after_first": float(np.median(w[1:]))}
+                              for way, w in walls.items()}}
+        del runs, batches, out, mp, mc, sp, sc
+        return record
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        distributed.shutdown()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _parallel_launcher(device, root):
+    """(b) `python -m torch.distributed.run --nproc_per_node 1` on the train
+    CLI (the smoke config on the card, NCCL) through `_run_cli`'s
+    process-group guard: 2 steps and a sharded checkpoint; then the CLI's
+    `main` in this process, in an NCCL world of one of its own (a `file://`
+    rendezvous), to step 3, resuming step 2 (a process start fewer)."""
+    from rt1_tpu_torch.parallel import distributed
+    from rt1_tpu_torch.train.__main__ import main as train_main
+
+    workdir = os.path.join(root, "launched")
+    base = list(PARALLEL_CLI) + ["--workdir", workdir, "--device", device]
+    first, first_s = _run_cli(base + ["--set", "num_steps=2"], PARALLEL_CLI_TIMEOUT_S,
+                              module="torch.distributed.run")
+    start = next(x for x in first if x.get("status") == "start")
+    manifest_path = os.path.join(workdir, "checkpoints", "2", "manifest.json")
+    if start.get("world") != 1 or first[-1].get("checkpoint_step") != 2 \
+            or not os.path.isfile(manifest_path):
+        raise AssertionError(f"parallel launcher: {start}; {first[-1]}")
+    with open(manifest_path) as f:
+        manifest = json.load(f)
+    cli = base[base.index("-m") + 2:]   # the train CLI's own arguments
+    try:
+        second, second_s = _run_in_process(train_main, cli + [
+            "--set", "num_steps=3", "--set",
+            f"parallel.distributed.coordinator_address=file://{root}/resume_init",
+            "--set", "parallel.distributed.process_id=0",
+            "--set", "parallel.distributed.num_processes=1"])
+    finally:
+        distributed.shutdown()
+    start2 = next(x for x in second if x.get("status") == "start")
+    if start2.get("restored_step") != 2 or second[-1].get("step") != 3 \
+            or second[-1].get("updates") != 3:
+        raise AssertionError(f"parallel launcher resume: {start2}; {second[-1]}")
+    return {"seconds": [first_s, second_s], "start": start, "manifest_world": manifest["world"],
+            "restored_step": start2["restored_step"], "done": second[-1]}
+
+
+class _ParallelSave:
+    """(c)'s first half, started before (a) so the host's gloo group writes
+    the fsdp=2 checkpoint while the card runs (a) and (b)."""
+
+    def __init__(self, config_name, root):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.t0 = time.perf_counter()
+        self.procs = [ctx.Process(target=_parallel_fsdp_save,
+                                  args=(r, 2, os.path.join(root, "gloo_init"),
+                                        os.path.join(root, "sharded"), config_name))
+                      for r in range(2)]
+        for p in self.procs:
+            p.start()
+
+    def join(self) -> float:
+        """Seconds from the start to the last rank's exit; raises unless
+        both saved."""
+        for p in self.procs:
+            p.join(PARALLEL_SAVE_TIMEOUT_S)
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if any(p.exitcode != 0 for p in self.procs):
+            raise AssertionError(f"parallel: the gloo fsdp=2 save failed: "
+                                 f"{[p.exitcode for p in self.procs]}")
+        return time.perf_counter() - self.t0
+
+    def join_quietly(self) -> None:
+        """No rank outlives the phase, whatever failed first."""
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def _parallel_migration(config_name, dev, root, saving):
+    """(c) A 2-rank gloo group on the host CPU writes the flagship's seed-0
+    state under fsdp=2 (`saving`, started with the phase); the card
+    restores it into a bf16 bucket-8 engine
+    and a float32 `infer_step`, beside the same from the unsharded state's
+    one-file checkpoint: logits and actions equal bit for bit (cuDNN
+    deterministic), 8 tensor-core launches a bf16 engine step, 8 tf32x3
+    launches the float32 step."""
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.configs import apply_override, get_config
+    from rt1_tpu_torch.eval.restore import build_serve_engine, config_with_model_dtype
+    from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
+    from rt1_tpu_torch.train.train import build_model
+    from rt1_tpu_torch.trainer.checkpoints import CheckpointManager
+    from rt1_tpu_torch.trainer.state import create_train_state
+    from rt1_tpu_torch.trainer.train import optimizer_from_config
+
+    sharded, plain = os.path.join(root, "sharded"), os.path.join(root, "plain")
+    save_s = saving.join()
+    with open(os.path.join(sharded, "checkpoints", "0", "manifest.json")) as f:
+        manifest = json.load(f)
+    config = get_config(config_name)
+    apply_override(config, "seed=0")
+    state = create_train_state(build_model(config, "cpu"), optimizer_from_config(config))
+    CheckpointManager(os.path.join(plain, "checkpoints")).save(0, state)
+    del state
+    wide = copy.deepcopy(config)
+    apply_override(wide, "parallel.fsdp=2")   # a plan one card cannot hold: plain placement
+
+    rng = np.random.default_rng(3)
+    h, w = config.data.height, config.data.width
+    frames = rng.uniform(0, 1, (PARALLEL_BUCKET, h, w, 3)).astype(np.float32)
+    emb = rng.standard_normal((PARALLEL_BUCKET, 512)).astype(np.float32)
+    items = [(f"p-{i}", {"image": frames[i], "natural_language_embedding": emb[i]})
+             for i in range(PARALLEL_BUCKET)]
+    obs = {"image": torch.from_numpy(frames).to(dev),
+           "natural_language_embedding": torch.from_numpy(emb).to(dev)}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for name, cfg, workdir in (("sharded", wide, sharded), ("plain", config, plain)):
+            engine, step = build_serve_engine(cfg, workdir=workdir, device=dev, step=0,
+                                              attention_impl="fused",
+                                              max_sessions=PARALLEL_BUCKET,
+                                              buckets=(1, PARALLEL_BUCKET))
+            reset_launch_counts()   # this engine's drive only (its warm-up included)
+            steps0 = engine.steps_total
+            actions = [engine.act_batch(items) for _ in range(PARALLEL_ENGINE_STEPS)]
+            engine_steps = engine.steps_total - steps0
+            _sync(dev)
+            bf16_launches = dict(fused_attention.launches_by_variant)
+            with torch.no_grad():
+                logits = engine.policy.infer_step(
+                    obs, engine.policy.initial_state(PARALLEL_BUCKET))[0]["action_logits"]
+            del engine
+            f32, _ = build_serve_engine(config_with_model_dtype(cfg, "float32"), workdir=workdir,
+                                        device=dev, step=0, attention_impl="fused",
+                                        max_sessions=PARALLEL_BUCKET,
+                                        buckets=(PARALLEL_BUCKET,))
+            reset_launch_counts()
+            with torch.no_grad():
+                f32_logits = f32.policy.infer_step(
+                    obs, f32.policy.initial_state(PARALLEL_BUCKET))[0]["action_logits"]
+            _sync(dev)
+            f32_launches = dict(fused_attention.launches_by_variant)
+            del f32
+            out[name] = dict(step=step, actions=actions, logits=logits.float().cpu(),
+                             f32_logits=f32_logits.float().cpu(), engine_steps=engine_steps,
+                             bf16_launches=bf16_launches, f32_launches=f32_launches)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    a, b = out["sharded"], out["plain"]
+    layers = config.model.num_layers if dev.type == "cuda" else 0   # the CPU runs the plain path
+    same_actions = all(
+        np.array_equal(x["action"], y["action"]) and np.array_equal(x["action_tokens"],
+                                                                    y["action_tokens"])
+        for sa, sb in zip(a["actions"], b["actions"]) for x, y in zip(sa, sb))
+    checks = {
+        "bf16_logits_equal": torch.equal(a["logits"], b["logits"]),
+        "f32_logits_equal": torch.equal(a["f32_logits"], b["f32_logits"]),
+        "actions_equal": same_actions,
+        "finite": bool(torch.isfinite(a["logits"]).all() and torch.isfinite(a["f32_logits"]).all()),
+    }
+    expected_bf16 = {"tensor_core": layers * a["engine_steps"], "tf32x3": 0, "simple": 0}
+    expected_f32 = {"tensor_core": 0, "tf32x3": layers, "simple": 0}
+    if not all(checks.values()) or a["bf16_launches"] != expected_bf16 \
+            or a["f32_launches"] != expected_f32 or a["step"] != 0:
+        raise AssertionError(f"parallel migration: {checks}; launches {a['bf16_launches']} "
+                             f"(expected {expected_bf16}), {a['f32_launches']} (expected "
+                             f"{expected_f32}); step {a['step']}")
+    return {"save_s": save_s, "manifest": {k: manifest[k] for k in ("world", "fsdp", "mesh",
+                                                                       "padded_size")},
+            "checks": checks, "engine_steps": a["engine_steps"],
+            "bf16_launches": a["bf16_launches"], "f32_launches": a["f32_launches"],
+            "tensor_core_per_engine_step": config.model.num_layers,
+            "max_abs_logit": float(a["logits"].abs().max())}
+
+
+def phase_parallel(config_name: str = "language_table", device: str = "cuda"):
+    """Multi-process training on the card's world of one: (a) the NCCL
+    world-1 step against the plain step, (b) the launcher CLI, (c) a
+    gloo fsdp=2 checkpoint of the host served on the card
+    (`_parallel_world_one`, `_parallel_launcher`, `_parallel_migration`)."""
+    import torch
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="rt1_chip_smoke_parallel_")
+    saving = _ParallelSave(config_name, root)
+    try:
+        t0 = time.perf_counter()
+        world_one = dict(_parallel_world_one(config_name, dev, root),
+                         seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        launcher = dict(_parallel_launcher(device, root), seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        migration = dict(_parallel_migration(config_name, dev, root, saving),
+                         seconds=time.perf_counter() - t0)
+    finally:
+        saving.join_quietly()
+        shutil.rmtree(root, ignore_errors=True)
+    record = {"phase": "parallel", "config": config_name,
+              "nvidia_smi": nvidia_smi() if dev.type == "cuda" else None,
+              "world_one": world_one, "launcher": launcher, "migration": migration,
+              "seconds": time.perf_counter() - t_phase}
+    emit(record)
+    return record
+
+
 def _kernel_entry(name, source, launches, path, head, cases):
     """One entry of the `kernels` line: the kernel's numbers at `head` (the
     case of its path's shape) and its largest error over `cases`."""
@@ -4817,8 +5182,8 @@ def _kernel_entry(name, source, launches, path, head, cases):
 
 
 PHASES = ("kernel", "ab", "sweep", "parity", "tiny", "step", "serve", "train_parity", "train",
-          "train_ops", "data", "eval", "moe", "lava", "serve_modes", "fleet", "ops", "loadgen",
-          "chaos", "proof")
+          "train_ops", "data", "eval", "moe", "lava", "parallel", "serve_modes", "fleet", "ops",
+          "loadgen", "chaos", "proof")
 
 
 def main(argv=None) -> int:
@@ -4951,6 +5316,15 @@ def main(argv=None) -> int:
             "serve_bf16": moe["serve"]["launches_by_variant"][variant],
             "serve_engine_steps": moe["serve"]["engine_steps"],
             "f32_infer_step": moe["f32_parity"]["launches_by_variant"][variant]}
+    # The fsdp=2 checkpoint served on the card (phase parallel): its bf16
+    # bucket-8 engine (engine steps and one infer_step for the logits) and
+    # its float32 infer_step (counts set to 0 before each).
+    migration = done["parallel"]["migration"]
+    for entry, variant in zip(entries, ("tensor_core", "tf32x3", "simple")):
+        entry["parallel_launches"] = {
+            "bf16_engine": migration["bf16_launches"][variant],
+            "bf16_engine_steps": migration["engine_steps"],
+            "f32_infer_step": migration["f32_launches"][variant]}
     # The train CLI's periodic evals in phase train_ops.
     train_ops = done["train_ops"]["cli"]
     entries[0]["train_ops_launches"] = {

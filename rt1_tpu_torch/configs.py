@@ -2,8 +2,8 @@
 `rt1_tpu/train/configs/language_table.py`, `tiny.py` and `lava_tiny.py`).
 
 The `model.*` fields, `data.height/width`, the training schedule,
-`resilience.*`, `obs.*` (field for field) and `parallel.mixed_precision`
-carry the JAX config's names and values; ml_collections is not a
+`resilience.*`, `obs.*` and `parallel.*` (field for field) carry the JAX
+config's names and values; ml_collections is not a
 dependency of the port.
 `get_config` takes a config name, or the path of the JAX config file
 (`rt1_tpu/train/configs/language_table.py`), whose file stem names it —
@@ -47,8 +47,13 @@ class ModelConfig:
     aux_mse_weight: float = 0.0
     action_decode: str = "argmax"  # "argmax" | "expected"
     # "dense" | "fused" ("pallas", the JAX package's name for the fused
-    # kernel, maps to "fused"). Training always takes the dense path.
+    # kernel, maps to "fused") | "ring" (sequence-parallel over the
+    # `parallel.sp` ranks, `parallel/ring_attention.py`; dense at sp 1).
+    # Training takes the dense path unless it is "ring".
     attention_impl: str = "dense"
+    # GPipe micro-batches a step when parallel.pp > 1 (JAX's
+    # `parallel/pipeline.py`; the port refuses pp > 1, ROADMAP A19c).
+    pipeline_microbatches: int = 4
     # Per-video colour jitter in the train forward, after the crop
     # (`ops/augment.py`).
     photometric_augmentation: bool = False
@@ -208,10 +213,46 @@ class ObsConfig:
 
 
 @dataclasses.dataclass
+class DistributedConfig:
+    """`config.parallel.distributed` (`parallel/distributed.py::
+    DistributedOptions` resolves it, with the environment's fallbacks)."""
+    enabled: bool = False
+    coordinator_address: Optional[str] = None   # "host:port" of rank 0
+    process_id: int = -1                         # -1: from the environment
+    num_processes: int = -1                      # -1: from the environment
+
+
+@dataclasses.dataclass
 class ParallelConfig:
+    """`config.parallel` (`parallel/plan.py::ShardingPlan.from_config`):
+    the rank grid ('data', 'stage', 'fsdp', 'seq', 'model') over the
+    processes of a `torch.distributed` world, one device each."""
+    dp: int = -1        # data parallelism; -1: the ranks the other axes leave
+    fsdp: int = 1       # ZeRO-3: masters and Adam moments in 1/fsdp chunks
+    tp: int = 1         # tensor parallelism: refused (ROADMAP A19b)
+    pp: int = 1         # pipeline stages: refused (ROADMAP A19c)
+    sp: int = 1         # sequence parallelism (ring attention)
+    auto: bool = False  # (dp, fsdp, tp) from the world size (AUTO_MESH_SHAPES)
+    strict: bool = False  # a weight matrix no plan rule decides raises
     # f32 master weights, one bf16 compute copy per step (forces the model
     # compute dtype to bfloat16).
     mixed_precision: bool = False
+    distributed: DistributedConfig = dataclasses.field(default_factory=DistributedConfig)
+
+
+def check_parallel_config(config: "Config") -> None:
+    """Refuse at the config seam what the port does not run yet: tensor
+    parallelism (`parallel.tp > 1`, ROADMAP A19b) and the pipeline
+    (`parallel.pp > 1`, ROADMAP A19c), and axis sizes below 1."""
+    from rt1_tpu_torch.parallel.plan import refuse_unported
+
+    par = config.parallel
+    refuse_unported(par.tp, par.pp)
+    for name in ("dp", "fsdp", "tp", "pp", "sp"):
+        value = getattr(par, name)
+        if value < 1 and not (name == "dp" and value == -1):
+            raise ValueError(f"parallel.{name}={value} must be >= 1"
+                             + (" or -1 (the ranks left)" if name == "dp" else ""))
 
 
 @dataclasses.dataclass
@@ -387,4 +428,11 @@ def apply_override(config: Config, assignment: str) -> None:
     hints = typing.get_type_hints(type(node)) if dataclasses.is_dataclass(node) else {}
     if leaf not in hints or dataclasses.is_dataclass(getattr(node, leaf)):
         raise ValueError(f"unknown config key {key!r}")
-    setattr(node, leaf, _parse_value(text, getattr(node, leaf), key, hints[leaf]))
+    old = getattr(node, leaf)
+    setattr(node, leaf, _parse_value(text, old, key, hints[leaf]))
+    if key.strip().startswith("parallel."):
+        try:
+            check_parallel_config(config)
+        except ValueError:
+            setattr(node, leaf, old)
+            raise

@@ -203,6 +203,8 @@ class WindowedEpisodeDataset:
         pin_memory: bool = False,
         num_epochs: Optional[int] = None,
         shuffle_buffer: Optional[int] = None,
+        process_index: int = 0,
+        process_count: int = 1,
     ) -> torch.utils.data.DataLoader:
         """A DataLoader of batches of torch tensors (the nested dict of
         `numpy_batches`), `num_epochs` epochs (None: without end).
@@ -218,12 +220,15 @@ class WindowedEpisodeDataset:
         generator seeded by (seed, e, idx), so they depend neither on the
         worker count nor on the order the keys arrive in. `pin_memory`
         pins each batch for the upload (`device_feeder` copies pinned
-        tensors directly)."""
+        tensors directly). With `process_count > 1` the keys are cut into
+        global batches of `batch_size * process_count` and this process
+        takes rows [process_index * batch_size, (process_index + 1) *
+        batch_size) of each (the packed feeder's rule)."""
         native.build()  # once, here, rather than racing in every worker
         if not os.environ.get("RT1_TPU_NO_NATIVE"):
             native.build_reader()
         batches = _EpochBatches(len(self.index), batch_size, shuffle, seed, num_epochs,
-                                shuffle_buffer)
+                                shuffle_buffer, process_index, process_count)
         kwargs = {}
         if num_workers > 0:
             # forkserver: each worker forks from a fresh single-threaded
@@ -277,12 +282,29 @@ def buffered_shuffle(items: Iterable, buffer_size: int, seed: int) -> Iterator:
 class _EpochBatches(torch.utils.data.Sampler):
     """Batches of (epoch, window index) keys; see `as_torch_loader`."""
 
-    def __init__(self, n, batch_size, shuffle, seed, num_epochs, shuffle_buffer=None):
+    def __init__(self, n, batch_size, shuffle, seed, num_epochs, shuffle_buffer=None,
+                 process_index=0, process_count=1):
         if batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
         self.n, self.batch_size, self.shuffle, self.seed = n, batch_size, shuffle, seed
         self.num_epochs = num_epochs
         self.shuffle_buffer = shuffle_buffer
+        self.process_index, self.process_count = process_index, process_count
+
+    def _global(self):
+        """Global batches of `batch_size * process_count` keys."""
+        if self.shuffle and self.shuffle_buffer:
+            yield from self._buffered()
+            return
+        g = torch.Generator().manual_seed(self.seed)
+        epoch = 0
+        size = self.batch_size * self.process_count
+        while self.num_epochs is None or epoch < self.num_epochs:
+            order = torch.randperm(self.n, generator=g).numpy() if self.shuffle \
+                else np.arange(self.n)
+            for i in range(0, len(order) - size + 1, size):
+                yield [(epoch, int(j)) for j in order[i:i + size]]
+            epoch += 1
 
     def _buffered(self):
         """The repeated index stream through `buffered_shuffle`, keyed by
@@ -292,24 +314,17 @@ class _EpochBatches(torch.utils.data.Sampler):
             else range(n * self.num_epochs)
         keys = buffered_shuffle(((p // n, p % n) for p in positions),
                                 min(n, self.shuffle_buffer), self.seed)
+        size = self.batch_size * self.process_count
         while True:
-            batch = list(itertools.islice(keys, self.batch_size))
-            if len(batch) < self.batch_size:
+            batch = list(itertools.islice(keys, size))
+            if len(batch) < size:
                 return
             yield batch
 
     def __iter__(self):
-        if self.shuffle and self.shuffle_buffer:
-            yield from self._buffered()
-            return
-        g = torch.Generator().manual_seed(self.seed)
-        epoch = 0
-        while self.num_epochs is None or epoch < self.num_epochs:
-            order = torch.randperm(self.n, generator=g).numpy() if self.shuffle \
-                else np.arange(self.n)
-            for i in range(0, len(order) - self.batch_size + 1, self.batch_size):
-                yield [(epoch, int(j)) for j in order[i:i + self.batch_size]]
-            epoch += 1
+        lo = self.process_index * self.batch_size
+        for batch in self._global():
+            yield batch[lo:lo + self.batch_size]
 
 
 class _WindowView(torch.utils.data.Dataset):

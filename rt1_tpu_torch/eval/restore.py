@@ -21,11 +21,21 @@ their values.
 
 The engine keeps the master spec and the preparer, so `/reload` takes an
 f32 master (`load_standby_variables`) and prepares it the same way.
+
+A checkpoint written under any plan — data-parallel, ZeRO-3 over any
+fsdp size, the world of one — loads into the one-device engine
+(`trainer/checkpoints.py::load_checkpoint` assembles the logical masters,
+`parallel/reshard.py`). `serving_plan(config)` resolves the train config's
+`parallel` block as JAX's does (`collapse_data`: dp 1, fsdp x sp devices);
+the port serves every plan on one device, so a plan that needs more
+devices than the host has is logged and restored with plain placement,
+as JAX's restore does.
 """
 
 from __future__ import annotations
 
 import copy
+import logging
 import os
 from typing import Dict, Optional
 
@@ -43,6 +53,8 @@ from rt1_tpu_torch.models.transformer import normalize_attention_impl
 from rt1_tpu_torch.serve.engine import PolicyEngine
 from rt1_tpu_torch.specs import language_table_action_space
 from rt1_tpu_torch.trainer.checkpoints import load_checkpoint
+
+_log = logging.getLogger(__name__)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 RANDOM_INIT_SEED = 0
@@ -147,6 +159,30 @@ def build_policy(config: Config, attention_impl: Optional[str] = None):
     )
 
 
+def serving_plan(config: Config, n_devices: Optional[int] = None):
+    """The sharding plan of a serving process from the SAME
+    `config.parallel` training resolves (`ShardingPlan.from_config(
+    collapse_data=True)`): dp collapses to 1, the grid covers fsdp x tp x
+    pp x sp devices. `n_devices`: this host's devices (the CUDA count, 1
+    without a card). Raises ValueError when the host has fewer."""
+    from rt1_tpu_torch.parallel.plan import ShardingPlan
+
+    if n_devices is None:
+        n_devices = max(torch.cuda.device_count(), 1) if torch.cuda.is_available() else 1
+    return ShardingPlan.from_config(config, n_devices=n_devices, collapse_data=True)
+
+
+def _checked_serving_plan(config: Config):
+    """`serving_plan`, or None with a warning when this host cannot hold
+    it: the restore then places the whole model on one device."""
+    try:
+        return serving_plan(config)
+    except ValueError as exc:
+        _log.warning("eval/restore: serving plan unsatisfiable on this host (%s) — "
+                     "restoring with plain placement", exc)
+        return None
+
+
 def master_policy(config: Config, weights: Optional[str], workdir: Optional[str],
                    attention_impl: Optional[str] = None, step: Optional[int] = None):
     """(the policy in float32 on the CPU filled with its masters, the
@@ -157,6 +193,7 @@ def master_policy(config: Config, weights: Optional[str], workdir: Optional[str]
     policy = build_policy(config, attention_impl)
     restored = -1
     if workdir is not None:
+        _checked_serving_plan(config)
         ckpt = load_checkpoint(os.path.join(workdir, "checkpoints"), step)
         policy.load_state_dict(ckpt["policy"])
         restored = int(ckpt["loop_step"])

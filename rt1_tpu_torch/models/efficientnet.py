@@ -34,6 +34,7 @@ from rt1_tpu_torch.models.film import FilmConditioning
 from rt1_tpu_torch.models.quant import QuantConv2d
 from rt1_tpu_torch.ops.dropout import Rngs
 from rt1_tpu_torch.ops.remat import checkpoint, recomputing
+from rt1_tpu_torch.parallel.collectives import current_batch_shard, rows_of_global_draw
 
 # Table-1 base (B0) config.
 BLOCKS_ARGS: Tuple[Dict[str, Any], ...] = (
@@ -64,8 +65,9 @@ def stochastic_depth(x: torch.Tensor, rate: float, generator: torch.Generator) -
     """Row-mode stochastic depth: each row (dim 0) is kept with probability
     `1 - rate` and scaled by `1 / (1 - rate)`, else zeroed."""
     keep = 1.0 - rate
-    draw = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
-                      device=x.device)
+    draw = rows_of_global_draw((x.shape[0],) + (1,) * (x.dim() - 1),
+                               lambda shape: torch.rand(shape, generator=generator,
+                                                        device=x.device))
     return torch.where(draw < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -81,7 +83,14 @@ class BatchNorm(nn.Module):
     `r = 0.9 r + 0.1 batch`, on the biased batch variance.
     `F.batch_norm` updates with the unbiased one (a factor n / (n - 1)),
     so the update is corrected: with `r0` the old and `r1` torch's
-    new running variance, flax's is `r1 (n - 1) / n + 0.9 r0 / n`."""
+    new running variance, flax's is `r1 (n - 1) / n + 0.9 r0 / n`.
+
+    Inside a `batch_shard` of several ranks (the train step of a
+    data-parallel world) the statistics are the GLOBAL batch's, as flax's
+    are under GSPMD (`_SyncBatchNorm`): the per-rank count, sum and sum of
+    squares are all-reduced over the batch ranks, the variance is flax's
+    fast one, E[x^2] - E[x]^2, the running update takes it biased, and the
+    backward all-reduces its two sums."""
 
     MOMENTUM = 0.9
 
@@ -103,6 +112,9 @@ class BatchNorm(nn.Module):
                 x, self.running_mean, self.running_var, weight, bias,
                 training=False, eps=self.eps,
             )
+        group, _, ways = current_batch_shard()
+        if ways > 1:
+            return self._synced(x, weight, bias, group)
         n = x.numel() // x.shape[1]
         # torch updates the statistics it is given and keeps them for the
         # backward, so it gets copies; the module's buffers take the result.
@@ -118,6 +130,76 @@ class BatchNorm(nn.Module):
             self.running_mean.copy_(mean)
             self.running_var.copy_(var_flax)
         return y
+
+
+    def _synced(self, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                group) -> torch.Tensor:
+        """Train mode over the global batch of the ranks of `group`."""
+        y, mean, var = _SyncBatchNorm.apply(x, weight, bias, self.eps, group)
+        if not recomputing():
+            m = self.MOMENTUM
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return y
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """BatchNorm's train-mode forward and backward over the global batch:
+    the per-rank count, sum and sum of squares are all-reduced over `group`
+    (flax's fast variance E[x^2] - E[x]^2, biased), and the backward is
+    BatchNorm's analytic one, `F.batch_norm`'s, on the all-reduced sums of
+    dy and dy * (x - mean): the gradient of every rank's loss, whose
+    statistics read every rank's x. The weight's and bias's gradients are
+    this rank's shares (the step sums them over the ranks). Returns (y,
+    batch mean, batch variance). `torch.distributed.nn.functional.
+    all_reduce`, which would differentiate the sums, is deprecated in this
+    torch."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        import torch.distributed as dist
+
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+        xf = x.to(torch.float32)
+        c = x.shape[1]
+        count = torch.full((1,), float(x.numel() // c), dtype=torch.float32, device=x.device)
+        stats = torch.cat([count, xf.sum(dims), (xf * xf).sum(dims)])
+        dist.all_reduce(stats, op=dist.ReduceOp.SUM, group=group)
+        n = stats[0]
+        mean = stats[1:1 + c] / n
+        var = torch.clamp(stats[1 + c:] / n - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        w = weight.to(torch.float32)
+        y = (xf - mean.view(shape)) * (invstd * w).view(shape) + bias.to(torch.float32).view(shape)
+        ctx.save_for_backward(x, mean, invstd, weight)
+        ctx.group, ctx.n = group, n
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        import torch.distributed as dist
+
+        x, mean, invstd, weight = ctx.saved_tensors
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+        dyf = dy.to(torch.float32)
+        centered = x.to(torch.float32) - mean.view(shape)
+        sum_dy = dyf.sum(dims)
+        dot_p = (dyf * centered).sum(dims)
+        local = torch.stack([sum_dy, dot_p])
+        total = local.clone()
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=ctx.group)
+        grad_mean = total[0] / ctx.n
+        proj = total[1] * invstd * invstd / ctx.n
+        w = weight.to(torch.float32)
+        dx = (dyf - grad_mean.view(shape) - centered * proj.view(shape)) \
+            * (invstd * w).view(shape)
+        grad_weight = (dot_p * invstd).to(weight.dtype)
+        grad_bias = sum_dy.to(weight.dtype)
+        return dx.to(x.dtype), grad_weight, grad_bias, None, None
 
 
 class ConvNormAct(nn.Module):

@@ -29,6 +29,19 @@ call, as JAX does.
 to e) * (mean gate of e), in float32 (of the whole call; per row it is the
 mean over rows, unused: only training reads it).
 
+Inside the train step's `parallel.collectives.batch_shard` of several
+ranks (data parallelism, a rank holding block `index` of the global
+batch), a call routes the GLOBAL batch's tokens, as JAX's GSPMD step does:
+the ranks all-reduce their per-expert counts (no gradient flows through
+them), the capacity is the global call's, and a token's queue position
+counts the tokens of every earlier block first. Each rank computes only
+its own tokens, in buffers of the global capacity. `aux_loss` is then this
+rank's part of the global loss, E * sum_e (global fraction routed to e) *
+(the sum of this rank's gates of e / the global token count): linear in
+the rank's gates, so the parts sum to the global loss and its gradient
+(`trainer/train.py` weights the part so that it survives the step's
+reduction).
+
 The stacked experts keep JAX's layout, `wi` (E, d, ff) and `wo` (E, ff,
 d), as plain parameters. For int8 serving (`models/quant.py`) they
 quantize per output column over every other axis, one scale per column
@@ -44,6 +57,8 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from rt1_tpu_torch.parallel.collectives import current_batch_shard
 
 QUANT_PARAMS = ("wi", "wo")
 
@@ -63,6 +78,17 @@ class Router(nn.Linear):
             return out
 
         return super()._apply(keep_float32, recurse)
+
+
+def _counts_by_block(counts: torch.Tensor, group, index: int, ways: int) -> torch.Tensor:
+    """(ways, e): row i the per-expert token counts of block i of the
+    global batch, all-reduced over `group` (`counts` is this block's)."""
+    import torch.distributed as dist
+
+    rows = torch.zeros(ways, counts.numel(), dtype=counts.dtype, device=counts.device)
+    rows[index] = counts.detach()
+    dist.all_reduce(rows, op=dist.ReduceOp.SUM, group=group)
+    return rows
 
 
 def router_names(model: nn.Module) -> List[str]:
@@ -121,18 +147,28 @@ class MoEFeedForward(nn.Module):
         e = self.num_experts
         dtype = self.compute_dtype
         groups, t = (b, s) if per_row else (1, b * s)
+        group, index, ways = (None, 0, 1) if per_row else current_batch_shard()
         tokens = x.reshape(groups, t, d)
         gate_logits = F.linear(tokens.float(), self.gate.weight.float())
         gates = torch.softmax(gate_logits, dim=-1)                      # (g, t, e)
         expert_idx = torch.argmax(gates, dim=-1)                        # first max on ties
         expert_gate = torch.amax(gates, dim=-1)
         one_hot = F.one_hot(expert_idx, e).to(torch.float32)            # (g, t, e)
-        density = one_hot.mean(dim=1)
-        density_proxy = gates.mean(dim=1)
-        aux_loss = ((density * density_proxy).sum(dim=-1) * e).mean()
-
-        capacity = int(self.capacity_factor * t / e) or 1
-        position_in_expert = (torch.cumsum(one_hot, dim=1) - 1.0) * one_hot
+        queue = torch.cumsum(one_hot, dim=1) - 1.0
+        if ways == 1:
+            density = one_hot.mean(dim=1)
+            density_proxy = gates.mean(dim=1)
+            aux_loss = ((density * density_proxy).sum(dim=-1) * e).mean()
+            capacity = int(self.capacity_factor * t / e) or 1
+        else:
+            # Block `index` of the global batch: route the global call.
+            counts = _counts_by_block(one_hot[0].sum(dim=0), group, index, ways)  # (ways, e)
+            t_global = t * ways
+            density = counts.sum(dim=0) / t_global
+            aux_loss = (density * gates[0].sum(dim=0) / t_global).sum() * e
+            capacity = int(self.capacity_factor * t_global / e) or 1
+            queue = queue + counts[:index].sum(dim=0)
+        position_in_expert = queue * one_hot
         slots = torch.arange(capacity, device=x.device, dtype=torch.float32)
         # A position >= capacity matches no slot: the token is dropped.
         pos_one_hot = (position_in_expert.sum(dim=-1)[..., None] == slots).to(torch.float32)

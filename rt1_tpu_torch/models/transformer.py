@@ -17,7 +17,11 @@ Attention has two paths, each the counterpart of its JAX path:
   keeps the probabilities in fp32 (the JAX "pallas" branch). In bf16 the
   two paths therefore differ slightly, exactly as they do in JAX. The
   kernel is forward-only, so `train=True` takes the dense path, as the
-  JAX "pallas" branch does.
+  JAX "pallas" branch does;
+* "ring": sequence-parallel over the `seq` ranks of the current rank grid
+  (`parallel/ring_attention.py`), in train and eval mode, without
+  attention dropout, as JAX's "ring" branch; with one `seq` rank (or no
+  grid) the dense path, dropout included, as JAX without a `seq` axis.
 
 `train=True` drops attention probabilities (fp32, before the cast) and
 the FFN output at `dropout_rate`, drawing from `rngs["dropout"]`.
@@ -52,14 +56,16 @@ from rt1_tpu_torch.ops.remat import checkpoint
 from rt1_tpu_torch.models.moe import MoEFeedForward
 from rt1_tpu_torch.models.quant import QuantLinear
 from rt1_tpu_torch.parallel.flash_attention import fused_attention
+from rt1_tpu_torch.parallel.ring_attention import ring_attention, seq_group_size
 
 NEG_INF = -1e9
-ATTENTION_IMPLS = ("dense", "fused")
+ATTENTION_IMPLS = ("dense", "fused", "ring")
 FFN_IMPLS = ("dense", "moe")
 
 
 def normalize_attention_impl(impl: str) -> str:
-    """"pallas" (the JAX package's name for the fused kernel) -> "fused"."""
+    """"pallas" (the JAX package's name for the fused kernel) -> "fused";
+    "dense", "fused" and "ring" stay."""
     impl = "fused" if impl == "pallas" else impl
     if impl not in ATTENTION_IMPLS:
         raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS} or 'pallas', got {impl!r}")
@@ -91,6 +97,8 @@ class TFMultiHeadAttention(nn.Module):
         v = self.value(x).view(b, s, h, k)
         if self.attention_impl == "fused" and not train:
             out = fused_attention(q, kk, v, mask=mask, scale=1.0 / float(k) ** 0.5)
+        elif self.attention_impl == "ring" and seq_group_size() > 1:
+            out = ring_attention(q, kk, v, mask=mask, scale=1.0 / float(k) ** 0.5)
         else:
             logits = torch.einsum("bshd,bthd->bhst", q.float(), kk.float())
             logits = logits / float(k) ** 0.5

@@ -33,7 +33,7 @@ Import-light by contract: torch only inside functions.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 #: Key under which the packed vector rides in the step metrics dict.
 PACK_KEY = "health_pack"
@@ -107,7 +107,7 @@ class HealthPack:
 
     def __init__(self, paths: Sequence[str], padded: Sequence[int], device,
                  depth: int = DEFAULT_GROUP_DEPTH, action_dims: int = 0,
-                 task_names: Sequence[str] = ()):
+                 task_names: Sequence[str] = (), chunk: Optional[Tuple[int, int]] = None):
         import torch
 
         self.groups = param_groups(paths, depth)
@@ -118,26 +118,42 @@ class HealthPack:
         onehot = torch.zeros((len(paths), len(self.groups)), dtype=torch.float32)
         for leaf, path in enumerate(paths):
             onehot[leaf, index[_group_of(path, depth)]] = 1.0
+        lengths = list(padded)
+        if chunk is not None:
+            # A ZeRO-3 chunk [lo, hi) of the layout padded past its end:
+            # each leaf's part inside it, and a last segment of padding.
+            lo, hi = chunk
+            starts = [0]
+            for n in padded[:-1]:
+                starts.append(starts[-1] + n)
+            lengths = [max(0, min(s + n, hi) - max(s, lo)) for s, n in zip(starts, padded)]
+            lengths.append(hi - lo - sum(lengths))
+            onehot = torch.cat([onehot, torch.zeros((1, len(self.groups)))])
         self._onehot = onehot.to(device)
-        self._lengths = torch.tensor(list(padded), dtype=torch.int64, device=device)
+        self._lengths = torch.tensor(lengths, dtype=torch.int64, device=device)
 
     def _group_sumsq(self, flat):
         import torch
 
-        per_leaf = torch.segment_reduce(torch.square(flat), "sum", lengths=self._lengths)
+        per_leaf = torch.segment_reduce(torch.square(flat), "sum", lengths=self._lengths,
+                                        initial=0.0)
         return per_leaf @ self._onehot
 
-    def compute(self, grad, update, new_flat, out: Mapping[str, Any]):
+    def compute(self, grad, update, new_flat, out: Mapping[str, Any], comms=None):
         """The float32 pack vector, in `names` order, from the flat float32
         gradient, the applied update (`new_flat - old_flat`), the updated
         masters and the loss's aux dict (`action_logits`,
         `action_predictions`, `action_labels`, `action_loss`, and
-        `task_ids` when the pack has tasks)."""
+        `task_ids` when the pack has tasks). With `comms` (the train step's
+        `parallel.collectives.StepComms`) every entry is global: the squared
+        sums of the chunks summed over the fsdp ranks, the action
+        statistics over the ranks' rows."""
         import torch
 
-        grad_sq = self._group_sumsq(grad)
-        upd_sq = self._group_sumsq(update)
-        new_sq = self._group_sumsq(new_flat)
+        grad_sq, upd_sq, new_sq = (self._group_sumsq(v) for v in (grad, update, new_flat))
+        if comms is not None:
+            grad_sq, upd_sq, new_sq = comms.sum_shards(
+                torch.stack([grad_sq, upd_sq, new_sq])).unbind(0)
         parts = [
             torch.sqrt(grad_sq),
             torch.sqrt(upd_sq) / (torch.sqrt(new_sq) + _EPS),
@@ -147,24 +163,36 @@ class HealthPack:
         if self.action_dims > 0:
             logits = out["action_logits"].to(torch.float32)
             logp = torch.log_softmax(logits, dim=-1)
-            parts.append(-torch.mean(torch.sum(torch.exp(logp) * logp, dim=-1))[None])
+            entropy = -torch.mean(torch.sum(torch.exp(logp) * logp, dim=-1))[None]
             correct = (out["action_predictions"] == out["action_labels"]).to(torch.float32)
             per_dim = correct.mean(dim=(0, 1))  # (A,)
             if per_dim.shape[0] != self.action_dims:
                 raise ValueError(f"action_dims={self.action_dims} but the step produced "
                                  f"{per_dim.shape[0]} action token dims")
-            parts.append(per_dim)
+            if comms is not None:  # equal blocks: the mean of means
+                entropy, per_dim = comms.mean_rows(torch.cat([entropy, per_dim])).split(
+                    [1, self.action_dims])
+            parts += [entropy, per_dim]
             if self.task_names:
                 task_ids = out["task_ids"].to(torch.int64)  # (b,)
                 per_ex_loss = out["action_loss"].to(torch.float32).mean(dim=-1)  # (b,)
+                if comms is not None:
+                    # The reference loss scale: a rank's rows carry W times
+                    # their share of the global batch's loss.
+                    per_ex_loss = per_ex_loss / comms.ways
                 per_ex_acc = correct.mean(dim=(1, 2))  # (b,)
                 onehot = torch.nn.functional.one_hot(
                     task_ids, len(self.task_names)).to(torch.float32)  # (b, K)
-                counts = onehot.sum(dim=0)
+                sums = torch.stack([onehot.sum(dim=0), onehot.T @ per_ex_loss,
+                                    onehot.T @ per_ex_acc])
+                rows = float(task_ids.shape[0])
+                if comms is not None:
+                    sums, rows = comms.sum_rows(sums), rows * comms.ways
+                counts, loss_sum, acc_sum = sums.unbind(0)
                 denom = torch.clamp(counts, min=1.0)
-                parts.append(onehot.T @ per_ex_loss / denom)
-                parts.append(onehot.T @ per_ex_acc / denom)
-                parts.append(counts / task_ids.shape[0])
+                parts.append(loss_sum / denom)
+                parts.append(acc_sum / denom)
+                parts.append(counts / rows)
         return torch.cat(parts).to(torch.float32)
 
 

@@ -4,6 +4,10 @@
 port's train step seeds one generator per stream from `(seed, step)`, so
 a resumed run draws what an unbroken run would have. Train mode with a
 positive rate and no generator raises instead of falling back.
+
+Inside the train step's `parallel.collectives.batch_shard` (a rank's block
+of a global batch) the mask is this rank's rows of the global batch's
+mask, so a world of several ranks drops what the world of one drops.
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+
+from rt1_tpu_torch.parallel.collectives import rows_of_global_draw
 
 # The generators of a train step by stream: "crop", "dropout",
 # "stochastic_depth".
@@ -26,5 +32,6 @@ def dropout(x: torch.Tensor, rate: float, train: bool, rngs: Rngs) -> torch.Tens
     if not rngs or "dropout" not in rngs:
         raise ValueError("dropout in train mode needs rngs['dropout']")
     keep = 1.0 - rate
-    draw = torch.rand(x.shape, generator=rngs["dropout"], device=x.device)
+    draw = rows_of_global_draw(
+        x.shape, lambda shape: torch.rand(shape, generator=rngs["dropout"], device=x.device))
     return torch.where(draw < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -16,7 +16,12 @@ handled here:
   stream;
 * BatchNorm in train mode writes its running statistics as a side effect.
   `recomputing()` is true during the recompute, and `BatchNorm` then
-  leaves the statistics alone (the first run already wrote them).
+  leaves the statistics alone (the first run already wrote them);
+* the train step of several ranks runs its forward inside
+  `parallel.collectives.batch_shard`, which the backward pass has left by
+  the time it recomputes. The recompute re-enters the block the first run
+  saw, so BatchNorm syncs, the masks keep the rank's rows and the MoE
+  routes the global batch again.
 
 A module is recomputed with the tensors it had at the first run (the
 train step's `functional_call` has put its own back by then). So a loss
@@ -32,6 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint as _torch_checkpoint
 
 from rt1_tpu_torch.ops.dropout import Rngs
+from rt1_tpu_torch.parallel.collectives import batch_shard, current_batch_shard
 
 _STATE = threading.local()
 
@@ -55,6 +61,7 @@ def checkpoint(fn: Callable, *args, rngs: Rngs = None):
             return torch.func.functional_call(module, tensors, inner)
     gens = [g for g in (rngs or {}).values() if g is not None]
     start = [g.get_state() for g in gens]
+    shard = current_batch_shard()
     calls = [0]
 
     def body(*inner):
@@ -66,7 +73,8 @@ def checkpoint(fn: Callable, *args, rngs: Rngs = None):
             g.set_state(state)
         _STATE.depth = getattr(_STATE, "depth", 0) + 1
         try:
-            return fn(*inner)
+            with batch_shard(*shard):
+                return fn(*inner)
         finally:
             _STATE.depth -= 1
             for g, state in zip(gens, reached):

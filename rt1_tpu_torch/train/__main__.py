@@ -45,6 +45,20 @@ the scrape listener's), one per log and eval step, and one at the end;
 serve the result with
 `python -m rt1_tpu_torch.serve --config <name> --workdir <dir>`.
 
+Several processes, one device each (`config.parallel`; README "Multi-process
+training"): on the CPU over gloo,
+
+  python -m torch.distributed.run --standalone --nproc_per_node 2 \
+      -m rt1_tpu_torch.train --config tiny --workdir /tmp/rt1_dp --device cpu \
+      --set parallel.distributed.enabled=true --set parallel.fsdp=2
+
+and on the card over NCCL the same without `--device cpu` (one rank a GPU:
+`--nproc_per_node` at most the host's GPUs). `parallel.dp`, `fsdp`, `sp`
+(with `model.attention_impl=ring`), `auto` and `strict` act; `tp > 1` and
+`pp > 1` are refused (ROADMAP A19b, A19c). Rank 0 logs and writes the
+workdir's files; every rank writes its part of each checkpoint, which any
+plan, a world of one included, restores.
+
 Resilience and observability run as the config sets them (the flagship's
 `resilience.*` and `obs.*` turn on the guard, I/O retry, preemption save,
 the health pack, the goodput ledger with its MFU gauge and the flight
@@ -93,7 +107,12 @@ def main(argv=None) -> int:
                           "overrides": overrides}), flush=True)
     for assignment in args.overrides:
         apply_override(config, assignment)
-    train_and_evaluate(config, args.workdir, device=args.device)
+    from rt1_tpu_torch.parallel import distributed
+
+    try:
+        train_and_evaluate(config, args.workdir, device=args.device)
+    finally:
+        distributed.shutdown()
     return 0
 
 

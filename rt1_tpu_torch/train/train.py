@@ -36,6 +36,22 @@ episode-file feeds reopen with the fresh seed, so the batches that
 diverged are not replayed. Eval uses the fixed batches `0 ..
 eval_batches - 1` of seed `seed + 1`.
 
+Several processes (`config.parallel`, `parallel.distributed.enabled`;
+`python -m torch.distributed.run --nproc_per_node N -m rt1_tpu_torch.train
+... --set parallel.distributed.enabled=true`): the ranks rendezvous before
+any device is touched (`parallel/distributed.py`; NCCL on `cuda:LOCAL_RANK`,
+gloo with `--device cpu`), the plan is resolved once
+(`parallel/plan.py::ShardingPlan.from_config`) into the rank grid, and the
+step reduces over it (`trainer/train.py`). One process is one JAX host of
+one device: the global batch is `per_host_batch_size` x the batch ranks
+(data x fsdp), and a rank's batch is its block of it: its rows of the
+synthetic batch, or the rank's share of the episode stream (the loaders'
+`process_index` / `process_count` are the rank's block and the number of
+blocks; ranks along `seq` share a block). Rank 0 alone writes
+`metrics.jsonl`, `data_manifest.json`, the goodput summary, the flight
+record and the trace, serves the scrape and logs; every rank steps, evals
+and saves its part of each checkpoint (`trainer/checkpoints.py`).
+
 Resilience and observability follow `config.resilience` and `config.obs`
 as the JAX loop does (`train_and_evaluate`'s docstring): the guard's
 escalation and rollback, preemption save, I/O retry, the fault plan
@@ -49,6 +65,7 @@ metrics line (`guard/*`, `retry/*`, `goodput/*`, `health/*`, `timing/*`,
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import glob
 import itertools
 import json
@@ -59,19 +76,22 @@ import numpy as np
 import torch
 
 from rt1_tpu_torch import obs, resilience, resolve_device
-from rt1_tpu_torch.configs import Config, apply_override, sweep
+from rt1_tpu_torch.configs import Config, apply_override, check_parallel_config, sweep
 from rt1_tpu_torch.convert import init_weights
 from rt1_tpu_torch.data import pack as pack_lib
 from rt1_tpu_torch.data.episodes import read_manifest
 from rt1_tpu_torch.data.feeder import SampleAheadFeeder, parse_task_weights
 from rt1_tpu_torch.data.pipeline import WindowedEpisodeDataset, device_feeder, loader_batches
 from rt1_tpu_torch.eval.restore import build_policy
+from rt1_tpu_torch.parallel import distributed as dist_lib
+from rt1_tpu_torch.parallel import mesh as mesh_lib
 from rt1_tpu_torch.parallel.flash_attention import fused_attention
+from rt1_tpu_torch.parallel.plan import ShardingPlan
 from rt1_tpu_torch.resilience import faults
 from rt1_tpu_torch.train.pretrain_vision import graft_encoder_into_policy, load_encoder
 from rt1_tpu_torch.trainer.checkpoints import CheckpointManager
 from rt1_tpu_torch.trainer.metrics import MetricsWriter, ThroughputMeter, scalars_from_metrics
-from rt1_tpu_torch.trainer.state import TrainState, create_train_state
+from rt1_tpu_torch.trainer.state import TrainState, create_train_state, shard_train_state
 from rt1_tpu_torch.trainer.train import optimizer_from_config, train_step_fns_from_config
 
 EMBEDDING_DIM = 512
@@ -99,13 +119,16 @@ def build_model(config: Config, device=None):
     return policy.to(resolve_device(device))
 
 
-def synthetic_batch(config: Config, seed: int, index: int, device) -> tuple:
+def synthetic_batch(config: Config, seed: int, index: int, device, block: int = 0,
+                    blocks: int = 1) -> tuple:
     """Batch `index` of the synthetic stream `seed` on `device`: images
     uniform in [0, 1), instruction embeddings N(0, 1), terminate flags in
     {0, 1}, 2-d actions uniform in [-0.1, 0.1) — the distributions of the
-    JAX package's `synthetic_batches`."""
+    JAX package's `synthetic_batches`. With `blocks` > 1, block `block` of
+    the global batch of `per_host_batch_size * blocks` rows (a rank's
+    rows)."""
     device = torch.device(device)
-    b, t = config.per_host_batch_size, config.model.time_sequence_length
+    b, t = config.per_host_batch_size * blocks, config.model.time_sequence_length
     h, w = config.data.height, config.data.width
     words = np.random.SeedSequence([seed, index]).generate_state(2, np.uint32)
     g = torch.Generator(device=device)
@@ -120,7 +143,46 @@ def synthetic_batch(config: Config, seed: int, index: int, device) -> tuple:
                                            dtype=torch.int32),
         "action": torch.rand((b, t, 2), generator=g, device=device) * 0.2 - 0.1,
     }
+    if blocks > 1:
+        n = config.per_host_batch_size
+        rows = slice(block * n, (block + 1) * n)
+        obs = {k: v[rows] for k, v in obs.items()}
+        actions = {k: v[rows] for k, v in actions.items()}
     return obs, actions
+
+
+def batch_blocks(grid) -> tuple:
+    """(this rank's block of the global batch, the number of blocks): the
+    data x fsdp coordinate and size; ranks along `seq` share a block."""
+    if grid is None:
+        return 0, 1
+    return grid.batch_index, grid.batch_ways
+
+
+def check_batch_plan(config: Config, plan: ShardingPlan) -> None:
+    """The batch against the plan, at the config seam. JAX's two checks
+    (`rt1_tpu/train/train.py`: the batch ways must divide across the
+    processes, and each process's rows over its share of them) hold by
+    construction with one device a process: the world is the grid, and a
+    process's share is one way. What is left: a rank's rows must split
+    into its micro-batches, and `sp` needs the ring attention."""
+    if config.per_host_batch_size % max(config.accum_steps, 1) != 0:
+        raise ValueError(f"per_host_batch_size={config.per_host_batch_size} is not divisible "
+                         f"by accum_steps={config.accum_steps}")
+    sp = plan.mesh.seq
+    if sp > 1 and (config.model.family != "rt1" or config.model.attention_impl != "ring"):
+        raise ValueError(f"parallel.sp={sp} needs model.attention_impl='ring' (the RT-1 "
+                         "decoder's sequence-parallel attention)")
+
+
+def check_window_plan(policy, plan: ShardingPlan) -> None:
+    """Under `sp` the decoder's window must split over the seq ranks."""
+    sp = plan.mesh.seq
+    if sp > 1:
+        tokens = policy.time_sequence_length * policy.single_step_tokens
+        if tokens % sp != 0:
+            raise ValueError(f"parallel.sp={sp}: the window of {tokens} tokens is not "
+                             f"divisible by the seq ranks")
 
 
 def make_clip_tokenizer(config: Config):
@@ -198,7 +260,8 @@ def _retrying(config: Config):
 
 
 def _packed_batches(config: Config, split: str, paths, seed: int,
-                    log: Callable[[Dict], None]) -> Optional[SampleAheadFeeder]:
+                    log: Callable[[Dict], None], block: int = 0,
+                    blocks: int = 1) -> Optional[SampleAheadFeeder]:
     """The packed-cache feed of `split`, or None (logged) when its pack is
     missing or stale, so that training falls back to the windowed loader
     rather than train on stale pixels. With `resilience.io_retry` the
@@ -225,23 +288,26 @@ def _packed_batches(config: Config, split: str, paths, seed: int,
         SampleAheadFeeder, cache, config.per_host_batch_size, seed=seed, shuffle=train,
         num_threads=d.feeder_threads, depth=d.feeder_depth,
         stall_timeout_s=d.feeder_stall_timeout_s,
-        refresh_at_epoch=train and d.packed_refresh,
+        # Single-process only, as in JAX: a per-rank refresh has no barrier.
+        refresh_at_epoch=train and d.packed_refresh and dist_lib.world_size() == 1,
         task_weights=parse_task_weights(d.task_weights) if train else None,
         # The per-task ids feed the RT-1 health pack's token statistics.
         emit_task_ids=train and config.obs.model_health and config.model.family == "rt1",
+        process_index=block, process_count=blocks,
         name="feeder_construct")
 
 
 def dataset_batches(config: Config, split: str = "train", seed: Optional[int] = None,
                     log: Callable[[Dict], None] = _print_json,
-                    pin_memory: bool = False) -> DataStream:
+                    pin_memory: bool = False, block: int = 0, blocks: int = 1) -> DataStream:
     """The endless host-batch stream of `<data_dir>/<split>/episode_*.np*`
     (counterpart of the JAX loop's `dataset_batches`): the packed cache's
     feeder when `data.packed_cache` and the pack is fresh, else the
     windowed loader. `seed` overrides `config.seed` (a guard rollback
     reopens the stream with a fresh one); `pin_memory` pins the torch
-    loader's batches for the upload. Raises FileNotFoundError when the
-    split has no episodes."""
+    loader's batches for the upload; `block` of `blocks` is a rank's share
+    of the stream (each loader's `process_index` / `process_count`).
+    Raises FileNotFoundError when the split has no episodes."""
     d = config.data
     loader = loader_name(config)
     stream_seed = config.seed if seed is None else seed
@@ -249,7 +315,7 @@ def dataset_batches(config: Config, split: str = "train", seed: Optional[int] = 
     if not paths:
         raise FileNotFoundError(f"No episodes under {d.data_dir}/{split}")
     if d.packed_cache:
-        feeder = _packed_batches(config, split, paths, stream_seed, log)
+        feeder = _packed_batches(config, split, paths, stream_seed, log, block, blocks)
         if feeder is not None:
             return DataStream(feeder, "packed")
     ds = WindowedEpisodeDataset(paths, window=config.model.time_sequence_length,
@@ -262,8 +328,10 @@ def dataset_batches(config: Config, split: str = "train", seed: Optional[int] = 
             prefetch_factor=d.prefetch_factor, pin_memory=pin_memory,
             # JAX's tf.data loader shuffles through a bounded buffer; the
             # torch and numpy loaders keep a full permutation an epoch.
-            shuffle_buffer=d.shuffle_buffer if d.loader == "tf" else None)), "torch")
-    return DataStream(ds.numpy_batches(config.per_host_batch_size, seed=stream_seed), "numpy")
+            shuffle_buffer=d.shuffle_buffer if d.loader == "tf" else None,
+            process_index=block, process_count=blocks)), "torch")
+    return DataStream(ds.numpy_batches(config.per_host_batch_size, seed=stream_seed,
+                                       process_index=block, process_count=blocks), "numpy")
 
 
 class TrainFeed:
@@ -275,16 +343,17 @@ class TrainFeed:
     `peek()` pulls the first batch ahead and hands it out again."""
 
     def __init__(self, config: Config, dev: torch.device, timeline, seed: int, start_step: int,
-                 log: Callable[[Dict], None]):
+                 log: Callable[[Dict], None], grid=None):
         self.host = None
+        block, blocks = batch_blocks(grid)
         if config.data.data_dir:
             stream = dataset_batches(config, "train", seed=seed, log=log,
-                                     pin_memory=dev.type == "cuda")
+                                     pin_memory=dev.type == "cuda", block=block, blocks=blocks)
             self.host, self.loader = stream.batches, stream.loader
             source = self.host
         else:
             self.loader = "synthetic"
-            source = (synthetic_batch(config, seed, start_step + i, dev)
+            source = (synthetic_batch(config, seed, start_step + i, dev, block, blocks)
                       for i in itertools.count())
         plan = faults.active()
         if plan is not None:
@@ -333,35 +402,39 @@ class TrainFeed:
             closer()
 
 
-def checkpoint_manager(config: Config, workdir: str, on_io=None) -> CheckpointManager:
+def checkpoint_manager(config: Config, workdir: str, on_io=None, grid=None) -> CheckpointManager:
     """The run's checkpoints under `<workdir>/checkpoints`, retained as the
     JAX trainer retains them (`rt1_tpu/train/train.py:680-689`):
     `max_to_keep or None`, so 0 keeps every step, and `keep_period`; with
     `resilience.io_retry` each save and restore retries with backoff, and
-    `on_io` receives each one's seconds."""
+    `on_io` receives each one's seconds; with the `grid` of a
+    multi-process run the saves are sharded."""
     return CheckpointManager(os.path.join(workdir, "checkpoints"),
                              max_to_keep=config.max_to_keep or None,
                              keep_period=config.keep_period, seed=config.seed,
                              retry=resilience.ResilienceOptions.from_config(config).retry_options(),
-                             on_io=on_io)
+                             on_io=on_io, grid=grid)
 
 
-def _eval_feed(config: Config, dev: torch.device, log):
+def _eval_feed(config: Config, dev: torch.device, log, grid=None):
     """(the eval batches' callable or None, the device feeder to close or
     None): `eval_batches` batches from the running `<data_dir>/val` stream
     (no eval without that split), or the fixed synthetic batches of seed
     `seed + 1`."""
     if not config.eval_every_steps:
         return None, None
+    block, blocks = batch_blocks(grid)
     if config.data.data_dir:
         try:
             feed = device_feeder(dataset_batches(config, "val", log=log,
-                                                 pin_memory=dev.type == "cuda").batches,
+                                                 pin_memory=dev.type == "cuda", block=block,
+                                                 blocks=blocks).batches,
                                  dev, depth=1)
         except FileNotFoundError:
             return None, None  # no val split: no eval, as in JAX
         return (lambda: [next(feed) for _ in range(config.eval_batches)]), feed
-    fixed = [synthetic_batch(config, config.seed + 1, i, dev) for i in range(config.eval_batches)]
+    fixed = [synthetic_batch(config, config.seed + 1, i, dev, block, blocks)
+             for i in range(config.eval_batches)]
     return (lambda: fixed), None
 
 
@@ -372,6 +445,30 @@ def _stamp_manifest(config: Config, workdir: str) -> None:
         os.makedirs(workdir, exist_ok=True)
         with open(os.path.join(workdir, "data_manifest.json"), "w") as f:
             json.dump(manifest, f, indent=2, sort_keys=True)
+
+
+def _flag_group(grid):
+    """The group the loop shares the preemption flag over, None for one
+    process: a gloo group of every rank, so that the per-step poll is a
+    host all-reduce and never waits for the card (on an NCCL world a
+    device all-reduce read back with `.item()` would sync every step)."""
+    if not grid.distributed:
+        return None
+    import torch.distributed as dist
+
+    return dist.new_group(backend="gloo")
+
+
+def _any_rank(flag: bool, group) -> bool:
+    """`flag` on any rank of `group` (a signal may reach one rank only; the
+    ranks must save and stop together); `flag` itself without a group."""
+    if group is None:
+        return flag
+    import torch.distributed as dist
+
+    t = torch.tensor([1 if flag else 0], dtype=torch.int32)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return bool(t.item())
 
 
 def train_and_evaluate(config: Config, workdir: str, device=None,
@@ -395,14 +492,29 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
     trace and the Prometheus listener (`obs.prometheus_port`); all of them
     are torn down on every exit.
     """
+    check_parallel_config(config)
     dev = resolve_device(device)
+    # The rendezvous first, before any device access (a no-op unless
+    # parallel.distributed is on), then ONE plan resolution into the grid.
+    dist_lib.initialize_from_config(config, dev)
+    dev = dist_lib.rank_device(dev)
+    plan = ShardingPlan.from_config(config)
+    check_batch_plan(config, plan)
+    grid = mesh_lib.RankGrid(plan.mesh)
+    primary = dist_lib.is_primary()
     obs_opts = obs.ObsOptions.from_config(config, workdir)
+    if not primary:  # rank 0 logs; one writer of each side file, one scrape listener
+        log = lambda record: None  # noqa: E731
+        obs_opts = dataclasses.replace(obs_opts, trace=False, flight_recorder=False,
+                                       goodput_summary_path=None, prometheus_port=-1)
     res_opts = resilience.ResilienceOptions.from_config(config)
     # Released on every exit, in reverse order: a bound scrape port, a
     # signal handler or a process-wide tracer left behind poisons the next
     # run in this process.
     cleanup = contextlib.ExitStack()
     with cleanup:
+        mesh_lib.set_current(grid)
+        cleanup.callback(mesh_lib.set_current, None)
         if obs_opts.trace:
             # Before the feeds exist, or their workers' spans are lost.
             obs.trace.enable(obs_opts.trace_path, obs_opts.trace_max_events)
@@ -420,8 +532,12 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
 
         check_clip_token_config(config)
         policy = build_model(config, dev)
+        check_window_plan(policy, plan)
+        if config.model.family == "rt1":  # the rules describe RT-1's paths only, as in JAX
+            plan.check_coverage(policy)
         ckpt = checkpoint_manager(config, workdir,
-                                  on_io=ledger.note_io if ledger is not None else None)
+                                  on_io=ledger.note_io if ledger is not None else None,
+                                  grid=grid)
         pretrained = config.model.pretrained_encoder
         if pretrained and ckpt.latest_step() is None:
             # The JAX loop's graft (`rt1_tpu/train/train.py:642-670`): a
@@ -431,12 +547,14 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
             log({"status": "grafted_pretrained_encoder", "path": pretrained})
         optimizer = optimizer_from_config(config)
         state = create_train_state(policy, optimizer)
+        if grid.size("fsdp") > 1:  # ZeRO-3: this rank's chunk of the masters and moments
+            shard_train_state(state, grid.index("fsdp"), grid.size("fsdp"), optimizer)
         state, initial_step = ckpt.restore_or_initialize(state)
 
         timeline = obs.StepTimeline(window=obs_opts.stall_window, sync=obs_opts.sync_timing)
-        if config.data.data_dir:
+        if config.data.data_dir and primary:
             _stamp_manifest(config, workdir)
-        live = {"train": TrainFeed(config, dev, timeline, config.seed, initial_step, log)}
+        live = {"train": TrainFeed(config, dev, timeline, config.seed, initial_step, log, grid)}
         cleanup.callback(lambda: live["train"].close())
         feeder_stats = live["train"].stats()
         # Flywheel corpus gauges (shards / freshness epoch / corpus size /
@@ -445,7 +563,8 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
         flywheel_stats = live["train"].flywheel_stats()
         fns = train_step_fns_from_config(
             config, optimizer,
-            health_task_names=getattr(live["train"].host, "health_task_names", ()) or ())
+            health_task_names=getattr(live["train"].host, "health_task_names", ()) or (),
+            grid=grid)
         health_names = fns.health_names(state)
 
         if ledger is not None and obs_opts.goodput_mfu:
@@ -466,12 +585,13 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
             with obs.trace.span("goodput_flops_estimate"):
                 ledger.set_flops_per_step(obs.flops.train_step_flops(_forward_backward))
 
-        eval_next, eval_feed = _eval_feed(config, dev, log)
+        eval_next, eval_feed = _eval_feed(config, dev, log, grid)
         if eval_feed is not None:
             cleanup.callback(eval_feed.close)
-        writer = MetricsWriter(workdir)
-        meter = ThroughputMeter(config.per_host_batch_size, config.model.time_sequence_length,
-                                initial_step=initial_step)
+        writer = MetricsWriter(workdir, enabled=primary)
+        # The run's throughput: the global batch, every rank's rows.
+        meter = ThroughputMeter(config.per_host_batch_size * grid.batch_ways,
+                                config.model.time_sequence_length, initial_step=initial_step)
 
         recorder = None
         if obs_opts.flight_recorder:
@@ -487,6 +607,7 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
             coordinator = resilience.PreemptionCoordinator(callbacks=callbacks)
             coordinator.install()
             cleanup.callback(coordinator.uninstall)
+            flag_group = _flag_group(grid)
         elif recorder is not None:
             # SIGTERM chains to SIG_DFL and the process dies there: the host
             # trace must dump inside the handler.
@@ -538,7 +659,9 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
              "num_steps": config.num_steps, "learning_rate": config.learning_rate,
              "seed": config.seed,
              "compute_dtype": str(fns.compute_dtype).split(".")[-1],
-             "parameters": sum(p.numel() for p in policy.parameters()),
+             "parameters": sum(state.layout.numels),
+             "world": grid.world, "mesh": grid.mesh.shape,
+             "global_batch": config.per_host_batch_size * grid.batch_ways,
              "data_loader": live["train"].loader,
              "metrics_url": metrics_server.url if metrics_server is not None else None})
         crash_guard = recorder.dump_on_exception() if recorder is not None \
@@ -637,7 +760,8 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
                          "reason": step_guard.last_reason, "restored_step": target,
                          "seed": fresh_seed})
                     live["train"].close()
-                    live["train"] = TrainFeed(config, dev, timeline, fresh_seed, target, log)
+                    live["train"] = TrainFeed(config, dev, timeline, fresh_seed, target, log,
+                                              grid)
                     feeder_stats = live["train"].stats()
                     flywheel_stats = live["train"].flywheel_stats()
                     obs.trace.counter("guard_rollbacks", step_guard.rollbacks)
@@ -670,7 +794,7 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
                         ckpt.save(step + 1, state)
                     saved, saved_step = True, step + 1
 
-                if coordinator is not None and coordinator.triggered:
+                if coordinator is not None and _any_rank(coordinator.triggered, flag_group):
                     log({"status": "preempted", "signal": coordinator.signum, "step": step + 1})
                     if ledger is not None:
                         ledger.mark_preempted()

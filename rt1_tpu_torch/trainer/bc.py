@@ -65,9 +65,15 @@ class FrozenAdam(Adam):
             view.fill_(not is_frozen(name, self.frozen_prefixes))
         self.trainable = mask
 
-    def update(self, grads: torch.Tensor, state: AdamState,
-               params: torch.Tensor) -> Tuple[torch.Tensor, AdamState]:
-        new, new_state = super().update(grads, state, params)
+    def take_shard(self, shard) -> None:
+        """Keep the mask of chunk `shard` (`trainer/state.py::FlatShard`) of
+        the layout, for a ZeRO-3 state's chunk."""
+        if self.trainable is not None:
+            self.trainable = shard.take(self.trainable.to(torch.uint8)).bool()
+
+    def update(self, grads: torch.Tensor, state: AdamState, params: torch.Tensor,
+               grad_norm: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, AdamState]:
+        new, new_state = super().update(grads, state, params, grad_norm=grad_norm)
         if self.frozen_prefixes:
             if self.trainable is None:
                 raise ValueError("FrozenAdam.bind(names, layout, device) was not called")

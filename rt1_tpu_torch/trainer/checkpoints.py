@@ -11,7 +11,24 @@ their whole state. Nothing is read or written in Orbax's format.
 
 A save writes `state.pt.tmp` and renames it over `state.pt`
 (`os.replace`), so a reader sees a whole file or none; `latest_step`
-counts only directories that hold `state.pt`.
+counts only directories that hold `state.pt`, or a manifest.
+
+A multi-process run (a manager with a `grid` of an initialized world, or
+a ZeRO-3 state) writes the SHARDED format instead (JAX's Orbax writes per
+host shards too): the writer of each fsdp chunk (the rank at data
+coordinate 0 and seq coordinate 0 of its fsdp line) writes
+`shard_<f>_of_<F>.pt` with its chunk of the masters and both moments,
+rank 0 writes `replicated.pt` (the BatchNorm statistics and other buffers,
+the counters, the generator state) and then, after a barrier, the
+`manifest.json` that makes the step complete: the world, the rank grid,
+the padded and logical lengths, every parameter's name and shape, the
+shard files, and JAX's provenance (process and device counts). Rank 0
+alone also writes `<directory>/saved_under.json` and prunes. A step
+directory without its manifest is torn and not a step. `load_checkpoint`
+reads either format into the one-file layout (the logical flat vectors;
+`parallel/reshard.py`), and `restore` slices them for the state's own
+plan, so a checkpoint moves between fsdp sizes, data parallelism and the
+world of one unchanged.
 
 Retention follows the Orbax manager that the JAX package configures
 (`CheckpointManagerOptions(max_to_keep, keep_period)`): after each save,
@@ -34,6 +51,7 @@ fails.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import shutil
@@ -42,14 +60,30 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from rt1_tpu_torch.parallel import reshard
 from rt1_tpu_torch.resilience import faults
 from rt1_tpu_torch.resilience.retry import RetryOptions, retry_call
-from rt1_tpu_torch.trainer.state import TrainState
+from rt1_tpu_torch.trainer.state import FlatLayout, TrainState
 
 _log = logging.getLogger(__name__)
 
 FILENAME = "state.pt"
 FORMAT = "rt1_tpu_torch.trainer/1"
+MANIFEST = "manifest.json"
+REPLICATED = "replicated.pt"
+SHARDED_FORMAT = "rt1_tpu_torch.trainer/sharded-1"
+PROVENANCE = "saved_under.json"
+
+
+def shard_filename(index: int, count: int) -> str:
+    return f"shard_{index:05d}_of_{count:05d}.pt"
+
+
+def _write_json(path: str, record: Dict) -> None:
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(record, f, indent=2, sort_keys=True)
+    os.replace(tmp, path)
 
 
 def all_steps(directory: str) -> List[int]:
@@ -58,7 +92,8 @@ def all_steps(directory: str) -> List[int]:
         return []
     steps = []
     for name in os.listdir(directory):
-        if name.isdigit() and os.path.isfile(os.path.join(directory, name, FILENAME)):
+        if name.isdigit() and any(os.path.isfile(os.path.join(directory, name, f))
+                                  for f in (FILENAME, MANIFEST)):
             steps.append(int(name))
     return sorted(steps)
 
@@ -73,17 +108,45 @@ def checkpoint_path(directory: str, step: int) -> str:
 
 
 def load_checkpoint(directory: str, step: Optional[int] = None) -> Dict[str, Any]:
-    """The saved dict of `step` (default: the newest), on the CPU."""
+    """The saved dict of `step` (default: the newest), on the CPU, in the
+    one-file layout whatever the format: a sharded step's chunks are
+    assembled into the logical masters ("flat") and moments, and its
+    parameters unflattened into "policy" beside the buffers."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
-    return torch.load(checkpoint_path(directory, step), map_location="cpu", weights_only=True)
+    step_dir = os.path.join(directory, str(step))
+    if not os.path.isfile(os.path.join(step_dir, MANIFEST)):
+        return torch.load(checkpoint_path(directory, step), map_location="cpu", weights_only=True)
+    with open(os.path.join(step_dir, MANIFEST)) as f:
+        manifest = json.load(f)
+    if manifest.get("format") != SHARDED_FORMAT:
+        raise ValueError(f"not a {SHARDED_FORMAT} manifest: {manifest.get('format')!r}")
+    shards = [torch.load(os.path.join(step_dir, name), map_location="cpu", weights_only=True)
+              for name in manifest["shards"]]
+    replicated = torch.load(os.path.join(step_dir, REPLICATED), map_location="cpu",
+                            weights_only=True)
+    size = int(manifest["layout_size"])
+    flat, mu, nu = (reshard.assemble_flat([s[key] for s in shards], size)
+                    for key in ("flat", "mu", "nu"))
+    params = reshard.unflatten(flat, manifest["names"], manifest["shapes"], manifest["align"])
+    return {
+        "format": FORMAT,
+        "sharded": manifest,
+        "loop_step": replicated["loop_step"],
+        "step": replicated["step"],
+        "guard_skips": replicated["guard_skips"],
+        "policy": {**params, **replicated["buffers"]},
+        "flat": flat,
+        "optimizer": {"count": replicated["count"], "mu": mu, "nu": nu},
+        "rng": replicated["rng"],
+    }
 
 
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: Optional[int] = None, seed: int = 0,
                  keep_period: Optional[int] = None, retry: Optional[RetryOptions] = None,
-                 on_io: Optional[Callable[[str, float], None]] = None):
+                 on_io: Optional[Callable[[str, float], None]] = None, grid: Any = None):
         if max_to_keep is not None and max_to_keep < 1:
             raise ValueError(f"max_to_keep must be None (keep all) or >= 1, got {max_to_keep}")
         if keep_period is not None and keep_period < 1:
@@ -94,6 +157,9 @@ class CheckpointManager:
         self.seed = seed
         self.retry = retry
         self.on_io = on_io
+        # The rank grid of a multi-process run (`parallel.mesh.RankGrid`):
+        # with a process group the saves are sharded and collective.
+        self.grid = grid
         # Logical-operation ordinals of the fault sites: one per save or
         # restore, not per retry attempt.
         self._save_ops = 0
@@ -120,9 +186,15 @@ class CheckpointManager:
                 except Exception:  # noqa: BLE001 - accounting only
                     pass
 
+    def _sharded(self, state: TrainState) -> bool:
+        return state.shard is not None or (self.grid is not None and self.grid.distributed)
+
     def save(self, step: int, state: TrainState) -> str:
         """Write `state` as checkpoint `step` and prune old ones; returns
-        the file's path."""
+        the file's path (the manifest's, sharded). Sharded, every rank
+        calls it."""
+        if self._sharded(state):
+            return self._save_sharded(step, state)
         self._save_ops += 1
         op = self._save_ops
         opt = state.opt_state
@@ -146,6 +218,81 @@ class CheckpointManager:
         self._io(_save, "ckpt_save")
         self._prune()
         return path
+
+    def _save_sharded(self, step: int, state: TrainState) -> str:
+        import torch.distributed as dist
+
+        self._save_ops += 1
+        op = self._save_ops
+        grid = self.grid
+        rank = grid.rank if grid is not None else 0
+        coords = grid.coords if grid is not None else {}
+        shard = state.shard
+        index, count = (shard.index, shard.count) if shard is not None else (0, 1)
+        step_dir = os.path.join(self.directory, str(step))
+        writes_shard = coords.get("data", 0) == 0 and coords.get("seq", 0) == 0
+        opt = state.opt_state
+        param_names = set(state.names)
+
+        def _save():
+            faults.maybe_fail("ckpt_save", index=op, what=f"save at step {step}")
+            os.makedirs(step_dir, exist_ok=True)
+            if writes_shard:
+                path = os.path.join(step_dir, shard_filename(index, count))
+                torch.save({"flat": state.flat.detach().cpu(), "mu": opt.mu.detach().cpu(),
+                            "nu": opt.nu.detach().cpu()}, path + ".tmp")
+                os.replace(path + ".tmp", path)
+            if rank == 0:
+                path = os.path.join(step_dir, REPLICATED)
+                buffers = {k: v.detach().cpu() for k, v in state.policy.state_dict().items()
+                           if k not in param_names}
+                torch.save({"loop_step": int(step), "step": int(state.step),
+                            "guard_skips": int(state.guard_skips), "count": int(opt.count),
+                            "buffers": buffers,
+                            "rng": {"seed": int(self.seed), "step": int(step)}}, path + ".tmp")
+                os.replace(path + ".tmp", path)
+
+        self._io(_save, "ckpt_save")
+        distributed = dist.is_available() and dist.is_initialized()
+        if distributed:
+            dist.barrier()
+        manifest_path = os.path.join(step_dir, MANIFEST)
+        if rank == 0:
+            layout = state.layout
+            world = grid.world if grid is not None else 1
+            _write_json(manifest_path, {
+                "format": SHARDED_FORMAT,
+                "step": int(step),
+                "world": world,
+                "mesh": grid.mesh.shape if grid is not None else {},
+                "fsdp": count,
+                "padded_size": shard.size if shard is not None else layout.size,
+                "layout_size": layout.size,
+                "align": FlatLayout.ALIGN,
+                "names": list(state.names),
+                "shapes": [list(sh) for sh in layout.shapes],
+                "shards": [shard_filename(i, count) for i in range(count)],
+                # JAX's provenance (`saved_under.json`): one process, one device a rank.
+                "process_count": world,
+                "device_count": world,
+                "local_device_count": 1,
+            })
+            self._write_provenance(step, grid)
+            self._prune()
+        if distributed:
+            dist.barrier()
+        return manifest_path
+
+    def _write_provenance(self, step: int, grid) -> None:
+        """`<directory>/saved_under.json`, rank 0 only (best effort, as
+        JAX's: provenance must never take checkpointing down)."""
+        world = grid.world if grid is not None else 1
+        try:
+            _write_json(os.path.join(self.directory, PROVENANCE), {
+                "step": int(step), "process_count": world, "device_count": world,
+                "local_device_count": 1, "written_at_unix": time.time()})
+        except OSError:
+            pass
 
     def _prune(self) -> None:
         if self.max_to_keep is None:
@@ -174,14 +321,29 @@ class CheckpointManager:
             raise ValueError(f"not a {FORMAT} checkpoint: {ckpt.get('format')!r}")
         # Checked before anything is copied, so a step that fails leaves
         # `state` as it was for the fallback to an older one.
+        manifest = ckpt.get("sharded")
         if set(ckpt["policy"]) != set(state.policy.state_dict()) or \
-                not {"count", "mu", "nu"} <= set(ckpt["optimizer"]):
+                not {"count", "mu", "nu"} <= set(ckpt["optimizer"]) or \
+                (manifest is not None and (
+                    manifest["names"] != list(state.names)
+                    or [tuple(s) for s in manifest["shapes"]] != list(state.layout.shapes))):
             raise ValueError(f"checkpoint step {step} does not match the train state")
-        state.policy.load_state_dict(ckpt["policy"])
         opt = state.opt_state
+        if state.shard is None:
+            state.policy.load_state_dict(ckpt["policy"])
+        else:  # the masters take their chunk; the placeholders stay
+            flat = ckpt.get("flat")
+            if flat is None:
+                flat = state.layout.flatten([ckpt["policy"][n] for n in state.names])
+            params = set(state.names)
+            with torch.no_grad():
+                for name, buf in state.policy.named_buffers():
+                    if name not in params and name in ckpt["policy"]:
+                        buf.copy_(ckpt["policy"][name])
+            state.flat.copy_(reshard.place_flat(flat, state.shard))
         opt.count.fill_(ckpt["optimizer"]["count"])
-        opt.mu.copy_(ckpt["optimizer"]["mu"])
-        opt.nu.copy_(ckpt["optimizer"]["nu"])
+        opt.mu.copy_(reshard.place_flat(ckpt["optimizer"]["mu"], state.shard))
+        opt.nu.copy_(reshard.place_flat(ckpt["optimizer"]["nu"], state.shard))
         state.step.fill_(ckpt["step"])
         state.guard_skips.fill_(ckpt["guard_skips"])
         return int(ckpt["loop_step"])

@@ -47,14 +47,19 @@ def scalars_from_metrics(metrics: Mapping[str, Any]) -> Dict[str, float]:
 
 
 class MetricsWriter:
-    """Appends one JSON object per record to `<workdir>/metrics.jsonl`."""
+    """Appends one JSON object per record to `<workdir>/metrics.jsonl`;
+    `enabled=False` (a rank other than 0) returns the records and writes
+    nothing."""
 
-    def __init__(self, workdir: str, filename: str = "metrics.jsonl"):
-        os.makedirs(workdir, exist_ok=True)
+    def __init__(self, workdir: str, filename: str = "metrics.jsonl", enabled: bool = True):
+        self.enabled = enabled
+        if enabled:
+            os.makedirs(workdir, exist_ok=True)
         self.path = os.path.join(workdir, filename)
 
     def write(self, step: int, scalars: Mapping[str, float]) -> Dict[str, float]:
         record = {"step": int(step), **{k: float(v) for k, v in scalars.items()}}
-        with open(self.path, "a") as f:
-            f.write(json.dumps(record) + "\n")
+        if self.enabled:
+            with open(self.path, "a") as f:
+                f.write(json.dumps(record) + "\n")
         return record

@@ -85,12 +85,14 @@ class Adam:
             nu=torch.zeros_like(flat_params),
         )
 
-    def update(self, grads: torch.Tensor, state: AdamState,
-               params: torch.Tensor) -> Tuple[torch.Tensor, AdamState]:
-        """(new params, new state) for flat float32 `grads` and `params`."""
+    def update(self, grads: torch.Tensor, state: AdamState, params: torch.Tensor,
+               grad_norm: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, AdamState]:
+        """(new params, new state) for flat float32 `grads` and `params`.
+        `grad_norm`, when given, is the global norm clipping reads (a chunk
+        of a ZeRO-3 gradient does not know it)."""
         g = grads
         if self.grad_clip_norm:
-            g_norm = global_norm(g)
+            g_norm = global_norm(g) if grad_norm is None else grad_norm
             g = torch.where(g_norm < self.grad_clip_norm, g, (g / g_norm) * self.grad_clip_norm)
         if self.weight_decay:
             g = g + self.weight_decay * params

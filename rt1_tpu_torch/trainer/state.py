@@ -9,6 +9,15 @@ the same layout. A step therefore updates the masters and the statistics
 with one copy each, and the policy sees the result with no per-parameter
 work. `step` counts the updates applied (a step the guard skipped does not
 count), on the policy's device; `guard_skips` counts the skipped ones.
+
+Under `parallel.fsdp` > 1 (ZeRO-3, `shard_train_state`) the state keeps
+only its chunk of the masters and of both moments: `flat`, `mu` and `nu`
+are elements [lo, hi) of the layout's vector padded to `shard.size`, a
+multiple of the fsdp ranks (`FlatShard`). The policy's parameters then
+hold no values of their own: each is a NaN expanded to its shape (one
+element of storage), so a read that bypasses the step's gathered compute
+copy shows at once. The BatchNorm statistics, the counters and `layout`
+stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -71,6 +80,37 @@ def floating_buffers(policy: nn.Module) -> List[torch.Tensor]:
     return [b for b in policy.buffers() if b.is_floating_point()]
 
 
+@dataclasses.dataclass(frozen=True)
+class FlatShard:
+    """Chunk `index` of `count` of a flat vector padded to `size`."""
+    index: int
+    count: int
+    size: int
+
+    @property
+    def chunk(self) -> int:
+        return self.size // self.count
+
+    @property
+    def lo(self) -> int:
+        return self.index * self.chunk
+
+    @property
+    def hi(self) -> int:
+        return self.lo + self.chunk
+
+    @classmethod
+    def of(cls, length: int, index: int, count: int) -> "FlatShard":
+        """Chunk `index` of `count` of a vector of `length` elements."""
+        return cls(index, count, -(-length // count) * count)
+
+    def take(self, full: torch.Tensor) -> torch.Tensor:
+        """This chunk of the logical vector `full` (zero-padded to `size`),
+        as a tensor of its own."""
+        padded = torch.nn.functional.pad(full.detach(), (0, self.size - full.numel()))
+        return padded[self.lo:self.hi].clone()
+
+
 @dataclasses.dataclass
 class TrainState:
     step: torch.Tensor          # int64 scalar: updates applied
@@ -79,8 +119,32 @@ class TrainState:
     guard_skips: torch.Tensor   # int64 scalar: updates the guard dropped
     layout: FlatLayout          # of the parameters, in `names` order
     names: List[str]
-    flat: torch.Tensor          # the float32 masters
+    flat: torch.Tensor          # the float32 masters (this rank's chunk under `shard`)
     flat_buffers: torch.Tensor  # the BatchNorm statistics
+    shard: Optional[FlatShard] = None   # ZeRO-3: which chunk `flat` and the moments are
+
+
+def shard_train_state(state: TrainState, index: int, count: int,
+                      optimizer=None) -> TrainState:
+    """Keep only chunk `index` of `count` of the masters and moments
+    (`FlatShard`), in place; the policy's parameters become NaN
+    placeholders of their shapes. An `optimizer` with per-parameter rules
+    (`bc.FrozenAdam`) keeps its rules' chunk. Returns `state`."""
+    if state.shard is not None:
+        raise ValueError("the train state is already sharded")
+    shard = FlatShard.of(state.layout.size, index, count)
+    opt = state.opt_state
+    state.flat = shard.take(state.flat)
+    state.opt_state = AdamState(count=opt.count, mu=shard.take(opt.mu), nu=shard.take(opt.nu))
+    state.shard = shard
+    take = getattr(optimizer, "take_shard", None)
+    if take is not None:
+        take(shard)
+    nan = torch.full((), float("nan"), dtype=torch.float32, device=state.flat.device)
+    with torch.no_grad():
+        for p in state.policy.parameters():
+            p.data = nan.expand(p.shape)
+    return state
 
 
 def create_train_state(policy: nn.Module, optimizer: Adam) -> TrainState:

@@ -58,12 +58,50 @@ step is the step without it, bit for bit. A batch whose observations carry
 `obs.health.TASK_ID_KEY` (the feeder's `emit_task_ids`) has it stripped
 before the model, and with `health_task_names` the pack reduces its
 per-example loss and accuracy by task.
+
+Several ranks (`grid`, a `parallel.mesh.RankGrid` of an initialized
+`torch.distributed` world; the port's counterpart of JAX's sharded step,
+`rt1_tpu/trainer/train.py:234-266`). Each rank holds its block of the
+global batch (ranks along `seq` share one) and runs the step by hand,
+without `DistributedDataParallel` or `FullyShardedDataParallel`, which see
+neither the functional call over the flat copy nor this Adam:
+
+* The forward runs in `parallel.collectives.batch_shard`: BatchNorm's
+  statistics are the global batch's, dropout and stochastic depth draw
+  the global batch's masks and keep this rank's rows, and the MoE FFN
+  routes the global batch (global capacity and queue order), so the ranks
+  compute what the world of one computes on the global batch. The MoE
+  load-balancing loss, a mean and not in the reference scale, enters each
+  rank's loss as its part of the global loss times the divisor below.
+* The flat float32 gradient is summed over the batch ranks (data x fsdp)
+  and divided by W x extra, W the batch ranks: the reference loss scale
+  makes a rank's loss on b/W rows W times its share of the global loss
+  (extra = W; a family's mean loss, LAVA's MSE, needs extra = 1), the
+  world-size form of the accumulation rule. The loss is reduced the same
+  way; `moe_aux_loss` is the sum of the ranks' parts, `aux_mse` the mean
+  over the ranks.
+* fsdp > 1 is ZeRO-3 in JAX's schedule: the state holds 1/fsdp chunks of
+  the masters and moments (`trainer/state.py::shard_train_state`); once a
+  step the chunk is cast to the compute dtype and all-gathered into the
+  flat compute copy (cast first: a bf16 gather moves half the bytes), the
+  MoE routers' float32 masters are gathered too, the gradient is
+  reduce-scattered into chunks (then all-reduced over data), and each
+  rank updates its chunk.
+* What decides or reports is global on every rank: the loss, the gradient
+  norm (squared sums of the chunks all-reduced), hence clipping and the
+  guard's verdict, `action_loss_mean` (in the reference scale, reduced as
+  the loss) and the health pack. Every rank therefore applies or skips
+  the same updates.
+
+An initialized world of one runs the same collectives on one-rank groups
+and computes the one-process step's numbers bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -133,11 +171,30 @@ class TrainStepFns:
     # Another family's loss (`trainer/bc.py::make_bc_step_loss_fn`):
     # (policy, params, obs, actions, train, rngs) -> {"loss", ...}.
     loss_fn: Optional[Callable] = None
+    # The rank grid of a multi-process run (`parallel.mesh.RankGrid`); None
+    # or a grid without a process group is the one-process step.
+    grid: Optional[Any] = None
     _health: Optional[HealthPack] = dataclasses.field(default=None, init=False, repr=False)
+    _comms: Optional[Any] = dataclasses.field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         if self.accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {self.accum_steps}")
+        if self.grid is not None and self.grid.distributed:
+            from rt1_tpu_torch.parallel.collectives import StepComms
+
+            self._comms = StepComms(self.grid)
+
+    def _loss_divisor(self) -> float:
+        """W x extra (see the module docstring); 1 without ranks."""
+        if self._comms is None:
+            return 1.0
+        ways = float(self._comms.ways)
+        return ways * (ways if self.loss_fn is None else 1.0)
+
+    def _forward_context(self):
+        return self._comms.forward_context() if self._comms is not None \
+            else contextlib.nullcontext()
 
     def _health_pack(self, state: TrainState) -> HealthPack:
         """The pack of `state`'s layout, built at first use. Action
@@ -145,10 +202,11 @@ class TrainStepFns:
         if self._health is None:
             rt1 = self.accum_steps == 1 and self.loss_fn is None
             action_dims = state.policy.tokens_per_action if rt1 else 0
+            chunk = (state.shard.lo, state.shard.hi) if state.shard is not None else None
             self._health = HealthPack(param_paths(state.policy), state.layout.padded,
                                       state.flat.device, depth=self.health_group_depth,
                                       action_dims=action_dims,
-                                      task_names=self.health_task_names)
+                                      task_names=self.health_task_names, chunk=chunk)
         return self._health
 
     def health_names(self, state: TrainState) -> Tuple[str, ...]:
@@ -159,30 +217,59 @@ class TrainStepFns:
         """(the flat compute copy of the masters, its views by name, the
         float32 copies of the MoE routers by parameter index). The routers keep
         float32 weights unless mixed precision casts every leaf, as JAX's
-        modules keep a `dtype=float32` Dense's params."""
-        copy = state.flat.detach().to(self.compute_dtype, copy=True)
+        modules keep a `dtype=float32` Dense's params. Under fsdp the copy is
+        the all-gather of every rank's chunk, cast first."""
+        if state.shard is None:
+            copy = state.flat.detach().to(self.compute_dtype, copy=True)
+        else:
+            copy = self._comms.gather_flat(state.flat.detach().to(self.compute_dtype),
+                                           state.shard.size)
         copy.requires_grad_(requires_grad)
-        views = state.layout.views(copy)
+        views = state.layout.views(copy[:state.layout.size])
         kept = {}
         if self.compute_dtype != torch.float32 and not self.mixed_precision:
-            masters = state.layout.views(state.flat)
             routers = set(router_names(state.policy))
-            for i, name in enumerate(state.names):
-                if name in routers:
-                    kept[i] = masters[i].detach().clone().requires_grad_(requires_grad)
-                    views[i] = kept[i]
+            indices = [i for i, name in enumerate(state.names) if name in routers]
+            for i, master in self._float32_masters(state, indices).items():
+                kept[i] = master.detach().clone().requires_grad_(requires_grad)
+                views[i] = kept[i]
         return copy, dict(zip(state.names, views)), kept
+
+    def _float32_masters(self, state: TrainState, indices) -> Dict[int, torch.Tensor]:
+        """The whole float32 masters of the parameters `indices`: views of
+        `state.flat`, or under fsdp the sum over the fsdp ranks of each
+        rank's part of them (the parts are disjoint: a gather)."""
+        if not indices:
+            return {}
+        layout = state.layout
+        if state.shard is None:
+            masters = layout.views(state.flat)
+            return {i: masters[i] for i in indices}
+        shard = state.shard
+        offsets = np.concatenate([[0], np.cumsum(layout.padded)])
+        pieces = []
+        for i in indices:
+            start, n = int(offsets[i]), layout.numels[i]
+            piece = torch.zeros(n, dtype=torch.float32, device=state.flat.device)
+            lo, hi = max(start, shard.lo), min(start + n, shard.hi)
+            if lo < hi:
+                piece[lo - start:hi - start] = state.flat[lo - shard.lo:hi - shard.lo]
+            pieces.append(piece)
+        whole = self._comms.sum_shards(torch.cat(pieces))
+        parts = whole.split([layout.numels[i] for i in indices])
+        return {i: p.view(layout.shapes[i]) for i, p in zip(indices, parts)}
 
     def _grad(self, state: TrainState, batch: Batch, rngs: Mapping[str, torch.Generator]):
         """Loss, float32 flat gradient and aux dict of one (micro-)batch."""
         copy, params, kept = self._compute_copy(state, requires_grad=True)
         obs, actions = batch
         obs, task_ids = _strip_task_ids(obs)
-        out = self.forward(state.policy, params, obs, actions, rngs)
+        with self._forward_context():
+            out = self.forward(state.policy, params, obs, actions, rngs)
         grads = torch.autograd.grad(out["loss"], [copy, *kept.values()])
         grad = grads[0].to(torch.float32)
         if kept:
-            grad_views = state.layout.views(grad)
+            grad_views = state.layout.views(grad[:state.layout.size])
             for i, g in zip(kept, grads[1:]):
                 grad_views[i].copy_(g)
         out = {k: v.detach() for k, v in out.items()}
@@ -200,14 +287,36 @@ class TrainStepFns:
         out = torch.func.functional_call(policy, params, (obs, actions),
                                          {"train": True, "rngs": rngs})
         if "moe_aux_loss" in out:
-            out = dict(out, loss=out["loss"] + self.moe_aux_weight * out["moe_aux_loss"])
+            # With ranks, "moe_aux_loss" is this rank's part of the global
+            # load-balancing loss (`models/moe.py`): times the divisor, it
+            # keeps its weight through the step's sum over ranks / divisor.
+            weight = self.moe_aux_weight * self._loss_divisor()
+            out = dict(out, loss=out["loss"] + weight * out["moe_aux_loss"])
         return out
 
     def value_and_grad(self, state: TrainState, batch: Batch, step: int):
         """(loss, flat float32 gradient, aux dict) of the train-mode loss at
         the current masters, accumulated over `accum_steps` micro-batches;
-        the BatchNorm statistics advance as in a step. `grads_by_name`
-        unflattens the gradient."""
+        the BatchNorm statistics advance as in a step. With ranks, the
+        global loss and gradient (this rank's chunk of it under fsdp) and
+        the monitors' means over the ranks. `grads_by_name` unflattens a
+        whole gradient."""
+        loss, grad, out = self._local_value_and_grad(state, batch, step)
+        comms = self._comms
+        if comms is None:
+            return loss, grad, out
+        divisor = self._loss_divisor()
+        grad = comms.reduce_grad(grad, state.shard) / divisor
+        loss = comms.sum_rows(loss) / divisor
+        out = dict(out, loss=loss)
+        if "aux_mse" in out:
+            out["aux_mse"] = comms.mean_rows(out["aux_mse"])
+        if "moe_aux_loss" in out:  # the ranks' parts of the global loss
+            out["moe_aux_loss"] = comms.sum_rows(out["moe_aux_loss"])
+        return loss, grad, out
+
+    def _local_value_and_grad(self, state: TrainState, batch: Batch, step: int):
+        """`value_and_grad` of this rank's rows alone."""
         device, augment = state.flat.device, self.photometric_augmentation
         if self.accum_steps == 1:
             return self._grad(state, batch, step_rngs(self.seed, step, device, augment=augment))
@@ -234,6 +343,13 @@ class TrainStepFns:
             out["moe_aux_loss"] = moe / self.accum_steps
         return loss, grad, out
 
+    def grad_norm(self, state: TrainState, grad: torch.Tensor) -> torch.Tensor:
+        """The global norm of the (reduced) gradient: of its chunks' squared
+        sums summed over the fsdp ranks under fsdp."""
+        if state.shard is None:
+            return global_norm(grad)
+        return torch.sqrt(self._comms.sum_shards(torch.sum(torch.square(grad))))
+
     @staticmethod
     def grads_by_name(state: TrainState, grad: torch.Tensor) -> Dict[str, torch.Tensor]:
         return dict(zip(state.names, state.layout.views(grad)))
@@ -246,20 +362,25 @@ class TrainStepFns:
         if self.guard_nonfinite:
             old_buffers = state.flat_buffers.clone()
         loss, grad, out = self.value_and_grad(state, batch, step)
-        grad_norm = global_norm(grad)
-        new_flat, new_opt = self.optimizer.update(grad, state.opt_state, state.flat)
+        grad_norm = self.grad_norm(state, grad)
+        # Clipping reads the global norm (a ZeRO-3 chunk's own is not).
+        new_flat, new_opt = self.optimizer.update(grad, state.opt_state, state.flat,
+                                                  grad_norm=grad_norm)
         metrics = {"loss": loss, "grad_norm": grad_norm}
         if keep_grad:
             metrics["grad"] = grad
         if "action_loss" in out:
             metrics["action_loss_mean"] = out["action_loss"].mean()
+            if self._comms is not None:  # in the reference scale, as the loss
+                metrics["action_loss_mean"] = self._comms.sum_rows(
+                    metrics["action_loss_mean"]) / self._loss_divisor()
         if "aux_mse" in out:
             metrics["aux_mse"] = out["aux_mse"]
         if "moe_aux_loss" in out:  # the routing-collapse monitor
             metrics["moe_aux_loss"] = out["moe_aux_loss"]
         if self.model_health:
             metrics[PACK_KEY] = self._health_pack(state).compute(
-                grad, new_flat - state.flat, new_flat, out)
+                grad, new_flat - state.flat, new_flat, out, comms=self._comms)
         if self.guard_nonfinite:
             ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
             if self.guard_grad_norm_max > 0:
@@ -287,11 +408,21 @@ class TrainStepFns:
         obs, actions = batch
         obs, _ = _strip_task_ids(obs)
         if self.loss_fn is not None:
-            return {"loss": self.loss_fn(state.policy, params, obs, actions, False, None)["loss"]}
-        out = torch.func.functional_call(state.policy, params, (obs, actions), {"train": False})
-        labels, preds = out["action_labels"], out["action_predictions"]
-        return {"loss": out["loss"],
-                "token_accuracy": (preds == labels).to(torch.float32).mean()}
+            with self._forward_context():
+                out = {"loss": self.loss_fn(state.policy, params, obs, actions, False,
+                                            None)["loss"]}
+        else:
+            with self._forward_context():  # the MoE routes the global batch
+                result = torch.func.functional_call(state.policy, params, (obs, actions),
+                                                    {"train": False})
+            labels, preds = result["action_labels"], result["action_predictions"]
+            out = {"loss": result["loss"],
+                   "token_accuracy": (preds == labels).to(torch.float32).mean()}
+        if self._comms is not None:  # the global batch's, as the train loss
+            out["loss"] = self._comms.sum_rows(out["loss"]) / self._loss_divisor()
+            if "token_accuracy" in out:
+                out["token_accuracy"] = self._comms.mean_rows(out["token_accuracy"])
+        return out
 
 
 def optimizer_from_config(config) -> Adam:
@@ -306,11 +437,13 @@ def optimizer_from_config(config) -> Adam:
 
 
 def train_step_fns_from_config(config, optimizer: Optional[Adam] = None,
-                               health_task_names: Tuple[str, ...] = ()) -> TrainStepFns:
+                               health_task_names: Tuple[str, ...] = (),
+                               grid: Optional[Any] = None) -> TrainStepFns:
     """The steps `config` describes. Compute in bf16 when the model does or
     mixed precision is on (which forces bf16 compute, as in JAX); the LAVA
     family computes in float32 on `trainer/bc.py`'s loss.
-    `health_task_names` are the feeder's, when it emits task ids."""
+    `health_task_names` are the feeder's, when it emits task ids; `grid`
+    the rank grid of a multi-process run."""
     bf16 = config.parallel.mixed_precision or config.model.dtype == "bfloat16"
     loss_fn = None
     if config.model.family == "lava":
@@ -332,4 +465,5 @@ def train_step_fns_from_config(config, optimizer: Optional[Adam] = None,
         moe_aux_weight=config.model.moe_aux_weight,
         mixed_precision=config.parallel.mixed_precision,
         loss_fn=loss_fn,
+        grid=grid,
     )

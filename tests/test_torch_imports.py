@@ -169,6 +169,16 @@ def test_moe_and_lava_modules_are_among_those_imported():
         assert name in names, name
 
 
+PARALLEL_MODULES = tuple(f"rt1_tpu_torch.parallel.{m}" for m in (
+    "mesh", "sharding", "plan", "distributed", "collectives", "reshard", "ring_attention"))
+
+
+def test_parallel_modules_are_among_those_imported():
+    names = set(_port_modules())
+    for name in PARALLEL_MODULES:
+        assert name in names, name
+
+
 def test_clip_bpe_runs_without_the_regex_package():
     """The card's machine has no `regex`: with it blocked too, the port's
     CLIP BPE takes the stdlib split and still tokenizes."""
