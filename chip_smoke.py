@@ -235,7 +235,27 @@ exits non-zero without a result line:
              hold: plain placement) and a float32 `infer_step`, beside the
              same from the unsharded state: logits and actions equal bit
              for bit, 8 tensor-core launches a bf16 engine step, 8 tf32x3
-             launches the float32 step.
+             launches the float32 step; (d) tensor and pipeline
+             parallelism at the flagship's widths, float32, batch 2, one
+             step from the seed-0 state, randomness off: a tp=2 pair on
+             the card (gloo, both ranks on cuda:0: NCCL takes one device a
+             rank) and a pp=2 pair (2 microbatches) on the host CPU (gloo
+             sends no CUDA tensor point to point), each against its world
+             of one on the same weights and batch (the tp one in process
+             on the card, the pp one beside its pair on the host): loss,
+             the parts' flat gradient assembled into the world of one's
+             and the gradient norm within `PARALLEL_PAIR_TOL`; the tp pair
+             then runs a bf16 eval step of 8 rows through the fused kernel
+             on 4 heads a rank (8 tensor-core launches a rank, as its world
+             of one on 8 heads; eval loss within the stated bf16
+             tolerance); each pair writes its sharded checkpoint; (e) the
+             card serves each pair's checkpoint as (c) serves fsdp's,
+             beside the same state restored at world one and saved in the
+             one-file format: logits and actions bit for bit, 8
+             tensor-core launches a bf16 engine step, 8 tf32x3 the float32
+             step; (f) the kernel at a tp rank's heads, (8, 66, 4, 128)
+             and (8, 66, 2, 128) in bf16 and float32, under `kernel`'s
+             gates; these cases join the `kernels` line's.
 17. serve_modes — the serving modes at the flagship's width, every engine
              derived in process from the parity phase's seeded f32 master
              weights: card vs CPU in float32 (TF32 off): the int8 tree bit
@@ -389,9 +409,11 @@ exits non-zero without a result line:
              tensor-core kernel, in the train CLI's evals of phase train_ops
              (`train_ops_launches`), in each replica the load generator
              reached (`loadgen_launches`), in the MoE flagship's bf16
-             engine and float32 step (`moe_launches`), in the engine and
-             float32 step restored from the fsdp=2 checkpoint
-             (`parallel_launches`), errors, times and bound.
+             engine and float32 step (`moe_launches`), in the engines and
+             float32 steps restored from the fsdp=2, tp=2 and pp=2
+             checkpoints and in the tp pair's eval step, by rank
+             (`parallel_launches`), errors (phase parallel's (f) cases
+             among them), times and bound.
 
 The last line is `{"ok": true, "device": {...}}`.
 """
@@ -542,7 +564,9 @@ def kernel_cases():
     """(name, b, s, h, d, dtype, mask kind, forced variant or None). The
     serve shape is the flagship window s = 6*(8+3) = 66 with 8 heads of
     128, at the engine's buckets 1, 2, 4 and 8; the `tiny` config's is
-    s = 3*(2+3) = 15 with 2 heads of 8. Each case runs the kernel
+    s = 3*(2+3) = 15 with 2 heads of 8; a tp rank's serve shape has 8 / tp
+    heads (`tp_kernel_cases`, which phase parallel runs again, its device
+    time profiled here). Each case runs the kernel
     `flash_attention._variant` names: bf16 with d % 16 == 0 the tensor-core
     kernel, float32 with d % 8 == 0 the tf32x3 kernel (both with the head
     dim padded in shared memory where it is not 64, 128 or 256), rows off
@@ -589,7 +613,7 @@ def kernel_cases():
         ("tiny_float32_rt1", 2, 15, 2, 8, "float32", "rt1_tiny"),
         ("tiny_bfloat16_rt1", 2, 15, 2, 8, "bfloat16", "rt1_tiny"),
     ]
-    return [case + (None,) for case in cases] + [
+    return [case + (None,) for case in cases] + tp_kernel_cases() + [
         ("serve_b8_float32_rt1_forced_simple", 8, 66, 8, 128, "float32", "rt1", "simple"),
         ("ragged_s37_float32_causal_forced_simple", 8, 37, 8, 128, "float32", "causal", "simple"),
     ]
@@ -654,69 +678,82 @@ def _qkv(rng, b, s, h, d, tdt, packed=False, misaligned=False):
     )
 
 
-def phase_kernel():
-    """Kernels vs plain on the card. Returns the per-case records."""
-    import numpy as np
+def _kernel_case(rng, name, b, s, h, d, dtype, mask_kind, forced, phase="kernel"):
+    """One case against the plain version (TF32 off) under the gates of
+    `kernel`: the variant `_variant` names (or `forced`) runs, within
+    `TOL` (bf16 also within one ulp); its record with the kernel's, the
+    plain version's and SDPA's ms and the bound."""
     import torch
     import torch.nn.functional as F
 
     from rt1_tpu_torch.parallel import flash_attention as fa
     from rt1_tpu_torch.parallel.flash_attention import fused_attention, fused_attention_reference
 
+    tdt = getattr(torch, dtype)
+    q, k, v = _qkv(rng, b, s, h, d, tdt, packed=name.startswith("packed_"),
+                   misaligned=name.startswith("misaligned_"))
+    mask = make_mask(mask_kind, s)
+    scale = 1.0 / d ** 0.5
+    if forced:
+        expected = forced
+        run = lambda: fa._launch(q, k, v, mask, scale, variant=forced)  # noqa: E731
+    else:
+        expected = fa.variant_of(q, k, v, mask)
+        run = lambda: fused_attention(q, k, v, mask=mask, scale=scale)  # noqa: E731
+    before = dict(fused_attention.launches_by_variant)
+    out = run()
+    ref = fused_attention_reference(q, k, v, mask=mask, scale=scale)
+    torch.cuda.synchronize()
+    ran = [x for x in fa.VARIANTS if fused_attention.launches_by_variant[x] != before[x]]
+    if ran != [expected]:
+        raise AssertionError(f"kernel case {name}: ran {ran}, expected {expected}")
+    err = float((out.float() - ref.float()).abs().max())
+    ulps = bf16_ulp_err(out, ref) if dtype == "bfloat16" else None
+    if not (torch.isfinite(out).all() and err <= TOL[dtype]) or (ulps is not None and ulps > 1.0):
+        raise AssertionError(f"kernel case {name}: max abs err {err} (tol {TOL[dtype]}), "
+                             f"{ulps} bf16 ulps (tol 1)")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_mask = None if mask is None else mask.bool()
+    record = {
+        "phase": phase, "case": name, "variant": expected, "forced": bool(forced),
+        "shape": [b, s, h, d], "dtype": dtype, "mask": mask_kind, "max_abs_err": err,
+        "tol": TOL[dtype], "max_err_ulps": ulps,
+        "kernel_ms": cuda_time_ms(run),
+        "plain_ms": cuda_time_ms(lambda: fused_attention_reference(q, k, v, mask=mask, scale=scale)),
+        # SDPA's kernels fault (cudaErrorMisalignedAddress) on views off
+        # 16-byte alignment: no yardstick there.
+        "library_ms": None if name.startswith("misaligned_") else cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask, scale=scale)
+        ),
+    }
+    record["bound_ms"], record["bound_by"] = attention_bound(b, s, h, d, dtype, mask is not None)
+    if phase == "kernel" and name.startswith(("serve_b8_", "tp")) and mask_kind == "rt1":
+        # Device-only time per call: the event times above include the
+        # host's launch cost whenever the host, not the card, is slower.
+        for key, fn in (
+            ("device_ms", run),
+            ("plain_device_ms", lambda: fused_attention_reference(q, k, v, mask=mask, scale=scale)),
+            ("library_device_ms", lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=sdpa_mask, scale=scale)),
+        ):
+            prof = device_profile(fn)
+            record[key] = None if prof is None else prof["busy_ms"]
+    return record
+
+
+def phase_kernel():
+    """Kernels vs plain on the card. Returns the per-case records."""
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.parallel import flash_attention as fa
+
     # The plain version's einsums in full fp32 (no TF32), as on the CPU.
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0)
     records = []
-    for name, b, s, h, d, dtype, mask_kind, forced in kernel_cases():
-        tdt = getattr(torch, dtype)
-        q, k, v = _qkv(rng, b, s, h, d, tdt, packed=name.startswith("packed_"),
-                       misaligned=name.startswith("misaligned_"))
-        mask = make_mask(mask_kind, s)
-        scale = 1.0 / d ** 0.5
-        if forced:
-            expected = forced
-            run = lambda: fa._launch(q, k, v, mask, scale, variant=forced)  # noqa: E731
-        else:
-            expected = fa.variant_of(q, k, v, mask)
-            run = lambda: fused_attention(q, k, v, mask=mask, scale=scale)  # noqa: E731
-        before = dict(fused_attention.launches_by_variant)
-        out = run()
-        ref = fused_attention_reference(q, k, v, mask=mask, scale=scale)
-        torch.cuda.synchronize()
-        ran = [x for x in fa.VARIANTS if fused_attention.launches_by_variant[x] != before[x]]
-        if ran != [expected]:
-            raise AssertionError(f"kernel case {name}: ran {ran}, expected {expected}")
-        err = float((out.float() - ref.float()).abs().max())
-        ulps = bf16_ulp_err(out, ref) if dtype == "bfloat16" else None
-        if not (torch.isfinite(out).all() and err <= TOL[dtype]) or (ulps is not None and ulps > 1.0):
-            raise AssertionError(f"kernel case {name}: max abs err {err} (tol {TOL[dtype]}), "
-                                 f"{ulps} bf16 ulps (tol 1)")
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa_mask = None if mask is None else mask.bool()
-        record = {
-            "phase": "kernel", "case": name, "variant": expected, "forced": bool(forced),
-            "shape": [b, s, h, d], "dtype": dtype, "mask": mask_kind, "max_abs_err": err,
-            "tol": TOL[dtype], "max_err_ulps": ulps,
-            "kernel_ms": cuda_time_ms(run),
-            "plain_ms": cuda_time_ms(lambda: fused_attention_reference(q, k, v, mask=mask, scale=scale)),
-            # SDPA's kernels fault (cudaErrorMisalignedAddress) on views off
-            # 16-byte alignment: no yardstick there.
-            "library_ms": None if name.startswith("misaligned_") else cuda_time_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask, scale=scale)
-            ),
-        }
-        record["bound_ms"], record["bound_by"] = attention_bound(b, s, h, d, dtype, mask is not None)
-        if name.startswith("serve_b8_") and mask_kind == "rt1":
-            # Device-only time per call: the event times above include the
-            # host's launch cost whenever the host, not the card, is slower.
-            for key, fn in (
-                ("device_ms", run),
-                ("plain_device_ms", lambda: fused_attention_reference(q, k, v, mask=mask, scale=scale)),
-                ("library_device_ms", lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=sdpa_mask, scale=scale)),
-            ):
-                prof = device_profile(fn)
-                record[key] = None if prof is None else prof["busy_ms"]
+    for case in kernel_cases():
+        record = _kernel_case(rng, *case)
         emit(record)
         records.append(record)
     ran = {r["variant"] for r in records}
@@ -5028,36 +5065,20 @@ class _ParallelSave:
             p.join()
 
 
-def _parallel_migration(config_name, dev, root, saving):
-    """(c) A 2-rank gloo group on the host CPU writes the flagship's seed-0
-    state under fsdp=2 (`saving`, started with the phase); the card
-    restores it into a bf16 bucket-8 engine
-    and a float32 `infer_step`, beside the same from the unsharded state's
-    one-file checkpoint: logits and actions equal bit for bit (cuDNN
-    deterministic), 8 tensor-core launches a bf16 engine step, 8 tf32x3
-    launches the float32 step."""
+def _serve_checkpoint(config, wide, dev, sharded, plain, step):
+    """The checkpoint `step` of workdir `sharded` (written under a plan
+    `wide` asks for, which one card cannot hold: plain placement) served
+    on `dev` beside the same state's one-file checkpoint in `plain`: a
+    bf16 bucket-8 engine (PARALLEL_ENGINE_STEPS steps and one
+    `infer_step`) and a float32 `infer_step` each way, cuDNN
+    deterministic. Logits and actions must be equal bit for bit, with 8
+    tensor-core launches a bf16 engine step and 8 tf32x3 launches the
+    float32 step on the card (0 on the CPU: the plain path)."""
     import numpy as np
     import torch
 
-    from rt1_tpu_torch.configs import apply_override, get_config
     from rt1_tpu_torch.eval.restore import build_serve_engine, config_with_model_dtype
     from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
-    from rt1_tpu_torch.train.train import build_model
-    from rt1_tpu_torch.trainer.checkpoints import CheckpointManager
-    from rt1_tpu_torch.trainer.state import create_train_state
-    from rt1_tpu_torch.trainer.train import optimizer_from_config
-
-    sharded, plain = os.path.join(root, "sharded"), os.path.join(root, "plain")
-    save_s = saving.join()
-    with open(os.path.join(sharded, "checkpoints", "0", "manifest.json")) as f:
-        manifest = json.load(f)
-    config = get_config(config_name)
-    apply_override(config, "seed=0")
-    state = create_train_state(build_model(config, "cpu"), optimizer_from_config(config))
-    CheckpointManager(os.path.join(plain, "checkpoints")).save(0, state)
-    del state
-    wide = copy.deepcopy(config)
-    apply_override(wide, "parallel.fsdp=2")   # a plan one card cannot hold: plain placement
 
     rng = np.random.default_rng(3)
     h, w = config.data.height, config.data.width
@@ -5072,10 +5093,10 @@ def _parallel_migration(config_name, dev, root, saving):
     out = {}
     try:
         for name, cfg, workdir in (("sharded", wide, sharded), ("plain", config, plain)):
-            engine, step = build_serve_engine(cfg, workdir=workdir, device=dev, step=0,
-                                              attention_impl="fused",
-                                              max_sessions=PARALLEL_BUCKET,
-                                              buckets=(1, PARALLEL_BUCKET))
+            engine, restored = build_serve_engine(cfg, workdir=workdir, device=dev, step=step,
+                                                  attention_impl="fused",
+                                                  max_sessions=PARALLEL_BUCKET,
+                                                  buckets=(1, PARALLEL_BUCKET))
             reset_launch_counts()   # this engine's drive only (its warm-up included)
             steps0 = engine.steps_total
             actions = [engine.act_batch(items) for _ in range(PARALLEL_ENGINE_STEPS)]
@@ -5087,7 +5108,7 @@ def _parallel_migration(config_name, dev, root, saving):
                     obs, engine.policy.initial_state(PARALLEL_BUCKET))[0]["action_logits"]
             del engine
             f32, _ = build_serve_engine(config_with_model_dtype(cfg, "float32"), workdir=workdir,
-                                        device=dev, step=0, attention_impl="fused",
+                                        device=dev, step=step, attention_impl="fused",
                                         max_sessions=PARALLEL_BUCKET,
                                         buckets=(PARALLEL_BUCKET,))
             reset_launch_counts()
@@ -5097,7 +5118,7 @@ def _parallel_migration(config_name, dev, root, saving):
             _sync(dev)
             f32_launches = dict(fused_attention.launches_by_variant)
             del f32
-            out[name] = dict(step=step, actions=actions, logits=logits.float().cpu(),
+            out[name] = dict(step=restored, actions=actions, logits=logits.float().cpu(),
                              f32_logits=f32_logits.float().cpu(), engine_steps=engine_steps,
                              bf16_launches=bf16_launches, f32_launches=f32_launches)
     finally:
@@ -5119,44 +5140,344 @@ def _parallel_migration(config_name, dev, root, saving):
     expected_bf16 = {"tensor_core": layers * a["engine_steps"], "tf32x3": 0, "simple": 0}
     expected_f32 = {"tensor_core": 0, "tf32x3": layers, "simple": 0}
     if not all(checks.values()) or a["bf16_launches"] != expected_bf16 \
-            or a["f32_launches"] != expected_f32 or a["step"] != 0:
-        raise AssertionError(f"parallel migration: {checks}; launches {a['bf16_launches']} "
-                             f"(expected {expected_bf16}), {a['f32_launches']} (expected "
-                             f"{expected_f32}); step {a['step']}")
-    return {"save_s": save_s, "manifest": {k: manifest[k] for k in ("world", "fsdp", "mesh",
-                                                                       "padded_size")},
-            "checks": checks, "engine_steps": a["engine_steps"],
+            or a["f32_launches"] != expected_f32 or a["step"] != step:
+        raise AssertionError(f"parallel serving of {sharded}: {checks}; launches "
+                             f"{a['bf16_launches']} (expected {expected_bf16}), "
+                             f"{a['f32_launches']} (expected {expected_f32}); step {a['step']}")
+    return {"checks": checks, "engine_steps": a["engine_steps"],
             "bf16_launches": a["bf16_launches"], "f32_launches": a["f32_launches"],
             "tensor_core_per_engine_step": config.model.num_layers,
             "max_abs_logit": float(a["logits"].abs().max())}
 
 
+def _parallel_migration(config_name, dev, root, saving):
+    """(c) A 2-rank gloo group on the host CPU writes the flagship's seed-0
+    state under fsdp=2 (`saving`, started with the phase); the card serves
+    it beside the unsharded state's one-file checkpoint
+    (`_serve_checkpoint`)."""
+    from rt1_tpu_torch.configs import apply_override, get_config
+    from rt1_tpu_torch.train.train import build_model
+    from rt1_tpu_torch.trainer.checkpoints import CheckpointManager
+    from rt1_tpu_torch.trainer.state import create_train_state
+    from rt1_tpu_torch.trainer.train import optimizer_from_config
+
+    sharded, plain = os.path.join(root, "sharded"), os.path.join(root, "plain")
+    save_s = saving.join()
+    with open(os.path.join(sharded, "checkpoints", "0", "manifest.json")) as f:
+        manifest = json.load(f)
+    config = get_config(config_name)
+    apply_override(config, "seed=0")
+    state = create_train_state(build_model(config, "cpu"), optimizer_from_config(config))
+    CheckpointManager(os.path.join(plain, "checkpoints")).save(0, state)
+    del state
+    wide = copy.deepcopy(config)
+    apply_override(wide, "parallel.fsdp=2")   # a plan one card cannot hold: plain placement
+    served = _serve_checkpoint(config, wide, dev, sharded, plain, 0)
+    return {"save_s": save_s, "manifest": {k: manifest[k] for k in ("world", "fsdp", "mesh",
+                                                                       "padded_size")},
+            **served}
+
+
+# (d) Tensor- and pipeline-parallel pairs at the flagship's widths against
+# the world of one on the same seed-0 weights and batch (drawn on the CPU):
+# float32, batch 2, one step, randomness off (the CPU tests' settings), TF32
+# off and cuDNN deterministic on the card.
+PARALLEL_PAIR_SETS = ("seed=0", "model.dtype=float32", "model.dropout_rate=0",
+                      "regularization.crop_ratio=0", "regularization.drop_connect_rate=0",
+                      "obs.model_health=False", "per_host_batch_size=2",
+                      "model.pipeline_microbatches=2")
+# name -> (the plan's sets, where the pair runs). The tp pair runs on the
+# card over gloo, both ranks on cuda:0 (NCCL takes one device a rank;
+# gloo's all-reduce and all-gather take CUDA tensors), so its bf16 eval
+# step runs the fused kernel on 4 heads a rank; the pp pair runs on the
+# host CPU (gloo sends no CUDA tensor point to point).
+PARALLEL_PAIRS = {"tp": (("parallel.tp=2", "model.attention_impl=fused"), "card"),
+                  "pp": (("parallel.pp=2",), "host")}
+PARALLEL_EVAL_ROWS = 8              # the tp pair's bf16 eval step, at the flagship's batch
+# The CPU tests' tolerances (`tests/test_torch_parallel_step.py`: loss,
+# GRAD_TOL_B3 of the largest gradient element, grad norm), each pair against
+# a world of one on its own device (the card's and the host's float32
+# differ by 2.1e-5 in this step's gradient norm on an H100). The
+# bf16 eval loss against the world of one's, relative (the row-parallel
+# all-reduce adds bf16 partial sums).
+PARALLEL_PAIR_TOL = {"loss": 1e-5, "grad": 2e-4, "grad_norm": 1e-5, "eval_loss_bf16": 1e-2}
+PARALLEL_PAIR_TIMEOUT_S = 600
+
+
+def _pair_config(config_name, sets):
+    from rt1_tpu_torch.configs import apply_override, get_config
+
+    config = get_config(config_name)
+    for assignment in PARALLEL_PAIR_SETS + tuple(sets):
+        apply_override(config, assignment)
+    return config
+
+
+def _pair_run(config_name, name, device, world, root):
+    """One rank of pair `name` (world 2, in an initialised process group)
+    or its world of one (world 1): the seed-0 state, one train step with
+    the flat gradient kept, the pair's sharded checkpoint as step 1, and
+    for the tp pair a bf16 eval step of PARALLEL_EVAL_ROWS rows on the
+    updated masters with its fused-attention launches counted."""
+    import torch
+
+    from rt1_tpu_torch.configs import apply_override
+    from rt1_tpu_torch.parallel import mesh
+    from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
+    from rt1_tpu_torch.parallel.partition import partition_policy
+    from rt1_tpu_torch.parallel.plan import ShardingPlan
+    from rt1_tpu_torch.train.train import build_model, synthetic_batch
+    from rt1_tpu_torch.trainer.checkpoints import CheckpointManager
+    from rt1_tpu_torch.trainer.state import create_train_state
+    from rt1_tpu_torch.trainer.train import optimizer_from_config, train_step_fns_from_config
+
+    dev = torch.device(device)
+    sets = PARALLEL_PAIRS[name][0]
+    config = _pair_config(config_name, sets if world > 1 else
+                          [a for a in sets if not a.startswith("parallel.")])
+    saved_flags = (torch.backends.cudnn.deterministic, torch.backends.cuda.matmul.allow_tf32,
+                   torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    grid = partition = None
+    try:
+        t0 = time.perf_counter()
+        policy = build_model(config, dev)
+        if world > 1:
+            plan = ShardingPlan.from_config(config)
+            grid = mesh.RankGrid(plan.mesh)
+            mesh.set_current(grid)
+            partition = partition_policy(policy, grid, plan, config.model.pipeline_microbatches)
+        optimizer = optimizer_from_config(config)
+        state = create_train_state(policy, optimizer, partition)
+        fns = train_step_fns_from_config(config, optimizer, grid=grid)
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batch = tuple({k: v.to(dev) for k, v in tree.items()}
+                      for tree in synthetic_batch(config, config.seed, 0, "cpu"))
+        metrics = fns.train_step(state, batch, 0, keep_grad=True)
+        record = {"name": name, "world": world, "device": str(dev),
+                  "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                  "grad": metrics["grad"].detach().cpu(), "init_s": init_s,
+                  "step_s": time.perf_counter() - t0}
+        if partition is not None:
+            record["partition"] = partition.to_manifest()
+            record["part"] = (partition.stage_index, partition.model_index)
+            t0 = time.perf_counter()
+            CheckpointManager(os.path.join(root, f"pair_{name}", "checkpoints"),
+                              grid=grid).save(1, state)
+            record["save_s"] = time.perf_counter() - t0
+        if "model.attention_impl=fused" in sets:
+            bf16 = copy.deepcopy(config)
+            apply_override(bf16, "model.dtype=bfloat16")
+            apply_override(bf16, f"per_host_batch_size={PARALLEL_EVAL_ROWS}")
+            eval_fns = train_step_fns_from_config(bf16, optimizer, grid=grid)
+            batch = tuple({k: v.to(dev) for k, v in tree.items()}
+                          for tree in synthetic_batch(bf16, config.seed + 1, 0, "cpu"))
+            reset_launch_counts()
+            out = eval_fns.eval_step(state, batch)
+            _sync(dev)
+            record["eval_loss"] = float(out["loss"])
+            record["eval_launches"] = dict(fused_attention.launches_by_variant)
+        return record
+    finally:
+        mesh.set_current(None)
+        (torch.backends.cudnn.deterministic, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved_flags
+
+
+def _parallel_pair(rank, world, init, root, config_name, name, device):
+    """A spawn target: `_pair_run` in a gloo group of `world` ranks (none
+    for world 1), its record saved under `root`."""
+    import torch
+
+    if device == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // 4))
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+
+    if world > 1:
+        dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                                world_size=world)
+    try:
+        record = _pair_run(config_name, name, device, world, root)
+        torch.save(record, os.path.join(root, f"pair_{name}_{rank}_of_{world}.pt"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+class _PairGroup:
+    """(d) Pair `name`'s two ranks (and, with `reference`, its world of
+    one) as spawned processes on `device`, started at once."""
+
+    def __init__(self, config_name, root, name, device, reference=False):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.root, self.name, self.t0 = root, name, time.perf_counter()
+        init = os.path.join(root, f"pair_{name}_init")
+        jobs = [(r, 2) for r in range(2)] + ([(0, 1)] if reference else [])
+        self.files = [os.path.join(root, f"pair_{name}_{r}_of_{w}.pt") for r, w in jobs]
+        self.procs = [ctx.Process(target=_parallel_pair,
+                                  args=(r, w, init, root, config_name, name, device))
+                      for r, w in jobs]
+        for p in self.procs:
+            p.start()
+
+    def join(self):
+        """(the records in job order, seconds from the start to the last
+        exit); raises unless every process wrote its record."""
+        import torch
+
+        for p in self.procs:
+            p.join(PARALLEL_PAIR_TIMEOUT_S)
+        self.join_quietly()
+        if any(p.exitcode != 0 for p in self.procs) or \
+                not all(os.path.isfile(f) for f in self.files):
+            raise AssertionError(f"parallel: pair {self.name} failed: "
+                                 f"{[p.exitcode for p in self.procs]}")
+        return ([torch.load(f, weights_only=False) for f in self.files],
+                time.perf_counter() - self.t0)
+
+    def join_quietly(self):
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def _logical_grad(records):
+    """The world of one's flat gradient from a pair's two parts."""
+    from rt1_tpu_torch.parallel.partition import Partition
+
+    partition = Partition.from_manifest(records[0]["partition"])
+    return partition.logical_flat({tuple(r["part"]): r["grad"] for r in records})
+
+
+def _check_pair(name, records, seconds, reference):
+    """(d) A pair's loss, flat gradient and gradient norm (and the tp
+    pair's bf16 eval loss and launches) against the world of one."""
+    grad, ref = _logical_grad(records), reference["grad"]
+    scale = float(ref.abs().max())
+    errors = {"loss": max(abs(r["loss"] - reference["loss"]) / abs(reference["loss"])
+                          for r in records),
+              "grad": float((grad - ref).abs().max()) / scale,
+              "grad_norm": max(abs(r["grad_norm"] - reference["grad_norm"]) /
+                               reference["grad_norm"] for r in records)}
+    if "eval_loss" in records[0]:
+        errors["eval_loss_bf16"] = max(abs(r["eval_loss"] - reference["eval_loss"]) /
+                                       abs(reference["eval_loss"]) for r in records)
+    record = {"where": records[0]["device"], "reference_where": reference["device"],
+              "losses": [r["loss"] for r in records],
+              "reference_loss": reference["loss"], "max_err": errors, "tol": PARALLEL_PAIR_TOL,
+              "grad_scale": scale, "step_s": [r["step_s"] for r in records],
+              "reference_step_s": reference["step_s"], "save_s": [r["save_s"] for r in records],
+              "seconds": seconds, "part_numel": [int(r["grad"].numel()) for r in records],
+              "world_one_numel": int(ref.numel())}
+    if "eval_launches" in records[0]:
+        record["eval_launches"] = [r["eval_launches"] for r in records]
+        record["reference_eval_launches"] = reference["eval_launches"]
+        record["eval_loss"] = [r["eval_loss"] for r in records]
+        record["reference_eval_loss"] = reference["eval_loss"]
+    bad = {k: v for k, v in errors.items() if not v <= PARALLEL_PAIR_TOL[k]}
+    if bad:
+        raise AssertionError(f"parallel pair {name}: errors {bad} beyond {PARALLEL_PAIR_TOL}")
+    return record
+
+
+def _serve_pair(config_name, dev, root, name):
+    """(e) Pair `name`'s checkpoint served on `dev` beside the same state
+    restored at world one and saved in the one-file format."""
+    from rt1_tpu_torch.configs import apply_override, get_config
+    from rt1_tpu_torch.train.train import build_model
+    from rt1_tpu_torch.trainer.checkpoints import CheckpointManager
+    from rt1_tpu_torch.trainer.state import create_train_state
+    from rt1_tpu_torch.trainer.train import optimizer_from_config
+
+    sharded, plain = os.path.join(root, f"pair_{name}"), os.path.join(root, f"plain_{name}")
+    with open(os.path.join(sharded, "checkpoints", "1", "manifest.json")) as f:
+        manifest = json.load(f)
+    config = get_config(config_name)
+    apply_override(config, "seed=0")
+    state = create_train_state(build_model(config, "cpu"), optimizer_from_config(config))
+    CheckpointManager(os.path.join(sharded, "checkpoints")).restore(state, 1)
+    CheckpointManager(os.path.join(plain, "checkpoints")).save(1, state)
+    del state
+    wide = copy.deepcopy(config)
+    for assignment in PARALLEL_PAIRS[name][0]:
+        if assignment.startswith("parallel."):
+            apply_override(wide, assignment)   # a plan one card cannot hold: plain placement
+    served = _serve_checkpoint(config, wide, dev, sharded, plain, 1)
+    return {"manifest": {"world": manifest["world"], "mesh": manifest["mesh"],
+                         "parts": [(p["stage"], p["model"], len(p["names"]))
+                                   for p in manifest["parts"]]}, **served}
+
+
+def tp_kernel_cases():
+    """(f) The serve shape at a tp rank's heads: 8 heads over tp 2 and 4."""
+    return [(f"tp{8 // h}_b8_{dtype}_rt1", 8, 66, h, 128, dtype, "rt1", None)
+            for h in (4, 2) for dtype in ("bfloat16", "float32")]
+
+
 def phase_parallel(config_name: str = "language_table", device: str = "cuda"):
     """Multi-process training on the card's world of one: (a) the NCCL
-    world-1 step against the plain step, (b) the launcher CLI, (c) a
-    gloo fsdp=2 checkpoint of the host served on the card
-    (`_parallel_world_one`, `_parallel_launcher`, `_parallel_migration`)."""
+    world-1 step against the plain step, (b) the launcher CLI, (c) a gloo
+    fsdp=2 checkpoint of the host served on the card, (d) a tp=2 pair on
+    the card and a pp=2 pair on the host against their worlds of one, (e)
+    the card serving each pair's checkpoint, (f) the kernel at a tp rank's
+    heads (`_parallel_world_one`, `_parallel_launcher`,
+    `_parallel_migration`, `_check_pair`, `_serve_pair`, `_kernel_case`)."""
+    import numpy as np
     import torch
 
     dev = torch.device(device)
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="rt1_chip_smoke_parallel_")
     saving = _ParallelSave(config_name, root)
+    groups = {}
     try:
+        cases = []
+        if dev.type == "cuda":   # (f) first: the kernels have no CPU build
+            torch.backends.cuda.matmul.allow_tf32 = False
+            rng = np.random.default_rng(1)
+            cases = [_kernel_case(rng, *case, phase="parallel") for case in tp_kernel_cases()]
         t0 = time.perf_counter()
         world_one = dict(_parallel_world_one(config_name, dev, root),
                          seconds=time.perf_counter() - t0)
+        # After (a), whose step the host processes' threads would slow.
+        groups = {"pp": _PairGroup(config_name, root, "pp", "cpu", reference=True),
+                  "tp": _PairGroup(config_name, root, "tp", device)}
         t0 = time.perf_counter()
         launcher = dict(_parallel_launcher(device, root), seconds=time.perf_counter() - t0)
         t0 = time.perf_counter()
         migration = dict(_parallel_migration(config_name, dev, root, saving),
                          seconds=time.perf_counter() - t0)
+        # The tp pair's world of one: this process, on `device`; the pp
+        # pair's: a process beside it on the host.
+        tp_records, tp_s = groups["tp"].join()
+        pairs = {"tp": _check_pair("tp", tp_records, tp_s,
+                                   _pair_run(config_name, "tp", device, 1, root))}
+        pp_records, pp_s = groups["pp"].join()
+        pairs["pp"] = _check_pair("pp", pp_records[:2], pp_s, pp_records[2])
+        layers = _pair_config(config_name, ()).model.num_layers if dev.type == "cuda" else 0
+        expected = {"tensor_core": layers, "tf32x3": 0, "simple": 0}
+        if any(r != expected for r in pairs["tp"]["eval_launches"] +
+               [pairs["tp"]["reference_eval_launches"]]):
+            raise AssertionError(f"parallel pair tp: eval launches "
+                                 f"{pairs['tp']['eval_launches']}, expected {expected} a rank")
+        t0 = time.perf_counter()
+        served = {name: _serve_pair(config_name, dev, root, name) for name in ("tp", "pp")}
+        served["seconds"] = time.perf_counter() - t0
     finally:
         saving.join_quietly()
+        for group in groups.values():
+            group.join_quietly()
         shutil.rmtree(root, ignore_errors=True)
     record = {"phase": "parallel", "config": config_name,
               "nvidia_smi": nvidia_smi() if dev.type == "cuda" else None,
               "world_one": world_one, "launcher": launcher, "migration": migration,
+              "pairs": pairs, "served": served, "kernel_cases": cases,
               "seconds": time.perf_counter() - t_phase}
     emit(record)
     return record
@@ -5255,6 +5576,8 @@ def main(argv=None) -> int:
         emit({"partial": phases, "passed": True})
         return 0
     records, serve, parity, tiny = done["kernel"], done["serve"], done["parity"], done["tiny"]
+    # The kernel at a tp rank's heads (phase parallel (f)) joins the cases.
+    records = records + done["parallel"]["kernel_cases"]
     eval_bf16 = done["eval"]["timed_episode"]["launches_by_variant"]
     eval_f32 = done["eval"]["replay"]["launches_by_variant"]
 
@@ -5316,15 +5639,24 @@ def main(argv=None) -> int:
             "serve_bf16": moe["serve"]["launches_by_variant"][variant],
             "serve_engine_steps": moe["serve"]["engine_steps"],
             "f32_infer_step": moe["f32_parity"]["launches_by_variant"][variant]}
-    # The fsdp=2 checkpoint served on the card (phase parallel): its bf16
-    # bucket-8 engine (engine steps and one infer_step for the logits) and
-    # its float32 infer_step (counts set to 0 before each).
-    migration = done["parallel"]["migration"]
+    # Phase parallel: the engines served from the fsdp=2, tp=2 and pp=2
+    # checkpoints, each a bf16 bucket-8 engine (engine steps and one
+    # infer_step for the logits) and a float32 infer_step (counts set to
+    # 0 before each), and the tp pair's bf16 eval step on the card, each
+    # rank on 4 of the 8 heads (counts set to 0 before it).
+    parallel = done["parallel"]
     for entry, variant in zip(entries, ("tensor_core", "tf32x3", "simple")):
         entry["parallel_launches"] = {
-            "bf16_engine": migration["bf16_launches"][variant],
-            "bf16_engine_steps": migration["engine_steps"],
-            "f32_infer_step": migration["f32_launches"][variant]}
+            f"{name}_{key}": served[field][variant] if field != "engine_steps"
+            else served[field]
+            for name, served in (("fsdp", parallel["migration"]),
+                                 ("tp", parallel["served"]["tp"]),
+                                 ("pp", parallel["served"]["pp"]))
+            for key, field in (("bf16_engine", "bf16_launches"),
+                               ("bf16_engine_steps", "engine_steps"),
+                               ("f32_infer_step", "f32_launches"))}
+        entry["parallel_launches"]["tp_eval_step_by_rank"] = [
+            launches[variant] for launches in parallel["pairs"]["tp"]["eval_launches"]]
     # The train CLI's periodic evals in phase train_ops.
     train_ops = done["train_ops"]["cli"]
     entries[0]["train_ops_launches"] = {

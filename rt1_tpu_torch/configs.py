@@ -51,8 +51,8 @@ class ModelConfig:
     # `parallel.sp` ranks, `parallel/ring_attention.py`; dense at sp 1).
     # Training takes the dense path unless it is "ring".
     attention_impl: str = "dense"
-    # GPipe micro-batches a step when parallel.pp > 1 (JAX's
-    # `parallel/pipeline.py`; the port refuses pp > 1, ROADMAP A19c).
+    # GPipe micro-batches a step when parallel.pp > 1
+    # (`parallel/pipeline.py`, JAX's).
     pipeline_microbatches: int = 4
     # Per-video colour jitter in the train forward, after the crop
     # (`ops/augment.py`).
@@ -229,8 +229,8 @@ class ParallelConfig:
     processes of a `torch.distributed` world, one device each."""
     dp: int = -1        # data parallelism; -1: the ranks the other axes leave
     fsdp: int = 1       # ZeRO-3: masters and Adam moments in 1/fsdp chunks
-    tp: int = 1         # tensor parallelism: refused (ROADMAP A19b)
-    pp: int = 1         # pipeline stages: refused (ROADMAP A19c)
+    tp: int = 1         # tensor parallelism over the plan's `model` axis
+    pp: int = 1         # pipeline stages (GPipe over the decoder's layers)
     sp: int = 1         # sequence parallelism (ring attention)
     auto: bool = False  # (dp, fsdp, tp) from the world size (AUTO_MESH_SHAPES)
     strict: bool = False  # a weight matrix no plan rule decides raises
@@ -241,13 +241,8 @@ class ParallelConfig:
 
 
 def check_parallel_config(config: "Config") -> None:
-    """Refuse at the config seam what the port does not run yet: tensor
-    parallelism (`parallel.tp > 1`, ROADMAP A19b) and the pipeline
-    (`parallel.pp > 1`, ROADMAP A19c), and axis sizes below 1."""
-    from rt1_tpu_torch.parallel.plan import refuse_unported
-
+    """Refuse axis sizes below 1 at the config seam."""
     par = config.parallel
-    refuse_unported(par.tp, par.pp)
     for name in ("dp", "fsdp", "tp", "pp", "sp"):
         value = getattr(par, name)
         if value < 1 and not (name == "dp" and value == -1):

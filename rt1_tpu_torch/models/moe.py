@@ -42,6 +42,18 @@ the rank's gates, so the parts sum to the global loss and its gradient
 (`trainer/train.py` weights the part so that it survives the step's
 reduction).
 
+Under tensor parallelism (`parallel.tp`, the plan's `P('model', ...)` on
+`wi` and `wo`) a rank holds `num_experts / tp` of the experts
+(`parallel/partition.py`). The float32 router stays whole, so every model
+rank routes identically (routing, capacity and queue order as above) and
+computes the same aux loss, which therefore enters the loss once. Each
+rank runs only the tokens routed to its experts (`copy_in` of the
+tokens); the ungated outputs are summed over `model` (`reduce_out`: each
+token's lies on one rank) and then gated by the whole router's gate, so
+the router's gradient is whole on every model rank too. In float32 this
+is the world of one's output bit for bit: a token's combine sums one
+nonzero product either way.
+
 The stacked experts keep JAX's layout, `wi` (E, d, ff) and `wo` (E, ff,
 d), as plain parameters. For int8 serving (`models/quant.py`) they
 quantize per output column over every other axis, one scale per column
@@ -58,6 +70,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rt1_tpu_torch.parallel import tensor_parallel as tp
 from rt1_tpu_torch.parallel.collectives import current_batch_shard
 
 QUANT_PARAMS = ("wi", "wo")
@@ -174,10 +187,22 @@ class MoEFeedForward(nn.Module):
         pos_one_hot = (position_in_expert.sum(dim=-1)[..., None] == slots).to(torch.float32)
         dispatch = (one_hot[..., None] * pos_one_hot[..., None, :]).to(dtype)  # (g, t, e, c)
 
-        buffers = torch.einsum("gtec,gtd->gecd", dispatch, tokens.to(dtype))
-        h = F.gelu(torch.einsum("gecd,edf->gecf", buffers, self.expert_weight("wi")),
-                   approximate="tanh")
-        expert_out = torch.einsum("gecf,efd->gecd", h, self.expert_weight("wo"))
+        local = self.wi.shape[0]   # this rank's experts
+        if tp.split_ways(local, e) > 1:
+            lo = tp.model_index() * local
+            dispatch = dispatch[:, :, lo:lo + local]
+            expert_out = self._experts(dispatch, tp.copy_in(tokens.to(dtype)))
+            out = tp.reduce_out(torch.einsum("gtec,gecd->gtd", dispatch, expert_out))
+            out = out * expert_gate.to(dtype)[..., None]
+            return out.reshape(b, s, d), aux_loss
+        expert_out = self._experts(dispatch, tokens.to(dtype))
         combine = dispatch * expert_gate.to(dtype)[..., None, None]
         out = torch.einsum("gtec,gecd->gtd", combine, expert_out)
         return out.reshape(b, s, d), aux_loss
+
+    def _experts(self, dispatch: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """(g, e, c, d): each held expert's FFN on its capacity buffer."""
+        buffers = torch.einsum("gtec,gtd->gecd", dispatch, tokens)
+        h = F.gelu(torch.einsum("gecd,edf->gecf", buffers, self.expert_weight("wi")),
+                   approximate="tanh")
+        return torch.einsum("gecf,efd->gecd", h, self.expert_weight("wo"))

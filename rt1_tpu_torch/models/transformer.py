@@ -26,6 +26,24 @@ Attention has two paths, each the counterpart of its JAX path:
 `train=True` drops attention probabilities (fp32, before the cast) and
 the FFN output at `dropout_rate`, drawing from `rngs["dropout"]`.
 
+Tensor parallelism (`parallel.tp`, `parallel/partition.py` splits the
+weights by the plan's `model` rules): a layer whose weights hold this
+rank's block computes its part and moves activations with
+`parallel/tensor_parallel.py`'s collectives, so its output is whole on
+every model rank. Attention takes the rank's `num_heads / tp` heads
+(`query`, `key`, `value` column blocks), its probabilities' dropout keeps
+the rank's heads of the whole mask, and `out` is row-parallel (partial
+sums all-reduced, the whole bias added once); `ff`, `token_emb` and
+`output_tokens` are column-parallel and gathered; the MoE FFN holds
+`num_experts / tp` experts (`models/moe.py`). `position_emb` and the
+norms stay whole. Whole weights compute whole.
+
+Pipeline parallelism (`parallel.pp`): with `stages` set (the partition
+does, on a grid with a `stage` axis above 1) the layer stack runs GPipe
+over the stage ranks (`parallel/pipeline.py`); this rank holds its
+stage's layers only, and the embeddings and the head run whole on every
+stage rank.
+
 Incremental decode (`decode`, the JAX modules' `kv_cache`/`cache_index`
 path): the input carries only the NEW positions; each layer writes their
 k/v into its cache rows at `cache_index`, and the new queries attend the
@@ -55,6 +73,7 @@ from rt1_tpu_torch.ops.dropout import Rngs, dropout
 from rt1_tpu_torch.ops.remat import checkpoint
 from rt1_tpu_torch.models.moe import MoEFeedForward
 from rt1_tpu_torch.models.quant import QuantLinear
+from rt1_tpu_torch.parallel import tensor_parallel as tp
 from rt1_tpu_torch.parallel.flash_attention import fused_attention
 from rt1_tpu_torch.parallel.ring_attention import ring_attention, seq_group_size
 
@@ -91,7 +110,11 @@ class TFMultiHeadAttention(nn.Module):
                 train: bool = False, rngs: Rngs = None) -> torch.Tensor:
         """x: (b, s, d_model); mask: (s, s), nonzero = attend."""
         b, s, _ = x.shape
-        h, k = self.num_heads, self.key_dim
+        k = self.key_dim
+        h = self.query.weight.shape[0] // k   # this rank's heads
+        split = tp.split_ways(h, self.num_heads) > 1
+        if split:
+            x = tp.copy_in(x)
         q = self.query(x).view(b, s, h, k)
         kk = self.key(x).view(b, s, h, k)
         v = self.value(x).view(b, s, h, k)
@@ -104,9 +127,13 @@ class TFMultiHeadAttention(nn.Module):
             logits = logits / float(k) ** 0.5
             if mask is not None:
                 logits = torch.where(mask != 0, logits, NEG_INF)
-            probs = dropout(torch.softmax(logits, dim=-1), self.dropout_rate, train, rngs)
+            probs = dropout(torch.softmax(logits, dim=-1), self.dropout_rate, train, rngs,
+                            model_dim=1 if split else None)
             out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
-        return self.out(out.reshape(b, s, h * k))
+        out = out.reshape(b, s, h * k)
+        if not split:
+            return self.out(out)
+        return tp.reduce_out(torch.nn.functional.linear(out, self.out.kernel())) + self.out.bias
 
     def decode(self, x: torch.Tensor, mask: torch.Tensor, kv_cache: torch.Tensor,
                cache_index: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -145,6 +172,7 @@ class TransformerLayer(nn.Module):
         if ffn_impl not in FFN_IMPLS:
             raise ValueError(f"ffn_impl must be one of {FFN_IMPLS}, got {ffn_impl!r}")
         self.dropout_rate = dropout_rate
+        self.d_model = d_model
         self.norm_1 = nn.LayerNorm(d_model, eps=1e-6)
         self.attn = TFMultiHeadAttention(num_heads, key_dim, d_model, attention_impl, dropout_rate)
         self.norm_2 = nn.LayerNorm(d_model, eps=1e-6)
@@ -156,7 +184,7 @@ class TransformerLayer(nn.Module):
     def _ffn(self, y: torch.Tensor, per_row: bool):
         if hasattr(self, "moe"):
             return self.moe(y, per_row)
-        return self.ff(y), None
+        return tp.column_parallel(self.ff, y, self.d_model), None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 train: bool = False, rngs: Rngs = None, per_row: bool = False):
@@ -188,6 +216,14 @@ class CausalTransformer(nn.Module):
         self.num_layers = num_layers
         self.max_seq_len = max_seq_len
         self.remat = remat
+        self.d_model = d_model
+        self.vocab_size = vocab_size
+        self.attention_impl = normalize_attention_impl(attention_impl)
+        self.ffn_impl = ffn_impl
+        self.dropout_rate = dropout_rate
+        # The pipeline's stage plan (`parallel/pipeline.py::StagePlan`),
+        # set by the partition of a grid with a `stage` axis.
+        self.stages = None
         self.token_emb = nn.Linear(input_emb, d_model)
         self.position_emb = nn.Embedding(max_seq_len, d_model)
         for i in range(num_layers):
@@ -206,8 +242,12 @@ class CausalTransformer(nn.Module):
         b, s, _ = inputs.shape
         if s > self.max_seq_len:
             raise ValueError(f"sequence length {s} exceeds max_seq_len={self.max_seq_len}")
-        x = self.token_emb(inputs.to(self.token_emb.weight.dtype))
-        x = x + self.position_emb.weight[:s][None]
+        if self.stages is not None:
+            from rt1_tpu_torch.parallel.pipeline import pp_causal_transformer_apply
+
+            logits = pp_causal_transformer_apply(self, inputs, attention_mask, train, rngs)
+            return (logits, []) if return_aux else logits
+        x = self.embed(inputs)
         aux_losses = []
         for i in range(self.num_layers):
             layer = getattr(self, f"layer_{i}")
@@ -217,8 +257,20 @@ class CausalTransformer(nn.Module):
                 x, aux = layer(x, attention_mask, train, rngs, per_row)
             if aux is not None:
                 aux_losses.append(aux)
-        logits = self.output_tokens(x)
+        logits = self.head(x)
         return (logits, aux_losses) if return_aux else logits
+
+    def embed(self, inputs: torch.Tensor) -> torch.Tensor:
+        """(b, s, input_emb) -> (b, s, d_model): the token embedding
+        (column-parallel under tp) plus the position rows."""
+        x = tp.column_parallel(self.token_emb, inputs.to(self.token_emb.weight.dtype),
+                               self.d_model)
+        return x + self.position_emb.weight[:inputs.shape[1]][None]
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """(b, s, d_model) -> logits (b, s, vocab_size), column-parallel
+        under tp."""
+        return tp.column_parallel(self.output_tokens, x, self.vocab_size)
 
     def decode(self, inputs: torch.Tensor, attention_mask: torch.Tensor, kv_cache: torch.Tensor,
                cache_index: torch.Tensor, per_row: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:

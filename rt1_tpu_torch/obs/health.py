@@ -102,41 +102,49 @@ class HealthPack:
     `paths` are the flax paths of the state's parameters in layout order;
     `padded` the layout's per-parameter padded lengths (`FlatLayout.padded`,
     whose padding the state keeps at zero in the parameters, gradients and
-    updates alike).
+    updates alike). Under tensor or pipeline parallelism the state holds a
+    rank's part of the policy: `groups_of` names the logical (world of
+    one's) paths the groups come from, and `classes` each leaf's class
+    (`parallel/partition.py::leaf_class`), by which `compute` sums the
+    groups over the `model` and `stage` ranks.
     """
 
     def __init__(self, paths: Sequence[str], padded: Sequence[int], device,
                  depth: int = DEFAULT_GROUP_DEPTH, action_dims: int = 0,
-                 task_names: Sequence[str] = (), chunk: Optional[Tuple[int, int]] = None):
+                 task_names: Sequence[str] = (), chunk: Optional[Tuple[int, int]] = None,
+                 groups_of: Optional[Sequence[str]] = None,
+                 classes: Optional[Sequence[int]] = None):
         import torch
 
-        self.groups = param_groups(paths, depth)
+        groups_of = paths if groups_of is None else groups_of
+        self.groups = param_groups(groups_of, depth)
         self.action_dims = int(action_dims)
         self.task_names = tuple(task_names) if action_dims > 0 else ()
-        self.names = pack_names(paths, depth, self.action_dims, task_names=self.task_names)
+        self.names = pack_names(groups_of, depth, self.action_dims, task_names=self.task_names)
         index = {g: i for i, g in enumerate(self.groups)}
         onehot = torch.zeros((len(paths), len(self.groups)), dtype=torch.float32)
         for leaf, path in enumerate(paths):
             onehot[leaf, index[_group_of(path, depth)]] = 1.0
-        lengths = list(padded)
+        lengths = leaf_lengths(padded, chunk)
         if chunk is not None:
-            # A ZeRO-3 chunk [lo, hi) of the layout padded past its end:
-            # each leaf's part inside it, and a last segment of padding.
-            lo, hi = chunk
-            starts = [0]
-            for n in padded[:-1]:
-                starts.append(starts[-1] + n)
-            lengths = [max(0, min(s + n, hi) - max(s, lo)) for s, n in zip(starts, padded)]
-            lengths.append(hi - lo - sum(lengths))
             onehot = torch.cat([onehot, torch.zeros((1, len(self.groups)))])
-        self._onehot = onehot.to(device)
+        if classes is not None:   # (4, leaves, groups): each class's leaves alone
+            mask = torch.zeros((4, onehot.shape[0], 1), dtype=torch.float32)
+            for leaf, c in enumerate(classes):
+                mask[c, leaf] = 1.0
+            onehot = mask * onehot[None]
+        self._classes = classes is not None
+        self._onehot = onehot.to(device=device, dtype=torch.float64)
         self._lengths = torch.tensor(lengths, dtype=torch.int64, device=device)
 
     def _group_sumsq(self, flat):
+        """Each group's sum of squares, accumulated in float64:
+        `segment_reduce` sums a segment in order on the CPU (1e-3 relative
+        error over 2M float32 squares)."""
         import torch
 
-        per_leaf = torch.segment_reduce(torch.square(flat), "sum", lengths=self._lengths,
-                                        initial=0.0)
+        per_leaf = torch.segment_reduce(torch.square(flat.double()), "sum",
+                                        lengths=self._lengths, initial=0.0)
         return per_leaf @ self._onehot
 
     def compute(self, grad, update, new_flat, out: Mapping[str, Any], comms=None):
@@ -151,7 +159,10 @@ class HealthPack:
         import torch
 
         grad_sq, upd_sq, new_sq = (self._group_sumsq(v) for v in (grad, update, new_flat))
-        if comms is not None:
+        if self._classes:   # (4, groups) each: summed per class over its axes
+            grad_sq, upd_sq, new_sq = comms.reduce_classes(
+                torch.stack([grad_sq, upd_sq, new_sq], dim=1)).unbind(0)
+        elif comms is not None:
             grad_sq, upd_sq, new_sq = comms.sum_shards(
                 torch.stack([grad_sq, upd_sq, new_sq])).unbind(0)
         parts = [
@@ -160,6 +171,7 @@ class HealthPack:
             torch.sqrt(new_sq.sum())[None],
             torch.sqrt(upd_sq.sum())[None],
         ]
+        parts = [p.to(torch.float32) for p in parts]
         if self.action_dims > 0:
             logits = out["action_logits"].to(torch.float32)
             logp = torch.log_softmax(logits, dim=-1)
@@ -194,6 +206,21 @@ class HealthPack:
                 parts.append(acc_sum / denom)
                 parts.append(counts / rows)
         return torch.cat(parts).to(torch.float32)
+
+
+def leaf_lengths(padded: Sequence[int], chunk: Optional[Tuple[int, int]] = None) -> List[int]:
+    """Each leaf's length in a flat layout (`FlatLayout.padded`), or,
+    under a ZeRO-3 chunk [lo, hi) of the layout padded past its end, each
+    leaf's part inside the chunk and a last segment of padding."""
+    lengths = list(padded)
+    if chunk is not None:
+        lo, hi = chunk
+        starts = [0]
+        for n in padded[:-1]:
+            starts.append(starts[-1] + n)
+        lengths = [max(0, min(s + n, hi) - max(s, lo)) for s, n in zip(starts, padded)]
+        lengths.append(hi - lo - sum(lengths))
+    return lengths
 
 
 def unpack(names: Sequence[str], vector: Any) -> Dict[str, float]:

@@ -20,8 +20,9 @@ handled here:
 * the train step of several ranks runs its forward inside
   `parallel.collectives.batch_shard`, which the backward pass has left by
   the time it recomputes. The recompute re-enters the block the first run
-  saw, so BatchNorm syncs, the masks keep the rank's rows and the MoE
-  routes the global batch again.
+  saw, so BatchNorm syncs, the masks keep the rank's rows, the MoE
+  routes the global batch and the tensor-parallel layers reduce over
+  `model` again.
 
 A module is recomputed with the tensors it had at the first run (the
 train step's `functional_call` has put its own back by then). So a loss
@@ -37,7 +38,7 @@ import torch
 from torch.utils.checkpoint import checkpoint as _torch_checkpoint
 
 from rt1_tpu_torch.ops.dropout import Rngs
-from rt1_tpu_torch.parallel.collectives import batch_shard, current_batch_shard
+from rt1_tpu_torch.parallel.collectives import current_shard, shard_context
 
 _STATE = threading.local()
 
@@ -61,7 +62,7 @@ def checkpoint(fn: Callable, *args, rngs: Rngs = None):
             return torch.func.functional_call(module, tensors, inner)
     gens = [g for g in (rngs or {}).values() if g is not None]
     start = [g.get_state() for g in gens]
-    shard = current_batch_shard()
+    shard = current_shard()
     calls = [0]
 
     def body(*inner):
@@ -73,7 +74,7 @@ def checkpoint(fn: Callable, *args, rngs: Rngs = None):
             g.set_state(state)
         _STATE.depth = getattr(_STATE, "depth", 0) + 1
         try:
-            with batch_shard(*shard):
+            with shard_context(shard):
                 return fn(*inner)
         finally:
             _STATE.depth -= 1

@@ -8,17 +8,18 @@ each, over the same ('data', 'stage', 'fsdp', 'seq', 'model') grid
 (`plan.py`, `sharding.py`), rendezvouses before any device access
 (`distributed.py`), and issues the step's collectives by hand
 (`collectives.py`, `trainer/train.py`): data parallelism, ZeRO-3 over
-`fsdp`, ring attention over `seq` (`ring_attention.py`) and checkpoint plan
-migration (`reshard.py`). Tensor parallelism (`tp`) and the pipeline
-(`pp`) are refused by name (ROADMAP A19b, A19c). `flash_attention.py` is
-the hand-written fused attention kernel.
+`fsdp`, ring attention over `seq` (`ring_attention.py`), tensor
+parallelism over `model` (`tensor_parallel.py`: the layers' collectives;
+`partition.py`: a rank's part of the policy), GPipe over `stage`
+(`pipeline.py`) and checkpoint plan migration (`reshard.py`).
+`flash_attention.py` is the hand-written fused attention kernel.
 
 JAX's exports, folded: `RankGrid` takes `make_mesh`'s place; JAX's
 placement helpers (`batch_sharding`, `replicated`, `shard_pytree`,
 `sharding_for_path` and the rule views) place arrays on a mesh, which the
 port's flat layout does not do (the plan decides coverage; the train step
 chunks the flat vector); `mixed_precision_from_config` is
-`config.parallel.mixed_precision`; the pipeline's exports wait for A19c.
+`config.parallel.mixed_precision`.
 """
 
 from rt1_tpu_torch.parallel.distributed import (
@@ -28,6 +29,13 @@ from rt1_tpu_torch.parallel.distributed import (
     is_primary,
 )
 from rt1_tpu_torch.parallel.mesh import MeshConfig, RankGrid
+from rt1_tpu_torch.parallel.partition import Partition, partition_policy
+from rt1_tpu_torch.parallel.pipeline import (
+    pipeline_apply,
+    pp_causal_transformer_apply,
+    stack_layer_params,
+    unstack_layer_params,
+)
 from rt1_tpu_torch.parallel.plan import (
     AUTO_MESH_SHAPES,
     PlanCoverageError,
@@ -42,6 +50,7 @@ __all__ = [
     "AUTO_MESH_SHAPES",
     "DistributedOptions",
     "MeshConfig",
+    "Partition",
     "PlanCoverageError",
     "RankGrid",
     "ShardingPlan",
@@ -50,6 +59,11 @@ __all__ = [
     "gathered_equal",
     "initialize_from_config",
     "is_primary",
+    "partition_policy",
+    "pipeline_apply",
+    "pp_causal_transformer_apply",
     "rt1_sharding_plan",
     "spec_for_shape",
+    "stack_layer_params",
+    "unstack_layer_params",
 ]

@@ -5,13 +5,17 @@ the ranks of a `torch.distributed` world, one process and one device each,
 over the same five axes, in JAX's order (`model` innermost):
 
 * ``data``  — data parallelism: the batch is split, gradients all-reduced;
-* ``stage`` — pipeline stages (refused, ROADMAP A19c);
+* ``stage`` — pipeline stages: each holds its block of the decoder's
+  layers, and microbatches pass between them point to point
+  (`parallel/pipeline.py`); stage ranks hold the same rows;
 * ``fsdp``  — ZeRO-3: the batch is split as over ``data``, and the float32
   masters and Adam moments live in 1/fsdp chunks (`trainer/train.py`);
 * ``seq``   — sequence parallelism: ring attention over the window
   (`parallel/ring_attention.py`); ranks that differ only here hold the
   same rows;
-* ``model`` — tensor parallelism (refused, ROADMAP A19b).
+* ``model`` — tensor parallelism: heads, FFN columns, the embeddings,
+  the head and the MoE experts split by the plan's rules
+  (`parallel/tensor_parallel.py`); model ranks hold the same rows.
 
 `RankGrid` is this rank's place in the grid and one process group per
 line of ranks along each axis combination the train step reduces over.
@@ -109,7 +113,8 @@ class RankGrid:
     default to the initialized world's; without one the grid is the world
     of one and holds no group."""
 
-    GROUP_AXES: Tuple[Tuple[str, ...], ...] = (BATCH_AXES, ("data",), ("fsdp",), ("seq",))
+    GROUP_AXES: Tuple[Tuple[str, ...], ...] = (BATCH_AXES, ("data",), ("fsdp",), ("seq",),
+                                                ("model",), ("stage",))
 
     def __init__(self, mesh: MeshConfig, rank: Optional[int] = None,
                  world: Optional[int] = None):

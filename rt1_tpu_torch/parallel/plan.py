@@ -18,9 +18,12 @@ the masters and of both Adam moments. Once a step the chunks are cast to
 the compute dtype and all-gathered into the flat compute copy, and the
 flat gradient is reduce-scattered back into chunks. The numbers are JAX's;
 so is the memory a rank holds for the masters and moments (1/fsdp). The
-rules still decide coverage, and will decide tensor parallelism (ROADMAP
-A19b). JAX's `PIPELINE_STACK_RULES` is not ported: it works around an
-XLA:CPU partitioner fault that torch does not have.
+rules decide coverage and tensor parallelism: a leaf whose spec names
+`model` (and whose dimension the tp size divides, `sharding.
+spec_for_shape`) is split over the `model` ranks, the rest stay whole
+(`parallel/partition.py`). Under `pp` each stage keeps its block of the
+decoder's layers. JAX's `PIPELINE_STACK_RULES` is not ported: it works
+around an XLA:CPU partitioner fault that torch does not have.
 
 The quantization rules stay where the port keeps them
 (`models/quant.py::rt1_quant_rules`).
@@ -164,8 +167,7 @@ class ShardingPlan:
         the rank count, `strict`) over `n_devices` ranks (default: the
         initialized world's, else 1). `collapse_data` is the serving
         resolution: dp 1 and a grid of exactly fsdp x tp x pp x sp ranks,
-        raising when `n_devices` is fewer. tp > 1 and pp > 1 raise
-        (ROADMAP A19b, A19c)."""
+        raising when `n_devices` is fewer."""
         dp, fsdp, tp, pp, sp = -1, 1, 1, 1, 1
         strict = False
         par = _get(config, "parallel")
@@ -186,7 +188,6 @@ class ShardingPlan:
                 pp = int(_get(par, "pp", 1))
                 sp = int(_get(par, "sp", 1))
             strict = bool(_get(par, "strict", False))
-        refuse_unported(tp, pp)
         if collapse_data:
             dp = 1
             n = fsdp * tp * pp * sp
@@ -196,17 +197,6 @@ class ShardingPlan:
             n_devices = n
         mesh = MeshConfig(data=dp, fsdp=fsdp, model=tp, seq=sp, stage=pp).resolve(n_devices)
         return cls(mesh=mesh, strict=strict)
-
-
-def refuse_unported(tp: int, pp: int) -> None:
-    """Raise for tensor parallelism (ROADMAP A19b) and the pipeline
-    (A19c): the port does not run them, and runs nothing in their place."""
-    if tp > 1:
-        raise ValueError(f"parallel.tp={tp}: tensor parallelism is not ported yet "
-                         "(ROADMAP A19b); use dp, fsdp or sp")
-    if pp > 1:
-        raise ValueError(f"parallel.pp={pp}: pipeline parallelism is not ported yet "
-                         "(ROADMAP A19c); use dp, fsdp or sp")
 
 
 def _get(obj: Any, key: str, default: Any = None) -> Any:

@@ -8,10 +8,11 @@ grid (`parallel/mesh.py`), a tuple of them, or None (that dimension whole);
 collection (`transformer/layer_0/ff/kernel`), the names `convert.flax_paths`
 gives the port's parameters.
 
-In the port the specs decide coverage (`ShardingPlan.coverage`): `fsdp`
-shards the train state's flat vector in equal chunks, not each matrix along
-the dimension its rule names (`trainer/train.py`), and tensor parallelism,
-which will follow the rules' `model` entries, is ROADMAP A19b.
+In the port the specs decide coverage (`ShardingPlan.coverage`) and tensor
+parallelism, which follows the rules' `model` entries
+(`parallel/partition.py`); `fsdp` shards the train state's flat vector in
+equal chunks, not each matrix along the dimension its rule names
+(`trainer/train.py`).
 """
 
 from __future__ import annotations

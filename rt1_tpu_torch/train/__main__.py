@@ -54,8 +54,9 @@ training"): on the CPU over gloo,
 
 and on the card over NCCL the same without `--device cpu` (one rank a GPU:
 `--nproc_per_node` at most the host's GPUs). `parallel.dp`, `fsdp`, `sp`
-(with `model.attention_impl=ring`), `auto` and `strict` act; `tp > 1` and
-`pp > 1` are refused (ROADMAP A19b, A19c). Rank 0 logs and writes the
+(with `model.attention_impl=ring`), `tp` (tensor parallelism), `pp` (the
+GPipe pipeline, `model.pipeline_microbatches` a step, dense attention),
+`auto` and `strict` act. Rank 0 logs and writes the
 workdir's files; every rank writes its part of each checkpoint, which any
 plan, a world of one included, restores.
 

@@ -41,8 +41,10 @@ Several processes (`config.parallel`, `parallel.distributed.enabled`;
 ... --set parallel.distributed.enabled=true`): the ranks rendezvous before
 any device is touched (`parallel/distributed.py`; NCCL on `cuda:LOCAL_RANK`,
 gloo with `--device cpu`), the plan is resolved once
-(`parallel/plan.py::ShardingPlan.from_config`) into the rank grid, and the
-step reduces over it (`trainer/train.py`). One process is one JAX host of
+(`parallel/plan.py::ShardingPlan.from_config`) into the rank grid, each
+rank keeps its part of the policy under `tp` and `pp`
+(`parallel/partition.py`), and the step reduces over the grid
+(`trainer/train.py`). One process is one JAX host of
 one device: the global batch is `per_host_batch_size` x the batch ranks
 (data x fsdp), and a rank's batch is its block of it: its rows of the
 synthetic batch, or the rank's share of the episode stream (the loaders'
@@ -86,6 +88,7 @@ from rt1_tpu_torch.eval.restore import build_policy
 from rt1_tpu_torch.parallel import distributed as dist_lib
 from rt1_tpu_torch.parallel import mesh as mesh_lib
 from rt1_tpu_torch.parallel.flash_attention import fused_attention
+from rt1_tpu_torch.parallel.partition import partition_policy
 from rt1_tpu_torch.parallel.plan import ShardingPlan
 from rt1_tpu_torch.resilience import faults
 from rt1_tpu_torch.train.pretrain_vision import graft_encoder_into_policy, load_encoder
@@ -165,10 +168,28 @@ def check_batch_plan(config: Config, plan: ShardingPlan) -> None:
     processes, and each process's rows over its share of them) hold by
     construction with one device a process: the world is the grid, and a
     process's share is one way. What is left: a rank's rows must split
-    into its micro-batches, and `sp` needs the ring attention."""
+    into its micro-batches, `sp` needs the ring attention, and the
+    pipeline (`pp`) runs the RT-1 decoder only, on a rank's accumulation
+    micro-batch of a positive multiple of `model.pipeline_microbatches`
+    rows (JAX's `rt1_tpu/train/train.py` checks the per-data-shard batch;
+    a rank's rows are its data shard's here)."""
     if config.per_host_batch_size % max(config.accum_steps, 1) != 0:
         raise ValueError(f"per_host_batch_size={config.per_host_batch_size} is not divisible "
                          f"by accum_steps={config.accum_steps}")
+    if plan.mesh.stage > 1:
+        family = config.model.family
+        if family != "rt1":
+            raise ValueError(
+                f"mesh.stage > 1 (pipeline parallelism) is only supported for the 'rt1' "
+                f"family; family={family!r} would silently replicate all compute across the "
+                "stage axis")
+        shard_batch = config.per_host_batch_size // max(config.accum_steps, 1)
+        micro = config.model.pipeline_microbatches
+        if shard_batch == 0 or shard_batch % micro != 0:
+            raise ValueError(
+                f"pipeline parallelism: per-data-shard per-accum-step batch {shard_batch} "
+                f"(= per_host_batch_size {config.per_host_batch_size} / {config.accum_steps} "
+                f"accum steps) must be a positive multiple of pipeline_microbatches={micro}")
     sp = plan.mesh.seq
     if sp > 1 and (config.model.family != "rt1" or config.model.attention_impl != "ring"):
         raise ValueError(f"parallel.sp={sp} needs model.attention_impl='ring' (the RT-1 "
@@ -535,6 +556,8 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
         check_window_plan(policy, plan)
         if config.model.family == "rt1":  # the rules describe RT-1's paths only, as in JAX
             plan.check_coverage(policy)
+        # Under tp or pp the rank keeps its part of the policy.
+        partition = partition_policy(policy, grid, plan, config.model.pipeline_microbatches)
         ckpt = checkpoint_manager(config, workdir,
                                   on_io=ledger.note_io if ledger is not None else None,
                                   grid=grid)
@@ -546,7 +569,7 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
             graft_encoder_into_policy(policy, load_encoder(pretrained))
             log({"status": "grafted_pretrained_encoder", "path": pretrained})
         optimizer = optimizer_from_config(config)
-        state = create_train_state(policy, optimizer)
+        state = create_train_state(policy, optimizer, partition)
         if grid.size("fsdp") > 1:  # ZeRO-3: this rank's chunk of the masters and moments
             shard_train_state(state, grid.index("fsdp"), grid.size("fsdp"), optimizer)
         state, initial_step = ckpt.restore_or_initialize(state)

@@ -30,6 +30,17 @@ reads either format into the one-file layout (the logical flat vectors;
 plan, so a checkpoint moves between fsdp sizes, data parallelism and the
 world of one unchanged.
 
+Under tensor or pipeline parallelism (a state with a `partition`,
+`parallel/partition.py`) each (stage, model) coordinate holds another
+part of the policy: its writers (data 0, seq 0) write
+`part_s<stage>_m<model>_shard_<f>_of_<F>.pt`, each with its part's chunk
+and, at fsdp index 0, its part's buffers, and the manifest records the
+partition (the logical names and shapes, each split leaf's dimension,
+each layer's stage) and every part's names, shapes and files.
+`load_checkpoint` assembles the logical tensors from the parts, and
+`restore` cuts them for the target's part, so tp and pp checkpoints
+restore under any plan and into the one-device serving engine.
+
 Retention follows the Orbax manager that the JAX package configures
 (`CheckpointManagerOptions(max_to_keep, keep_period)`): after each save,
 a step stays if it is among the newest `max_to_keep` steps on disk (None
@@ -61,6 +72,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from rt1_tpu_torch.parallel import reshard
+from rt1_tpu_torch.parallel.partition import Partition
 from rt1_tpu_torch.resilience import faults
 from rt1_tpu_torch.resilience.retry import RetryOptions, retry_call
 from rt1_tpu_torch.trainer.state import FlatLayout, TrainState
@@ -75,8 +87,28 @@ SHARDED_FORMAT = "rt1_tpu_torch.trainer/sharded-1"
 PROVENANCE = "saved_under.json"
 
 
-def shard_filename(index: int, count: int) -> str:
-    return f"shard_{index:05d}_of_{count:05d}.pt"
+def shard_filename(index: int, count: int, part: Optional[Tuple[int, int]] = None) -> str:
+    """The file of fsdp chunk `index` of `count`; under tp or pp, of the
+    (stage, model) `part`."""
+    name = f"shard_{index:05d}_of_{count:05d}.pt"
+    return name if part is None else f"part_s{part[0]:03d}_m{part[1]:03d}_{name}"
+
+
+def _load_parts(step_dir: str, manifest: Dict) -> Tuple[Dict, Dict]:
+    """(the logical {"flat", "mu", "nu"} vectors, the parts' buffers) of a
+    partitioned manifest."""
+    partition = Partition.from_manifest(manifest["partition"])
+    per_part, buffers = {}, {}
+    for part in manifest["parts"]:
+        shards = [torch.load(os.path.join(step_dir, name), map_location="cpu", weights_only=True)
+                  for name in part["shards"]]
+        buffers.update(shards[0].get("buffers", {}))
+        per_part[(part["stage"], part["model"])] = {
+            key: reshard.assemble_flat([sh[key] for sh in shards], int(part["layout_size"]))
+            for key in ("flat", "mu", "nu")}
+    vectors = {key: partition.logical_flat({k: v[key] for k, v in per_part.items()})
+               for key in ("flat", "mu", "nu")}
+    return vectors, buffers
 
 
 def _write_json(path: str, record: Dict) -> None:
@@ -123,12 +155,18 @@ def load_checkpoint(directory: str, step: Optional[int] = None) -> Dict[str, Any
     if manifest.get("format") != SHARDED_FORMAT:
         raise ValueError(f"not a {SHARDED_FORMAT} manifest: {manifest.get('format')!r}")
     shards = [torch.load(os.path.join(step_dir, name), map_location="cpu", weights_only=True)
-              for name in manifest["shards"]]
+              for name in manifest.get("shards", [])]
     replicated = torch.load(os.path.join(step_dir, REPLICATED), map_location="cpu",
                             weights_only=True)
-    size = int(manifest["layout_size"])
-    flat, mu, nu = (reshard.assemble_flat([s[key] for s in shards], size)
-                    for key in ("flat", "mu", "nu"))
+    buffers = dict(replicated["buffers"])
+    if "parts" in manifest:
+        vectors, part_buffers = _load_parts(step_dir, manifest)
+        flat, mu, nu = vectors["flat"], vectors["mu"], vectors["nu"]
+        buffers.update(part_buffers)
+    else:
+        size = int(manifest["layout_size"])
+        flat, mu, nu = (reshard.assemble_flat([s[key] for s in shards], size)
+                        for key in ("flat", "mu", "nu"))
     params = reshard.unflatten(flat, manifest["names"], manifest["shapes"], manifest["align"])
     return {
         "format": FORMAT,
@@ -136,7 +174,7 @@ def load_checkpoint(directory: str, step: Optional[int] = None) -> Dict[str, Any
         "loop_step": replicated["loop_step"],
         "step": replicated["step"],
         "guard_skips": replicated["guard_skips"],
-        "policy": {**params, **replicated["buffers"]},
+        "policy": {**params, **buffers},
         "flat": flat,
         "optimizer": {"count": replicated["count"], "mu": mu, "nu": nu},
         "rng": replicated["rng"],
@@ -233,14 +271,21 @@ class CheckpointManager:
         writes_shard = coords.get("data", 0) == 0 and coords.get("seq", 0) == 0
         opt = state.opt_state
         param_names = set(state.names)
+        partition = state.partition
+        part = (partition.stage_index, partition.model_index) if partition is not None else None
 
         def _save():
             faults.maybe_fail("ckpt_save", index=op, what=f"save at step {step}")
             os.makedirs(step_dir, exist_ok=True)
             if writes_shard:
-                path = os.path.join(step_dir, shard_filename(index, count))
-                torch.save({"flat": state.flat.detach().cpu(), "mu": opt.mu.detach().cpu(),
-                            "nu": opt.nu.detach().cpu()}, path + ".tmp")
+                path = os.path.join(step_dir, shard_filename(index, count, part))
+                payload = {"flat": state.flat.detach().cpu(), "mu": opt.mu.detach().cpu(),
+                           "nu": opt.nu.detach().cpu()}
+                if part is not None and index == 0:   # the part's buffers
+                    payload["buffers"] = {k: v.detach().cpu()
+                                          for k, v in state.policy.state_dict().items()
+                                          if k not in param_names}
+                torch.save(payload, path + ".tmp")
                 os.replace(path + ".tmp", path)
             if rank == 0:
                 path = os.path.join(step_dir, REPLICATED)
@@ -260,7 +305,7 @@ class CheckpointManager:
         if rank == 0:
             layout = state.layout
             world = grid.world if grid is not None else 1
-            _write_json(manifest_path, {
+            record = {
                 "format": SHARDED_FORMAT,
                 "step": int(step),
                 "world": world,
@@ -276,12 +321,34 @@ class CheckpointManager:
                 "process_count": world,
                 "device_count": world,
                 "local_device_count": 1,
-            })
+            }
+            if partition is not None:
+                record.update(self._part_records(partition, count))
+            _write_json(manifest_path, record)
             self._write_provenance(step, grid)
             self._prune()
         if distributed:
             dist.barrier()
         return manifest_path
+
+    @staticmethod
+    def _part_records(partition: Partition, count: int) -> Dict:
+        """The manifest's logical layout, partition and parts."""
+        parts = []
+        for stage in range(partition.stage_ways):
+            names, shapes = partition.part(stage)
+            size = FlatLayout.of_shapes(shapes).size
+            for model in range(partition.model_ways):
+                parts.append({"stage": stage, "model": model, "names": names,
+                              "shapes": [list(sh) for sh in shapes], "layout_size": size,
+                              "padded_size": -(-size // count) * count,
+                              "shards": [shard_filename(i, count, (stage, model))
+                                         for i in range(count)]})
+        return {"names": list(partition.names),
+                "shapes": [list(sh) for sh in partition.shapes],
+                "layout_size": FlatLayout.of_shapes(partition.shapes).size,
+                "padded_size": None, "shards": [],
+                "partition": partition.to_manifest(), "parts": parts}
 
     def _write_provenance(self, step: int, grid) -> None:
         """`<directory>/saved_under.json`, rank 0 only (best effort, as
@@ -322,14 +389,18 @@ class CheckpointManager:
         # Checked before anything is copied, so a step that fails leaves
         # `state` as it was for the fallback to an older one.
         manifest = ckpt.get("sharded")
-        if set(ckpt["policy"]) != set(state.policy.state_dict()) or \
+        partition = state.partition
+        keys = partition.keys if partition is not None else state.policy.state_dict()
+        if set(ckpt["policy"]) != set(keys) or \
                 not {"count", "mu", "nu"} <= set(ckpt["optimizer"]) or \
                 (manifest is not None and (
-                    manifest["names"] != list(state.names)
-                    or [tuple(s) for s in manifest["shapes"]] != list(state.layout.shapes))):
+                    manifest["names"] != list(state.logical_names)
+                    or [tuple(s) for s in manifest["shapes"]] != state.logical_shapes)):
             raise ValueError(f"checkpoint step {step} does not match the train state")
         opt = state.opt_state
-        if state.shard is None:
+        if partition is not None:
+            self._restore_part(state, ckpt)
+        elif state.shard is None:
             state.policy.load_state_dict(ckpt["policy"])
         else:  # the masters take their chunk; the placeholders stay
             flat = ckpt.get("flat")
@@ -342,11 +413,37 @@ class CheckpointManager:
                         buf.copy_(ckpt["policy"][name])
             state.flat.copy_(reshard.place_flat(flat, state.shard))
         opt.count.fill_(ckpt["optimizer"]["count"])
-        opt.mu.copy_(reshard.place_flat(ckpt["optimizer"]["mu"], state.shard))
-        opt.nu.copy_(reshard.place_flat(ckpt["optimizer"]["nu"], state.shard))
+        if partition is None:
+            opt.mu.copy_(reshard.place_flat(ckpt["optimizer"]["mu"], state.shard))
+            opt.nu.copy_(reshard.place_flat(ckpt["optimizer"]["nu"], state.shard))
         state.step.fill_(ckpt["step"])
         state.guard_skips.fill_(ckpt["guard_skips"])
         return int(ckpt["loop_step"])
+
+    @staticmethod
+    def _restore_part(state: TrainState, ckpt: Dict[str, Any]) -> None:
+        """The logical masters and moments of `ckpt` cut for the state's
+        part (its model slices, its stage's layers, its fsdp chunk), and
+        its buffers."""
+        partition = state.partition
+        names, shapes = partition.names, partition.shapes
+        align = FlatLayout.ALIGN
+        flat = ckpt.get("flat")
+        params = ckpt["policy"] if flat is None else reshard.unflatten(flat, names, shapes, align)
+        mu = reshard.unflatten(ckpt["optimizer"]["mu"], names, shapes, align)
+        nu = reshard.unflatten(ckpt["optimizer"]["nu"], names, shapes, align)
+
+        def local(tensors):
+            return state.layout.flatten([partition.local(n, tensors[n]) for n in state.names])
+
+        params_set = set(state.names)
+        with torch.no_grad():
+            for name, buf in state.policy.named_buffers():
+                if name not in params_set and name in ckpt["policy"]:
+                    buf.copy_(ckpt["policy"][name])
+            for target, tensors in ((state.flat, params), (state.opt_state.mu, mu),
+                                    (state.opt_state.nu, nu)):
+                target.copy_(reshard.place_flat(local(tensors), state.shard))
 
     def restore_or_initialize(self, state: TrainState) -> Tuple[TrainState, int]:
         """(state, loop step to start from): the newest checkpoint that

@@ -18,12 +18,18 @@ hold no values of their own: each is a NaN expanded to its shape (one
 element of storage), so a read that bypasses the step's gathered compute
 copy shows at once. The BatchNorm statistics, the counters and `layout`
 stay whole on every rank.
+
+Under `parallel.tp` or `parallel.pp` the policy is the rank's part of the
+logical one (`parallel/partition.py`): its parameters are its `model`
+slices and, under pp, its stage's layers with every whole leaf, and
+`flat` lays out that part (ZeRO-3 then chunks it over `fsdp`).
+`partition` records the logical names and shapes the checkpoints write.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -45,6 +51,11 @@ class FlatLayout:
         self.numels = [t.numel() for t in tensors]
         self.padded = [-(-n // self.ALIGN) * self.ALIGN for n in self.numels]
         self.size = sum(self.padded)
+
+    @classmethod
+    def of_shapes(cls, shapes: Sequence[Sequence[int]]) -> "FlatLayout":
+        """The layout of tensors of `shapes` (none allocated)."""
+        return cls([torch.empty(tuple(s), device="meta") for s in shapes])
 
     def flatten(self, tensors: Sequence[torch.Tensor], dtype: Optional[torch.dtype] = None,
                 device=None) -> torch.Tensor:
@@ -122,6 +133,17 @@ class TrainState:
     flat: torch.Tensor          # the float32 masters (this rank's chunk under `shard`)
     flat_buffers: torch.Tensor  # the BatchNorm statistics
     shard: Optional[FlatShard] = None   # ZeRO-3: which chunk `flat` and the moments are
+    partition: Optional[Any] = None     # `parallel.partition.Partition` under tp or pp
+
+    @property
+    def logical_names(self) -> List[str]:
+        """The world of one's parameter names (the checkpoints' layout)."""
+        return self.partition.names if self.partition is not None else self.names
+
+    @property
+    def logical_shapes(self) -> List[tuple]:
+        return list(self.partition.shapes) if self.partition is not None \
+            else list(self.layout.shapes)
 
 
 def shard_train_state(state: TrainState, index: int, count: int,
@@ -147,9 +169,11 @@ def shard_train_state(state: TrainState, index: int, count: int,
     return state
 
 
-def create_train_state(policy: nn.Module, optimizer: Adam) -> TrainState:
+def create_train_state(policy: nn.Module, optimizer: Adam,
+                       partition: Optional[Any] = None) -> TrainState:
     """A fresh state over `policy` (already initialised, in float32, on its
-    device; it must stay there). The masters take no part in autograd: the
+    device; it must stay there), which under tp or pp is the rank's part
+    that `partition` describes. The masters take no part in autograd: the
     train step differentiates a compute copy of them."""
     policy.requires_grad_(False)
     names, params = zip(*policy.named_parameters())
@@ -171,4 +195,5 @@ def create_train_state(policy: nn.Module, optimizer: Adam) -> TrainState:
         names=list(names),
         flat=flat,
         flat_buffers=FlatLayout(buffers).adopt(buffers, device=device),
+        partition=partition,
     )

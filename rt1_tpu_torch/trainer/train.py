@@ -92,6 +92,17 @@ neither the functional call over the flat copy nor this Adam:
   guard's verdict, `action_loss_mean` (in the reference scale, reduced as
   the loss) and the health pack. Every rank therefore applies or skips
   the same updates.
+* Under tensor or pipeline parallelism (`parallel.tp`, `parallel.pp`) the
+  state holds the rank's part of the policy (`parallel/partition.py`):
+  its `model` slices and, under pp, its stage's layers, beside every whole
+  leaf. Ranks along `model` and `stage` hold the same rows and compute the
+  same loss, so the gradient is summed over the batch ranks only, as
+  above: a sliced leaf's gradient is its slice's, a whole leaf's is the
+  whole one on every rank (`parallel/tensor_parallel.py`,
+  `parallel/pipeline.py`). The norms add the squared sums of sliced leaves
+  over `model` and of stage-owned leaves over `stage`, and count whole
+  leaves once (`StepComms.reduce_classes`), so clipping, the guard and the
+  health pack read the world of one's numbers.
 
 An initialized world of one runs the same collectives on one-rank groups
 and computes the one-process step's numbers bit for bit.
@@ -107,7 +118,7 @@ import numpy as np
 import torch
 
 from rt1_tpu_torch.models.moe import router_names
-from rt1_tpu_torch.obs.health import PACK_KEY, TASK_ID_KEY, HealthPack, param_paths
+from rt1_tpu_torch.obs.health import PACK_KEY, TASK_ID_KEY, HealthPack, leaf_lengths, param_paths
 from rt1_tpu_torch.trainer.optim import Adam, AdamState, global_norm
 from rt1_tpu_torch.trainer.state import TrainState
 
@@ -176,6 +187,7 @@ class TrainStepFns:
     grid: Optional[Any] = None
     _health: Optional[HealthPack] = dataclasses.field(default=None, init=False, repr=False)
     _comms: Optional[Any] = dataclasses.field(default=None, init=False, repr=False)
+    _classes: Optional[Any] = dataclasses.field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         if self.accum_steps < 1:
@@ -203,10 +215,14 @@ class TrainStepFns:
             rt1 = self.accum_steps == 1 and self.loss_fn is None
             action_dims = state.policy.tokens_per_action if rt1 else 0
             chunk = (state.shard.lo, state.shard.hi) if state.shard is not None else None
-            self._health = HealthPack(param_paths(state.policy), state.layout.padded,
-                                      state.flat.device, depth=self.health_group_depth,
-                                      action_dims=action_dims,
-                                      task_names=self.health_task_names, chunk=chunk)
+            partition = state.partition
+            self._health = HealthPack(
+                param_paths(state.policy), state.layout.padded, state.flat.device,
+                depth=self.health_group_depth, action_dims=action_dims,
+                task_names=self.health_task_names, chunk=chunk,
+                groups_of=partition.paths if partition is not None else None,
+                classes=[partition.leaf_class(n) for n in state.names] + [0] * (chunk is not None)
+                if partition is not None else None)
         return self._health
 
     def health_names(self, state: TrainState) -> Tuple[str, ...]:
@@ -345,7 +361,24 @@ class TrainStepFns:
 
     def grad_norm(self, state: TrainState, grad: torch.Tensor) -> torch.Tensor:
         """The global norm of the (reduced) gradient: of its chunks' squared
-        sums summed over the fsdp ranks under fsdp."""
+        sums summed over the fsdp ranks under fsdp; under tp or pp, each
+        leaf class's squared sum over its axes (module docstring)."""
+        if state.partition is not None:
+            if self._classes is None:
+                chunk = (state.shard.lo, state.shard.hi) if state.shard is not None else None
+                lengths = leaf_lengths(state.layout.padded, chunk)
+                classes = torch.zeros((len(lengths), 4), dtype=torch.float64)
+                for leaf, name in enumerate(state.names):
+                    classes[leaf, state.partition.leaf_class(name)] = 1.0
+                self._classes = (torch.tensor(lengths, dtype=torch.int64, device=grad.device),
+                                 classes.to(grad.device))
+            lengths, classes = self._classes
+            # float64: `segment_reduce` sums a segment in order on the CPU
+            # (1e-3 relative error over 2M float32 squares).
+            per_leaf = torch.segment_reduce(torch.square(grad.double()), "sum", lengths=lengths,
+                                            initial=0.0)
+            sumsq = self._comms.reduce_classes(per_leaf @ classes)
+            return torch.sqrt(sumsq).to(torch.float32)
         if state.shard is None:
             return global_norm(grad)
         return torch.sqrt(self._comms.sum_shards(torch.sum(torch.square(grad))))

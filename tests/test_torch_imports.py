@@ -170,7 +170,8 @@ def test_moe_and_lava_modules_are_among_those_imported():
 
 
 PARALLEL_MODULES = tuple(f"rt1_tpu_torch.parallel.{m}" for m in (
-    "mesh", "sharding", "plan", "distributed", "collectives", "reshard", "ring_attention"))
+    "mesh", "sharding", "plan", "distributed", "collectives", "reshard", "ring_attention",
+    "tensor_parallel", "partition", "pipeline"))
 
 
 def test_parallel_modules_are_among_those_imported():

@@ -12,7 +12,9 @@ statistics, the counters); rank 0 alone writes the provenance (the other
 ranks' managers raise if they try); the serving engine built from any of
 the steps gives the same logits, bit for bit, as one built from the
 unsharded state, and a config asking for more devices than the host has
-is restored with plain placement and a warning.
+is restored with plain placement and a warning. The same for a tp=2 and a
+pp=2 checkpoint, each restored under the other plans in turn (below,
+`parts`).
 """
 
 import json
@@ -139,3 +141,90 @@ def test_flat_chunks_pad_and_reassemble_for_any_count():
         assert all(c.numel() == shards[0].chunk for c in chunks)
         assert gathered_equal(assemble_flat(chunks, 130), logical)
         assert not torch.cat(chunks)[130:].any()   # the padding is zeros
+
+
+# Tensor and pipeline parallelism: one group of 2 ranks writes a tp=2 and
+# a pp=2 checkpoint (one step each: the moments are not zero), then
+# restores each under the other plans in turn (the tp=2 one under fsdp=2,
+# then pp=2; the pp=2 one under tp=2, then fsdp=2), saving each restored
+# state as the next step. The world of one restores every step; each hands
+# back the saved logical state byte for byte, and the serving engine built
+# from each serves the unsharded state's logits bit for bit.
+PARTS = {"tp": SMALL + ["parallel.tp=2"],
+         "pp": SMALL + ["parallel.pp=2", "model.pipeline_microbatches=2"],
+         "fsdp": SMALL + ["parallel.fsdp=2"]}
+
+
+@pytest.fixture(scope="module")
+def parts(run, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("parts")
+    base = dict(config="tiny", weights=run["weights"])
+    dirs = {name: str(tmp / name / "checkpoints") for name in ("tp", "pp")}
+    batch = [worker.global_batch(6, 4, 3, 32, 56)]
+    chains = {"tp": ["fsdp", "pp"], "pp": ["tp", "fsdp"]}
+    jobs = [dict(base, kind="save", directory=dirs[name], overrides=PARTS[name], save_step=1,
+                 batches=batch) for name in ("tp", "pp")]
+    jobs += [dict(base, kind="chain", directory=dirs[name], chain=[
+        {"overrides": PARTS[plan], "save_step": 3 + 2 * i} for i, plan in enumerate(chains[name])])
+        for name in ("tp", "pp")]
+    results = worker.spawn(2, "ckpt_jobs", {"jobs": jobs}, tmp)
+    return dict(dirs=dirs, chains=chains, tmp=tmp,
+                saved={name: worker.logical_state_of([r[i] for r in results])
+                       for i, name in enumerate(("tp", "pp"))},
+                links={name: [worker.logical_state_of([r[2 + i][k] for r in results])
+                              for k in range(2)] for i, name in enumerate(("tp", "pp"))},
+                steps={name: [[r[2 + i][k]["step"] for r in results] for k in range(2)]
+                       for i, name in enumerate(("tp", "pp"))})
+
+
+def _world_one(run, directory, step):
+    state = create_train_state(build_model(run["cfg"], "cpu"), Adam(**worker.OPT))
+    assert CheckpointManager(directory).restore(state, step) == step
+    return worker.logical_state(state)
+
+
+@pytest.mark.parametrize("name", ["tp", "pp"])
+def test_tp_and_pp_checkpoints_restore_under_every_plan_and_the_world_of_one(run, parts, name):
+    saved = parts["saved"][name]
+    assert saved["step"] == 1 and saved["mu"].abs().sum() > 0
+    for link, (restored, steps) in enumerate(zip(parts["links"][name], parts["steps"][name])):
+        assert steps == [1 + 2 * link] * 2   # each link restores the newest step
+        assert gathered_equal(restored, saved), (name, parts["chains"][name][link])
+    for step in (1, 3, 5):
+        assert gathered_equal(_world_one(run, parts["dirs"][name], step), saved), (name, step)
+    with open(os.path.join(parts["dirs"][name], "1", "manifest.json")) as f:
+        manifest = json.load(f)
+    ways = {"tp": (1, 2), "pp": (2, 1)}[name]
+    assert (manifest["partition"]["stage_ways"], manifest["partition"]["model_ways"]) == ways
+    assert len(manifest["parts"]) == 2 and manifest["names"] == list(
+        dict(build_model(run["cfg"], "cpu").named_parameters()))
+    if name == "pp":
+        assert {p["stage"] for p in manifest["parts"]} == {0, 1}
+        assert set(manifest["partition"]["stage_of"].values()) == {0, 1}
+    else:
+        assert manifest["partition"]["slices"]["transformer.layer_0.attn.query.weight"] == 0
+
+
+@pytest.mark.parametrize("name", ["tp", "pp"])
+def test_tp_and_pp_checkpoints_serve_the_unsharded_state(run, parts, name, caplog):
+    state = create_train_state(build_model(run["cfg"], "cpu"), Adam(**worker.OPT))
+    CheckpointManager(parts["dirs"][name]).restore(state, 1)
+    plain = parts["tmp"] / f"plain_{name}"
+    CheckpointManager(str(plain / "checkpoints")).save(1, state)
+    rng = np.random.default_rng(19)
+    obs = {"image": torch.from_numpy(rng.uniform(0, 1, (2, 32, 56, 3)).astype(np.float32)),
+           "natural_language_embedding": torch.from_numpy(
+               rng.standard_normal((2, 512)).astype(np.float32))}
+
+    def logits(cfg, workdir, step):
+        engine, restored = build_serve_engine(cfg, workdir=workdir, device="cpu", step=step)
+        assert restored == step
+        return engine.policy.infer_step(obs, engine.policy.initial_state(2))[0]["action_logits"]
+
+    reference = logits(run["cfg"], str(plain), 1)
+    workdir = os.path.dirname(parts["dirs"][name])
+    wide = worker.make_config("tiny", PARTS[name])   # a plan one host cannot hold
+    with caplog.at_level(logging.WARNING, logger="rt1_tpu_torch.eval.restore"):
+        for step in (1, 3, 5):
+            assert torch.equal(logits(wide, workdir, step), reference), step
+    assert any("plain placement" in r.message for r in caplog.records)

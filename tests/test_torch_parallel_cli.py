@@ -5,8 +5,11 @@ and save a sharded checkpoint; the same global batch (16 rows) in one
 process gives the same losses, within rtol 1e-5; the world of one then
 resumes the sharded step and trains on to step 4. Rank 0 alone logs and
 writes `metrics.jsonl` (one record a step), and the start line reports the
-world, the grid and the global batch. A SIGTERM that reaches rank 1 alone
-stops both ranks at the same step, with one preemption save.
+world, the grid and the global batch. The same under tp=2 (dropout and the
+crop on: the same losses as one process on the same 8 rows) and pp=2 (2
+microbatches a step, dropout 0: the same losses too), each resumed by the
+world of one. A SIGTERM that reaches rank 1 alone stops both ranks at the
+same step, with one preemption save.
 """
 
 import json
@@ -15,6 +18,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 import torch_parallel_worker as worker
 
@@ -74,6 +78,28 @@ def test_two_rank_cli_trains_saves_and_resumes_at_world_one(tmp_path):
     assert resumed[0]["world"] == 1
     assert resumed[-1]["status"] == "done" and resumed[-1]["step"] == 4
     assert resumed[-1]["updates"] == 4
+
+
+@pytest.mark.parametrize("plan", [["parallel.tp=2"],
+                                  ["parallel.pp=2", "model.pipeline_microbatches=2",
+                                   "model.dropout_rate=0"]])
+def test_two_rank_cli_under_tp_and_pp_trains_saves_and_resumes_at_world_one(tmp_path, plan):
+    parted, single = tmp_path / "parted", tmp_path / "single"
+    lines = _train(parted, "num_steps=2", "parallel.distributed.enabled=true", *plan, nproc=2)
+    start = next(r for r in lines if r.get("status") == "start")
+    axis = "model" if "parallel.tp=2" in plan else "stage"
+    assert start["world"] == 2 and start["mesh"][axis] == 2 and start["global_batch"] == 8
+    assert lines[-1]["status"] == "done" and lines[-1]["checkpoint_step"] == 2
+    manifest = json.load(open(parted / "checkpoints" / "2" / "manifest.json"))
+    assert len(manifest["parts"]) == 2
+    _train(single, "num_steps=2", *plan[1:])
+    for got, ref in zip(_metrics(parted), _metrics(single)):
+        for key in ("loss", "grad_norm", "action_loss_mean", "eval_loss"):
+            if key in ref:
+                np.testing.assert_allclose(got[key], ref[key], rtol=1e-5, err_msg=key)
+    resumed = _train(parted, "num_steps=3", *plan[1:])
+    assert resumed[0]["restored_step"] == 2 and resumed[0]["world"] == 1
+    assert resumed[-1]["status"] == "done" and resumed[-1]["updates"] == 3
 
 
 def test_a_signal_on_one_rank_stops_every_rank_at_the_same_step(tmp_path):

@@ -10,9 +10,9 @@ the explicit, auto and `collapse_data` paths; `spec_for_shape`;
 JAX's on the same configs (empty for the shipped RT-1 configs), the
 warning and strict mode's `PlanCoverageError`; `DistributedOptions`'
 validation (JAX's missing-field message) and its environment precedence;
-the refusals of tp > 1 and pp > 1 (ROADMAP A19b, A19c) at the config seam
-and in the train entry; and the checks that refuse a CUDA world the host
-cannot hold before any rendezvous.
+`parallel.tp` and `parallel.pp` through `--set` and `from_config` as JAX
+resolves them (`auto` on 8 ranks is JAX's (2, 2, 2) row); and the checks
+that refuse a CUDA world the host cannot hold before any rendezvous.
 """
 
 import logging
@@ -40,7 +40,8 @@ from rt1_tpu_torch.parallel.sharding import spec_for_shape
 torch.set_num_threads(2)
 
 SHAPES = [dict(), dict(fsdp=2), dict(data=2, fsdp=2), dict(data=2, seq=2), dict(fsdp=2, seq=2),
-          dict(data=2, fsdp=2, seq=2), dict(fsdp=4, seq=2), dict(seq=8), dict(data=4)]
+          dict(data=2, fsdp=2, seq=2), dict(fsdp=4, seq=2), dict(seq=8), dict(data=4),
+          dict(model=2), dict(stage=2), dict(data=2, fsdp=2, model=2), dict(stage=2, model=2)]
 
 
 @pytest.mark.parametrize("n", [1, 2, 4, 6, 8])
@@ -58,7 +59,8 @@ def test_mesh_resolve_matches_jax(n, kw):
 
 @pytest.mark.parametrize("kw", [dict(), dict(fsdp=2), dict(fsdp=2, seq=2),
                                 dict(data=2, fsdp=2, seq=2), dict(fsdp=4, seq=2), dict(seq=8),
-                                dict(seq=2)])
+                                dict(seq=2), dict(data=2, fsdp=2, model=2),
+                                dict(data=2, stage=2, model=2), dict(stage=4, model=2)])
 def test_rank_grid_lays_ranks_out_as_jax_lays_devices(kw):
     cfg = MeshConfig(**kw).resolve(8)
     jmesh = jax_mesh.make_mesh(jax_mesh.MeshConfig(**kw))
@@ -94,7 +96,9 @@ def _shape(mesh):
 @pytest.mark.parametrize("block,n", [
     ({}, 8), ({"dp": 2, "fsdp": 2, "sp": 2}, 8), ({"fsdp": 4}, 8), ({"dp": 4, "sp": 2}, 8),
     ({"sp": 8}, 8), ({"auto": True}, 4), ({"auto": True}, 2), ({"auto": True, "sp": 2}, 8),
-    ({"strict": True, "fsdp": 2}, 8), ({"dp": 2}, 2)])
+    ({"strict": True, "fsdp": 2}, 8), ({"dp": 2}, 2), ({"tp": 2}, 2), ({"pp": 2}, 2),
+    ({"dp": 2, "tp": 2}, 4), ({"fsdp": 2, "pp": 2}, 4), ({"tp": 2, "pp": 2, "dp": 2}, 8),
+    ({"auto": True}, 8), ({"auto": True, "pp": 2}, 8), ({"sp": 2, "tp": 2}, 4)])
 def test_from_config_matches_jax(block, n):
     config = {"parallel": block}
     port = ShardingPlan.from_config(config, n_devices=n)
@@ -106,7 +110,8 @@ def test_from_config_matches_jax(block, n):
 
 
 @pytest.mark.parametrize("block,devices", [({}, 1), ({"fsdp": 2, "dp": 4}, 4), ({"sp": 2}, 2),
-                                           ({"fsdp": 4}, 2)])
+                                           ({"fsdp": 4}, 2), ({"tp": 2}, 1), ({"tp": 2}, 2),
+                                           ({"pp": 2, "tp": 2}, 4)])
 def test_collapse_data_matches_jax(block, devices):
     config = {"parallel": block}
 
@@ -123,11 +128,19 @@ def test_collapse_data_matches_jax(block, devices):
     assert port == ref
 
 
-def test_auto_that_reaches_tensor_parallelism_is_refused():
-    """8 ranks under `auto` are JAX's (2, 2, 2): tp 2, not ported."""
-    assert auto_mesh_shape(8) == (2, 2, 2)
-    with pytest.raises(ValueError, match="A19b"):
-        ShardingPlan.from_config({"parallel": {"auto": True}}, n_devices=8)
+@pytest.mark.parametrize("n,local", [(8, None), (8, 4), (16, 8)])
+def test_auto_that_reaches_tensor_parallelism_resolves_as_jax(n, local):
+    """8 ranks under `auto` are JAX's (2, 2, 2): tp 2, now run."""
+    if n == 8 and local is None:
+        assert auto_mesh_shape(8) == (2, 2, 2)
+    config = {"parallel": {"auto": True}}
+    plan = ShardingPlan.from_config(config, n_devices=n, local_device_count=local)
+    dp, fsdp, tp = auto_mesh_shape(n, local)
+    assert (plan.mesh.data, plan.mesh.fsdp, plan.mesh.model) == (dp, fsdp, tp)
+    assert tp > 1
+    if local is None:
+        ref = jax_plan.ShardingPlan.from_config(config, devices=jax.devices()[:n])
+        assert plan.mesh.shape == _shape(ref.mesh)
 
 
 def test_serving_plan_warns_and_restores_plainly_where_the_host_is_too_small():
@@ -204,21 +217,20 @@ def test_coverage_warns_and_strict_raises(caplog):
     assert strict.check_coverage(build_policy(get_config("tiny"))) == []
 
 
-@pytest.mark.parametrize("key", ["parallel.tp=2", "parallel.pp=2"])
-def test_tp_and_pp_are_refused_by_name(key, tmp_path):
-    roadmap = "A19b" if "tp" in key else "A19c"
+@pytest.mark.parametrize("key,n", [("parallel.tp=2", 2), ("parallel.pp=2", 2),
+                                   ("parallel.tp=2", 4), ("parallel.pp=2", 8)])
+def test_tp_and_pp_parse_and_resolve_as_jax(key, n):
+    """`--set parallel.tp=2` / `parallel.pp=2` are kept and resolve as
+    JAX's `ShardingPlan.from_config` on the same device count."""
     cfg = get_config("tiny")
-    with pytest.raises(ValueError, match=roadmap):
-        apply_override(cfg, key)
-    assert cfg.parallel.tp == 1 and cfg.parallel.pp == 1    # the refused value is not kept
-    setattr(cfg.parallel, key.split(".")[1].split("=")[0], 2)
-    with pytest.raises(ValueError, match=roadmap):
-        ShardingPlan.from_config(cfg)
-    from rt1_tpu_torch.train.train import train_and_evaluate
-
-    with pytest.raises(ValueError, match=roadmap):
-        train_and_evaluate(cfg, str(tmp_path), device="cpu")
-    assert not (tmp_path / "metrics.jsonl").exists()
+    apply_override(cfg, key)
+    axis, value = key.split(".")[1].split("=")
+    assert getattr(cfg.parallel, axis) == int(value)
+    port = ShardingPlan.from_config(cfg, n_devices=n)
+    ref = jax_plan.ShardingPlan.from_config({"parallel": {axis: int(value)}},
+                                            devices=jax.devices()[:n])
+    assert port.mesh.shape == _shape(ref.mesh)
+    assert port.data_parallel_size == ref.data_parallel_size
 
 
 def test_parallel_keys_parse():
@@ -227,10 +239,12 @@ def test_parallel_keys_parse():
                 "parallel.strict=true", "parallel.distributed.enabled=true",
                 "parallel.distributed.coordinator_address=localhost:1234",
                 "parallel.distributed.process_id=1", "parallel.distributed.num_processes=8",
-                "model.attention_impl=ring", "model.pipeline_microbatches=8"]:
+                "model.attention_impl=ring", "model.pipeline_microbatches=8", "parallel.tp=2",
+                "parallel.pp=4"]:
         apply_override(cfg, key)
     par = cfg.parallel
     assert (par.dp, par.fsdp, par.sp, par.auto, par.strict) == (2, 2, 2, True, True)
+    assert (par.tp, par.pp) == (2, 4)
     d = par.distributed
     assert (d.enabled, d.coordinator_address, d.process_id, d.num_processes) == \
         (True, "localhost:1234", 1, 8)

@@ -155,13 +155,20 @@ def build_state(cfg, weights, grid):
 
     policy = build_policy(cfg)
     policy.load_state_dict(weights)
+    partition = None
+    if grid is not None:
+        from rt1_tpu_torch.parallel.partition import partition_policy
+        from rt1_tpu_torch.parallel.plan import ShardingPlan
+
+        partition = partition_policy(policy, grid, ShardingPlan.from_config(cfg),
+                                     cfg.model.pipeline_microbatches)
     if cfg.model.family == "lava":
         from rt1_tpu_torch.trainer.bc import make_bc_optimizer
 
         optimizer = make_bc_optimizer(learning_rate=OPT["learning_rate"])
     else:
         optimizer = Adam(**OPT)
-    state = create_train_state(policy, optimizer)
+    state = create_train_state(policy, optimizer, partition)
     if grid is not None and grid.size("fsdp") > 1:
         shard_train_state(state, grid.index("fsdp"), grid.size("fsdp"), optimizer)
     fns = train_step_fns_from_config(cfg, optimizer, grid=grid)
@@ -208,10 +215,55 @@ def run_steps(spec, distributed=True):
             out["grid"] = {"coords": grid.coords, "batch_index": grid.batch_index}
             out["flat_dtype"] = str(state.flat.dtype)
             out["flat_numel"] = state.flat.numel()
-        return out
+        return _with_part(out, state)
     finally:
         if distributed:
             mesh.set_current(None)
+
+
+def assemble_parts(results, pick):
+    """The logical flat vector of the world of one's layout from every
+    rank's result (`run_steps`, `ckpt_save`, `ckpt_restore` under tp or
+    pp: its "partition" and "part") and `pick(result)`, that rank's flat
+    vector of its part."""
+    from rt1_tpu_torch.parallel.partition import Partition
+
+    partition = Partition.from_manifest(results[0]["partition"])
+    return partition.logical_flat({tuple(got["part"]): pick(got) for got in results})
+
+
+def logical_state_of(results):
+    """Every rank's `logical_state` (each the rank's part) as the world of
+    one's."""
+    first = results[0]
+    if "partition" not in first:
+        return first["state"]
+    out = dict(first["state"])
+    for key in ("flat", "mu", "nu"):
+        out[key] = assemble_parts(results, lambda got, key=key: got["state"][key])
+    return out
+
+
+def logical_result(results, name):
+    """The result of check `name` with every rank's part (under tp or pp)
+    assembled into the world of one's layout: gradients, masters and
+    moments as logical flat vectors, as `run_steps` returns them for the
+    world of one."""
+    per_rank = [res[name] for res in results]
+    first = per_rank[0]
+    if "partition" not in first:
+        return first
+    out = dict(first, state=logical_state_of(per_rank), names=first["partition"]["names"])
+    out["grads"] = [assemble_parts(per_rank, lambda got, i=i: got["grads"][i])
+                    for i in range(len(first["grads"]))]
+    return out
+
+
+def _with_part(out, state):
+    if state.partition is not None:
+        out["partition"] = state.partition.to_manifest()
+        out["part"] = (state.partition.stage_index, state.partition.model_index)
+    return out
 
 
 def step_checks(rank, world, payload):
@@ -263,7 +315,7 @@ def ckpt_save(rank, world, payload):
         os.makedirs(torn, exist_ok=True)
         with open(os.path.join(torn, f"shard_{rank:05d}_of_{world:05d}.pt"), "wb") as f:
             f.write(b"partial")
-    return {"state": logical_state(state, fns), "coords": grid.coords}
+    return _with_part({"state": logical_state(state, fns), "coords": grid.coords}, state)
 
 
 def ckpt_restore(rank, world, payload):
@@ -280,8 +332,8 @@ def ckpt_restore(rank, world, payload):
     if rank != 0:
         manager._write_provenance = _no_provenance
     state, step = manager.restore_or_initialize(state)
-    out = {"state": logical_state(state, fns), "step": step,
-           "chunk": state.flat.detach().clone(), "coords": grid.coords}
+    out = _with_part({"state": logical_state(state, fns), "step": step,
+                      "chunk": state.flat.detach().clone(), "coords": grid.coords}, state)
     if payload.get("save_step") is not None:  # and write it again under this plan
         manager.save(payload["save_step"], state)
     return out
@@ -291,6 +343,68 @@ def ckpt_chain(rank, world, payload):
     """`ckpt_restore` under each plan of `payload["chain"]` in turn, each
     saving the state it restored as the next step."""
     return [ckpt_restore(rank, world, dict(payload, **link)) for link in payload["chain"]]
+
+
+def ckpt_jobs(rank, world, payload):
+    """Each of `payload["jobs"]` in turn: a `ckpt_save` ("save") or a
+    `ckpt_chain` ("chain") payload."""
+    run = {"save": ckpt_save, "chain": ckpt_chain}
+    return [run[job["kind"]](rank, world, job) for job in payload["jobs"]]
+
+
+# ----------------------------------------------------------------- the pipeline
+
+
+def dense_stage_fn(p, x):
+    """JAX's test stage: tanh(x @ w + b)."""
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def pipeline_checks(rank, world, payload):
+    """`pipeline_apply` of `dense_stage_fn` on each case (a data x stage
+    grid over the world): this rank's output, input gradient and stack
+    gradient of sum(out ** 2) on its data row's block of `x`; then the
+    policy steps of `payload["checks"]` (`run_steps`) and the eval logits
+    of `payload["logits"]` (`policy_logits`)."""
+    from rt1_tpu_torch.parallel import mesh
+    from rt1_tpu_torch.parallel.pipeline import pipeline_apply
+
+    out = {}
+    for name, case in payload.get("cases", {}).items():
+        grid = mesh.RankGrid(mesh.MeshConfig(data=case.get("data", 1), stage=case["stages"]))
+        stacked = {k: torch.from_numpy(v).requires_grad_(True) for k, v in case["params"].items()}
+        data = grid.coords["data"]
+        n = case["x"].shape[0] // grid.size("data")
+        x = torch.from_numpy(case["x"][data * n:(data + 1) * n]).requires_grad_(True)
+        y = pipeline_apply(dense_stage_fn, stacked, x, group=grid.group("stage"),
+                           num_microbatches=case["microbatches"])
+        (y ** 2).sum().backward()
+        out[name] = {"y": y.detach(), "dx": x.grad, "coords": grid.coords,
+                     "grads": {k: v.grad for k, v in stacked.items()}}
+    for name, spec in payload.get("checks", {}).items():
+        out[name] = run_steps(spec)
+    for name, spec in payload.get("logits", {}).items():
+        out[name] = policy_logits(spec)
+    return out
+
+
+def policy_logits(spec):
+    """The eval-mode action logits of `spec`'s policy under its plan (the
+    partitioned policy, outside the train step)."""
+    from rt1_tpu_torch.eval.restore import build_policy
+    from rt1_tpu_torch.parallel import mesh
+    from rt1_tpu_torch.parallel.partition import partition_policy
+    from rt1_tpu_torch.parallel.plan import ShardingPlan
+
+    cfg = make_config(spec["config"], spec["overrides"])
+    plan = ShardingPlan.from_config(cfg)
+    grid = mesh.RankGrid(plan.mesh)
+    policy = build_policy(cfg)
+    policy.load_state_dict(spec["weights"])
+    partition_policy(policy, grid, plan, cfg.model.pipeline_microbatches)
+    obs, actions = rows(spec["batch"], 0, 1)
+    with torch.no_grad():
+        return policy(obs, actions, train=False)["action_logits"]
 
 
 # ----------------------------------------------------------------- ring attention
