@@ -34,7 +34,8 @@ exits non-zero without a result line:
              float32 (serve shape, s=37). Times each kernel, the plain
              version and `scaled_dot_product_attention` (a yardstick only;
              the port never calls it) with CUDA events and, at the serve
-             shape, the profiler's device time.
+             shape, a tp rank's and `tiny`'s (the simple kernel's own
+             path), the profiler's device time.
 4. ab      — the simple kernel in bf16 against the tensor-core kernel at the
              serve shape, in turns (simple, tc, tc, simple), CUDA events and
              device time, beside SDPA; and the host's wall time per call
@@ -95,6 +96,13 @@ exits non-zero without a result line:
              with a checkpoint every 2, a rerun to 6 steps that must report
              restoring step 4, and
              `python -m rt1_tpu_torch.serve --workdir` answering one `/act`.
+             Before the CLI, `python -m rt1_tpu_torch.train.profile_train
+             --model flagship --steps 3` (its `main`, in process): its
+             Chrome trace with one `train#step_num=<i>#` mark a step and
+             CUDA kernel events (the CLI exits non-zero without them),
+             `host_trace.json` with a `device_step` span a step, no
+             fused-attention launch; busy ms and launches a step beside
+             this phase's profiled step.
 12. train_ops — the trainer's resilience and observability at the
              flagship's width (bf16 on f32 masters, batch 8, synthetic
              batches) with the flagship config's `resilience.*` and `obs.*`:
@@ -140,13 +148,13 @@ exits non-zero without a result line:
              share; the bf16 train step
              fed by each loader through `device_feeder` (pinned, two
              batches in flight on a copy stream) in turns with the
-             synthetic stream (synthetic, numpy, torch, packed, packed,
-             torch, numpy, synthetic; 3 warm-up and 5 timed steps a turn,
-             then 5 more under one synchronisation; each turn's seconds):
+             synthetic stream (synthetic, numpy, torch, packed; 3 warm-up
+             and 5 timed steps a turn, then 5 more under one
+             synchronisation; each turn's seconds):
              step wall median and range, ms
              blocked on the host iterator and in the upload per step, the
              card's idle share, frames/s, and for numpy the episode reads'
-             share of the wait; 6 more steps per fed turn whose
+             share of the wait; 9 more steps per fed turn whose
              device batch must equal its host batch (>= 20 in all: a torn
              pinned buffer fails); then the train CLI on the
              corpus (its `main`, in process), 4 steps through the packed
@@ -160,9 +168,14 @@ exits non-zero without a result line:
              `train`'s CLI checkpoint (step 6; run alone, the train CLI
              writes one at step 2 under a temporary directory),
              `python -m rt1_tpu_torch.eval --config language_table
-             --workdir <it> --episodes 1 --max_steps 80` (its `main`, in this
-             process) restores it (its
-             JSON must carry every key and the trainer's step); then in
+             --workdir <it> --episodes 1 --max_steps 80 --videos --embedder
+             <table>.npz` (its `main`, in this process; the table built by
+             `python -m rt1_tpu_torch.eval.embedding --embedder hash`, its
+             `main`) restores it (its
+             JSON must carry every key and the trainer's step) and writes
+             one GIF an episode under `videos_ckpt<step>/` with JAX's names,
+             of steps + 1 frames (counted by walking the file's blocks; the
+             GIF's write time is printed); then in
              process one bf16 episode of 80 control steps of that
              checkpoint (fused attention, BLOCK_8 block2block, 180x320
              frames drawn by the numpy renderer, cropped and resized to
@@ -294,7 +307,15 @@ exits non-zero without a result line:
              after the kill the victim's sessions answer `"restarted": true`
              and the others do not, the respawned replica is ready again
              with the same launch rule; SIGTERM stops the fleet with exit 0
-             and one kill, one restart in its final line. Prints the router's
+             and one kill, one restart in its final line. The fleet runs
+             the metrics plane (`--collector`, 0.25 s) and the alerts
+             proof's replica_kill (`rt1_tpu_torch/obs/alerts_proof.py`): 12
+             more sessions placed before the kill and re-homed after it,
+             a watcher on `/metrics` and `/alerts`, 650 clean acts that
+             decay the burn; exactly ReplicaDown, SLOBurnRateFast and
+             SLOBurnRateSlow fire and resolve, with their detection
+             latencies; then the proof's overhead A/B and byte identity
+             on stub fleets on the host (300 acts an arm). Prints the router's
              `/act` p50 / p99 / max beside phase `serve`'s, the warm-up and
              kill-to-ready seconds, each replica's resident bytes and the
              card's memory in use; the replica's own `phases` total split
@@ -303,7 +324,8 @@ exits non-zero without a result line:
 19. proof  — (run last) the learning proof at the flagship's width (B3 at 128x224,
              window 6, batch 32, bf16) under a temporary directory, through
              `python -m rt1_tpu_torch.train.learn_proof`: `--stage collect`
-             of 8 episodes over 4 workers (BLOCK_4 block2block, ngram,
+             of 4 episodes over 4 workers (8 until the script's time limit
+             forced the cut; BLOCK_4 block2block, ngram,
              180x320; the manifest, `corpus_accounting` and the split
              counts checked), then 2 DART demos (std 0.005, 160 steps) by
              `collect_dataset` in process into their own directory; 256
@@ -323,7 +345,14 @@ exits non-zero without a result line:
              under torch.profiler. Prints collection episodes/s and
              successes an attempt (4 workers and 1), the pretrain and
              train step ms, the control-step quantiles and each stage's
-             wall time, beside `nvidia-smi`'s line. CPU rehearsal:
+             wall time, beside `nvidia-smi`'s line. Then `python -m
+             rt1_tpu_torch.eval.diagnostics` (its `main`) on the workdir, 1
+             episode of at most 20 steps (80 in JAX), its report's keys,
+             and one episode of `closed_loop_diagnostics` on the restored
+             policy: 8 tensor-core launches an engine step, one engine step
+             a control step; `python -m rt1_tpu_torch.train.perception_probe
+             --arms small_64x96` (its `main`), 64 frames, 3 steps on the
+             card, its encoder read back. CPU rehearsal:
              `phase_proof('tiny', 'cpu')`.
 20. ops    — the fleet's operations loop at the flagship's width (run
              before `proof`): a packed seed corpus (4 x 12 steps at
@@ -360,7 +389,10 @@ exits non-zero without a result line:
              replica's (8 tensor-core launches an engine step, no other);
              `/reload` of the incumbent onto each replica timed; SIGTERM
              exit 0 with one promotion, one rollback, no failed request and
-             a TSDB snapshot. Prints the gate's seconds (matrix, parity
+             a TSDB snapshot; the alerts proof's canary_breach judges the
+             run: exactly CanarySLOBreach fired and resolved, one rollback,
+             the request-indexed rolling burn never at 2. Prints the gate's
+             seconds (matrix, parity
              engine builds, parity check), canary-to-promote and -rollback
              s, reload s a replica, the collector's cycle ms, `/act` p50 /
              p99 with the collector armed, capture bytes an episode and
@@ -506,46 +538,13 @@ def cuda_time_ms(fn, iters: int = 200) -> float:
 
 
 def device_profile(fn, iters: int = 20):
-    """What the card itself spent on `iters` calls of `fn`, from
-    torch.profiler's CUDA activity: {"wall_ms", "busy_ms" (the union of
-    device activity intervals), "kernels" ({name: total ms}), "launches"},
-    each per call; None when the profiler fails or records no device
-    activity (then the CUDA-event times stand alone)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """What the card itself spent on `iters` calls of `fn`:
+    `rt1_tpu_torch/obs/profile.py::device_profile` ({"wall_ms", "busy_ms",
+    "kernels", "launches"} per call, or None when the profiler fails or
+    records no device activity; then the CUDA-event times stand alone)."""
+    from rt1_tpu_torch.obs.profile import device_profile as profile
 
-    fn()
-    torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-    except RuntimeError as exc:  # CUPTI refused in this sandbox: not measured
-        print(f"chip_smoke: torch.profiler failed: {exc}", file=sys.stderr)
-        return None
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    if not spans:
-        return None
-    busy_us, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
-    for start, end, _ in spans[1:]:
-        if start > cur_end:
-            busy_us += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    busy_us += cur_end - cur_start
-    kernels = {}
-    for start, end, name in spans:
-        kernels[name] = kernels.get(name, 0.0) + (end - start) / 1e3 / iters
-    return {"wall_ms": wall_s * 1e3 / iters, "busy_ms": busy_us / 1e3 / iters,
-            "kernels": kernels, "launches": len(spans) / iters}
+    return profile(fn, iters)
 
 
 def attention_bound(b, s, h, d, dtype: str, masked: bool):
@@ -727,7 +726,8 @@ def _kernel_case(rng, name, b, s, h, d, dtype, mask_kind, forced, phase="kernel"
         ),
     }
     record["bound_ms"], record["bound_by"] = attention_bound(b, s, h, d, dtype, mask is not None)
-    if phase == "kernel" and name.startswith(("serve_b8_", "tp")) and mask_kind == "rt1":
+    if phase == "kernel" and (name.startswith(("serve_b8_", "tp")) and mask_kind == "rt1"
+                              or name.startswith("tiny_")):
         # Device-only time per call: the event times above include the
         # host's launch cost whenever the host, not the card, is slower.
         for key, fn in (
@@ -1746,8 +1746,54 @@ def phase_train(config_name: str = "language_table", device: str = "cuda", workd
         })
     del policy, state, fns, batches, fixed
     torch.cuda.empty_cache()
+    record["profile_train"] = _profile_train(config_name, device, record)
+    torch.cuda.empty_cache()
     record["cli"] = _train_cli(config_name, device, workdir)
     emit(record)
+    return record
+
+
+PROFILE_TRAIN_STEPS = 3
+
+
+def _profile_train(config_name, device, train=None):
+    """`python -m rt1_tpu_torch.train.profile_train` (its `main`, in
+    process) for PROFILE_TRAIN_STEPS steps of the config: the Chrome trace
+    with one step mark a step, CUDA kernel events on the card (the CLI
+    exits non-zero without them), `host_trace.json` with a `device_step`
+    span a step, no fused-attention launch (training runs dense); beside
+    `train`'s profiled busy ms and launches a step (phase train)."""
+    from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
+    from rt1_tpu_torch.train import profile_train
+
+    with tempfile.TemporaryDirectory() as logdir:
+        reset_launch_counts()
+        lines, seconds = _run_in_process(profile_train.main, [
+            "--model", "tiny" if config_name == "tiny" else "flagship", "--steps",
+            str(PROFILE_TRAIN_STEPS), "--logdir", logdir, "--device", device])
+        launches = dict(fused_attention.launches_by_variant)
+        summary = lines[-1]
+        marks = profile_train.step_marks(os.path.join(logdir, profile_train.TRACE_NAME))
+        with open(os.path.join(logdir, profile_train.HOST_TRACE_NAME)) as f:
+            spans = [e for e in json.load(f)["traceEvents"] if e.get("name") == "device_step"]
+        trace_bytes = os.path.getsize(os.path.join(logdir, profile_train.TRACE_NAME))
+    if len(marks) != PROFILE_TRAIN_STEPS or len(spans) != PROFILE_TRAIN_STEPS or \
+            summary["step_marks"] != PROFILE_TRAIN_STEPS:
+        raise AssertionError(f"profile_train: {len(marks)} step marks, {len(spans)} "
+                             f"device_step spans, expected {PROFILE_TRAIN_STEPS}")
+    if any(launches.values()):
+        raise AssertionError(f"profile_train: fused attention launched in train steps {launches}")
+    if (device == "cuda") != ("device_busy_ms_per_step" in summary):
+        raise AssertionError(f"profile_train: device numbers {summary}")
+    record = {**summary, "seconds": seconds, "trace_bytes": trace_bytes,
+              "attention_launches": launches}
+    if train is not None and "device_busy_ms" in train and "device_busy_ms_per_step" in summary:
+        # The same step as phase train's: a gap over ~10 % is a finding.
+        record["busy_ratio_to_phase_train"] = \
+            summary["device_busy_ms_per_step"] / train["device_busy_ms"]
+        record["launch_ratio_to_phase_train"] = \
+            summary["launches_per_step"] / train["device_launches"]
+    emit({"phase": "profile_train", **record})
     return record
 
 
@@ -2183,7 +2229,7 @@ def _train_ops_cli(config_name, device, eval_batches, layers):
 DATA_EPISODES = {"train": 128, "val": 4}
 DATA_STEPS = 20                  # steps an episode, at Language-Table's 180x320
 DATA_WARM, DATA_BATCHES = 5, 10   # batches of each loader alone: drained, then timed
-DATA_CHECK_STEPS = 6             # fed steps per turn whose batch is held to its host batch
+DATA_CHECK_STEPS = 9             # fed steps per turn whose batch is held to its host batch
 DATA_TIMED = 5                   # timed steps a fed turn, each way (phase train times 10)
 DATA_CLI_TIMEOUT_S = 600
 
@@ -2581,8 +2627,9 @@ def phase_data(config_name: str = "language_table", device: str = "cuda",
         state = create_train_state(policy, optimizer)
         fns = train_step_fns_from_config(config, optimizer)
         fed, step = {}, 0
-        # Mirrored, so warm-up and drift over the run weigh on each loader alike.
-        turns = ("synthetic", "numpy", "torch", "packed", "packed", "torch", "numpy", "synthetic")
+        # One turn a loader (mirrored, twice each, until the script's time
+        # limit forced the cut).
+        turns = ("synthetic", "numpy", "torch", "packed")
         for turn, loader in enumerate(turns):
             turn_t0 = time.perf_counter()
             if loader == "synthetic":
@@ -2870,10 +2917,14 @@ def phase_eval(config_name: str = "language_table", device: str = "cuda", workdi
     here to step 2), one timed and profiled bf16 episode in process, the
     f32 card-vs-CPU replay, and the oracle and random baselines and a
     `kinematic_arm` episode."""
-    from rt1_tpu_torch.configs import get_config
-    from rt1_tpu_torch.eval.evaluate import OracleEvalPolicy, evaluate_policy
-    from rt1_tpu_torch.eval.main import main as eval_main
+    import io
 
+    from rt1_tpu_torch.configs import get_config
+    from rt1_tpu_torch.eval import evaluate
+    from rt1_tpu_torch.eval.embedding import build_table_cli
+    from rt1_tpu_torch.eval.evaluate import OracleEvalPolicy, evaluate_policy, write_video
+    from rt1_tpu_torch.eval.main import main as eval_main
+    from rt1_tpu_torch.eval.video import count_gif_frames
     from rt1_tpu_torch.trainer.checkpoints import latest_step
 
     config = get_config(config_name)
@@ -2889,10 +2940,27 @@ def phase_eval(config_name: str = "language_table", device: str = "cuda", workdi
             if trained[-1].get("checkpoint_step") != 2:
                 raise AssertionError(f"eval: the train CLI ended with {trained[-1]}")
         trainer_step = latest_step(os.path.join(workdir, "checkpoints"))
-        lines, cli_s = _run_in_process(eval_main, [
-            "--config", config_name, "--workdir", workdir, "--device", device,
-            "--episodes", str(EVAL_CLI_EPISODES), "--max_steps", str(EVAL_STEPS),
-            "--rewards", "block2block"])
+        table = os.path.join(stack.enter_context(tempfile.TemporaryDirectory()), "table.npz")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            build_table_cli(["--output", table, "--embedder", "hash"])
+        table_s = time.perf_counter() - t0
+        video_s = []
+
+        def timed_video(path_stem, frames, fps=10):
+            t = time.perf_counter()
+            path = write_video(path_stem, frames, fps)
+            video_s.append(time.perf_counter() - t)
+            return path
+
+        evaluate.write_video = timed_video
+        try:
+            lines, cli_s = _run_in_process(eval_main, [
+                "--config", config_name, "--workdir", workdir, "--device", device,
+                "--episodes", str(EVAL_CLI_EPISODES), "--max_steps", str(EVAL_STEPS),
+                "--rewards", "block2block", "--videos", "--embedder", table])
+        finally:
+            evaluate.write_video = write_video
         result = lines[-1]
         keys = {"successes", "episodes_per_reward", "mean_episode_length", "checkpoint_step"}
         if set(result) != keys or result["checkpoint_step"] != trainer_step or \
@@ -2900,6 +2968,17 @@ def phase_eval(config_name: str = "language_table", device: str = "cuda", workdi
                 set(result["successes"]) != {"block2block"} or \
                 not 1 <= result["mean_episode_length"]["block2block"] <= EVAL_STEPS:
             raise AssertionError(f"eval CLI: {result}, trainer step {trainer_step}")
+        # One GIF an episode, steps + 1 frames, under the JAX names.
+        video_dir = os.path.join(workdir, f"videos_ckpt{trainer_step}")
+        videos = sorted(os.listdir(video_dir))
+        frames = [count_gif_frames(os.path.join(video_dir, v)) for v in videos]
+        if len(videos) != EVAL_CLI_EPISODES or \
+                not all(v.startswith("block2block_") and v.endswith(".gif") for v in videos) or \
+                sum(frames) != EVAL_CLI_EPISODES * (
+                    result["mean_episode_length"]["block2block"] + 1):
+            raise AssertionError(f"eval CLI videos: {videos} of {frames} frames, {result}")
+        video = {"files": videos, "frames": frames, "write_s": video_s, "table_s": table_s,
+                 "bytes": [os.path.getsize(os.path.join(video_dir, v)) for v in videos]}
         timed = _timed_eval_episode(config, workdir, device)
         replay = _eval_replay(config, workdir, device)
     baselines = {}
@@ -2917,7 +2996,7 @@ def phase_eval(config_name: str = "language_table", device: str = "cuda", workdi
                           env_kwargs=_env_kwargs(config, backend="kinematic_arm"))
     baselines["oracle_kinematic_arm"] = {"result": arm, "s": time.perf_counter() - t0}
     record = {"phase": "eval", "config": config_name, "train_cli_s": train_s,
-              "cli": {"result": result, "s": cli_s}, "timed_episode": timed,
+              "cli": {"result": result, "s": cli_s, "videos": video}, "timed_episode": timed,
               "replay": replay, "baselines": baselines}
     emit(record)
     return record
@@ -2929,7 +3008,7 @@ def phase_eval(config_name: str = "language_table", device: str = "cuda", workdi
 # finishes its two in a few attempts.
 PROOF_SIZES = {
     "language_table": dict(
-        cli=[], coefficients=(1.2, 1.4), episodes=8, workers=4, dart_episodes=2,
+        cli=[], coefficients=(1.2, 1.4), episodes=4, workers=4, dart_episodes=2,
         pretrain_frames=256, pretrain_steps=10, pretrain_batch=32, train_steps=10,
         dagger_episodes=1, dagger_extra_steps=5, eval_episodes=1, timed_steps=10),
     "tiny": dict(
@@ -2945,6 +3024,10 @@ PROOF_DART_SEED = 4
 PROOF_DART_MAX_STEPS = 160
 PROOF_PROFILE_STEPS = 3
 PROOF_CLI_TIMEOUT_S = 600
+PROOF_DIAG_STEPS = 20            # a closed-loop diagnostics episode's budget (80 in JAX)
+DIAG_KEYS = {"episodes", "successes", "oracle_cosine_mean", "action_std_mean",
+             "block_target_progress_mean", "per_episode"}
+PROBE_ARM, PROBE_FRAMES, PROBE_STEPS, PROBE_BATCH = "small_64x96", 64, 3, 16
 
 
 def _proof_cli(args):
@@ -3078,8 +3161,14 @@ def phase_proof(config_name: str = "language_table", device: str = "cuda"):
     from rt1_tpu_torch.eval.restore import load_policy_and_step
     from rt1_tpu_torch.train import learn_proof
     from rt1_tpu_torch.train.learn_proof import LearnProof, parse_args
-    from rt1_tpu_torch.train.pretrain_vision import (generate_state_regression_dataset,
-                                                      pretrain_encoder, save_encoder)
+    from rt1_tpu_torch.eval import diagnostics
+    from rt1_tpu_torch.eval.evaluate import build_eval_env
+    from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
+    from rt1_tpu_torch.train import perception_probe
+    from rt1_tpu_torch.train.pretrain_vision import (ENCODER_FORMAT,
+                                                      generate_state_regression_dataset,
+                                                      load_encoder, pretrain_encoder,
+                                                      save_encoder)
 
     sizes = PROOF_SIZES[config_name]
     on_card = torch.device(device).type == "cuda"
@@ -3205,10 +3294,49 @@ def phase_proof(config_name: str = "language_table", device: str = "cuda"):
                                             dagger=True)
         eval_steps = _timed_control_steps(config, policy, device, sizes["timed_steps"],
                                           dagger=False)
+        stage_s["timing"] = time.perf_counter() - t0
+        # 7. Closed-loop diagnostics: the CLI on the workdir, then one
+        # episode of the restored policy with its launches counted.
+        t0 = time.perf_counter()
+        diag_out = os.path.join(root, "diagnostics.json")
+        lines, _ = _run_in_process(diagnostics.main, run + [
+            "--diag_episodes", "1", "--max_steps", str(PROOF_DIAG_STEPS), "--out", diag_out])
+        with open(diag_out) as f:
+            report = json.load(f)
+        if set(report) != DIAG_KEYS or lines[-1] != {k: v for k, v in report.items()
+                                                     if k != "per_episode"}:
+            raise AssertionError(f"proof diagnostics: {sorted(report)}, {lines[-1]}")
+        env = build_eval_env(reward_name="block2block", block_mode=blocks.BlockMode.BLOCK_4,
+                             seed=20_000, embedder="ngram", target_height=hw[0],
+                             target_width=hw[1],
+                             sequence_length=config.model.time_sequence_length)
+        reset_launch_counts()
+        steps_before = policy.engine.steps_total
+        t1 = time.perf_counter()
+        direct = diagnostics.closed_loop_diagnostics(policy, env, 1, PROOF_DIAG_STEPS)
+        diag_step_ms = (time.perf_counter() - t1) * 1e3 / direct["per_episode"][0]["steps"]
+        diag_launches = {"launches": dict(fused_attention.launches_by_variant),
+                         "engine_steps": policy.engine.steps_total - steps_before}
+        _check_launches("diagnostics", diag_launches, layers, on_card)
+        if diag_launches["engine_steps"] != direct["per_episode"][0]["steps"]:
+            raise AssertionError(f"proof diagnostics: {diag_launches} for {direct}")
+        stage_s["diagnostics"] = time.perf_counter() - t0
         del policy, model
         if on_card:
             torch.cuda.empty_cache()
-        stage_s["timing"] = time.perf_counter() - t0
+        # 8. The perception probe on one arm.
+        t0 = time.perf_counter()
+        probe_dir = os.path.join(root, "probe")
+        lines, _ = _run_in_process(perception_probe.main, [
+            "--out_dir", probe_dir, "--frames", str(PROBE_FRAMES), "--steps",
+            str(PROBE_STEPS), "--batch", str(PROBE_BATCH), "--arms", PROBE_ARM,
+            "--device", device])
+        probe = lines[-1][PROBE_ARM]
+        if probe["device"] != str(torch.device(device)) or \
+                not math.isfinite(probe["val_rmse_mm"]) or \
+                load_encoder(probe["encoder_path"])["format"] != ENCODER_FORMAT:
+            raise AssertionError(f"proof perception probe: {probe}")
+        stage_s["perception_probe"] = time.perf_counter() - t0
     arms = {a: {"successes": summary[f"{a}_successes"],
                 "mean_episode_length": summary[f"{a}_mean_episode_length"]}
             for a in ("trained", "random", "oracle")}
@@ -3240,10 +3368,20 @@ def phase_proof(config_name: str = "language_table", device: str = "cuda"):
                  "criterion_met": summary["criterion_met"],
                  "corpus_entropy_nats": summary["corpus_entropy"]["mean_entropy_nats"]},
         "control_step": {"dagger": dagger_steps, "eval": eval_steps},
+        "diagnostics": {"cli": _without_episodes(report), "episode": _without_episodes(direct),
+                        "control_step_ms": diag_step_ms, **diag_launches},
+        "perception_probe": {k: probe[k] for k in ("resolution", "frames", "steps",
+                                                   "val_rmse_mm", "dataset_seconds",
+                                                   "train_seconds", "device")},
         "stage_s": stage_s,
     }
     emit(record)
     return record
+
+
+def _without_episodes(report):
+    """A diagnostics report without its per-episode records."""
+    return {k: v for k, v in report.items() if k != "per_episode"}
 
 
 # The fleet: `python -m rt1_tpu_torch.serve.fleet` fronting flagship bf16
@@ -3253,6 +3391,12 @@ FLEET_SESSIONS = 4
 FLEET_STEPS = 8
 FLEET_CHAOS_INTERVAL_S = 12.0    # the kill's tick, counted from the fleet's first all-ready
 FLEET_TIMEOUT_S = 600            # a replica's warm-up, and the respawn's
+# The alerts proof's replica_kill on this fleet (`obs/alerts_proof.py`):
+FLEET_COLLECTOR_S = 0.25         # the metrics plane's scrape, as the proof arms it
+FLEET_WATCH_S = 0.25             # the watcher's poll of /metrics and /alerts
+FLEET_PROOF_SESSIONS = tuple(f"k{i}" for i in range(12))  # placed before the kill
+FLEET_QUIET_S = 60.0             # every alert resolved within this
+FLEET_OVERHEAD_ROUNDS = 5        # the collector A/B on stub fleets: 300 acts an arm
 
 
 def _post(url, payload, headers=None, timeout=120):
@@ -3314,6 +3458,7 @@ def phase_fleet(config_name: str = "language_table", device: str = "cuda", direc
     import numpy as np
 
     from rt1_tpu_torch.configs import get_config
+    from rt1_tpu_torch.obs import alerts_proof
     from rt1_tpu_torch.obs.prometheus import parse_exposition
     from rt1_tpu_torch.serve.fleet import FLAGSHIP_PARAM_BYTES
 
@@ -3344,10 +3489,11 @@ def phase_fleet(config_name: str = "language_table", device: str = "cuda", direc
                "--inference_dtype", "bf16", "--device", device, "--port", "0",
                "--faults", "replica_kill@1", "--chaos_interval_s", str(FLEET_CHAOS_INTERVAL_S),
                "--poll_interval_s", "0.25", "--warmup_timeout_s", str(FLEET_TIMEOUT_S),
+               "--collector", "--collector_interval_s", str(FLEET_COLLECTOR_S),
                "--log_dir", logs]
         proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=errlog,
                                 text=True, start_new_session=True)
-        ok = False
+        ok, watcher = False, None
         try:
             t0 = time.perf_counter()
             ready = _read_ready_line(proc, FLEET_TIMEOUT_S)
@@ -3415,6 +3561,17 @@ def phase_fleet(config_name: str = "language_table", device: str = "cuda", direc
             if config_name == "language_table" and \
                     set(resident.values()) != {FLAGSHIP_PARAM_BYTES["bf16"]}:
                 raise AssertionError(f"fleet: resident bytes {resident}")
+            # The alerts proof's replica_kill on this fleet: more sessions
+            # placed before the kill (their re-homes are the burn), the
+            # watcher on the plane's signals.
+            frame_body = body(0, FLEET_STEPS)
+            proof_fleet = alerts_proof.Fleet(url, body=lambda sid: {**frame_body,
+                                                                    "session_id": sid})
+            for sid in FLEET_PROOF_SESSIONS:
+                proof_fleet.act(sid)
+            watcher = alerts_proof.Watcher(url, interval_s=FLEET_WATCH_S)
+            watcher.start()
+            t_armed = time.time()
             # 4. The chaos kill (tick 1: the lowest-id ready replica).
             def killed():
                 rs = json.loads(_get_text(url + "/fleet/status"))["replicas"]
@@ -3432,6 +3589,8 @@ def phase_fleet(config_name: str = "language_table", device: str = "cuda", direc
                                          f"victim {victim}) answered {code} {out}")
                 check_action(out)
                 rehome[sid] = bool(out.get("restarted"))
+            touched = alerts_proof.touch(proof_fleet, FLEET_PROOF_SESSIONS, tries=1)
+            restarted = sum(rehome.values()) + sum(touched.values())
             memory_killed = _memory_used_mib(on_card)
 
             def healed():
@@ -3444,6 +3603,14 @@ def phase_fleet(config_name: str = "language_table", device: str = "cuda", direc
             memory_respawned = _memory_used_mib(on_card)
             fanned = json.loads(_get_text(url + "/metrics"))["replicas"]
             respawned = _fleet_launches(fanned[str(victim)], on_card, "the respawned replica")
+            # The burn decays under clean traffic and every alert resolves.
+            t_decay = time.perf_counter()
+            alerts_proof.await_firing(watcher, ("SLOBurnRateFast", "SLOBurnRateSlow"))
+            alerts_proof.decay(proof_fleet, sessions + list(FLEET_PROOF_SESSIONS),
+                               alerts_proof.DECAY_ACTS)
+            quiet = alerts_proof.await_quiet(proof_fleet, FLEET_QUIET_S)
+            decay_s = time.perf_counter() - t_decay
+            watcher.stop()
             # 5. SIGTERM: the fleet drains its replicas and exits 0.
             proc.send_signal(signal.SIGTERM)
             out, _ = proc.communicate(timeout=180)
@@ -3453,8 +3620,14 @@ def phase_fleet(config_name: str = "language_table", device: str = "cuda", direc
             chaos = final[-1]["chaos"]
             if (chaos["kills_injected"], chaos["replica_restarts"]) != (1, 1):
                 raise AssertionError(f"fleet: chaos {chaos}")
+            kill = alerts_proof.kill_record(final[-1], watcher, t_armed, restarted,
+                                            faults="replica_kill@1")
+            if not (quiet and kill["passed"]):
+                raise AssertionError(f"fleet: the alerts proof's replica_kill {kill}")
             ok = True
         finally:
+            if watcher is not None:
+                watcher.stop()
             if proc.poll() is None:
                 os.killpg(proc.pid, signal.SIGKILL)
                 proc.wait(timeout=30)
@@ -3464,6 +3637,13 @@ def phase_fleet(config_name: str = "language_table", device: str = "cuda", direc
                 for name in sorted(os.listdir(logs)):
                     with open(os.path.join(logs, name)) as f:
                         sys.stderr.write(f"--- {name}\n" + f.read()[-4000:])
+    # The proof's other two phases on stub fleets on the host.
+    t0 = time.perf_counter()
+    stubs = alerts_proof.run_overhead_and_identity(alerts_proof.FleetSpec(stub=True),
+                                                   rounds=FLEET_OVERHEAD_ROUNDS)
+    if not stubs["byte_identity"]["passed"]:
+        raise AssertionError(f"fleet: an unarmed fleet's ops surfaces {stubs['byte_identity']}")
+    stubs_s = time.perf_counter() - t0
     lat_ms = [r[3] * 1e3 for r in replies]
     router_ms = _quantiles(lat_ms)
     # Inside the replica (its `phases`, under "debug": true) and the rest:
@@ -3498,6 +3678,9 @@ def phase_fleet(config_name: str = "language_table", device: str = "cuda", direc
         "memory_used_mib": {"ready": memory_ready, "after_kill": memory_killed,
                             "respawned": memory_respawned},
         "slo": final[-1]["slo"]["by_class"],
+        "alerts_proof": {"replica_kill": kill, "decay_s": decay_s,
+                         "stub_overhead": stubs["overhead"],
+                         "stub_byte_identity": stubs["byte_identity"], "stub_s": stubs_s},
     }
     emit(record)
     return record
@@ -3512,6 +3695,7 @@ OPS_CLEAN_TICKS = 3              # the canary's clean window (min_canary_request
 OPS_POLL_S = 2.0                 # controller tick; > the collector's 1 s, so a scrape
 #                                  sees the breached canary's burn before the rollback
 OPS_GATE_STEPS = 10              # --gate_max_steps: 1 task x 1 episode a column
+OPS_WATCH_S = 0.5                # the alerts proof's watcher: /metrics and /alerts
 OPS_TIMEOUT_S = 600
 
 
@@ -3705,6 +3889,7 @@ def phase_ops(config_name: str = "language_table", device: str = "cuda"):
     from rt1_tpu_torch.deploy import loop as deploy_loop
     from rt1_tpu_torch.flywheel import loop as fly
     from rt1_tpu_torch.flywheel.capture import capture_files
+    from rt1_tpu_torch.obs import alerts_proof
     from rt1_tpu_torch.obs.prometheus import parse_exposition
 
     t_phase = time.perf_counter()
@@ -3771,7 +3956,7 @@ def phase_ops(config_name: str = "language_table", device: str = "cuda"):
         t_boot = time.perf_counter()
         proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=errlog,
                                 text=True, start_new_session=True)
-        traffic = fly_proc = None
+        traffic = fly_proc = watcher = None
         ok = False
         try:
             # 2. C3 while the fleet warms up.
@@ -3781,6 +3966,9 @@ def phase_ops(config_name: str = "language_table", device: str = "cuda"):
             url = f"http://127.0.0.1:{ready['port']}"
             if ready.get("deploy", {}).get("incumbent_step") != 2 or not ready.get("collector"):
                 raise AssertionError(f"ops: fleet armed {ready}")
+            # The alerts proof's canary_breach judges this fleet's alerts.
+            watcher = alerts_proof.Watcher(url, interval_s=OPS_WATCH_S)
+            watcher.start()
             traffic = _OpsTraffic(url, frame_b64, embedding)
             traffic.start()
             # 5a. The live trainer, on its own corpus, before any append.
@@ -3922,8 +4110,15 @@ def phase_ops(config_name: str = "language_table", device: str = "cuda"):
             swept = final["chaos"]["captures_swept"]
             if not os.path.exists(os.path.join(root, "tsdb_snapshot.jsonl")):
                 raise AssertionError("ops: no TSDB snapshot on shutdown")
+            watcher.stop()
+            canary = alerts_proof.canary_record(final, watcher,
+                                                faults=f"canary_slo_breach@{OPS_CLEAN_TICKS + 1}")
+            if not canary["passed"]:
+                raise AssertionError(f"ops: the alerts proof's canary_breach {canary}")
             ok = True
         finally:
+            if watcher is not None:
+                watcher.stop()
             if traffic is not None:
                 traffic.stop_evt.set()
             if fly_proc is not None and fly_proc.poll() is None:
@@ -3958,6 +4153,7 @@ def phase_ops(config_name: str = "language_table", device: str = "cuda"):
                                for n, t in final["obs"]["collector"]["targets"].items()},
         "collector_cycles": final["obs"]["collector"]["cycles_total"],
         "alerts": alert_events, "alert_counters": collector_stats,
+        "alerts_proof_canary_breach": canary,
         "act_ms_collector_armed": _quantiles(traffic.latencies_ms),
         "requests_ok": traffic.ok, "restarts_after_rollback": sorted(restarted),
         "canary_bound": {step: sorted(b) for step, b in traffic.canary_bound.items()},

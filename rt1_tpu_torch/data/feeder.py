@@ -353,6 +353,9 @@ class SampleAheadFeeder:
                         break
                     except queue.Full:
                         continue
+                if obs_trace.enabled():
+                    obs_trace.counter("feeder_queue_depth",
+                                      sum(qq.qsize() for qq in self._queues))
                 ticket += self.num_threads
         except BaseException as e:  # noqa: BLE001 - re-raised on the consumer in __next__
             self._error = e

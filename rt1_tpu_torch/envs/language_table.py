@@ -1,8 +1,9 @@
 """The Language-Table gym-style environment.
 
 A copy of `rt1_tpu/envs/language_table.py`, drawing through the port's
-numpy `render_board`; `render()` with `render_text_in_image=True` raises,
-because the text overlay is not ported. Parity source: reference
+numpy `render_board`; `render()` with `render_text_in_image=True` adds the
+instruction overlay (`rendering.add_debug_info_to_image`, in the port's own
+bitmap font). Parity source: reference
 `language_table/environments/language_table.py:45-199`
 (reset/step/render/succeeded/encode/decode/state save-restore). Physics runs
 on a pluggable backend (see `backends/`); everything else —
@@ -26,7 +27,7 @@ import numpy as np
 from rt1_tpu_torch.envs import blocks as blocks_module
 from rt1_tpu_torch.envs import constants, task_info
 from rt1_tpu_torch.envs.backends import make_backend
-from rt1_tpu_torch.envs.rendering import render_board
+from rt1_tpu_torch.envs.rendering import add_debug_info_to_image, render_board
 
 
 class LanguageTable:
@@ -144,12 +145,13 @@ class LanguageTable:
 
     def render(self, mode="rgb_array"):
         del mode
-        if self._render_text_in_image:
-            raise NotImplementedError(
-                "the instruction text overlay (add_debug_info_to_image in "
-                "rt1_tpu/envs/rendering.py) needs PIL's fonts and is not ported; "
-                "construct the env with render_text_in_image=False")
-        return self._render_image()
+        image = self._render_image()
+        if not self._render_text_in_image:
+            return image
+        debug_info = {}
+        if self._instruction_str is not None:
+            debug_info["instruction"] = self._instruction_str
+        return add_debug_info_to_image(image, debug_info)
 
     @property
     def succeeded(self):

@@ -21,16 +21,23 @@ them together):
   on an RGB image: `(out * (255 - a) + ink * a) / 255`, rounded by the
   same integer division.
 
-The debug text overlay (`add_debug_info_to_image` in the JAX package)
-needs a font and is not ported: the env raises for it.
+`resize_bilinear` is PIL's `Image.resize(..., BILINEAR)` on a uint8
+image, in the same fixed-point arithmetic (the same bytes).
+`add_debug_info_to_image` is the JAX module's instruction overlay: the
+frame upscaled to 640x360, under a white strip of `3 * int(360 * 0.08)`
+rows that holds the instruction wrapped at 35 characters. The JAX module
+writes the text in PIL's default font; the port writes it in its own 5x7
+bitmap font (`rt1_tpu_torch/envs/font.py`), so only the text's pixels
+differ.
 """
 
 import functools
 import math
+import textwrap
 
 import numpy as np
 
-from rt1_tpu_torch.envs import constants
+from rt1_tpu_torch.envs import constants, font
 
 BOARD_COLOR = (90, 90, 95)
 BORDER_COLOR = (50, 50, 55)
@@ -447,3 +454,90 @@ def render_board(block_poses, effector_xy, image_size=None, goal_region=None):
     _ellipse(img, box, EFFECTOR_COLOR + (255,))
     _ellipse(img, box, EFFECTOR_RING + (255,), width=1)
     return img
+
+
+# ------------------------------------------------------------ resize, text
+
+_PRECISION_BITS = 32 - 8 - 2  # PIL's fixed point for 8-bit resampling
+
+
+@functools.lru_cache(maxsize=16)
+def _bilinear_taps(in_size, out_size):
+    """(source index (out, k), int64 weight (out, k)) of PIL's bilinear
+    resampling of one axis: the triangle filter widened by the scale when
+    shrinking, normalised, then rounded to `_PRECISION_BITS` fixed point."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    index = np.zeros((out_size, ksize), np.intp)
+    weight = np.zeros((out_size, ksize), np.int32)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        k = [max(0.0, 1.0 - abs((x + xmin - center + 0.5) / filterscale)) for x in range(xmax)]
+        total = sum(k)
+        for x, w in enumerate(k):
+            w = w / total if total != 0.0 else w
+            index[xx, x] = xmin + x
+            weight[xx, x] = int(0.5 + w * (1 << _PRECISION_BITS)) if w >= 0 else \
+                int(-0.5 + w * (1 << _PRECISION_BITS))
+    index.flags.writeable = weight.flags.writeable = False
+    return index, weight
+
+
+def _resample_axis(img, axis, out_size):
+    """One pass of PIL's 8-bit resampling along `axis` (0 rows, 1 columns),
+    tap by tap. The sums fit int32 as PIL's do: the weights are at most
+    2^22 and sum to about 2^22."""
+    index, weight = _bilinear_taps(img.shape[axis], out_size)
+    shape = (1,) * axis + (out_size,) + (1,) * (img.ndim - axis - 1)
+    acc = np.full(img.shape[:axis] + (out_size,) + img.shape[axis + 1:],
+                  1 << (_PRECISION_BITS - 1), np.int32)
+    for j in range(index.shape[1]):
+        acc += np.take(img, index[:, j], axis=axis).astype(np.int32) * weight[:, j].reshape(shape)
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_bilinear(image, height, width):
+    """PIL's `Image.fromarray(image).resize((width, height), BILINEAR)` of
+    a uint8 (H, W, 3) image: columns first, then rows, each rounded to
+    uint8; an unchanged size is a copy."""
+    img = np.asarray(image, np.uint8)
+    if img.shape[1] != width:
+        img = _resample_axis(img, 1, width)
+    if img.shape[0] != height:
+        img = _resample_axis(img, 0, height)
+    return img.copy() if img is image else img
+
+
+def draw_text(img, x, y, text):
+    """Write `text` in black with its top-left corner at (x, y) in the
+    bitmap font, clipped to the image."""
+    h, w = img.shape[:2]
+    for i, char in enumerate(text):
+        glyph = font.glyph(char)
+        gy, gx = np.nonzero(glyph)
+        px, py = gx + x + i * font.ADVANCE, gy + y
+        keep = (px >= 0) & (px < w) & (py >= 0) & (py < h)
+        img[py[keep], px[keep]] = 0
+
+
+def add_debug_info_to_image(image, info_dict):
+    """Upscale to 640x360 and write the wrapped instruction above the frame
+    (the JAX module's layout, the reference's `language_table.py:1000-1029`):
+    a white strip of `3 * int(360 * 0.08)` rows, 35 characters a line, a
+    line every 14 rows from (2, 2)."""
+    frame = resize_bilinear(image, 360, 640)
+    text = ""
+    if "instruction" in info_dict:
+        text = "instruction: %s" % info_dict["instruction"]
+    strip_h = int(3 * int(360 * 0.08))
+    canvas = np.full((360 + strip_h, 640, 3), 255, np.uint8)
+    canvas[strip_h:] = frame
+    y = 2
+    for line in textwrap.wrap(text, width=35):
+        draw_text(canvas, 2, y, line)
+        y += 14
+    return canvas

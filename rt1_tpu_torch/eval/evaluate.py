@@ -5,11 +5,12 @@ reward family build the wrapped env chain, validate each episode init by
 requiring the RRT oracle to find a plan, roll out up to
 `max_episode_steps`, count success via the sparse reward. The same
 constants, baselines and result dict as the JAX package. Episode videos
-need a text overlay and a video writer that the port does not have, so
-`write_videos=True` raises.
+(`write_videos`) are animated GIFs (`eval/video.py`) of the env's frames
+under the instruction overlay, in JAX's folders and names.
 """
 
 import collections
+import os
 
 import numpy as np
 
@@ -126,21 +127,36 @@ def validated_reset(env):
             return obs
 
 
-def run_episode(env, policy, max_episode_steps=MAX_EPISODE_STEPS):
-    """One oracle-validated episode. Returns (success, steps)."""
+def run_episode(env, policy, max_episode_steps=MAX_EPISODE_STEPS, collect_frames=False):
+    """One oracle-validated episode. Returns (success, steps, frames): the
+    rendered frames (the first after the reset, then one a step) when
+    `collect_frames`, else an empty list."""
     policy.reset()
     obs = validated_reset(env)
+    frames = [env.render()] if collect_frames else []
     done = False
     steps = 0
     while not done and steps < max_episode_steps:
         action = policy.action(obs)
         obs, _, done, _ = env.step(action)
+        if collect_frames:
+            frames.append(env.render())
         steps += 1
-    return bool(env.succeeded), steps
+    return bool(env.succeeded), steps, frames
+
+
+def write_video(path_stem, frames, fps=10):
+    """`<path_stem>.gif`, an animated GIF of `frames` (`eval/video.py`):
+    where the JAX package writes mp4 when imageio has ffmpeg, the port
+    always writes the GIF JAX falls back to. Returns its path."""
+    from rt1_tpu_torch.eval.video import write_gif
+
+    return write_gif(path_stem + ".gif", frames, fps=fps)
 
 
 def evaluate_policy(
     policy,
+    workdir=None,
     reward_names=DEFAULT_REWARDS,
     num_evals_per_reward=NUM_EVALS_PER_REWARD,
     max_episode_steps=MAX_EPISODE_STEPS,
@@ -149,13 +165,20 @@ def evaluate_policy(
     embedder="hash",
     write_videos=False,
     env_kwargs=None,
+    video_tag="",
 ):
     """Full protocol over reward families; returns {"successes": {reward:
-    count}, "episodes_per_reward", "mean_episode_length": {reward: mean}}."""
-    if write_videos:
-        raise ValueError(
-            "episode videos are not ported: they need the instruction text "
-            "overlay (PIL) and a video writer (imageio)")
+    count}, "episodes_per_reward", "mean_episode_length": {reward: mean}}.
+
+    With `write_videos` and a `workdir`, each episode (the instruction
+    overlay on every frame) goes to
+    `<workdir>/videos_<video_tag>/<reward>_<episode>_<success|failure>.gif`
+    (`videos` without a tag): the tag keeps two policies evaluated in one
+    workdir from overwriting each other's videos."""
+    video_dir = None
+    if write_videos and workdir is not None:
+        video_dir = os.path.join(workdir, f"videos_{video_tag}" if video_tag else "videos")
+        os.makedirs(video_dir, exist_ok=True)
     results = collections.defaultdict(int)
     episode_lengths = collections.defaultdict(list)
     for reward_name in reward_names:
@@ -168,12 +191,16 @@ def evaluate_policy(
         )
         if hasattr(policy, "bind_env"):  # privileged policies (oracle)
             policy.bind_env(env)
-        for _ in range(num_evals_per_reward):
-            success, steps = run_episode(
-                env, policy, max_episode_steps=max_episode_steps
+        for ep in range(num_evals_per_reward):
+            success, steps, frames = run_episode(
+                env, policy, max_episode_steps=max_episode_steps,
+                collect_frames=video_dir is not None,
             )
             results[reward_name] += int(success)
             episode_lengths[reward_name].append(steps)
+            if video_dir is not None:
+                tag = "success" if success else "failure"
+                write_video(os.path.join(video_dir, f"{reward_name}_{ep}_{tag}"), frames)
     return {
         "successes": dict(results),
         "episodes_per_reward": num_evals_per_reward,

@@ -35,7 +35,10 @@ The policy runs on `cuda` unless `--device cpu` is given, and the command
 raises without a card. The instruction embedder must match the one in
 `<workdir>/data_manifest.json`, where the trainer wrote one, unless
 `--allow_embedder_mismatch` is given. An empty workdir raises. The last
-line is the result JSON.
+line is the result JSON. `--videos` writes each episode as an animated GIF
+(`<workdir>/videos_ckpt<step>/<reward>_<episode>_<success|failure>.gif`,
+`videos_<baseline>` for a baseline), every frame under the instruction
+overlay.
 """
 
 
@@ -55,7 +58,12 @@ def parse_args(argv):
     p.add_argument("--max_steps", type=int, default=80, help="Max steps per episode.")
     p.add_argument("--block_mode", default="BLOCK_8", help="Block variant.")
     p.add_argument("--seed", type=int, default=0, help="Env seed.")
-    p.add_argument("--embedder", default="hash", help="Instruction embedder: hash | ngram.")
+    p.add_argument("--embedder", default="hash",
+                   help="Instruction embedder: hash | ngram | the path of a table's .npz "
+                        "(python -m rt1_tpu_torch.eval.embedding).")
+    p.add_argument("--videos", action="store_true",
+                   help="Write each episode as an animated GIF with the instruction overlay, "
+                        "under <workdir>/videos_<ckpt<step> | the baseline>/.")
     p.add_argument("--backend", choices=("kinematic", "kinematic_arm", "auto"),
                    default="kinematic",
                    help="Physics backend (kinematic_arm: xArm6 IK in the loop).")
@@ -143,13 +151,17 @@ def main(argv=None) -> int:
         env_kwargs["history_keys"] = history_keys
     results = evaluate_policy(
         policy,
+        workdir=args.workdir,
         reward_names=tuple(args.rewards or ("block2block",)),
         num_evals_per_reward=args.episodes,
         max_episode_steps=args.max_steps,
         block_mode=blocks.BlockMode(args.block_mode),
         seed=args.seed,
         embedder=args.embedder,
+        write_videos=args.videos,
         env_kwargs=env_kwargs,
+        # Videos by policy identity: a baseline never overwrites a checkpoint's.
+        video_tag=args.baseline if args.baseline else f"ckpt{step}",
     )
     results["checkpoint_step"] = step
     print(json.dumps(results), flush=True)

@@ -18,8 +18,10 @@ or weights:
 4. eval — the closed-loop protocol (oracle-validated inits, 80-step
    episodes, eval seed 10000) for the trained policy and the random and
    oracle baselines; writes `<workdir>/learn_proof.json` (the JAX
-   summary's keys, plus `loss_curves` and `corpus_entropy`) and
-   `<workdir>/loss_curve.json`.
+   summary's keys, plus `loss_curves` and `corpus_entropy`),
+   `<workdir>/loss_curve.json` and the trained arm's episode videos
+   (`<workdir>/eval/trained/videos/*.gif`; with `--archive_dir`, up to 3
+   of them, successes first, copied to `<archive_dir>/learn_proof_videos/`).
 
 The trained policy is restored with fused attention, so every control
 step of the DAgger rollouts and the trained arm's eval runs the attention
@@ -53,6 +55,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import sys
 import time
 
@@ -329,7 +332,7 @@ class LearnProof:
                "seconds": time.perf_counter() - t_start})
         return history
 
-    def run_protocol(self, policy, tag):
+    def run_protocol(self, policy, tag, write_videos=False):
         from rt1_tpu_torch.envs import blocks
         from rt1_tpu_torch.eval.evaluate import evaluate_policy
 
@@ -337,8 +340,9 @@ class LearnProof:
         config = self.train_config(a.num_steps)
         t0 = time.perf_counter()
         results = evaluate_policy(
-            policy, reward_names=(REWARD,), num_evals_per_reward=a.eval_episodes,
-            block_mode=blocks.BlockMode(a.block_mode), seed=EVAL_SEED, embedder=a.embedder,
+            policy, workdir=os.path.join(a.workdir, "eval", tag), reward_names=(REWARD,),
+            num_evals_per_reward=a.eval_episodes, block_mode=blocks.BlockMode(a.block_mode),
+            seed=EVAL_SEED, embedder=a.embedder, write_videos=write_videos,
             env_kwargs=dict(target_height=config.data.height, target_width=config.data.width,
                             sequence_length=config.model.time_sequence_length))
         _emit({"stage": "eval", "arm": tag, "successes": results["successes"][REWARD],
@@ -354,6 +358,7 @@ class LearnProof:
         from rt1_tpu_torch.eval.evaluate import OracleEvalPolicy, RandomEvalPolicy
         from rt1_tpu_torch.eval.proof import build_proof_summary, write_proof_json
         from rt1_tpu_torch.parallel.flash_attention import fused_attention
+        from rt1_tpu_torch.utils.artifacts import copy_proof_videos
         from rt1_tpu_torch.utils.curves import read_scalar_curves, write_loss_curves
 
         a = self.args
@@ -361,10 +366,14 @@ class LearnProof:
         self.check_meta("eval", EVAL_META_KEYS)
         check_embedder_compatibility(self.data_dir, a.embedder, context="eval")
         manifest = read_manifest(self.data_dir)
+        # Stale videos of an earlier eval of this workdir go first: their
+        # names carry the outcome, and the archive prefers successes.
+        video_dir = os.path.join(a.workdir, "eval", "trained", "videos")
+        shutil.rmtree(video_dir, ignore_errors=True)
         policy, _ = self.restore_policy()
         before = dict(fused_attention.launches_by_variant)
         steps_before = policy.engine.steps_total
-        trained = self.run_protocol(policy, "trained")
+        trained = self.run_protocol(policy, "trained", write_videos=True)
         kernel = {"launches": {v: n - before[v]
                                for v, n in fused_attention.launches_by_variant.items()},
                   "engine_steps": policy.engine.steps_total - steps_before}
@@ -372,6 +381,8 @@ class LearnProof:
         # oracle solves well under all oracle-validated inits in 80 steps).
         random_results = self.run_protocol(RandomEvalPolicy(seed=EVAL_SEED), "random")
         oracle_results = self.run_protocol(OracleEvalPolicy(seed=EVAL_SEED), "oracle")
+        if a.archive_dir:
+            copy_proof_videos(video_dir, a.archive_dir, prefix=f"{self.tag()}_{a.run_tag}")
         curves = read_scalar_curves(self.train_dir)
         curve_path = write_loss_curves(
             curves, os.path.join(a.workdir, "loss_curve.json"),

@@ -13,7 +13,8 @@ module tree: `encoder.net`, `encoder.conv1x1`, `encoder.film`) with a zero
 FiLM context, mean-pooled, and a linear head; `graft_encoder_into_policy`
 copies its encoder into a policy's tokenizer, shape-checked leaf by leaf.
 The port saves the encoder with `torch.save` plus the metrics JSON sidecar;
-the JAX package's files are flax msgpack, which the port does not read.
+`load_encoder` reads those and the JAX package's flax msgpack files alike
+(`utils/flax_msgpack.py`).
 Frames are resized with the native sampler where JAX uses `cv2.resize`.
 """
 
@@ -35,6 +36,7 @@ from rt1_tpu_torch.trainer.state import FlatLayout
 from rt1_tpu_torch.trainer.train import step_rngs
 
 ENCODER_FORMAT = "rt1_tpu_torch.pretrained_encoder/1"
+FLAX_ENCODER_FORMAT = "flax_msgpack"  # `load_encoder` of a JAX package's encoder
 CONTEXT_DIM = 512
 _RESIZE_CHUNK = 256  # frames resized at a time
 
@@ -224,11 +226,26 @@ def save_encoder(model: VisionPretrainModel, metrics, path: str) -> None:
 
 
 def load_encoder(path: str) -> dict:
-    """Inverse of `save_encoder`: the saved dict, tensors on the CPU."""
+    """Inverse of `save_encoder`: the saved dict, tensors on the CPU. A
+    JAX package's encoder (flax msgpack of {"params", "batch_stats"}, its
+    `save_encoder`) comes back as {"format": FLAX_ENCODER_FORMAT,
+    "state_dict"} with the leaves converted to the port's layout
+    (`convert.state_dict_from_flax`); either dict grafts as it is."""
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if magic != b"PK\x03\x04":  # not a torch.save zip: flax msgpack
+        from rt1_tpu_torch.convert import state_dict_from_flax
+        from rt1_tpu_torch.utils import flax_msgpack
+
+        with open(path, "rb") as f:
+            tree = flax_msgpack.restore(f.read())
+        if not isinstance(tree, dict) or "params" not in tree:
+            raise ValueError(f"{path} is neither a {ENCODER_FORMAT} file nor a flax encoder")
+        return {"format": FLAX_ENCODER_FORMAT,
+                "state_dict": state_dict_from_flax(tree["params"], tree.get("batch_stats"))}
     encoder = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(encoder, dict) or encoder.get("format") != ENCODER_FORMAT:
-        raise ValueError(f"{path} is not a {ENCODER_FORMAT} file (the JAX package's msgpack "
-                         "encoders are not read by the port)")
+        raise ValueError(f"{path} is not a {ENCODER_FORMAT} file")
     return encoder
 
 

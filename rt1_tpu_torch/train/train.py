@@ -93,7 +93,8 @@ from rt1_tpu_torch.parallel.plan import ShardingPlan
 from rt1_tpu_torch.resilience import faults
 from rt1_tpu_torch.train.pretrain_vision import graft_encoder_into_policy, load_encoder
 from rt1_tpu_torch.trainer.checkpoints import CheckpointManager
-from rt1_tpu_torch.trainer.metrics import MetricsWriter, ThroughputMeter, scalars_from_metrics
+from rt1_tpu_torch.trainer.metrics import (MetricsWriter, ThroughputMeter, scalars_from_metrics,
+                                         step_trace)
 from rt1_tpu_torch.trainer.state import TrainState, create_train_state, shard_train_state
 from rt1_tpu_torch.trainer.train import optimizer_from_config, train_step_fns_from_config
 
@@ -704,10 +705,14 @@ def train_and_evaluate(config: Config, workdir: str, device=None,
                     # handled exactly as the real one.
                     faults.maybe_signal("sigterm", index=step)
                 timeline.start_step(step)
-                with timeline.phase("h2d", exclusive_of="wait_data"):
-                    batch = next(live["train"])
-                with timeline.phase("device_step"):
-                    metrics = fns.train_step(state, batch, step)
+                # The profiler's step mark spans the batch pull and the
+                # step, as JAX's does, so a step's view keeps its input
+                # wait and upload.
+                with step_trace("train", step):
+                    with timeline.phase("h2d", exclusive_of="wait_data"):
+                        batch = next(live["train"])
+                    with timeline.phase("device_step"):
+                        metrics = fns.train_step(state, batch, step)
                 step_record = timeline.end_step(sync_on=metrics["loss"])
                 if ledger is not None:
                     ledger.note_step(step_record, replay=step < replay_until)

@@ -1,15 +1,26 @@
 """Train metrics on the host (counterpart of `rt1_tpu/trainer/metrics.py`):
-throughput over a sliding window and a JSON-lines writer in the workdir.
+throughput over a sliding window, a JSON-lines writer in the workdir, and
+the profiler's step mark.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 from typing import Any, Dict, Mapping
 
 import torch
+
+
+@contextlib.contextmanager
+def step_trace(name: str, step_num: int):
+    """Marks one step for `torch.profiler`: a `record_function` span named
+    as JAX's `StepTraceAnnotation` names its TraceMe, `<name>#step_num=<n>#`.
+    Outside a profiled region it records nothing."""
+    with torch.profiler.record_function(f"{name}#step_num={int(step_num)}#"):
+        yield
 
 
 class ThroughputMeter:

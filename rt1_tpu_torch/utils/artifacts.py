@@ -4,9 +4,10 @@ A rerun with the same name adds a sibling (`name-1.ext`, ...)."""
 
 from __future__ import annotations
 
+import glob
 import os
 import shutil
-from typing import Optional
+from typing import List, Optional
 
 
 def archive_file(src: str, artifacts_dir: str, dest_name: str) -> Optional[str]:
@@ -25,8 +26,19 @@ def archive_file(src: str, artifacts_dir: str, dest_name: str) -> Optional[str]:
     return dest
 
 
-def copy_proof_videos(video_dir: str, artifacts_dir: str, prefix: str, max_videos: int = 3):
-    """Episode videos are not ported (`eval/evaluate.py`: they need PIL's
-    text overlay and a video writer), so this raises."""
-    raise ValueError("episode videos are not ported: they need the instruction text overlay "
-                     "(PIL) and a video writer (imageio)")
+def copy_proof_videos(video_dir: str, artifacts_dir: str, prefix: str,
+                      max_videos: int = 3) -> List[str]:
+    """Stage up to `max_videos` episode videos (successes first) into
+    `<artifacts_dir>/learn_proof_videos/` as `<prefix>_<name>`, so that
+    reruns never clobber an earlier record. Returns the archived paths."""
+    if not os.path.isdir(video_dir):
+        return []
+    vids = sorted(glob.glob(os.path.join(video_dir, "*success*"))) + \
+        sorted(glob.glob(os.path.join(video_dir, "*failure*")))
+    out = []
+    for src in vids[:max_videos]:
+        dest = archive_file(src, artifacts_dir, os.path.join(
+            "learn_proof_videos", f"{prefix}_{os.path.basename(src)}"))
+        if dest:
+            out.append(dest)
+    return out

@@ -136,11 +136,19 @@ def test_registry_block_sets_and_instructions_match_jax():
 
 
 def test_render_text_overlay_raises():
+    """The overlay no longer raises: `render()` with `render_text_in_image`
+    (the default) is the frame under the instruction strip, at JAX's canvas
+    size (tests/test_torch_eval_extras.py holds its layout to JAX's)."""
+    from rt1_tpu_torch.envs.rendering import resize_bilinear
+
     env = LanguageTable(blocks.BlockMode.BLOCK_4, seed=0,
                         reward_factory=rewards.get_reward_factory("block2block"))
-    env.reset()
-    with pytest.raises(NotImplementedError, match="overlay"):
-        env.render()
+    obs = env.reset()
+    overlay = env.render()
+    strip = 3 * int(360 * 0.08)
+    assert overlay.shape == (360 + strip, 640, 3) and overlay.dtype == np.uint8
+    np.testing.assert_array_equal(overlay[strip:], resize_bilinear(obs["rgb"], 360, 640))
+    assert (overlay[:strip] != 255).any()  # the instruction's text
     plain = LanguageTable(blocks.BlockMode.BLOCK_4, seed=0, render_text_in_image=False,
                           reward_factory=rewards.get_reward_factory("block2block"))
     obs = plain.reset()

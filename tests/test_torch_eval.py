@@ -17,7 +17,8 @@
 * The CLI on the CPU: `python -m rt1_tpu_torch.eval` on a workdir the
   train CLI wrote reports the trainer's step; an empty workdir raises; a
   manifest embedder that differs raises unless allowed; no card raises
-  unless `--device cpu`; `write_videos=True` raises.
+  unless `--device cpu`; `write_videos=True` writes nothing without a
+  workdir (as JAX's) and one GIF an episode with one.
 """
 
 import json
@@ -224,9 +225,16 @@ def test_tiny_rt1_episodes_match_jax_step_for_step(monkeypatch):
     assert got == want
 
 
-def test_write_videos_raises():
-    with pytest.raises(ValueError, match="videos"):
-        evaluate.evaluate_policy(evaluate.RandomEvalPolicy(), write_videos=True)
+def test_write_videos_raises(tmp_path):
+    """Videos no longer raise: without a workdir nothing is written, as in
+    JAX; with one, a GIF an episode (tests/test_torch_eval_extras.py holds
+    their frames and names to JAX's)."""
+    kwargs = dict(num_evals_per_reward=1, max_episode_steps=2, write_videos=True,
+                  block_mode=blocks.BlockMode.BLOCK_4)
+    evaluate.evaluate_policy(evaluate.RandomEvalPolicy(), **kwargs)
+    evaluate.evaluate_policy(evaluate.RandomEvalPolicy(), workdir=str(tmp_path), **kwargs)
+    (name,) = os.listdir(tmp_path / "videos")
+    assert name.startswith("block2block_0_") and name.endswith(".gif")
 
 
 @pytest.fixture(scope="module")

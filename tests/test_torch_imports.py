@@ -1,7 +1,7 @@
 """Guard: the port imports nothing of JAX and nothing of `rt1_tpu`.
 
 A fresh interpreter blocks jax, flax, optax, orbax, tensorflow,
-ml_collections, absl, cv2, PIL, imageio, matplotlib and the top-level
+ml_collections, absl, cv2, PIL, imageio, matplotlib, msgpack and the top-level
 module `rt1_tpu` (by exact name: `rt1_tpu_torch` shares its prefix), then
 imports every module of `rt1_tpu_torch` and `chip_smoke.py`. The machine
 with the card has none of those packages (scipy it has, and the env's arm
@@ -21,7 +21,8 @@ import pkgutil
 import sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflow",
-           "ml_collections", "absl", "cv2", "PIL", "imageio", "matplotlib", "rt1_tpu")
+           "ml_collections", "absl", "cv2", "PIL", "imageio", "matplotlib", "msgpack",
+           "rt1_tpu")
 
 
 def blocked(name):
@@ -184,7 +185,9 @@ def test_clip_bpe_runs_without_the_regex_package():
     """The card's machine has no `regex`: with it blocked too, the port's
     CLIP BPE takes the stdlib split and still tokenizes."""
     env = dict(os.environ, PYTHONPATH=REPO)
-    probe = _PROBE.replace('"matplotlib", "rt1_tpu")', '"matplotlib", "rt1_tpu", "regex")')
+    probe = _PROBE.replace('"msgpack",\n           "rt1_tpu")',
+                           '"msgpack",\n           "rt1_tpu", "regex")')
+    assert probe != _PROBE
     probe = probe.split("import rt1_tpu_torch\n")[0] + (
         "from rt1_tpu_torch.text import clip_bpe\n"
         "assert clip_bpe._re is None\n"
@@ -198,3 +201,38 @@ def test_clip_bpe_runs_without_the_regex_package():
 
     want = clip_bpe.default_tokenizer().tokenize_text("It's red")[0][:6].tolist()
     assert f"IDS {want}" in proc.stdout, proc.stdout
+
+
+SLICE_16_MODULES = (
+    "rt1_tpu_torch.obs.profile", "rt1_tpu_torch.obs.alerts_proof",
+    "rt1_tpu_torch.train.profile_train", "rt1_tpu_torch.train.perception_probe",
+    "rt1_tpu_torch.envs.font", "rt1_tpu_torch.envs.oracles.plot", "rt1_tpu_torch.eval.video",
+    "rt1_tpu_torch.eval.embedding", "rt1_tpu_torch.eval.diagnostics",
+    "rt1_tpu_torch.utils.flax_msgpack",
+)
+
+
+def test_profiler_proof_and_eval_extra_modules_are_among_those_imported():
+    names = set(_port_modules())
+    for name in SLICE_16_MODULES:
+        assert name in names, name
+
+
+def test_new_entry_points_default_to_the_card(tmp_path):
+    """Each entry point that runs the model refuses on a machine without a
+    card unless asked for the CPU (`--device cpu`; the alerts proof's
+    `--stub` runs no model)."""
+    import torch
+
+    if torch.cuda.is_available():
+        return  # the default device is usable here
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for module, args in (("rt1_tpu_torch.train.profile_train", ["--model", "tiny"]),
+                         ("rt1_tpu_torch.train.perception_probe",
+                          ["--frames", "4", "--out_dir", str(tmp_path)]),
+                         ("rt1_tpu_torch.obs.alerts_proof", ["--config", "tiny"]),
+                         ("rt1_tpu_torch.eval.diagnostics", ["--workdir", str(tmp_path)])):
+        proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0 and "CUDA is not available" in proc.stderr, \
+            (module, proc.stderr[-2000:])

@@ -7,8 +7,8 @@
   the same inputs; `write_proof_json` writes the same bytes.
 * `stamp_train_meta` / `check_train_meta`: the same file and the same
   refusals.
-* `archive_file`: the same no-clobber names; `copy_proof_videos` raises
-  (videos are not ported). `read_scalar_curves` reads the trainer's
+* `archive_file`: the same no-clobber names; `copy_proof_videos` stages
+  the same files under the same names as JAX's. `read_scalar_curves` reads the trainer's
   `metrics.jsonl`.
 * `corpus_entropy`: within 1e-9 of `scripts/policy_diagnostics.py`'s
   function (run from its source, without the script's flags), on a
@@ -160,8 +160,18 @@ def test_artifacts_and_curves(tmp_path):
         names[name] = out
     assert names["port"] == names["ref"] == ["proof.json", "proof-1.json", "proof-2.json"]
     assert json.loads((tmp_path / "port" / "p" / "proof.json").read_text()) == {"v": 0}
-    with pytest.raises(ValueError, match="videos"):
-        copy_proof_videos(str(tmp_path), str(tmp_path / "art"), prefix="t")
+    videos = tmp_path / "videos"
+    videos.mkdir()
+    for name in ("block2block_0_failure.gif", "block2block_1_success.gif",
+                 "block2block_2_failure.gif", "block2block_3_success.gif"):
+        (videos / name).write_bytes(name.encode())
+    staged = {}
+    for name, copy in (("port", copy_proof_videos), ("ref", jax_artifacts.copy_proof_videos)):
+        copy(str(videos), str(tmp_path / f"art_{name}"), prefix="t_r1")
+        paths = copy(str(videos), str(tmp_path / f"art_{name}"), prefix="t_r1")  # no clobber
+        staged[name] = sorted(os.path.relpath(p, tmp_path / f"art_{name}") for p in paths)
+    assert staged["port"] == staged["ref"] and len(staged["port"]) == 3
+    assert copy_proof_videos(str(tmp_path / "none"), str(tmp_path / "art"), prefix="t") == []
     train_dir = tmp_path / "train"
     train_dir.mkdir()
     with open(train_dir / "metrics.jsonl", "w") as f:
@@ -267,8 +277,11 @@ def test_learn_proof_cli_end_to_end(tmp_path, capsys, monkeypatch):
     assert summary["headline_protocol"]["formal_eval_seed"] == learn_proof.EVAL_SEED == 10_000
     assert summary["corpus_entropy"]["episodes_scanned"] == 4
     assert os.path.exists(os.path.join(workdir, "loss_curve.json"))
-    assert sorted(os.listdir(workdir)) == ["dagger_rounds.json", "data", "learn_proof.json",
-                                           "loss_curve.json", "train"]
+    assert sorted(os.listdir(workdir)) == ["dagger_rounds.json", "data", "eval",
+                                           "learn_proof.json", "loss_curve.json", "train"]
+    # The trained arm's episode video, where JAX's script writes it.
+    (video,) = os.listdir(os.path.join(workdir, "eval", "trained", "videos"))
+    assert video.startswith("block2block_0_") and video.endswith(".gif")
     assert len(glob.glob(os.path.join(workdir, "data", "train", "episode_*.npz"))) == 4
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
