@@ -571,7 +571,9 @@ def kernel_cases():
     dim padded in shared memory where it is not 64, 128 or 256), rows off
     16-byte alignment and the other head dims the simple kernel. The last
     two cases force the simple kernel on float32 calls the rule gives to
-    tf32x3, so that it stays held on float32."""
+    tf32x3, so that it stays held on float32. Every case the simple kernel
+    runs, the serve shape's RT-1 cases at every bucket, a tp rank's and
+    `tiny`'s also get device times (`_kernel_case`)."""
     cases = []
     for dtype in ("float32", "bfloat16"):
         for mask in ("none", "rt1", "causal", "rt1_masked_rows"):
@@ -611,6 +613,19 @@ def kernel_cases():
         ("s64_d256_float32_causal", 2, 64, 8, 256, "float32", "causal"),
         ("tiny_float32_rt1", 2, 15, 2, 8, "float32", "rt1_tiny"),
         ("tiny_bfloat16_rt1", 2, 15, 2, 8, "bfloat16", "rt1_tiny"),
+        # the simple kernel's edges: its key tile (32 keys a lane-slot, 1-4
+        # slots: one pass up to the tile, an online rescale past it),
+        # 16-byte and scalar loads, d from 1 to 255
+        ("d8_s1_bfloat16_none", 8, 1, 8, 8, "bfloat16", "none"),
+        ("d8_s32_bfloat16_causal", 8, 32, 8, 8, "bfloat16", "causal"),
+        ("d8_s33_bfloat16_causal", 8, 33, 8, 8, "bfloat16", "causal"),
+        ("d8_s66_bfloat16_rt1", 8, 66, 8, 8, "bfloat16", "rt1"),
+        ("d8_s256_bfloat16_first_tile_masked", 2, 256, 8, 8, "bfloat16", "first_tile_masked"),
+        ("tiny_bfloat16_rt1_masked_rows", 2, 15, 2, 8, "bfloat16", "rt1_tiny_masked_rows"),
+        ("d1_bfloat16_rt1", 8, 66, 8, 1, "bfloat16", "rt1"),
+        ("d200_bfloat16_rt1", 8, 66, 8, 200, "bfloat16", "rt1"),
+        ("misaligned_tiny_bfloat16_rt1", 2, 15, 2, 8, "bfloat16", "rt1_tiny"),
+        ("d255_float32_rt1", 8, 66, 8, 255, "float32", "rt1"),
     ]
     return [case + (None,) for case in cases] + tp_kernel_cases() + [
         ("serve_b8_float32_rt1_forced_simple", 8, 66, 8, 128, "float32", "rt1", "simple"),
@@ -621,10 +636,12 @@ def kernel_cases():
 def make_mask(kind, s):
     """The (s, s) uint8 mask of a case on the card (None for "none").
     "rt1_tiny" is the `tiny` config's RT-1 mask (window 3, 2 image tokens);
-    "rt1_masked_rows" zeroes three whole rows of the RT-1 mask;
+    "rt1_masked_rows" zeroes three whole rows of the RT-1 mask, and
+    "rt1_tiny_masked_rows" three of `tiny`'s;
     "first_tile_masked" is causal, and rows from 128 on attend only to keys
-    from 128 on, so their first key tile (128 keys at d <= 128, 64 at
-    d = 256) is fully masked and the online softmax must rescale."""
+    from 128 on, so their first key tile (128 keys at d <= 128 in the
+    tensor-core kernels and at d <= 64 in the simple kernel, 64 at d = 256)
+    is fully masked and the online softmax must rescale."""
     import numpy as np
     import torch
 
@@ -632,8 +649,10 @@ def make_mask(kind, s):
 
     if kind == "none":
         return None
-    if kind == "rt1_tiny":
+    if kind in ("rt1_tiny", "rt1_tiny_masked_rows"):
         m = np.array(rt1_attention_mask(3, 2, 3), np.uint8)
+        if kind == "rt1_tiny_masked_rows":
+            m[[0, 7, 14]] = 0
     elif kind in ("rt1", "rt1_masked_rows"):
         m = np.array(rt1_attention_mask(6, 8, 3), np.uint8)
         if kind == "rt1_masked_rows":
@@ -726,16 +745,19 @@ def _kernel_case(rng, name, b, s, h, d, dtype, mask_kind, forced, phase="kernel"
         ),
     }
     record["bound_ms"], record["bound_by"] = attention_bound(b, s, h, d, dtype, mask is not None)
-    if phase == "kernel" and (name.startswith(("serve_b8_", "tp")) and mask_kind == "rt1"
-                              or name.startswith("tiny_")):
+    if phase == "kernel" and (name.startswith(("serve_b", "tp")) and mask_kind == "rt1"
+                              or name.startswith("tiny_") or expected == "simple"):
         # Device-only time per call: the event times above include the
         # host's launch cost whenever the host, not the card, is slower.
-        for key, fn in (
-            ("device_ms", run),
-            ("plain_device_ms", lambda: fused_attention_reference(q, k, v, mask=mask, scale=scale)),
-            ("library_device_ms", lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=sdpa_mask, scale=scale)),
-        ):
+        profiled = {"device_ms": run,
+                    "plain_device_ms": lambda: fused_attention_reference(q, k, v, mask=mask,
+                                                                         scale=scale),
+                    "library_device_ms": lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=sdpa_mask, scale=scale)}
+        if record["library_ms"] is None:
+            del profiled["library_device_ms"]
+            record["library_device_ms"] = None
+        for key, fn in profiled.items():
             prof = device_profile(fn)
             record[key] = None if prof is None else prof["busy_ms"]
     return record

@@ -22,9 +22,20 @@ Three kernel variants, chosen per call by `_variant`:
   fp32-grade), on the same skeleton. It takes float32 with d a multiple of
   8 up to 256 and every row 16-byte aligned: the float32 paths (the `tiny`
   config, a flagship run in float32, the parity check against the CPU).
-* "simple" (`csrc/fused_attention.cu`): fp32 products on the CUDA cores.
-  It takes any call, and gets those the other two cannot: bf16 with d not
-  a multiple of 16, float32 with d not a multiple of 8, misaligned rows.
+* "simple" (`csrc/fused_attention.cu`): exact fp32 products on the CUDA
+  cores, no TF32. It takes any call, and gets those the other two cannot:
+  bf16 with d not a multiple of 16 (the `tiny` config's d = 8), float32
+  with d not a multiple of 8, misaligned rows. At `tiny`'s shape (3.8 KB
+  of q/k/v/out, 1.2 ns at 3.35 TB/s) its time is the launch and one
+  block's chain of dependent steps, so the design
+  keeps that chain short: Q, K, V and the mask bytes of a tile arrive in
+  one round trip (16-byte loads where the pointers, strides and d allow,
+  all issued before any is read), the key tile is sized to s (one pass up
+  to 96-128 keys, an online softmax past it), and the warp that owns 4
+  query rows scores them, reduces their softmax and runs their PV product
+  over (row, 4-column) items without a block barrier between. At serve
+  scale a block takes up to 3 slices of 16 rows, as many as keep one block
+  for each SM, so that each (batch, head)'s K and V are read fewer times.
 
 The sources are compiled with `nvcc` for `sm_90a`, in parallel, into one
 library under `csrc/build/` on first use, and bound with `ctypes`. The

@@ -539,3 +539,110 @@ def test_concurrent_builds_never_show_a_partial_library_or_report(monkeypatch, t
     assert set(seen) <= {full}
     assert sorted(os.listdir(tmp_path / "build")) == sorted(
         [os.path.basename(library), os.path.basename(report)])  # no temporary left
+
+
+# The simple kernel's scheme (csrc/fused_attention.cu), emulated in plain
+# PyTorch in fp32 and held to the JAX function: its key tile, one pass or
+# an online softmax over tiles, -inf in the tile's slots past s, -1e9 where
+# the mask is 0, the result cast to the inputs' dtype. Tolerances as the
+# card holds the kernel to (chip_smoke.TOL): 2e-5 in float32, 2e-2 in bf16.
+
+SIMPLE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _simple_tile(s, d):
+    """Keys per tile of csrc/fused_attention.cu (its C entry's choice): 32
+    keys a lane-slot, up to 4 slots at d <= 64, 3 at d <= 128, 1 above."""
+    return 32 * min(-(-s // 32), 4 if d <= 64 else 3 if d <= 128 else 1)
+
+
+def _simple_scheme(q, k, v, mask, dtype):
+    """q/k/v: float32 arrays (bf16-representable for bf16). fp32 products
+    of `q * scale` (scaled in fp32 first, as the kernel stages Q) against
+    K, then an online softmax in base e over tiles of `_simple_tile` keys,
+    the slots past s at -inf and V zero there; acc / l at the end."""
+    qf, kf, vf = (torch.from_numpy(x) for x in (q, k, v))
+    b, s, h, d = q.shape
+    block_k = _simple_tile(s, d)
+    qf = qf * np.float32(1.0 / d ** 0.5)
+    keep = None if mask is None else torch.from_numpy(np.asarray(mask) != 0)
+    m = torch.full((b, h, s, 1), -float("inf"))
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, s, h, d))
+    for k0 in range(0, s, block_k):
+        kn = min(block_k, s - k0)
+        logits = torch.full((b, h, s, block_k), -float("inf"))
+        logits[..., :kn] = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k0 + kn])
+        if keep is not None:
+            logits[..., :kn] = torch.where(keep[:, k0:k0 + kn], logits[..., :kn],
+                                           torch.tensor(-1e9, dtype=torch.float32))
+        vt = torch.zeros((b, block_k, h, d))
+        vt[:, :kn] = vf[:, k0:k0 + kn]
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha.permute(0, 2, 1, 3) + torch.einsum("bhqk,bkhd->bqhd", p, vt)
+        m = m_new
+    out = acc / l.permute(0, 2, 1, 3)
+    return out.to(getattr(torch, dtype)).float().numpy()
+
+
+# (name, s, d, mask): `tiny`'s shape and mask; the one-pass edges at d = 8
+# (s = 1, 32 one slot; 33 two slots; 66 the flagship window, three); head
+# dims 1, 40 and 200 (200: 32-key tiles, so three tiles and two rescales).
+SIMPLE_CASES = [
+    ("tiny", 15, 8, "rt1_tiny"),
+    ("s1", 1, 8, "none"),
+    ("s32", 32, 8, "causal"),
+    ("s33", 33, 8, "causal"),
+    ("s66", 66, 8, "rt1"),
+    ("d1", 66, 1, "rt1"),
+    ("d40", 66, 40, "rt1"),
+    ("d200", 66, 200, "rt1"),
+    ("tiny_masked_rows", 15, 8, "rt1_tiny_masked_rows"),
+]
+
+
+def _simple_case(seed, s, d, kind, dtype):
+    """(q, k, v, mask) as float32 arrays, (2, s, 2, d); bf16-representable
+    values for bf16."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((2, s, 2, d), dtype=np.float32) for _ in range(3))
+    if dtype == "bfloat16":
+        q, k, v = (torch.from_numpy(x).to(torch.bfloat16).float().numpy() for x in (q, k, v))
+    if kind == "none":
+        mask = None
+    elif kind.startswith("rt1_tiny"):
+        mask = np.asarray(jax_rt1_mask(3, 2, 3), np.int32).copy()
+        if kind.endswith("masked_rows"):
+            mask[[0, 7, 14]] = 0
+    elif kind == "rt1":
+        mask = np.asarray(jax_rt1_mask(6, 8, 3), np.int32)
+    else:
+        mask = np.tril(np.ones((s, s), np.int32))
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,s,d,kind", SIMPLE_CASES, ids=[c[0] for c in SIMPLE_CASES])
+def test_simple_scheme_matches_jax(name, s, d, kind, dtype):
+    """Against JAX's Pallas kernel in interpret mode; the fully masked rows
+    against dense_attention_reference (the Pallas wrapper's padding
+    averages them over its padded keys too)."""
+    q, k, v, mask = _simple_case(20 + len(name) + s + d, s, d, kind, dtype)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    args = [jnp.asarray(x).astype(jdt) for x in (q, k, v)]
+    jmask = None if mask is None else jnp.asarray(mask)
+    if name.endswith("masked_rows"):
+        ref = dense_attention_reference(*args, mask=jmask)
+    else:
+        ref = jax_fused_attention(*args, mask=jmask, interpret=True)
+    out = _simple_scheme(q, k, v, mask, dtype)
+    assert out.shape == (2, s, 2, d) and np.isfinite(out).all()
+    np.testing.assert_allclose(out, np.asarray(ref, np.float32), atol=SIMPLE_TOL[dtype], rtol=0)
+    if name.endswith("masked_rows"):
+        np.testing.assert_allclose(out[:, [0, 7, 14]],
+                                   np.broadcast_to(v.mean(axis=1)[:, None], (2, 3, 2, d)),
+                                   atol=SIMPLE_TOL[dtype], rtol=0)
+
