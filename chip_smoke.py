@@ -63,6 +63,20 @@ exits non-zero without a result line:
              engine in process: host wall time, the card's busy time and
              idle share from torch.profiler, and the costliest kernels;
              tensor-core launches = 8 x engine steps, tf32x3 and simple 0.
+             Then the `pretrained` check (`models/load_pretrained.py`): a
+             seeded state dict with torchvision's efficientnet_b3 key names,
+             order and shapes (12,233,232 learnable parameters; the script's
+             own copy of the naming rule) ported on the card into
+             `EfficientNetB3(include_top=True)`, every ported tensor equal to
+             its source bit for bit (by the names' own map, not the
+             porter's); the classifier's f32 forward at batch 8 and 300x300
+             on the card (TF32 off) within 1e-3 x max|logit| of the CPU's,
+             its CUDA-event and device ms; `classifier.*` dropped, the rest
+             ported into the flagship master's tower
+             (`image_tokenizer.encoder.net`) and one bf16 bucket-8 engine
+             step served from it (`eval/restore.py::serving_engine`): 8
+             tensor-core launches, no other, the engine's tower equal to
+             the source in bf16, actions finite and in bounds.
 9. serve   — the main path: `python -m rt1_tpu_torch.serve --config
              language_table --random_init --port 0` (bf16, fused attention),
              3 sessions x 8 `/act` steps of 256x456 `image_b64` frames over
@@ -444,7 +458,9 @@ exits non-zero without a result line:
              engine and float32 step (`moe_launches`), in the engines and
              float32 steps restored from the fsdp=2, tp=2 and pp=2
              checkpoints and in the tp pair's eval step, by rank
-             (`parallel_launches`), errors (phase parallel's (f) cases
+             (`parallel_launches`), in the engine step served from the
+             ported torchvision-layout tower (`pretrained_launches`, phase
+             step), errors (phase parallel's (f) cases
              among them), times and bound.
 
 The last line is `{"ok": true, "device": {...}}`.
@@ -1037,6 +1053,189 @@ def phase_tiny(device: str = "cuda", batch: int = 2):
     return record
 
 
+TORCHVISION_B3_PARAMS = 12_233_232  # torchvision's published efficientnet_b3 total
+PRETRAINED_BATCH, PRETRAINED_HW = 8, 300  # B3's ImageNet resolution
+TOWER = "image_tokenizer.encoder.net"
+
+
+def torchvision_b3_manifest():
+    """[(torchvision key, shape, kind, the port's key)] of torchvision's
+    `efficientnet_b3().state_dict()`, in its order: width 1.2 and depth 1.4
+    over the B0 MBConv table (expand, kernel, stride, in, out, repeats),
+    `_make_divisible` widths, SE squeeze max(1, block input // 4), head 4 x
+    the last stage's width, classifier `Linear(head, 1000)`. `kind` is the
+    draw's (weight, bn_weight, bn_bias, bn_mean, bn_var, count, bias)."""
+    def divisible(v, divisor=8):
+        new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+        return new_v + divisor if new_v < 0.9 * v else new_v
+
+    table = [(1, 3, 1, 32, 16, 1), (6, 3, 2, 16, 24, 2), (6, 5, 2, 24, 40, 2),
+             (6, 3, 2, 40, 80, 3), (6, 5, 1, 80, 112, 3), (6, 5, 2, 112, 192, 4),
+             (6, 3, 1, 192, 320, 1)]
+    keys = []
+
+    def conv_bn(prefix, port, cin, cout, k, groups=1):
+        keys.append((f"{prefix}.0.weight", (cout, cin // groups, k, k), "weight",
+                     f"{port}.conv.weight"))
+        for leaf, kind in (("weight", "bn_weight"), ("bias", "bn_bias"),
+                           ("running_mean", "bn_mean"), ("running_var", "bn_var")):
+            keys.append((f"{prefix}.1.{leaf}", (cout,), kind, f"{port}.bn.{leaf}"))
+        keys.append((f"{prefix}.1.num_batches_tracked", (), "count", None))
+
+    cin = divisible(32 * 1.2)
+    conv_bn("features.0", "stem", 3, cin, 3)
+    block = 0
+    for stage, (expand, k, _stride, _in, out, repeats) in enumerate(table, start=1):
+        cout = divisible(out * 1.2)
+        for i in range(int(math.ceil(repeats * 1.4))):
+            p, port = f"features.{stage}.{i}.block", f"block_{block}"
+            block_in = cin if i == 0 else cout
+            expanded, squeezed, j = block_in * expand, max(1, block_in // 4), 0
+            if expand != 1:
+                conv_bn(f"{p}.0", f"{port}.expand", block_in, expanded, 1)
+                j = 1
+            conv_bn(f"{p}.{j}", f"{port}.depthwise", expanded, expanded, k, groups=expanded)
+            for fc, shape in (("fc1", (squeezed, expanded, 1, 1)),
+                              ("fc2", (expanded, squeezed, 1, 1))):
+                keys.append((f"{p}.{j + 1}.{fc}.weight", shape, "weight", f"{port}.se.{fc}.weight"))
+                keys.append((f"{p}.{j + 1}.{fc}.bias", shape[:1], "bias", f"{port}.se.{fc}.bias"))
+            conv_bn(f"{p}.{j + 2}", f"{port}.project", expanded, cout, 1)
+            block += 1
+        cin = cout
+    head = 4 * divisible(320 * 1.2)
+    conv_bn("features.8", "top", cin, head, 1)
+    keys.append(("classifier.1.weight", (1000, head), "weight", "classifier.weight"))
+    keys.append(("classifier.1.bias", (1000,), "bias", "classifier.bias"))
+    return keys
+
+
+def torchvision_b3_state_dict(device, seed=18):
+    """A seeded state dict of the manifest, drawn on `device`: weights
+    N(0, 1/fan_in), BatchNorm scales 1 + N(0, 0.1^2), biases and means
+    N(0, 0.1^2), variances U(0.5, 1.5), so the classifier's logits are
+    O(1)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sd = {}
+    for key, shape, kind, _ in torchvision_b3_manifest():
+        if kind == "count":
+            sd[key] = torch.zeros((), dtype=torch.int64, device=device)
+        elif kind == "bn_var":
+            sd[key] = 0.5 + torch.rand(shape, generator=gen, device=device)
+        else:
+            draw = torch.randn(shape, generator=gen, device=device)
+            if kind == "weight":
+                sd[key] = draw / math.sqrt(math.prod(shape[1:]))
+            else:
+                sd[key] = 1.0 + 0.1 * draw if kind == "bn_weight" else 0.1 * draw
+    return sd
+
+
+def _pretrained_check(config, bucket, device, items, batch=PRETRAINED_BATCH,
+                      hw=PRETRAINED_HW):
+    """Port a torchvision-layout B3 state dict into the classifier and
+    into the flagship's tower on `device`, and serve one bf16 engine step
+    from the result (see the module docstring, phase `step`)."""
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.eval.restore import compute_dtype, master_policy, serving_engine
+    from rt1_tpu_torch.models.efficientnet import EfficientNetB3
+    from rt1_tpu_torch.models.load_pretrained import port_torch_efficientnet
+    from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
+    from rt1_tpu_torch.serve.engine import pow2_buckets
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    manifest = torchvision_b3_manifest()
+    learnable = sum(math.prod(shape) for _, shape, kind, _ in manifest
+                    if kind not in ("bn_mean", "bn_var", "count"))
+    sd = torchvision_b3_state_dict(device)
+    net = EfficientNetB3(include_top=True).to(device)
+    if learnable != TORCHVISION_B3_PARAMS or \
+            sum(p.numel() for p in net.parameters()) != TORCHVISION_B3_PARAMS:
+        raise AssertionError(f"pretrained: manifest {learnable} learnable parameters, the "
+                             f"port's B3 {sum(p.numel() for p in net.parameters())}, "
+                             f"expected {TORCHVISION_B3_PARAMS}")
+    _sync(dev)
+    t0 = time.perf_counter()
+    ported = port_torch_efficientnet(sd, net)
+    _sync(dev)
+    port_s = time.perf_counter() - t0
+    pairs = [(key, port) for key, _, _, port in manifest if port is not None]
+    unequal = [key for key, port in pairs if not torch.equal(ported[port], sd[key])]
+    if unequal or sorted(p for _, p in pairs) != sorted(ported):
+        raise AssertionError(f"pretrained: {len(unequal)} ported tensors differ from their "
+                             f"source ({unequal[:4]}), or the keys do not cover the B3")
+    net.load_state_dict(ported)
+    net.eval()
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(18)
+    x = rng.uniform(0, 1, (batch, hw, hw, 3)).astype(np.float32)
+    with torch.no_grad():
+        xd = torch.from_numpy(x).to(device)
+        logits = net(xd).double().cpu()
+        forward_ms = cuda_time_ms(lambda: net(xd), iters=10) if on_card else None
+        prof = device_profile(lambda: net(xd), iters=3) if on_card else None
+        cpu_net = EfficientNetB3(include_top=True)
+        cpu_net.load_state_dict({k: v.cpu() for k, v in ported.items()})
+        cpu_logits = cpu_net.eval()(torch.from_numpy(x)).double()
+    bound = PARITY_REL_TOL * float(cpu_logits.abs().max())
+    diff = float((logits - cpu_logits).abs().max())
+    del cpu_net
+
+    body = {k: v for k, v in sd.items() if not k.startswith("classifier.")}
+    master, _ = master_policy(config, None, None, "fused")
+    t0 = time.perf_counter()
+    master.load_state_dict(port_torch_efficientnet(body, master, submodule_path=TOWER))
+    tower_port_s = time.perf_counter() - t0
+    dtype = compute_dtype(config)
+    engine = serving_engine(master, dtype, device, max_sessions=bucket,
+                            buckets=pow2_buckets(bucket))
+    served = engine.policy.state_dict()
+    # The engine holds the tower at its dtype (bf16 for the flagship).
+    off = [key for key, port in pairs if not port.startswith("classifier.") and not
+           torch.equal(served[f"{TOWER}.{port}"],
+                       sd[key].to(served[f"{TOWER}.{port}"].dtype))]
+    engine.warmup(items[0][1]["image"].shape)  # every bucket once, outside the count
+    steps_before = engine.steps_total
+    reset_launch_counts()  # counts this step's launches only
+    results = engine.act_batch(items)
+    _sync(dev)
+    launches = dict(fused_attention.launches_by_variant)
+    steps = engine.steps_total - steps_before
+    layers = engine.policy.num_layers
+    actions = np.asarray([r.get("action", [np.nan] * 2) for r in results], np.float64)
+    record = {
+        "torchvision_params": learnable, "state_dict_keys": len(sd),
+        "ported_tensors_bit_equal": len(pairs) - len(unequal), "port_s": port_s,
+        "tower_port_s": tower_port_s,
+        "classifier": {"batch": batch, "hw": hw, "dtype": "float32", "tf32": False,
+                       "max_abs_logit_diff": diff, "bound": bound,
+                       "max_abs_logit": float(cpu_logits.abs().max()),
+                       "events_ms": forward_ms,
+                       "device_ms": prof["busy_ms"] if prof else None,
+                       "device_launches": prof["launches"] if prof else None},
+        "engine": {"bucket": bucket, "dtype": str(dtype).replace("torch.", ""),
+                   "engine_steps": steps, "launches_by_variant": launches,
+                   "tower_off_source": len(off), "actions_shape": list(actions.shape)},
+        "nvidia_smi": nvidia_smi() if on_card else None,
+    }
+    if not diff <= bound or not torch.isfinite(logits).all():
+        raise AssertionError(f"pretrained: classifier logits card vs CPU {diff}, bound {bound}")
+    expected = {"tensor_core": layers if on_card else 0, "tf32x3": 0, "simple": 0}
+    if steps != 1 or launches != expected or off:
+        raise AssertionError(f"pretrained: {steps} engine steps, launches {launches} "
+                             f"(expected {expected}), {len(off)} tower tensors off the source")
+    if actions.shape != (len(items), 2) or not np.isfinite(actions).all() or \
+            (np.abs(actions) > 0.03 + 1e-7).any():
+        raise AssertionError(f"pretrained: actions {actions}")
+    return record
+
+
 def phase_step(config_name: str = "language_table", bucket: int = 8, iters: int = 5,
                device: str = "cuda"):
     """One full-bucket batched control step of the flagship engine (bf16,
@@ -1090,6 +1289,8 @@ def phase_step(config_name: str = "language_table", bucket: int = 8, iters: int 
             "device_launches": prof["launches"], "attention_device_ms": attn,
             "top_kernels_ms": [[name[:80], ms] for name, ms in top],
         })
+    del engine
+    record["pretrained"] = _pretrained_check(config, bucket, device, items)
     emit(record)
     return record
 
@@ -5875,6 +6076,11 @@ def main(argv=None) -> int:
                                ("f32_infer_step", "f32_launches"))}
         entry["parallel_launches"]["tp_eval_step_by_rank"] = [
             launches[variant] for launches in parallel["pairs"]["tp"]["eval_launches"]]
+    # Phase step's `pretrained` check: one bf16 bucket-8 engine step served
+    # from the torchvision-layout tower (counts set to 0 before it).
+    pretrained = done["step"]["pretrained"]["engine"]["launches_by_variant"]
+    for entry, variant in zip(entries, ("tensor_core", "tf32x3", "simple")):
+        entry["pretrained_launches"] = pretrained[variant]
     # The train CLI's periodic evals in phase train_ops.
     train_ops = done["train_ops"]["cli"]
     entries[0]["train_ops_launches"] = {

@@ -7,7 +7,8 @@ into the port's `state_dict`. It is the inverse of
 
 * conv kernels HWIO -> OIHW, the depthwise `(kh, kw, 1, C)` included
   (-> `(C, 1, kh, kw)`);
-* Dense kernels `(in, out)` -> Linear weights `(out, in)`;
+* Dense kernels `(in, out)` -> Linear weights `(out, in)` (the
+  EfficientNet classifier's `classifier/kernel` -> `classifier.weight`);
 * BatchNorm `scale, bias` and statistics `mean, var` -> `weight, bias,
   running_mean, running_var`; LayerNorm `scale` -> `weight`;
 * the position `Embed` table -> `Embedding.weight`;

@@ -19,6 +19,13 @@ stochastic depth to the residual blocks at `drop_connect_rate * b /
 total_repeats`, drawing from the generator passed as `rngs["stochastic_depth"]`.
 `remat=True` recomputes each MBConv block in the backward pass
 (`ops/remat.py`), as JAX's `nn.remat(MBConvBlock)` does.
+
+`include_top=True` adds JAX's classifier head: the mean over H and W,
+dropout at `dropout_rate` in train mode (from `rngs["dropout"]`), and an
+`nn.Linear` named `classifier` to `classes` logits. It is off by default,
+as the RT-1 encoder builds the tower; `EfficientNetB3()` is the ImageNet
+classifier that `models/load_pretrained.py` ports torchvision's weights
+into.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from torch import nn
 
 from rt1_tpu_torch.models.film import FilmConditioning
 from rt1_tpu_torch.models.quant import QuantConv2d
-from rt1_tpu_torch.ops.dropout import Rngs
+from rt1_tpu_torch.ops.dropout import Rngs, dropout
 from rt1_tpu_torch.ops.remat import checkpoint, recomputing
 from rt1_tpu_torch.parallel.collectives import current_batch_shard, rows_of_global_draw
 
@@ -273,11 +280,12 @@ class MBConvBlock(nn.Module):
 
 
 class EfficientNet(nn.Module):
-    """EfficientNet without the classifier head, with optional per-block FiLM."""
+    """EfficientNet with optional per-block FiLM and optional classifier head."""
 
     def __init__(self, width_coefficient: float, depth_coefficient: float,
                  include_film: bool = False, context_dim: int = 512,
-                 depth_divisor: int = 8, drop_connect_rate: float = 0.2, remat: bool = False):
+                 depth_divisor: int = 8, drop_connect_rate: float = 0.2, remat: bool = False,
+                 include_top: bool = False, classes: int = 1000, dropout_rate: float = 0.2):
         super().__init__()
         self.remat = remat
         self.width_coefficient = width_coefficient
@@ -285,6 +293,8 @@ class EfficientNet(nn.Module):
         self.depth_divisor = depth_divisor
         self.drop_connect_rate = drop_connect_rate
         self.include_film = include_film
+        self.include_top = include_top
+        self.dropout_rate = dropout_rate
         stem_ch = round_filters(32, depth_divisor, width_coefficient)
         self.stem = ConvNormAct(3, stem_ch, 3, strides=2)
         self.num_blocks = 0
@@ -296,6 +306,8 @@ class EfficientNet(nn.Module):
         last = self.block_configs()[-1]["out_size"]
         self.top_ch = round_filters(1280, depth_divisor, width_coefficient)
         self.top = ConvNormAct(last, self.top_ch, 1)
+        if include_top:
+            self.classifier = nn.Linear(self.top_ch, classes)
 
     def block_configs(self) -> List[Dict[str, Any]]:
         """Flattened per-block args after width/depth scaling."""
@@ -337,6 +349,21 @@ class EfficientNet(nn.Module):
 
     def forward(self, inputs: torch.Tensor, context: Optional[torch.Tensor] = None,
                 train: bool = False, rngs: Rngs = None) -> torch.Tensor:
-        """inputs: (B, H, W, 3) float; context: (B, D) when FiLM. Returns NHWC."""
+        """inputs: (B, H, W, 3) float; context: (B, D) when FiLM. Returns
+        the top's features NHWC, or with `include_top` (B, classes) logits."""
         x = inputs.to(self.stem.conv.compute_dtype).permute(0, 3, 1, 2)
-        return self.forward_nchw(x, context, train, rngs).permute(0, 2, 3, 1)
+        x = self.forward_nchw(x, context, train, rngs)
+        if not self.include_top:
+            return x.permute(0, 2, 3, 1)
+        x = dropout(x.mean(dim=(2, 3)), self.dropout_rate, train, rngs)
+        return self.classifier(x)
+
+
+def EfficientNetB3(include_top: bool = True, classes: int = 1000, include_film: bool = False,
+                   dtype: torch.dtype = torch.float32) -> EfficientNet:
+    """B3 scaling: width 1.2, depth 1.4, dropout 0.3, in `dtype`; FiLM
+    conditions on a 512-d context. Trained natively on 300x300 (a 10x10
+    feature map); Language-Table feeds 256x456 (8x15)."""
+    net = EfficientNet(1.2, 1.4, include_film=include_film, include_top=include_top,
+                       classes=classes, dropout_rate=0.3)
+    return net.to(dtype)
