@@ -7,7 +7,16 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --phases kernel,ab    # a quick kernel check
 
 Phases, each printing one JSON line; any failure raises and the script
-exits non-zero without a result line:
+exits non-zero without a result line. Every process the script starts
+shares one bytecode cache of the run (`_bytecode_cache`: the card's
+machine writes none, and each process compiled torch anew), and the
+forkserver that workers fork from imports torch once. A whole run takes
+the phases in two lanes: once `train` has run, a second process
+(`_Lane`) runs moe, parallel, serve_modes and proof while this one runs
+train_ops, data, rlds, eval and lava; it is joined before fleet, so the
+serving fleets' phases (alerts and canaries judged on latency) and the
+kernels' timings run alone. Host timings of the phases that run beside
+the other lane are not comparable with those of runs in one lane:
 
 1. device  — requires CUDA; prints `nvidia-smi --query-gpu=name,power.limit`.
 2. build   — builds the three attention kernels (`rt1_tpu_torch/csrc/
@@ -163,7 +172,7 @@ exits non-zero without a result line:
              fed by each loader through `device_feeder` (pinned, two
              batches in flight on a copy stream) in turns with the
              synthetic stream (synthetic, numpy, torch, packed; 3 warm-up
-             and 5 timed steps a turn, then 5 more under one
+             and 3 timed steps a turn, then 3 more under one
              synchronisation; each turn's seconds):
              step wall median and range, ms
              blocked on the host iterator and in the upload per step, the
@@ -178,6 +187,26 @@ exits non-zero without a result line:
              corpus's windows) that restores step 4, each eval on
              `val` with 8 tensor-core launches per eval batch, and
              `data_manifest.json` equal to the corpus's manifest.
+13b. rlds  — Language-Table's RLDS layout read without TensorFlow, at the
+             flagship's width: the TFDS fixture
+             `tests/fixtures/tfds_language_table/` (3 episodes of 6-8 steps at
+             360x640 written by TensorFlow, one copy JPEG q95 and one PNG):
+             every frame decoded by the port's decoders
+             (`csrc/image_decode.cc`, g++; PNG in numpy + zlib) equal to
+             TF's decode (the SHA-256 of each frame, the pixels of two a
+             copy), ms a frame each way; `python -m
+             rt1_tpu_torch.data.convert_rlds` on the JPEG copy (its `main`,
+             in process; 2 train + 1 val episodes, s an episode); `python
+             -m rt1_tpu_torch.train --config language_table --set
+             data.loader=rlds_tf` on that store (shuffle buffer 64, about
+             three passes of the fixture; the config's 2048 would hold 100)
+             for 2 bf16 steps at batch 8 with an eval (8 tensor-core launches an eval batch) and a
+             resume to 4 that restores step 2; `create_rlds_datasets` over
+             the TFDS directory alone (frames/s) and feeding the bf16 train
+             step through `device_feeder` (a step's wall, its wait on the
+             iterator, the card's idle share); one bucket-8 bf16 engine step
+             served from the CLI's checkpoint on the fixture's frames: 8
+             tensor-core launches, no other, actions finite and in bounds.
 14. eval   — the closed-loop Language-Table eval of the flagship: phase
              `train`'s CLI checkpoint (step 6; run alone, the train CLI
              writes one at step 2 under a temporary directory),
@@ -328,8 +357,10 @@ exits non-zero without a result line:
              a watcher on `/metrics` and `/alerts`, 650 clean acts that
              decay the burn; exactly ReplicaDown, SLOBurnRateFast and
              SLOBurnRateSlow fire and resolve, with their detection
-             latencies; then the proof's overhead A/B and byte identity
-             on stub fleets on the host (300 acts an arm). Prints the router's
+             latencies; and, beside the replicas' warm-up, the proof's
+             overhead A/B and byte identity on stub fleets on the host (300
+             acts an arm). Prints
+             the router's
              `/act` p50 / p99 / max beside phase `serve`'s, the warm-up and
              kill-to-ready seconds, each replica's resident bytes and the
              card's memory in use; the replica's own `phases` total split
@@ -460,7 +491,9 @@ exits non-zero without a result line:
              checkpoints and in the tp pair's eval step, by rank
              (`parallel_launches`), in the engine step served from the
              ported torchvision-layout tower (`pretrained_launches`, phase
-             step), errors (phase parallel's (f) cases
+             step), in the engine step served from the checkpoint trained
+             through `data.loader=rlds_tf` (`rlds_launches`, phase rlds),
+             errors (phase parallel's (f) cases
              among them), times and bound.
 
 The last line is `{"ok": true, "device": {...}}`.
@@ -2453,7 +2486,7 @@ DATA_EPISODES = {"train": 128, "val": 4}
 DATA_STEPS = 20                  # steps an episode, at Language-Table's 180x320
 DATA_WARM, DATA_BATCHES = 5, 10   # batches of each loader alone: drained, then timed
 DATA_CHECK_STEPS = 9             # fed steps per turn whose batch is held to its host batch
-DATA_TIMED = 5                   # timed steps a fed turn, each way (phase train times 10)
+DATA_TIMED = 3                   # timed steps a fed turn, each way (phase train times 10)
 DATA_CLI_TIMEOUT_S = 600
 
 
@@ -2897,6 +2930,232 @@ def phase_data(config_name: str = "language_table", device: str = "cuda",
               "batches_held_to_host": held, "cli": cli}
     emit(record)
     return record
+
+
+# The rlds phase: the TFDS fixture through the port's RLDS path.
+RLDS_FIXTURE = os.path.join("tests", "fixtures", "tfds_language_table")
+RLDS_SPLITS = {"train": 2, "val": 1}   # the fixture's 3 episodes, converted
+RLDS_TRAIN_STEPS = 2                   # CLI steps, then a resume to twice that
+RLDS_LOADER_BATCHES = 3                # batches timed alone, after the first
+RLDS_FED_WARMUP, RLDS_FED_TIMED = 2, 3
+RLDS_SHUFFLE_BUFFER = 64               # ~3 passes of the fixture's 21 windows (config: 2048)
+
+
+def _rlds_decode(fixture):
+    """Every fixture frame through the port's decoders, held to TF's
+    decode; the ms a frame of each encoding."""
+    import hashlib
+
+    import numpy as np
+
+    from rt1_tpu_torch.data import codecs, tfds
+
+    codecs.build()
+    with open(os.path.join(fixture, "tf_decoded_sha256.json")) as f:
+        digests = json.load(f)
+    out = {}
+    with np.load(os.path.join(fixture, "tf_decoded.npz")) as stored:
+        pixels = {k: stored[k] for k in stored.files}
+    for enc in ("jpeg", "png"):
+        examples = list(tfds.TfdsDirectory(os.path.join(fixture, enc)).examples("train"))
+        encoded = [ex["steps/observation/rgb"] for ex in examples]
+        t0 = time.perf_counter()
+        frames = [[codecs.decode_image(b, 3) for b in ep] for ep in encoded]
+        seconds = time.perf_counter() - t0
+        n = sum(len(ep) for ep in frames)
+        got = [[hashlib.sha256(f.tobytes()).hexdigest() for f in ep] for ep in frames]
+        held = [k for k in pixels if k.startswith(enc + "_")]
+        off = [k for k in held if not np.array_equal(
+            frames[int(k.split("_")[1])][int(k.split("_")[2])], pixels[k])]
+        if got != digests[enc] or off or len(held) < 2:
+            raise AssertionError(f"rlds: {enc} frames off TF's decode: digests "
+                                 f"{got != digests[enc]}, pixels {off} of {held}")
+        out[enc] = {"frames": n, "frames_equal_tf": n, "pixels_held": len(held),
+                    "bytes_per_frame": sum(map(len, sum(encoded, []))) / n,
+                    "ms_per_frame": seconds * 1e3 / n, "shape": list(frames[0][0].shape)}
+    return out
+
+
+def _rlds_cli(config_name, device, store, workdir, num_layers):
+    """The train CLI on the converted store with data.loader=rlds_tf:
+    RLDS_TRAIN_STEPS steps with an eval, then a resume to twice that."""
+    from rt1_tpu_torch.train.__main__ import main as train_main
+
+    on_card = device.startswith("cuda")
+    base = ["--config", config_name, "--workdir", workdir, "--device", device,
+            "--set", f"data.data_dir={store}", "--set", "data.loader=rlds_tf",
+            "--set", f"checkpoint_every_steps={RLDS_TRAIN_STEPS}",
+            "--set", f"eval_every_steps={RLDS_TRAIN_STEPS}", "--set", "eval_batches=1",
+            "--set", "log_every_steps=1", "--set", "model.attention_impl=fused",
+            "--set", f"data.shuffle_buffer={RLDS_SHUFFLE_BUFFER}"]
+    runs = []
+    for restored, last in ((None, RLDS_TRAIN_STEPS), (RLDS_TRAIN_STEPS, 2 * RLDS_TRAIN_STEPS)):
+        lines, seconds = _run_in_process(train_main, base + ["--set", f"num_steps={last}"])
+        start = next(x for x in lines if x.get("status") == "start")
+        evals = [x for x in lines if "eval_loss" in x]
+        losses = [x["loss"] for x in lines if "loss" in x]
+        expected = num_layers if on_card else 0
+        bad = [x for x in evals
+               if x["eval_attention_launches_tensor_core"] != expected * x["eval_batches"]
+               or x["eval_attention_launches_tf32x3"] or x["eval_attention_launches_simple"]]
+        if start["data_loader"] != "rlds_tf" or start["restored_step"] != restored or bad or \
+                not evals or lines[-1].get("checkpoint_step") != last or \
+                not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"rlds CLI: start {start}, evals {evals}, losses {losses}, "
+                                 f"end {lines[-1]}")
+        runs.append({"restored_step": restored, "checkpoint_step": last, "seconds": seconds,
+                     "losses": losses, "eval_steps": [x["step"] for x in evals],
+                     "eval_attention_launches_tensor_core": [
+                         x["eval_attention_launches_tensor_core"] for x in evals]})
+    return runs
+
+
+def phase_rlds(config_name: str = "language_table", device: str = "cuda"):
+    """The TFDS fixture decoded and held to TF's pixels, converted by the
+    CLI, trained and resumed through `data.loader=rlds_tf`, fed straight
+    from `create_rlds_datasets`, and served (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from rt1_tpu_torch.configs import get_config
+    from rt1_tpu_torch.data import convert_rlds, rlds_pipeline
+    from rt1_tpu_torch.data.pipeline import device_feeder
+    from rt1_tpu_torch.eval.restore import build_serve_engine
+    from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
+    from rt1_tpu_torch.serve.engine import pow2_buckets
+    from rt1_tpu_torch.train.train import build_model
+    from rt1_tpu_torch.trainer.state import create_train_state
+    from rt1_tpu_torch.trainer.train import optimizer_from_config, train_step_fns_from_config
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    fixture = os.path.join(REPO, RLDS_FIXTURE)
+    config = get_config(config_name)
+    config.obs.model_health = False  # phase train's step
+    b, t = config.per_host_batch_size, config.model.time_sequence_length
+    h, w = config.data.height, config.data.width
+    decode = _rlds_decode(fixture)
+    root = tempfile.mkdtemp(prefix="rt1_chip_smoke_rlds_")
+    try:
+        store = os.path.join(root, "store")
+        _, convert_s = _run_in_process(convert_rlds.main, [
+            "--dataset_dir", os.path.join(fixture, "jpeg"), "--output_dir", store,
+            "--num_train", str(RLDS_SPLITS["train"]), "--num_val", str(RLDS_SPLITS["val"]),
+            "--num_test", "0"])
+        written = {s: len(os.listdir(os.path.join(store, s))) for s in RLDS_SPLITS}
+        if written != RLDS_SPLITS:
+            raise AssertionError(f"rlds: convert wrote {written}, expected {RLDS_SPLITS}")
+        episodes = sum(RLDS_SPLITS.values())
+        workdir = os.path.join(root, "train")
+        cli = _rlds_cli(config_name, device, store, workdir, config.model.num_layers)
+
+        # The loader alone, straight over the TFDS directory.
+        cfg = rlds_pipeline.RldsPipelineConfig(
+            window=t, crop_factor=config.data.crop_factor, height=h, width=w, batch_size=b,
+            shuffle_buffer=RLDS_SHUFFLE_BUFFER, seed=config.seed)
+        tfds_dir = os.path.join(fixture, "jpeg")
+        (stream,) = rlds_pipeline.create_rlds_datasets(tfds_dir, cfg, splits=("train",))
+        try:
+            alone = _time_rlds_loader(stream, b * t)
+        finally:
+            stream.close()
+
+        # The bf16 train step fed from create_rlds_datasets.
+        policy = build_model(config, dev)
+        optimizer = optimizer_from_config(config)
+        state = create_train_state(policy, optimizer)
+        fns = train_step_fns_from_config(config, optimizer)
+        (stream,) = rlds_pipeline.create_rlds_datasets(tfds_dir, cfg, splits=("train",))
+        feeder = device_feeder(stream, dev, depth=2)
+        box = {"step": 0}
+
+        def one_step():
+            fns.train_step(state, next(feeder), box["step"])
+            box["step"] += 1
+
+        try:
+            for _ in range(RLDS_FED_WARMUP):
+                one_step()
+            _sync(dev)
+            walls, waits = [], []
+            for _ in range(RLDS_FED_TIMED):
+                w0 = feeder.wait_s
+                t0 = time.perf_counter()
+                one_step()
+                _sync(dev)
+                walls.append((time.perf_counter() - t0) * 1e3)
+                waits.append((feeder.wait_s - w0) * 1e3)
+            fed = {"step_wall_ms": walls, "wait_ms": waits,
+                   "frames_per_s": b * t * 1e3 / float(np.median(walls))}
+            if on_card:
+                prof = device_profile(one_step, iters=2)
+                if prof is not None:
+                    fed.update({"profiled_wall_ms": prof["wall_ms"],
+                                "device_busy_ms": prof["busy_ms"],
+                                "idle_share": 1.0 - prof["busy_ms"] / prof["wall_ms"]})
+        finally:
+            feeder.close()
+        del policy, state, fns, optimizer
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # One bucket-8 bf16 engine step from the CLI's checkpoint, on the
+        # fixture's frames (the eval crop, resized to the model's size).
+        engine, restored = build_serve_engine(config, workdir=workdir, device=dev,
+                                              attention_impl="fused", max_sessions=b,
+                                              buckets=pow2_buckets(b))
+        batch = next(iter(rlds_pipeline.make_episode_dataset_from_paths(
+            [os.path.join(store, "val", "episode_0.npz")])))
+        boxes = rlds_pipeline.crop_boxes(b, *batch["rgb"].shape[1:3], cfg, False, None)
+        frames = rlds_pipeline.crop_resize(batch["rgb"][np.arange(b) % len(batch["rgb"])],
+                                           boxes, h, w).numpy()
+        items = [(f"rlds-{i}", {"image": frames[i],
+                                "natural_language_embedding": batch["instruction"][0]})
+                 for i in range(b)]
+        engine.warmup((h, w, 3))
+        steps0 = engine.steps_total
+        reset_launch_counts()
+        results = engine.act_batch(items)
+        _sync(dev)
+        launches = dict(fused_attention.launches_by_variant)
+        steps = engine.steps_total - steps0
+        layers = engine.policy.num_layers
+        del engine
+        actions = np.asarray([r.get("action", [np.nan] * 2) for r in results], np.float64)
+        expected = {"tensor_core": layers if on_card else 0, "tf32x3": 0, "simple": 0}
+        if restored != 2 * RLDS_TRAIN_STEPS or steps != 1 or launches != expected or \
+                actions.shape != (b, 2) or not np.isfinite(actions).all() or \
+                (np.abs(actions) > 0.03 + 1e-7).any():
+            raise AssertionError(f"rlds: engine from step {restored}: {steps} steps, "
+                                 f"launches {launches} (expected {expected}), actions {actions}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    record = {"phase": "rlds", "config": config_name, "batch": b, "window": t,
+              "image": [h, w], "decode": decode,
+              "convert": {"episodes": episodes, "seconds": convert_s,
+                          "s_per_episode": convert_s / episodes},
+              "cli": cli, "loader_alone": alone, "fed_step": fed,
+              "engine": {"restored_step": restored, "engine_steps": steps,
+                         "launches_by_variant": launches},
+              "nvidia_smi": nvidia_smi() if on_card else None,
+              "seconds": time.perf_counter() - t_phase}
+    emit(record)
+    return record
+
+
+def _time_rlds_loader(stream, frames_per_batch):
+    """frames/s of an RLDS stream alone: the first batch (its start-up and
+    first episodes' decode), then RLDS_LOADER_BATCHES timed."""
+    t0 = time.perf_counter()
+    next(stream)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(RLDS_LOADER_BATCHES):
+        next(stream)
+    dt = time.perf_counter() - t0
+    return {"first_batch_s": first_s, "ms_per_batch": dt * 1e3 / RLDS_LOADER_BATCHES,
+            "frames_per_s": RLDS_LOADER_BATCHES * frames_per_batch / dt}
 
 
 # The eval phase: the closed-loop Language-Table eval of the flagship.
@@ -3706,167 +3965,184 @@ def phase_fleet(config_name: str = "language_table", device: str = "cuda", direc
                 ((tokens < 0) | (tokens >= config.model.vocab_size)).any():
             raise AssertionError(f"fleet: bad action {out}")
 
-    with tempfile.TemporaryDirectory() as logs, tempfile.TemporaryFile(mode="w+") as errlog:
-        cmd = [sys.executable, "-m", "rt1_tpu_torch.serve.fleet", "--replicas",
-               str(FLEET_REPLICAS), "--config", config_name, "--random_init",
-               "--inference_dtype", "bf16", "--device", device, "--port", "0",
-               "--faults", "replica_kill@1", "--chaos_interval_s", str(FLEET_CHAOS_INTERVAL_S),
-               "--poll_interval_s", "0.25", "--warmup_timeout_s", str(FLEET_TIMEOUT_S),
-               "--collector", "--collector_interval_s", str(FLEET_COLLECTOR_S),
-               "--log_dir", logs]
-        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=errlog,
-                                text=True, start_new_session=True)
-        ok, watcher = False, None
+    # The proof's other two phases on stub fleets (host processes, no
+    # torch) run beside this fleet's warm-up.
+    stub_out = {}
+
+    def stub_ab():
+        t = time.perf_counter()
         try:
-            t0 = time.perf_counter()
-            ready = _read_ready_line(proc, FLEET_TIMEOUT_S)
-            warmup_s = time.perf_counter() - t0
-            url = f"http://127.0.0.1:{ready['port']}"
-            fleet = json.loads(_get_text(url + "/fleet/status"))
-            if [r["state"] for r in fleet["replicas"]] != ["ready"] * FLEET_REPLICAS:
-                raise AssertionError(f"fleet: not every replica ready {fleet['replicas']}")
-            memory_ready = _memory_used_mib(on_card)
-            # 1. The drive: each session's steps in order, the sessions at once.
-            replies, lock = [], threading.Lock()
+            stub_out["stubs"] = alerts_proof.run_overhead_and_identity(
+                alerts_proof.FleetSpec(stub=True), rounds=FLEET_OVERHEAD_ROUNDS)
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            stub_out["error"] = exc
+        stub_out["s"] = time.perf_counter() - t
 
-            def drive(i):
-                for step in range(FLEET_STEPS):
-                    rid = f"fleet-{i}-{step}"
-                    t = time.perf_counter()
-                    code, out = _post(url + "/act", dict(body(i, step), debug=True),
-                                      {"X-RT1-Request-Id": rid})
-                    with lock:
-                        replies.append((rid, code, out, time.perf_counter() - t))
+    stub_thread = threading.Thread(target=stub_ab, name="fleet-stub-ab", daemon=True)
+    stub_thread.start()
+    try:
+        with tempfile.TemporaryDirectory() as logs, tempfile.TemporaryFile(mode="w+") as errlog:
+            cmd = [sys.executable, "-m", "rt1_tpu_torch.serve.fleet", "--replicas",
+                   str(FLEET_REPLICAS), "--config", config_name, "--random_init",
+                   "--inference_dtype", "bf16", "--device", device, "--port", "0",
+                   "--faults", "replica_kill@1", "--chaos_interval_s", str(FLEET_CHAOS_INTERVAL_S),
+                   "--poll_interval_s", "0.25", "--warmup_timeout_s", str(FLEET_TIMEOUT_S),
+                   "--collector", "--collector_interval_s", str(FLEET_COLLECTOR_S),
+                   "--log_dir", logs]
+            proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=errlog,
+                                    text=True, start_new_session=True)
+            ok, watcher = False, None
+            try:
+                t0 = time.perf_counter()
+                ready = _read_ready_line(proc, FLEET_TIMEOUT_S)
+                warmup_s = time.perf_counter() - t0
+                url = f"http://127.0.0.1:{ready['port']}"
+                fleet = json.loads(_get_text(url + "/fleet/status"))
+                if [r["state"] for r in fleet["replicas"]] != ["ready"] * FLEET_REPLICAS:
+                    raise AssertionError(f"fleet: not every replica ready {fleet['replicas']}")
+                memory_ready = _memory_used_mib(on_card)
+                # 1. The drive: each session's steps in order, the sessions at once.
+                replies, lock = [], threading.Lock()
 
-            t_drive = time.perf_counter()
-            threads = [threading.Thread(target=drive, args=(i,)) for i in range(FLEET_SESSIONS)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(FLEET_TIMEOUT_S)
-            drive_s = time.perf_counter() - t_drive
-            if len(replies) != FLEET_SESSIONS * FLEET_STEPS:
-                raise AssertionError(f"fleet: {len(replies)} replies of "
-                                     f"{FLEET_SESSIONS * FLEET_STEPS}")
-            for rid, code, out, _ in replies:
-                if code != 200 or out.get("restarted"):
-                    raise AssertionError(f"fleet: /act {code} {out}")
-                if out.get("request_id") != rid:
-                    raise AssertionError(f"fleet: request id {rid} came back as "
-                                         f"{out.get('request_id')}")
-                check_action(out)
-            # 2. Affinity: each session's whole window on exactly one replica.
-            fleet = json.loads(_get_text(url + "/fleet/status"))
-            if any(r["restarts"] for r in fleet["replicas"]):
-                raise AssertionError("fleet: the chaos kill came before the drive ended; "
-                                     "raise FLEET_CHAOS_INTERVAL_S")
-            urls = {r["id"]: r["url"] for r in fleet["replicas"]}
-            owners = {}
-            for sid in sessions:
-                held = {rid: _post(u + "/session/export", {"session_id": sid})
-                        for rid, u in urls.items()}
-                holders = [rid for rid, (code, _) in held.items() if code == 200]
-                if len(holders) != 1 or \
-                        held[holders[0]][1]["snapshot"]["step_index"] != FLEET_STEPS:
-                    raise AssertionError(f"fleet: {sid} held by {holders}")
-                owners[sid] = holders[0]
-            if set(owners.values()) != set(urls):
-                raise AssertionError(f"fleet: sessions on {owners}, replicas {sorted(urls)}")
-            # 3. The router's Prometheus text and JSON fan-out.
-            parsed = parse_exposition(_get_text(url + "/metrics", accept="text/plain"))
-            for rid in urls:
-                if parsed.value("rt1_serve_replica_up", replica_id=str(rid)) != 1.0:
-                    raise AssertionError(f"fleet: rt1_serve_replica_up of {rid} is not 1")
-            fanned = json.loads(_get_text(url + "/metrics"))["replicas"]
-            launches = {rid: _fleet_launches(snap, on_card, f"replica {rid}")
-                        for rid, snap in fanned.items()}
-            resident = {rid: int(snap["param_bytes_device"]) for rid, snap in fanned.items()}
-            if config_name == "language_table" and \
-                    set(resident.values()) != {FLAGSHIP_PARAM_BYTES["bf16"]}:
-                raise AssertionError(f"fleet: resident bytes {resident}")
-            # The alerts proof's replica_kill on this fleet: more sessions
-            # placed before the kill (their re-homes are the burn), the
-            # watcher on the plane's signals.
-            frame_body = body(0, FLEET_STEPS)
-            proof_fleet = alerts_proof.Fleet(url, body=lambda sid: {**frame_body,
-                                                                    "session_id": sid})
-            for sid in FLEET_PROOF_SESSIONS:
-                proof_fleet.act(sid)
-            watcher = alerts_proof.Watcher(url, interval_s=FLEET_WATCH_S)
-            watcher.start()
-            t_armed = time.time()
-            # 4. The chaos kill (tick 1: the lowest-id ready replica).
-            def killed():
-                rs = json.loads(_get_text(url + "/fleet/status"))["replicas"]
-                return [r["id"] for r in rs if r["restarts"] == 1]
+                def drive(i):
+                    for step in range(FLEET_STEPS):
+                        rid = f"fleet-{i}-{step}"
+                        t = time.perf_counter()
+                        code, out = _post(url + "/act", dict(body(i, step), debug=True),
+                                          {"X-RT1-Request-Id": rid})
+                        with lock:
+                            replies.append((rid, code, out, time.perf_counter() - t))
 
-            (victim,) = _wait_for(killed, FLEET_CHAOS_INTERVAL_S + 60, "the chaos kill")
-            t_kill = time.perf_counter()
-            rehome = {}
-            for i, sid in enumerate(sessions):
-                code, out = _post(url + "/act", body(i, FLEET_STEPS),
-                                  {"X-RT1-Request-Id": f"fleet-{i}-rehome"})
-                if code != 200 or bool(out.get("restarted")) != (owners[sid] == victim) or \
-                        out.get("request_id") != f"fleet-{i}-rehome":
-                    raise AssertionError(f"fleet: after the kill {sid} (on {owners[sid]}, "
-                                         f"victim {victim}) answered {code} {out}")
-                check_action(out)
-                rehome[sid] = bool(out.get("restarted"))
-            touched = alerts_proof.touch(proof_fleet, FLEET_PROOF_SESSIONS, tries=1)
-            restarted = sum(rehome.values()) + sum(touched.values())
-            memory_killed = _memory_used_mib(on_card)
+                t_drive = time.perf_counter()
+                threads = [threading.Thread(target=drive, args=(i,)) for i in range(FLEET_SESSIONS)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(FLEET_TIMEOUT_S)
+                drive_s = time.perf_counter() - t_drive
+                if len(replies) != FLEET_SESSIONS * FLEET_STEPS:
+                    raise AssertionError(f"fleet: {len(replies)} replies of "
+                                         f"{FLEET_SESSIONS * FLEET_STEPS}")
+                for rid, code, out, _ in replies:
+                    if code != 200 or out.get("restarted"):
+                        raise AssertionError(f"fleet: /act {code} {out}")
+                    if out.get("request_id") != rid:
+                        raise AssertionError(f"fleet: request id {rid} came back as "
+                                             f"{out.get('request_id')}")
+                    check_action(out)
+                # 2. Affinity: each session's whole window on exactly one replica.
+                fleet = json.loads(_get_text(url + "/fleet/status"))
+                if any(r["restarts"] for r in fleet["replicas"]):
+                    raise AssertionError("fleet: the chaos kill came before the drive ended; "
+                                         "raise FLEET_CHAOS_INTERVAL_S")
+                urls = {r["id"]: r["url"] for r in fleet["replicas"]}
+                owners = {}
+                for sid in sessions:
+                    held = {rid: _post(u + "/session/export", {"session_id": sid})
+                            for rid, u in urls.items()}
+                    holders = [rid for rid, (code, _) in held.items() if code == 200]
+                    if len(holders) != 1 or \
+                            held[holders[0]][1]["snapshot"]["step_index"] != FLEET_STEPS:
+                        raise AssertionError(f"fleet: {sid} held by {holders}")
+                    owners[sid] = holders[0]
+                if set(owners.values()) != set(urls):
+                    raise AssertionError(f"fleet: sessions on {owners}, replicas {sorted(urls)}")
+                # 3. The router's Prometheus text and JSON fan-out.
+                parsed = parse_exposition(_get_text(url + "/metrics", accept="text/plain"))
+                for rid in urls:
+                    if parsed.value("rt1_serve_replica_up", replica_id=str(rid)) != 1.0:
+                        raise AssertionError(f"fleet: rt1_serve_replica_up of {rid} is not 1")
+                fanned = json.loads(_get_text(url + "/metrics"))["replicas"]
+                launches = {rid: _fleet_launches(snap, on_card, f"replica {rid}")
+                            for rid, snap in fanned.items()}
+                resident = {rid: int(snap["param_bytes_device"]) for rid, snap in fanned.items()}
+                if config_name == "language_table" and \
+                        set(resident.values()) != {FLAGSHIP_PARAM_BYTES["bf16"]}:
+                    raise AssertionError(f"fleet: resident bytes {resident}")
+                # The alerts proof's replica_kill on this fleet: more sessions
+                # placed before the kill (their re-homes are the burn), the
+                # watcher on the plane's signals.
+                frame_body = body(0, FLEET_STEPS)
+                proof_fleet = alerts_proof.Fleet(url, body=lambda sid: {**frame_body,
+                                                                        "session_id": sid})
+                for sid in FLEET_PROOF_SESSIONS:
+                    proof_fleet.act(sid)
+                watcher = alerts_proof.Watcher(url, interval_s=FLEET_WATCH_S)
+                watcher.start()
+                t_armed = time.time()
+                # 4. The chaos kill (tick 1: the lowest-id ready replica).
+                def killed():
+                    rs = json.loads(_get_text(url + "/fleet/status"))["replicas"]
+                    return [r["id"] for r in rs if r["restarts"] == 1]
 
-            def healed():
-                rs = json.loads(_get_text(url + "/fleet/status"))["replicas"]
-                return all(r["state"] == "ready" for r in rs) and \
-                    [r["restarts"] for r in rs if r["id"] == victim] == [1]
+                (victim,) = _wait_for(killed, FLEET_CHAOS_INTERVAL_S + 60, "the chaos kill")
+                t_kill = time.perf_counter()
+                rehome = {}
+                for i, sid in enumerate(sessions):
+                    code, out = _post(url + "/act", body(i, FLEET_STEPS),
+                                      {"X-RT1-Request-Id": f"fleet-{i}-rehome"})
+                    if code != 200 or bool(out.get("restarted")) != (owners[sid] == victim) or \
+                            out.get("request_id") != f"fleet-{i}-rehome":
+                        raise AssertionError(f"fleet: after the kill {sid} (on {owners[sid]}, "
+                                             f"victim {victim}) answered {code} {out}")
+                    check_action(out)
+                    rehome[sid] = bool(out.get("restarted"))
+                touched = alerts_proof.touch(proof_fleet, FLEET_PROOF_SESSIONS, tries=1)
+                restarted = sum(rehome.values()) + sum(touched.values())
+                memory_killed = _memory_used_mib(on_card)
 
-            _wait_for(healed, FLEET_TIMEOUT_S, "the respawned replica")
-            kill_to_ready_s = time.perf_counter() - t_kill
-            memory_respawned = _memory_used_mib(on_card)
-            fanned = json.loads(_get_text(url + "/metrics"))["replicas"]
-            respawned = _fleet_launches(fanned[str(victim)], on_card, "the respawned replica")
-            # The burn decays under clean traffic and every alert resolves.
-            t_decay = time.perf_counter()
-            alerts_proof.await_firing(watcher, ("SLOBurnRateFast", "SLOBurnRateSlow"))
-            alerts_proof.decay(proof_fleet, sessions + list(FLEET_PROOF_SESSIONS),
-                               alerts_proof.DECAY_ACTS)
-            quiet = alerts_proof.await_quiet(proof_fleet, FLEET_QUIET_S)
-            decay_s = time.perf_counter() - t_decay
-            watcher.stop()
-            # 5. SIGTERM: the fleet drains its replicas and exits 0.
-            proc.send_signal(signal.SIGTERM)
-            out, _ = proc.communicate(timeout=180)
-            final = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
-            if proc.returncode != 0 or not final or final[-1].get("status") != "stopped":
-                raise AssertionError(f"fleet: exit code {proc.returncode} after SIGTERM")
-            chaos = final[-1]["chaos"]
-            if (chaos["kills_injected"], chaos["replica_restarts"]) != (1, 1):
-                raise AssertionError(f"fleet: chaos {chaos}")
-            kill = alerts_proof.kill_record(final[-1], watcher, t_armed, restarted,
-                                            faults="replica_kill@1")
-            if not (quiet and kill["passed"]):
-                raise AssertionError(f"fleet: the alerts proof's replica_kill {kill}")
-            ok = True
-        finally:
-            if watcher is not None:
+                def healed():
+                    rs = json.loads(_get_text(url + "/fleet/status"))["replicas"]
+                    return all(r["state"] == "ready" for r in rs) and \
+                        [r["restarts"] for r in rs if r["id"] == victim] == [1]
+
+                _wait_for(healed, FLEET_TIMEOUT_S, "the respawned replica")
+                kill_to_ready_s = time.perf_counter() - t_kill
+                memory_respawned = _memory_used_mib(on_card)
+                fanned = json.loads(_get_text(url + "/metrics"))["replicas"]
+                respawned = _fleet_launches(fanned[str(victim)], on_card, "the respawned replica")
+                # The burn decays under clean traffic and every alert resolves.
+                t_decay = time.perf_counter()
+                alerts_proof.await_firing(watcher, ("SLOBurnRateFast", "SLOBurnRateSlow"))
+                alerts_proof.decay(proof_fleet, sessions + list(FLEET_PROOF_SESSIONS),
+                                   alerts_proof.DECAY_ACTS)
+                quiet = alerts_proof.await_quiet(proof_fleet, FLEET_QUIET_S)
+                decay_s = time.perf_counter() - t_decay
                 watcher.stop()
-            if proc.poll() is None:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait(timeout=30)
-            if not ok:
-                errlog.seek(0)
-                sys.stderr.write(errlog.read()[-4000:])
-                for name in sorted(os.listdir(logs)):
-                    with open(os.path.join(logs, name)) as f:
-                        sys.stderr.write(f"--- {name}\n" + f.read()[-4000:])
-    # The proof's other two phases on stub fleets on the host.
-    t0 = time.perf_counter()
-    stubs = alerts_proof.run_overhead_and_identity(alerts_proof.FleetSpec(stub=True),
-                                                   rounds=FLEET_OVERHEAD_ROUNDS)
+                # 5. SIGTERM: the fleet drains its replicas and exits 0.
+                proc.send_signal(signal.SIGTERM)
+                out, _ = proc.communicate(timeout=180)
+                final = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+                if proc.returncode != 0 or not final or final[-1].get("status") != "stopped":
+                    raise AssertionError(f"fleet: exit code {proc.returncode} after SIGTERM")
+                chaos = final[-1]["chaos"]
+                if (chaos["kills_injected"], chaos["replica_restarts"]) != (1, 1):
+                    raise AssertionError(f"fleet: chaos {chaos}")
+                kill = alerts_proof.kill_record(final[-1], watcher, t_armed, restarted,
+                                                faults="replica_kill@1")
+                if not (quiet and kill["passed"]):
+                    raise AssertionError(f"fleet: the alerts proof's replica_kill {kill}")
+                ok = True
+            finally:
+                if watcher is not None:
+                    watcher.stop()
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait(timeout=30)
+                if not ok:
+                    errlog.seek(0)
+                    sys.stderr.write(errlog.read()[-4000:])
+                    for name in sorted(os.listdir(logs)):
+                        with open(os.path.join(logs, name)) as f:
+                            sys.stderr.write(f"--- {name}\n" + f.read()[-4000:])
+    finally:
+        stub_thread.join(FLEET_TIMEOUT_S)  # its stub fleets stop before this returns
+    stub_thread.join(FLEET_TIMEOUT_S)
+    if stub_thread.is_alive() or "error" in stub_out:
+        raise AssertionError(f"fleet: the stub fleets' A/B {stub_out.get('error', 'hung')}")
+    stubs, stubs_s = stub_out["stubs"], stub_out["s"]
     if not stubs["byte_identity"]["passed"]:
         raise AssertionError(f"fleet: an unarmed fleet's ops surfaces {stubs['byte_identity']}")
-    stubs_s = time.perf_counter() - t0
     lat_ms = [r[3] * 1e3 for r in replies]
     router_ms = _quantiles(lat_ms)
     # Inside the replica (its `phases`, under "debug": true) and the rest:
@@ -5922,19 +6198,154 @@ def _kernel_entry(name, source, launches, path, head, cases):
 
 
 PHASES = ("kernel", "ab", "sweep", "parity", "tiny", "step", "serve", "train_parity", "train",
-          "train_ops", "data", "eval", "moe", "lava", "parallel", "serve_modes", "fleet", "ops",
-          "loadgen", "chaos", "proof")
+          "train_ops", "data", "rlds", "eval", "moe", "lava", "parallel", "serve_modes", "fleet",
+          "ops", "loadgen", "chaos", "proof")
+
+
+# The second lane: phases run by a process of their own beside the main
+# one's (see the module docstring). It starts once LANE_B_AFTER has run and
+# is joined before LANE_B_JOIN, so that the serving fleets' phases (alerts
+# and canaries judged on latency) run alone.
+LANE_B = ("moe", "parallel", "serve_modes", "proof")
+LANE_B_AFTER = "train"
+LANE_B_JOIN = "fleet"
+LANE_B_TIMEOUT_S = 1100
+LANE_ENV = "RT1_CHIP_SMOKE_PYCACHE"
+# While both lanes run, each takes half the host's cores for its CPU ops
+# (OpenMP threads of two processes sized to every core spin on each other).
+LANE_THREADS = max(1, (os.cpu_count() or 2) // 2)
+
+
+class _Lane:
+    """`python3 chip_smoke.py --phases <phases> --records <file>` in a
+    session of its own: its output goes to a file, its phases' records come
+    back through `--records`. `join()` returns them (raising if the lane
+    failed); `kill()` stops it and every process it started."""
+
+    def __init__(self, phases):
+        self.phases = phases
+        self.dir = tempfile.mkdtemp(prefix="rt1_chip_smoke_lane_")
+        self.records = os.path.join(self.dir, "records.json")
+        self.out = open(os.path.join(self.dir, "out.txt"), "w+")
+        env = dict(os.environ, OMP_NUM_THREADS=str(LANE_THREADS),
+                   **{LANE_ENV: os.environ["PYTHONPYCACHEPREFIX"]})
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--phases", ",".join(phases),
+             "--records", self.records], cwd=REPO, env=env, stdout=self.out,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+
+    def join(self, timeout_s):
+        try:
+            rc = self.proc.wait(timeout=max(1.0, timeout_s - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.kill()
+            rc = None
+        wall_s = time.perf_counter() - self.t0
+        self.out.seek(0)
+        text = self.out.read()
+        if rc != 0:
+            sys.stderr.write(f"lane {self.phases}: exit {rc}; its output ends\n{text[-16000:]}\n")
+            self.close()
+            raise AssertionError(f"lane {self.phases} failed (exit {rc})")
+        # Its phases' lines into this output, in their order.
+        for line in text.splitlines():
+            if line.startswith('{"phase"') and not line.startswith(
+                    ('{"phase": "device"', '{"phase": "build"', '{"phase": "timing"')):
+                print(line, flush=True)
+        with open(self.records) as f:
+            out = json.load(f)
+        self.close()
+        return out["done"], out["seconds"], wall_s
+
+    def kill(self):
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait(timeout=60)
+
+    def close(self):
+        self.out.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _run_phases(phases, lanes, done, seconds, shared, loadgen_dir, lane_b):
+    """Each of `phases` in PHASES' order into `done` and `seconds`; with
+    `lanes`, LANE_B's phases by the second lane (`lane_b` holds it, then its
+    wall and the main lane's wait for it), this lane on LANE_THREADS CPU
+    threads meanwhile."""
+    import torch
+
+    threads = (torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS"))
+    for phase in PHASES:
+        if lanes and phase == LANE_B_JOIN:
+            t_wait = time.perf_counter()
+            lane_done, lane_seconds, lane_b["wall_s"] = lane_b["lane"].join(LANE_B_TIMEOUT_S)
+            lane_b["wait_s"] = time.perf_counter() - t_wait
+            done.update(lane_done)
+            seconds.update(lane_seconds)
+            torch.set_num_threads(threads[0])
+            if threads[1] is None:
+                os.environ.pop("OMP_NUM_THREADS", None)
+            else:
+                os.environ["OMP_NUM_THREADS"] = threads[1]
+        if phase not in phases or (lanes and phase in LANE_B):
+            continue
+        t_phase = time.perf_counter()
+        run = globals()["phase_" + phase]
+        # The fleet's latencies print beside the lone server's, the
+        # ledger's MFU beside phase train's.
+        if phase == "fleet":
+            done[phase] = run(direct=done.get("serve"))
+        elif phase == "train_ops":
+            done[phase] = run(train=done.get("train"))
+        elif phase in ("train", "eval"):
+            done[phase] = run(workdir=shared)
+        elif phase == "loadgen":
+            done[phase] = run(outdir=loadgen_dir)
+        elif phase == "chaos":
+            done[phase] = run(loadgen_dir=loadgen_dir)
+        else:
+            done[phase] = run()
+        seconds[phase] = time.perf_counter() - t_phase
+        if lanes and phase == LANE_B_AFTER:
+            lane_b["lane"] = _Lane(LANE_B)
+            torch.set_num_threads(LANE_THREADS)
+            os.environ["OMP_NUM_THREADS"] = str(LANE_THREADS)  # processes it starts
+
+
+def _bytecode_cache() -> str:
+    """Compile Python modules once for every process this run starts: the
+    card's machine sets PYTHONDONTWRITEBYTECODE and its packages ship no
+    bytecode, so each process (a replica, a CLI, a worker) compiled torch
+    anew, about 8 s of its start-up. Bytecode goes to a temporary
+    directory of this run (`sys.pycache_prefix`, PYTHONPYCACHEPREFIX for
+    the processes it starts), removed at exit; nothing is written beside
+    the sources."""
+    import atexit
+
+    cache = os.environ.get(LANE_ENV)  # a lane process shares its parent's
+    if not cache:
+        cache = tempfile.mkdtemp(prefix="rt1_chip_smoke_pycache_")
+        atexit.register(shutil.rmtree, cache, ignore_errors=True)
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = cache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = cache
+    return cache
 
 
 def main(argv=None) -> int:
     import argparse
 
+    _bytecode_cache()  # before torch's import: this process compiles it once
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of %(default)s (build and device always "
                              "run); the kernels and ok lines need all of them")
+    parser.add_argument("--records", default=None,
+                        help="(a lane's) write the phases' records and seconds to this file")
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
     if set(phases) - set(PHASES):
@@ -5943,6 +6354,13 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    # The forkserver that the DataLoader's and the oracle collectors'
+    # workers fork from imports torch and their modules once; else every
+    # worker imports torch itself (6-9 s on the card's host).
+    import multiprocessing
+
+    multiprocessing.set_forkserver_preload(
+        ["__main__", "torch", "rt1_tpu_torch.data.pipeline", "rt1_tpu_torch.data.collect"])
     from rt1_tpu_torch.parallel import flash_attention
 
     smi = nvidia_smi()
@@ -5967,29 +6385,26 @@ def main(argv=None) -> int:
     # Phase chaos's run report reads phase loadgen's records when both run.
     loadgen_dir = tempfile.mkdtemp(prefix="rt1_chip_smoke_loadgen_") \
         if {"loadgen", "chaos"} <= set(phases) else None
-    for phase in PHASES:
-        if phase in phases:
-            t_phase = time.perf_counter()
-            run = globals()["phase_" + phase]
-            # The fleet's latencies print beside the lone server's, the
-            # ledger's MFU beside phase train's.
-            if phase == "fleet":
-                done[phase] = run(direct=done.get("serve"))
-            elif phase == "train_ops":
-                done[phase] = run(train=done.get("train"))
-            elif phase in ("train", "eval"):
-                done[phase] = run(workdir=shared)
-            elif phase == "loadgen":
-                done[phase] = run(outdir=loadgen_dir)
-            elif phase == "chaos":
-                done[phase] = run(loadgen_dir=loadgen_dir)
-            else:
-                done[phase] = run()
-            seconds[phase] = time.perf_counter() - t_phase
-    for directory in (shared, loadgen_dir):
-        if directory is not None:
-            shutil.rmtree(directory, ignore_errors=True)
-    emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - T_START})
+    # A whole run starts the second lane after LANE_B_AFTER and joins it
+    # before LANE_B_JOIN; a partial run takes its phases in order.
+    lanes = set(phases) == set(PHASES)
+    lane_b = {}
+    try:
+        _run_phases(phases, lanes, done, seconds, shared, loadgen_dir, lane_b)
+    finally:
+        if lane_b.get("lane") is not None and lane_b["lane"].proc.poll() is None:
+            lane_b["lane"].kill()
+        for directory in (shared, loadgen_dir):
+            if directory is not None:
+                shutil.rmtree(directory, ignore_errors=True)
+    timing = {"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - T_START}
+    if "wall_s" in lane_b:
+        timing["lane_b"] = {"phases": list(LANE_B), "wall_s": lane_b["wall_s"],
+                            "join_wait_s": lane_b["wait_s"]}
+    emit(timing)
+    if args.records:
+        with open(args.records, "w") as f:
+            json.dump({"done": done, "seconds": seconds}, f)
     if set(phases) != set(PHASES):
         print(smi, flush=True)
         emit({"partial": phases, "passed": True})
@@ -6081,6 +6496,11 @@ def main(argv=None) -> int:
     pretrained = done["step"]["pretrained"]["engine"]["launches_by_variant"]
     for entry, variant in zip(entries, ("tensor_core", "tf32x3", "simple")):
         entry["pretrained_launches"] = pretrained[variant]
+    # Phase rlds: the bucket-8 bf16 engine step served from the checkpoint
+    # trained through data.loader=rlds_tf (counts set to 0 before it).
+    rlds = done["rlds"]["engine"]["launches_by_variant"]
+    for entry, variant in zip(entries, ("tensor_core", "tf32x3", "simple")):
+        entry["rlds_launches"] = rlds[variant]
     # The train CLI's periodic evals in phase train_ops.
     train_ops = done["train_ops"]["cli"]
     entries[0]["train_ops_launches"] = {

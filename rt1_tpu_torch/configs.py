@@ -110,8 +110,9 @@ class DataConfig:
     width: int = 456
     crop_factor: Optional[float] = 0.95   # None: the full frame
     # "torch" (a DataLoader of `num_workers` worker processes) | "numpy"
-    # (the loop's own thread); "tf", the JAX package's default, maps to
-    # "torch"; "rlds_tf" needs TensorFlow and raises.
+    # (the loop's own thread) | "rlds_tf" (the RLDS windowing pipeline,
+    # `data/rlds_pipeline.py`: lazy episode reads, a shuffle buffer, a
+    # prefetch thread); "tf", the JAX package's default, maps to "torch".
     loader: str = "tf"
     # loader="tf": tf.data's shuffle buffer, min(windows, shuffle_buffer),
     # over the repeated index stream (`pipeline.buffered_shuffle`); the

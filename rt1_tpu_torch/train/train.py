@@ -252,20 +252,44 @@ def _print_json(record: Dict) -> None:
 
 class DataStream(NamedTuple):
     """Host batches of one split and the loader that makes them
-    ("numpy" | "torch" | "packed")."""
+    ("numpy" | "torch" | "packed" | "rlds_tf")."""
     batches: Iterator
     loader: str
 
 
 def loader_name(config: Config) -> str:
-    """The windowed loader `config.data.loader` names ("tf" -> "torch")."""
+    """The loader `config.data.loader` names ("tf" -> "torch"; "rlds_tf",
+    the RLDS windowing pipeline of `data/rlds_pipeline.py`)."""
     loader = {"tf": "torch"}.get(config.data.loader, config.data.loader)
-    if loader == "rlds_tf":
-        raise ValueError("data.loader='rlds_tf' (the pure-TF graph pipeline) needs TensorFlow, "
-                         "which the port does not use; it is not ported yet")
-    if loader not in ("numpy", "torch"):
-        raise ValueError(f"data.loader must be tf | torch | numpy, got {config.data.loader!r}")
+    if loader not in ("numpy", "torch", "rlds_tf"):
+        raise ValueError(f"data.loader must be tf | torch | numpy | rlds_tf, "
+                         f"got {config.data.loader!r}")
     return loader
+
+
+def _rlds_batches(config: Config, split: str, paths, seed: int, block: int,
+                  blocks: int) -> DataStream:
+    """`data.loader="rlds_tf"` (JAX's `dataset_batches` branch): the episode
+    files stream lazily, a rank reading `paths[block::blocks]`, through the
+    RLDS windowing pipeline; training shuffles and repeats, the other
+    splits are read once, in order. JAX's refusals come first."""
+    d = config.data
+    if d.clip_tokens:
+        raise ValueError("clip_tokens requires the windowed loaders ('tf' or 'numpy'); "
+                         "the rlds_tf graph pipeline does not tokenize instructions")
+    if d.packed_cache:
+        raise ValueError("data.packed_cache=True is incompatible with loader='rlds_tf' (the "
+                         "pure-TF graph cannot read the packed mmap store); use loader='tf' "
+                         "or 'numpy'")
+    from rt1_tpu_torch.data import rlds_pipeline
+
+    cfg = rlds_pipeline.RldsPipelineConfig(
+        window=config.model.time_sequence_length, crop_factor=d.crop_factor, height=d.height,
+        width=d.width, batch_size=config.per_host_batch_size, shuffle_buffer=d.shuffle_buffer,
+        seed=seed)
+    episodes = rlds_pipeline.make_episode_dataset_from_paths(paths[block::blocks])
+    return DataStream(rlds_pipeline.windowed_rlds_dataset(episodes, cfg,
+                                                          training=split == "train"), "rlds_tf")
 
 
 def _retrying(config: Config):
@@ -336,6 +360,8 @@ def dataset_batches(config: Config, split: str = "train", seed: Optional[int] = 
     paths = sorted(glob.glob(os.path.join(d.data_dir, split, "episode_*.np*")))
     if not paths:
         raise FileNotFoundError(f"No episodes under {d.data_dir}/{split}")
+    if loader == "rlds_tf":
+        return _rlds_batches(config, split, paths, stream_seed, block, blocks)
     if d.packed_cache:
         feeder = _packed_batches(config, split, paths, stream_seed, log, block, blocks)
         if feeder is not None:
@@ -438,6 +464,32 @@ def checkpoint_manager(config: Config, workdir: str, on_io=None, grid=None) -> C
                              on_io=on_io, grid=grid)
 
 
+class _ReopeningFeed:
+    """The val batches of `open_feed()`, opened again from the split's
+    start when a one-pass stream ends: loader "rlds_tf" reads val once and
+    in order, as JAX's does, and JAX's loop raises StopIteration at the
+    eval that finds the stream spent."""
+
+    def __init__(self, open_feed: Callable[[], Iterator]):
+        self._open = open_feed
+        self._feed = open_feed()
+
+    def __next__(self):
+        try:
+            return next(self._feed)
+        except StopIteration:
+            self._feed.close()
+            self._feed = self._open()
+        try:
+            return next(self._feed)
+        except StopIteration:
+            raise RuntimeError("the val split yields no batch (fewer windows than the "
+                               "batch)") from None
+
+    def close(self) -> None:
+        self._feed.close()
+
+
 def _eval_feed(config: Config, dev: torch.device, log, grid=None):
     """(the eval batches' callable or None, the device feeder to close or
     None): `eval_batches` batches from the running `<data_dir>/val` stream
@@ -447,11 +499,13 @@ def _eval_feed(config: Config, dev: torch.device, log, grid=None):
         return None, None
     block, blocks = batch_blocks(grid)
     if config.data.data_dir:
-        try:
-            feed = device_feeder(dataset_batches(config, "val", log=log,
+        def open_feed():
+            return device_feeder(dataset_batches(config, "val", log=log,
                                                  pin_memory=dev.type == "cuda", block=block,
-                                                 blocks=blocks).batches,
-                                 dev, depth=1)
+                                                 blocks=blocks).batches, dev, depth=1)
+
+        try:
+            feed = _ReopeningFeed(open_feed)
         except FileNotFoundError:
             return None, None  # no val split: no eval, as in JAX
         return (lambda: [next(feed) for _ in range(config.eval_batches)]), feed

@@ -1,8 +1,9 @@
 """Guard: the port imports nothing of JAX and nothing of `rt1_tpu`.
 
 A fresh interpreter blocks jax, flax, optax, orbax, tensorflow,
-ml_collections, absl, cv2, PIL, imageio, matplotlib, msgpack and the top-level
-module `rt1_tpu` (by exact name: `rt1_tpu_torch` shares its prefix), then
+ml_collections, absl, cv2, PIL, imageio, matplotlib, msgpack, google
+(protobuf), tensorflow_datasets, crc32c and the top-level module `rt1_tpu`
+(by exact name: `rt1_tpu_torch` shares its prefix), then
 imports every module of `rt1_tpu_torch` and `chip_smoke.py`. The machine
 with the card has none of those packages (scipy it has, and the env's arm
 kinematics use it), and `rt1_tpu/__init__.py` takes a chip-claim lock.
@@ -22,7 +23,7 @@ import sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflow",
            "ml_collections", "absl", "cv2", "PIL", "imageio", "matplotlib", "msgpack",
-           "rt1_tpu")
+           "google", "tensorflow_datasets", "crc32c", "rt1_tpu")
 
 
 def blocked(name):
@@ -185,8 +186,7 @@ def test_clip_bpe_runs_without_the_regex_package():
     """The card's machine has no `regex`: with it blocked too, the port's
     CLIP BPE takes the stdlib split and still tokenizes."""
     env = dict(os.environ, PYTHONPATH=REPO)
-    probe = _PROBE.replace('"msgpack",\n           "rt1_tpu")',
-                           '"msgpack",\n           "rt1_tpu", "regex")')
+    probe = _PROBE.replace('"crc32c", "rt1_tpu")', '"crc32c", "rt1_tpu", "regex")')
     assert probe != _PROBE
     probe = probe.split("import rt1_tpu_torch\n")[0] + (
         "from rt1_tpu_torch.text import clip_bpe\n"
@@ -236,3 +236,38 @@ def test_new_entry_points_default_to_the_card(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0 and "CUDA is not available" in proc.stderr, \
             (module, proc.stderr[-2000:])
+
+
+RLDS_MODULES = ("rt1_tpu_torch.data.codecs", "rt1_tpu_torch.data.tfrecord",
+                "rt1_tpu_torch.data.tfds", "rt1_tpu_torch.data.convert_rlds",
+                "rt1_tpu_torch.data.rlds_pipeline")
+
+
+def test_rlds_modules_are_among_those_imported():
+    names = set(_port_modules())
+    for name in RLDS_MODULES:
+        assert name in names, name
+
+
+def test_rlds_reader_decodes_the_fixture_without_tf_or_protobuf():
+    """With TensorFlow, tensorflow_datasets, protobuf and PIL blocked, the
+    port reads the TFDS fixture, decodes its JPEG and PNG frames to the
+    pixels TF decoded, and converts it."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    probe = _PROBE.split("import rt1_tpu_torch\n")[0] + (
+        "import os, tempfile\n"
+        "import numpy as np\n"
+        "from rt1_tpu_torch.data import convert_rlds, tfds\n"
+        "fx = os.path.join('tests', 'fixtures', 'tfds_language_table')\n"
+        "z = np.load(os.path.join(fx, 'tf_decoded.npz'))\n"
+        "for enc in ('jpeg', 'png'):\n"
+        "    ep = next(tfds.TfdsDirectory(os.path.join(fx, enc)).episodes('train'))\n"
+        "    assert (ep['steps'].dense()['observation']['rgb'][0] == z[enc + '_0_0']).all()\n"
+        "out = tempfile.mkdtemp()\n"
+        "assert convert_rlds.convert(os.path.join(fx, 'jpeg'), out, num_train=2, num_val=1) == 3\n"
+        "leaked = sorted(m for m in sys.modules if blocked(m))\n"
+        "assert not leaked, leaked\n"
+        "print('RLDS OK')\n")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "RLDS OK" in proc.stdout, proc.stdout + proc.stderr
