@@ -202,10 +202,20 @@ the other lane are not comparable with those of runs in one lane:
              three passes of the fixture; the config's 2048 would hold 100)
              for 2 bf16 steps at batch 8 with an eval (8 tensor-core launches an eval batch) and a
              resume to 4 that restores step 2; `create_rlds_datasets` over
-             the TFDS directory alone (frames/s) and feeding the bf16 train
-             step through `device_feeder` (a step's wall, its wait on the
-             iterator, the card's idle share); one bucket-8 bf16 engine step
-             served from the CLI's checkpoint on the fixture's frames: 8
+             the TFDS directory alone (frames/s). Then the data service
+             (`rt1_tpu_torch/data/service.py`): a dispatcher and 2 worker
+             processes from the forkserver; the same train CLI and resume
+             with `data.data_service_address` (the stream's gauges logged
+             as feeder/*); the bf16 train step through `device_feeder` in
+             turns fed by `create_rlds_datasets` in this process, by the
+             same through the service and by synthetic batches (a step's
+             wall, its wait and upload, the CPU ms a step of the launching
+             thread, the process and the workers, the card's idle share;
+             the client's receive ms and wire bytes a batch; no worker
+             initialised CUDA); one worker killed (SIGKILL) after 2 of 10
+             service-fed steps: it drops out, the survivor's batches feed
+             the other 8; one bucket-8 bf16 engine step served from the
+             service-trained checkpoint on the fixture's frames: 8
              tensor-core launches, no other, actions finite and in bounds.
 14. eval   — the closed-loop Language-Table eval of the flagship: phase
              `train`'s CLI checkpoint (step 6; run alone, the train CLI
@@ -504,6 +514,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import copy
+import dataclasses
 import gc
 import json
 import math
@@ -2939,6 +2950,13 @@ RLDS_TRAIN_STEPS = 2                   # CLI steps, then a resume to twice that
 RLDS_LOADER_BATCHES = 3                # batches timed alone, after the first
 RLDS_FED_WARMUP, RLDS_FED_TIMED = 2, 3
 RLDS_SHUFFLE_BUFFER = 64               # ~3 passes of the fixture's 21 windows (config: 2048)
+RLDS_SERVICE_WORKERS = 2               # data service worker processes
+RLDS_SERVICE_START_S = 120             # a service process's ready record
+# The fed step in turns: the RLDS stream in this process, the same through
+# the service's workers, synthetic batches.
+RLDS_AB_TURNS = ("inprocess", "service", "synthetic", "synthetic", "service", "inprocess")
+RLDS_KILL_STEPS = (2, 8)               # service-fed steps before and after a worker is killed
+RLDS_IN_FLIGHT = 2 + 2 + 1             # a killed worker's batches still due: AHEAD, feeder, reply
 
 
 def _rlds_decode(fixture):
@@ -2976,8 +2994,9 @@ def _rlds_decode(fixture):
     return out
 
 
-def _rlds_cli(config_name, device, store, workdir, num_layers):
-    """The train CLI on the converted store with data.loader=rlds_tf:
+def _rlds_cli(config_name, device, store, workdir, num_layers, service=None):
+    """The train CLI on the converted store with data.loader=rlds_tf (with
+    `service`, the data service's target, through its workers):
     RLDS_TRAIN_STEPS steps with an eval, then a resume to twice that."""
     from rt1_tpu_torch.train.__main__ import main as train_main
 
@@ -2988,6 +3007,8 @@ def _rlds_cli(config_name, device, store, workdir, num_layers):
             "--set", f"eval_every_steps={RLDS_TRAIN_STEPS}", "--set", "eval_batches=1",
             "--set", "log_every_steps=1", "--set", "model.attention_impl=fused",
             "--set", f"data.shuffle_buffer={RLDS_SHUFFLE_BUFFER}"]
+    if service is not None:
+        base += ["--set", f"data.data_service_address={service}"]
     runs = []
     for restored, last in ((None, RLDS_TRAIN_STEPS), (RLDS_TRAIN_STEPS, 2 * RLDS_TRAIN_STEPS)):
         lines, seconds = _run_in_process(train_main, base + ["--set", f"num_steps={last}"])
@@ -2998,32 +3019,165 @@ def _rlds_cli(config_name, device, store, workdir, num_layers):
         bad = [x for x in evals
                if x["eval_attention_launches_tensor_core"] != expected * x["eval_batches"]
                or x["eval_attention_launches_tf32x3"] or x["eval_attention_launches_simple"]]
+        # Through the service the loop logs the stream's gauges as feeder/*.
+        fed_by = [x for x in lines if "feeder/received" in x]
         if start["data_loader"] != "rlds_tf" or start["restored_step"] != restored or bad or \
                 not evals or lines[-1].get("checkpoint_step") != last or \
-                not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"rlds CLI: start {start}, evals {evals}, losses {losses}, "
-                                 f"end {lines[-1]}")
-        runs.append({"restored_step": restored, "checkpoint_step": last, "seconds": seconds,
-                     "losses": losses, "eval_steps": [x["step"] for x in evals],
-                     "eval_attention_launches_tensor_core": [
-                         x["eval_attention_launches_tensor_core"] for x in evals]})
+                not all(math.isfinite(x) for x in losses) or \
+                (service is not None and not fed_by):
+            raise AssertionError(f"rlds CLI{' (service)' if service else ''}: start {start}, "
+                                 f"evals {evals}, losses {losses}, end {lines[-1]}")
+        run = {"restored_step": restored, "checkpoint_step": last, "seconds": seconds,
+               "losses": losses, "eval_steps": [x["step"] for x in evals],
+               "eval_attention_launches_tensor_core": [
+                   x["eval_attention_launches_tensor_core"] for x in evals]}
+        if fed_by:
+            run["service"] = {k.split("/", 1)[1]: v for k, v in fed_by[-1].items()
+                              if k.startswith("feeder/")}
+        runs.append(run)
     return runs
+
+
+@contextlib.contextmanager
+def _rlds_service(workers):
+    """A data service dispatcher and `workers` workers, each a process of
+    the forkserver (torch imported once there, never CUDA): yields (the
+    dispatcher's target, [(worker process, its ready record)], seconds to
+    start them all). Every process is stopped on the way out."""
+    import multiprocessing
+
+    from rt1_tpu_torch.data import service
+
+    ctx = multiprocessing.get_context("forkserver")
+    procs = []
+
+    def start(role, **kwargs):
+        ours, theirs = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=service.serve, args=(role,), kwargs=dict(kwargs, ready=theirs),
+                           name=f"rt1-data-{role}", daemon=True)
+        proc.start()
+        procs.append(proc)
+        theirs.close()
+        try:
+            if not ours.poll(RLDS_SERVICE_START_S):
+                raise AssertionError(f"rlds: the data service {role} sent no ready record in "
+                                     f"{RLDS_SERVICE_START_S} s (exit code {proc.exitcode})")
+            return ours.recv()
+        finally:
+            ours.close()
+
+    t0 = time.perf_counter()
+    try:
+        target = start("dispatcher")["target"]
+        ready = [start("worker", dispatcher_address=target) for _ in range(workers)]
+        yield target, list(zip(procs[1:], ready)), time.perf_counter() - t0
+    finally:
+        for proc in reversed(procs):
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(timeout=15)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=15)
+
+
+def _rlds_fed_turn(fns, state, box, next_batch, feeder, dev, frames_per_batch,
+                   workers_cpu_s=None):
+    """RLDS_FED_WARMUP + RLDS_FED_TIMED bf16 train steps fed by
+    `next_batch()`, each synchronised: the timed steps' walls, the
+    feeder's wait on its iterator and upload a step, the CPU ms a step of
+    the thread that launches the step, of this whole process and (with
+    `workers_cpu_s()`, their sum of CPU seconds) of the service's workers,
+    and on the card the profiler's busy time and idle share over 2 more."""
+    import numpy as np
+
+    def one_step():
+        fns.train_step(state, next_batch(), box["step"])
+        box["step"] += 1
+
+    for _ in range(RLDS_FED_WARMUP):
+        one_step()
+    _sync(dev)
+    w0, u0 = (feeder.wait_s, feeder.upload_s) if feeder else (0.0, 0.0)
+    cpu0 = (time.thread_time(), time.process_time(), workers_cpu_s() if workers_cpu_s else 0.0)
+    walls = []
+    for _ in range(RLDS_FED_TIMED):
+        t0 = time.perf_counter()
+        one_step()
+        _sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    cpu1 = (time.thread_time(), time.process_time(), workers_cpu_s() if workers_cpu_s else 0.0)
+    per = 1e3 / RLDS_FED_TIMED
+    median = float(np.median(walls))
+    record = {"step_wall_ms": walls, "median_ms": median,
+              "wait_ms_per_step": (feeder.wait_s - w0) * per if feeder else None,
+              "upload_ms_per_step": (feeder.upload_s - u0) * per if feeder else None,
+              "launch_thread_cpu_ms_per_step": (cpu1[0] - cpu0[0]) * per,
+              "process_cpu_ms_per_step": (cpu1[1] - cpu0[1]) * per,
+              "workers_cpu_ms_per_step": (cpu1[2] - cpu0[2]) * per if workers_cpu_s else None,
+              "frames_per_s": frames_per_batch * 1e3 / median}
+    if dev.type == "cuda":
+        prof = device_profile(one_step, iters=2)
+        if prof is not None:
+            record.update({"profiled_wall_ms": prof["wall_ms"], "device_busy_ms": prof["busy_ms"],
+                           "idle_share": 1.0 - prof["busy_ms"] / prof["wall_ms"]})
+    return record
+
+
+def _rlds_lose_a_worker(fns, state, box, stream, feeder, dev, workers):
+    """Service-fed steps before and after one worker process is killed:
+    the stream drops it and carries on with the other, whose batches keep
+    coming, and every step is taken."""
+    import signal as signals
+
+    before, after = RLDS_KILL_STEPS
+    for _ in range(before):
+        fns.train_step(state, next(feeder), box["step"])
+        box["step"] += 1
+    _sync(dev)
+    (keep, keep_ready), (victim, victim_ready) = workers
+    counts = {w["index"]: w["batches"] for w in stream.workers()}
+    os.kill(victim.pid, signals.SIGKILL)
+    victim.join(timeout=30)
+    t0 = time.perf_counter()
+    for _ in range(after):
+        metrics = fns.train_step(state, next(feeder), box["step"])
+        box["step"] += 1
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    states = {w["index"]: w for w in stream.workers()}
+    gained = states[keep_ready["index"]]["batches"] - counts[keep_ready["index"]]
+    loss = float(metrics["loss"])
+    # The victim's batches already in flight (AHEAD at the client, the
+    # feeder's 2) may still arrive; the rest come from the survivor.
+    if victim.is_alive() or states[victim_ready["index"]]["state"] != "dropped" or \
+            states[keep_ready["index"]]["state"] != "live" or \
+            gained < after - RLDS_IN_FLIGHT or not math.isfinite(loss):
+        raise AssertionError(f"rlds: after killing worker {victim_ready['index']}: workers "
+                             f"{states}, the survivor sent {gained} of {after} steps' batches, "
+                             f"loss {loss}")
+    return {"steps_before": before, "steps_after": after, "seconds_after": seconds,
+            "killed_worker": victim_ready["index"], "survivor_batches_after": gained,
+            "workers": list(states.values()), "loss": loss}
 
 
 def phase_rlds(config_name: str = "language_table", device: str = "cuda"):
     """The TFDS fixture decoded and held to TF's pixels, converted by the
-    CLI, trained and resumed through `data.loader=rlds_tf`, fed straight
-    from `create_rlds_datasets`, and served (see the module docstring)."""
+    CLI, trained and resumed through `data.loader=rlds_tf` in this process
+    and through the data service's worker processes, the bf16 step fed in
+    turns by `create_rlds_datasets` here, through the service and by
+    synthetic batches, a worker killed under a service-fed run, and the
+    service-trained checkpoint served (see the module docstring)."""
     import numpy as np
     import torch
 
     from rt1_tpu_torch.configs import get_config
-    from rt1_tpu_torch.data import convert_rlds, rlds_pipeline
+    from rt1_tpu_torch.data import convert_rlds, rlds_pipeline, service
     from rt1_tpu_torch.data.pipeline import device_feeder
     from rt1_tpu_torch.eval.restore import build_serve_engine
     from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
     from rt1_tpu_torch.serve.engine import pow2_buckets
-    from rt1_tpu_torch.train.train import build_model
+    from rt1_tpu_torch.train.train import build_model, synthetic_batch
     from rt1_tpu_torch.trainer.state import create_train_state
     from rt1_tpu_torch.trainer.train import optimizer_from_config, train_step_fns_from_config
 
@@ -3047,8 +3201,8 @@ def phase_rlds(config_name: str = "language_table", device: str = "cuda"):
         if written != RLDS_SPLITS:
             raise AssertionError(f"rlds: convert wrote {written}, expected {RLDS_SPLITS}")
         episodes = sum(RLDS_SPLITS.values())
-        workdir = os.path.join(root, "train")
-        cli = _rlds_cli(config_name, device, store, workdir, config.model.num_layers)
+        cli = _rlds_cli(config_name, device, store, os.path.join(root, "train"),
+                        config.model.num_layers)
 
         # The loader alone, straight over the TFDS directory.
         cfg = rlds_pipeline.RldsPipelineConfig(
@@ -3061,47 +3215,71 @@ def phase_rlds(config_name: str = "language_table", device: str = "cuda"):
         finally:
             stream.close()
 
-        # The bf16 train step fed from create_rlds_datasets.
-        policy = build_model(config, dev)
-        optimizer = optimizer_from_config(config)
-        state = create_train_state(policy, optimizer)
-        fns = train_step_fns_from_config(config, optimizer)
-        (stream,) = rlds_pipeline.create_rlds_datasets(tfds_dir, cfg, splits=("train",))
-        feeder = device_feeder(stream, dev, depth=2)
-        box = {"step": 0}
+        with _rlds_service(RLDS_SERVICE_WORKERS) as (target, workers, service_start_s):
+            # The train CLI and its resume through the workers.
+            workdir = os.path.join(root, "train_service")
+            cli_service = _rlds_cli(config_name, device, store, workdir,
+                                    config.model.num_layers, service=target)
 
-        def one_step():
-            fns.train_step(state, next(feeder), box["step"])
-            box["step"] += 1
+            # The bf16 step fed in turns: create_rlds_datasets in this
+            # process, the same through the service, synthetic batches.
+            policy = build_model(config, dev)
+            optimizer = optimizer_from_config(config)
+            state = create_train_state(policy, optimizer)
+            fns = train_step_fns_from_config(config, optimizer)
+            box = {"step": 0}
+            service_cfg = dataclasses.replace(cfg, data_service_address=target,
+                                              data_service_job_name="chip_smoke_rlds")
+            fed = {}
 
-        try:
-            for _ in range(RLDS_FED_WARMUP):
-                one_step()
-            _sync(dev)
-            walls, waits = [], []
-            for _ in range(RLDS_FED_TIMED):
-                w0 = feeder.wait_s
-                t0 = time.perf_counter()
-                one_step()
-                _sync(dev)
-                walls.append((time.perf_counter() - t0) * 1e3)
-                waits.append((feeder.wait_s - w0) * 1e3)
-            fed = {"step_wall_ms": walls, "wait_ms": waits,
-                   "frames_per_s": b * t * 1e3 / float(np.median(walls))}
+            def workers_cpu_s():
+                return sum(service.worker_stats(ready["target"])["cpu_s"] for _, ready in workers)
+
+            for turn, feed in enumerate(RLDS_AB_TURNS):
+                if feed == "synthetic":
+                    fed[f"{turn}_{feed}"] = _rlds_fed_turn(
+                        fns, state, box, lambda: synthetic_batch(config, config.seed, box["step"],
+                                                                 dev), None, dev, b * t,
+                        workers_cpu_s)
+                    continue
+                (stream,) = rlds_pipeline.create_rlds_datasets(
+                    tfds_dir, service_cfg if feed == "service" else cfg, splits=("train",))
+                feeder = device_feeder(stream, dev, depth=2)
+                try:
+                    record = _rlds_fed_turn(fns, state, box, lambda: next(feeder), feeder, dev,
+                                            b * t, workers_cpu_s)
+                    if feed == "service":
+                        stats = stream.stats()
+                        record["service"] = {
+                            "recv_ms_per_batch": stats["recv_ms_per_batch"],
+                            "reply_wait_ms_per_batch": stats["reply_wait_ms_per_batch"],
+                            "wire_bytes_per_batch": stats["bytes"] / stats["received"],
+                            "batches_by_worker": [x["batches"] for x in stream.workers()]}
+                        if min(record["service"]["batches_by_worker"]) < 1:
+                            raise AssertionError(f"rlds: a worker sent nothing: {record}")
+                finally:
+                    feeder.close()
+                fed[f"{turn}_{feed}"] = record
+            served = [service.worker_stats(ready["target"]) for _, ready in workers]
+            if any(x["cuda_initialized"] for x in served):
+                raise AssertionError(f"rlds: a data service worker initialised CUDA: {served}")
+
+            # A worker killed under a service-fed run.
+            (stream,) = rlds_pipeline.create_rlds_datasets(tfds_dir, service_cfg,
+                                                           splits=("train",))
+            feeder = device_feeder(stream, dev, depth=2)
+            try:
+                lost = _rlds_lose_a_worker(fns, state, box, stream, feeder, dev, workers)
+            finally:
+                feeder.close()
+            del policy, state, fns, optimizer
             if on_card:
-                prof = device_profile(one_step, iters=2)
-                if prof is not None:
-                    fed.update({"profiled_wall_ms": prof["wall_ms"],
-                                "device_busy_ms": prof["busy_ms"],
-                                "idle_share": 1.0 - prof["busy_ms"] / prof["wall_ms"]})
-        finally:
-            feeder.close()
-        del policy, state, fns, optimizer
-        if on_card:
-            torch.cuda.empty_cache()
+                torch.cuda.empty_cache()
+        image_bytes = b * t * h * w * 3
 
-        # One bucket-8 bf16 engine step from the CLI's checkpoint, on the
-        # fixture's frames (the eval crop, resized to the model's size).
+        # One bucket-8 bf16 engine step from the service-trained CLI's
+        # checkpoint, on the fixture's frames (the eval crop, resized to
+        # the model's size).
         engine, restored = build_serve_engine(config, workdir=workdir, device=dev,
                                               attention_impl="fused", max_sessions=b,
                                               buckets=pow2_buckets(b))
@@ -3135,9 +3313,13 @@ def phase_rlds(config_name: str = "language_table", device: str = "cuda"):
               "image": [h, w], "decode": decode,
               "convert": {"episodes": episodes, "seconds": convert_s,
                           "s_per_episode": convert_s / episodes},
-              "cli": cli, "loader_alone": alone, "fed_step": fed,
-              "engine": {"restored_step": restored, "engine_steps": steps,
-                         "launches_by_variant": launches},
+              "cli": cli, "loader_alone": alone,
+              "service": {"workers": RLDS_SERVICE_WORKERS, "start_s": service_start_s,
+                          "image_bytes_per_batch": image_bytes, "cli": cli_service,
+                          "workers_served": served, "lose_a_worker": lost},
+              "fed_ab": fed,
+              "engine": {"checkpoint": "service", "restored_step": restored,
+                         "engine_steps": steps, "launches_by_variant": launches},
               "nvidia_smi": nvidia_smi() if on_card else None,
               "seconds": time.perf_counter() - t_phase}
     emit(record)
@@ -6354,13 +6536,15 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    # The forkserver that the DataLoader's and the oracle collectors'
-    # workers fork from imports torch and their modules once; else every
-    # worker imports torch itself (6-9 s on the card's host).
+    # The forkserver that the DataLoader's, the oracle collectors' and the
+    # data service's workers fork from imports torch and their modules
+    # once; else every worker imports torch itself (6-9 s on the card's
+    # host).
     import multiprocessing
 
     multiprocessing.set_forkserver_preload(
-        ["__main__", "torch", "rt1_tpu_torch.data.pipeline", "rt1_tpu_torch.data.collect"])
+        ["__main__", "torch", "rt1_tpu_torch.data.pipeline", "rt1_tpu_torch.data.collect",
+         "rt1_tpu_torch.data.rlds_pipeline", "rt1_tpu_torch.data.service"])
     from rt1_tpu_torch.parallel import flash_attention
 
     smi = nvidia_smi()

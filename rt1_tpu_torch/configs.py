@@ -119,6 +119,10 @@ class DataConfig:
     # torch and numpy loaders draw a full permutation per epoch.
     shuffle_buffer: int = 2048
     num_workers: int = 4                  # port only: the torch loader's processes
+    # loader="rlds_tf": the data service's dispatcher (tcp://host:port,
+    # `data/service.py`) whose workers run the RLDS pipeline; None runs it
+    # in this process.
+    data_service_address: Optional[str] = None
     prefetch_factor: int = 2              # port only: batches in flight per worker
     # Emit `instruction_tokenized_clip` (CLIP BPE of each episode's
     # instruction text) for the LAVA "clip" language encoder.

@@ -21,17 +21,27 @@ What JAX's graph computes, step for step, without TensorFlow:
   prefetch thread. The map runs on a pool of threads; each sample's crops
   and jitter come from a generator seeded by (seed, sample index), so the
   stream does not depend on the thread count.
-* the episode sources (`make_episode_dataset_from_paths` / `_from_arrays`),
-  `TableEmbedder` (twin of `InGraphTableEmbedder`: unknown text gives the
-  appended zero row), `decode_instruction_bytes_tf`,
+* the episode sources (`make_episode_dataset_from_paths` / `_from_arrays`,
+  `tfds_episode_source`), `TableEmbedder` (twin of `InGraphTableEmbedder`:
+  unknown text gives the appended zero row), `decode_instruction_bytes_tf`,
   `rlds_episode_to_tensors` and `create_rlds_datasets` over a TFDS
   directory read by `data/tfds.py`.
 
-tf.data service (`data_service_address`) is TensorFlow's runtime and has no
-counterpart here: setting it raises. tf.data's training interleave is
-non-deterministic (`deterministic=False`); this one is deterministic, and
-its shuffle draws come from numpy, not TF's generator, so a training
-stream holds the same windows as JAX's, not the same order.
+With `data_service_address` set, `windowed_rlds_dataset` hands the whole
+pipeline to the port's data service (`data/service.py`, the counterpart of
+tf.data service, sharding OFF): worker processes run it and the consumer
+only pulls batches. A worker rebuilds the episode source from its
+description (`EpisodeSource.describe`): episode paths with a named reader,
+in-memory episodes sent as arrays, or a TFDS split with a `TableEmbedder`
+(or the hash embedder). A source built from a custom callable (a `reader=`
+function, a host-callable embedder) runs only on a worker in the
+consumer's own process, as a `from_generator` source limits JAX's to
+colocated workers.
+
+tf.data's training interleave is non-deterministic (`deterministic=False`);
+this one is deterministic, and its shuffle draws come from numpy, not TF's
+generator, so a training stream holds the same windows as JAX's, not the
+same order.
 """
 
 from __future__ import annotations
@@ -40,8 +50,11 @@ import collections
 import concurrent.futures
 import dataclasses
 import itertools
+import os
 import queue
 import threading
+import uuid
+import weakref
 from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
@@ -73,7 +86,9 @@ class RldsPipelineConfig:
     shuffle_buffer: int = 2048
     seed: int = 0
     repeat: bool = True
-    # tf.data service: TensorFlow's runtime, not ported; must stay None.
+    # The data service's dispatcher ("tcp://host:port" or "host:port",
+    # `data/service.py`); None runs the pipeline in this process. Consumers
+    # of one job name share its batches; None: a job of this stream alone.
     data_service_address: Optional[str] = None
     data_service_job_name: Optional[str] = "rt1_tpu_train"
     # "uint8" ships 4x fewer bytes to the card (the model converts there);
@@ -84,10 +99,16 @@ class RldsPipelineConfig:
         if self.image_dtype not in ("uint8", "float32"):
             raise ValueError(f"image_dtype must be uint8|float32, got {self.image_dtype!r}")
         if self.data_service_address:
-            raise ValueError(
-                "data_service_address is set, but tf.data service is TensorFlow's runtime, "
-                "which the port does not use: the RLDS pipeline runs in this process; "
-                "unset data_service_address")
+            from rt1_tpu_torch.data import service
+
+            service.parse_address(self.data_service_address)  # grpc:// and the like raise
+
+    def pipeline_fields(self) -> Dict:
+        """The fields that define the stream a worker makes (the service's
+        address and job name left out)."""
+        fields = dataclasses.asdict(self)
+        fields.update(data_service_address=None, data_service_job_name=None)
+        return fields
 
 
 def pad_episode(steps: Dict, window: int) -> Dict:
@@ -442,13 +463,25 @@ class RldsStream:
         self._pool.shutdown(wait=True, cancel_futures=True)
 
 
-def windowed_rlds_dataset(episode_ds, cfg: RldsPipelineConfig,
-                          training: bool = True) -> RldsStream:
-    """Episodes -> shuffled (training), batched, prefetched samples.
+def windowed_rlds_dataset(episode_ds, cfg: RldsPipelineConfig, training: bool = True):
+    """Episodes -> shuffled (training), batched, prefetched samples: an
+    `RldsStream`, or with `cfg.data_service_address` the data service's
+    stream of the job `cfg.data_service_job_name` (`service.DataServiceStream`).
 
     `episode_ds`: a re-iterable source of dicts of per-episode arrays `rgb`
     (T, h, w, 3) uint8, `instruction` (T, D), `action` (T, A), `is_first`
-    and `is_terminal` (T,) bool."""
+    and `is_terminal` (T,) bool; an `EpisodeSource` that describes itself
+    for a worker in another process."""
+    if cfg.data_service_address:
+        from rt1_tpu_torch.data import service
+
+        if not isinstance(episode_ds, EpisodeSource):
+            items = episode_ds
+            episode_ds = EpisodeSource(lambda: iter(items))
+        spec = {"source": episode_ds.describe(), "config": cfg.pipeline_fields(),
+                "training": training}
+        return service.DataServiceStream(cfg.data_service_address, cfg.data_service_job_name,
+                                         spec, keep=episode_ds)
     source = _repeat(episode_ds) if cfg.repeat and training else iter(episode_ds)
     windows = interleave(source, lambda steps: _window_views(steps, cfg.window),
                          cycle=4 if training else 1)
@@ -459,14 +492,34 @@ def windowed_rlds_dataset(episode_ds, cfg: RldsPipelineConfig,
     return RldsStream(windows, cfg, training)
 
 
-class EpisodeSource:
-    """A re-iterable episode source: each pass calls `make()` anew."""
+# Sources without a description, by the token of their "local"
+# description: only a worker in this process finds them.
+_LOCAL_SOURCES: "weakref.WeakValueDictionary[str, EpisodeSource]" = weakref.WeakValueDictionary()
 
-    def __init__(self, make: Callable[[], Iterator[Dict]]):
+
+class EpisodeSource:
+    """A re-iterable episode source: each pass calls `make()` anew.
+    `description` (data: `source_from_description` rebuilds the source
+    from it in another process) or None for a custom callable."""
+
+    def __init__(self, make: Callable[[], Iterator[Dict]], description: Optional[Dict] = None):
         self._make = make
+        self.description = description
+        self._token = None
 
     def __iter__(self) -> Iterator[Dict]:
         return iter(self._make())
+
+    def describe(self) -> Dict:
+        """The description a worker rebuilds this source from; without
+        one, a "local" description that only a worker in this process
+        resolves (while this source is alive)."""
+        if self.description is not None:
+            return self.description
+        if self._token is None:
+            self._token = uuid.uuid4().hex
+            _LOCAL_SOURCES[self._token] = self
+        return {"kind": "local", "pid": os.getpid(), "token": self._token}
 
 
 def _episode_arrays(e: Dict) -> Dict:
@@ -479,24 +532,43 @@ def _episode_arrays(e: Dict) -> Dict:
     }
 
 
+def _named_reader(name: str) -> Callable[[str], Dict]:
+    if name == "npz":
+        from rt1_tpu_torch.data.episodes import load_episode
+
+        return load_episode
+    if name == "native":
+        from rt1_tpu_torch.data.native import load_episode_native
+
+        return load_episode_native
+    raise ValueError(f"unknown episode reader {name!r} (npz | native | a callable)")
+
+
 def make_episode_dataset_from_paths(paths: Sequence[str], reader=None) -> EpisodeSource:
     """Lazy episodes over a stored dataset: one episode is read a pull, so
-    host memory stays bounded by the shuffle buffer. `reader` defaults to
-    the episode store's `load_episode`."""
-    if reader is None:
-        from rt1_tpu_torch.data.episodes import load_episode as reader
+    host memory stays bounded by the shuffle buffer. `reader`: None or
+    "npz" (the episode store's `load_episode`), "native" (the C++ reader),
+    or a callable path -> episode, which a worker in another process
+    cannot rebuild."""
     if not paths:
         raise ValueError("no episode paths")
     paths = list(paths)
-    return EpisodeSource(lambda: (_episode_arrays(reader(p)) for p in paths))
+    description = None
+    if reader is None or isinstance(reader, str):
+        name = reader or "npz"
+        reader = _named_reader(name)
+        description = {"kind": "paths", "paths": [os.path.abspath(p) for p in paths],
+                       "reader": name}
+    return EpisodeSource(lambda: (_episode_arrays(reader(p)) for p in paths), description)
 
 
 def make_episode_dataset_from_arrays(episodes: Sequence[Dict]) -> EpisodeSource:
-    """In-memory episodes (dicts of numpy arrays) -> an episode source."""
+    """In-memory episodes (dicts of numpy arrays) -> an episode source; a
+    worker receives them as arrays."""
     if not episodes:
         raise ValueError("no episodes")
-    episodes = list(episodes)
-    return EpisodeSource(lambda: (_episode_arrays(e) for e in episodes))
+    episodes = [_episode_arrays(e) for e in episodes]
+    return EpisodeSource(lambda: iter(episodes), {"kind": "arrays", "episodes": episodes})
 
 
 class TableEmbedder:
@@ -506,8 +578,9 @@ class TableEmbedder:
 
     def __init__(self, instructions: Sequence[str], embeddings):
         matrix = np.asarray(embeddings, np.float32)
+        self.instructions = [str(s) for s in instructions]
         self.embeddings = np.concatenate([matrix, np.zeros_like(matrix[:1])], axis=0)
-        self.table = {s: i for i, s in enumerate(instructions)}
+        self.table = {s: i for i, s in enumerate(self.instructions)}
 
     @classmethod
     def from_npz(cls, path: str) -> "TableEmbedder":
@@ -518,6 +591,10 @@ class TableEmbedder:
         if isinstance(text, bytes):
             text = text.decode("utf-8")
         return self.embeddings[self.table.get(text, len(self.embeddings) - 1)]
+
+    def describe(self) -> Dict:
+        return {"kind": "table", "instructions": self.instructions,
+                "embeddings": self.embeddings[:-1]}
 
 
 def decode_instruction_bytes_tf(instr) -> bytes:
@@ -543,18 +620,79 @@ def rlds_episode_to_tensors(dense_steps: Dict, embedder) -> Dict:
 
 
 def _host_embedder(embedder):
-    """A TableEmbedder, a table's .npz path, a callable str -> vector, or
-    None (the hash embedder)."""
+    """(str -> vector, its description or None): a TableEmbedder, a
+    table's .npz path, a callable str -> vector (no description), or None
+    (the hash embedder)."""
     if isinstance(embedder, str):
-        return TableEmbedder.from_npz(embedder)
+        embedder = TableEmbedder.from_npz(embedder)
+    if isinstance(embedder, TableEmbedder):
+        return embedder, embedder.describe()
+    description = None
     if embedder is None:
         from rt1_tpu_torch.eval.embedding import get_embedder
 
-        embedder = get_embedder("hash")
-    if isinstance(embedder, TableEmbedder):
-        return embedder
+        embedder, description = get_embedder("hash"), {"kind": "hash"}
     host_fn = embedder
-    return lambda text: host_fn(text.decode("utf-8") if isinstance(text, bytes) else text)
+    return (lambda text: host_fn(text.decode("utf-8") if isinstance(text, bytes) else text),
+            description)
+
+
+def tfds_episode_source(dataset_dir: str, split: str, embedder=None) -> EpisodeSource:
+    """The episodes of `split` of the TFDS RLDS dataset at `dataset_dir`
+    (read by `data/tfds.py`): steps densified, the byte instruction
+    decoded and embedded (`embedder` as `create_rlds_datasets` takes it).
+    An empty or unknown split raises here."""
+    from rt1_tpu_torch.data import tfds
+
+    embed, embed_description = _host_embedder(embedder)
+    builder = tfds.TfdsDirectory(dataset_dir)
+    builder.file_instructions(split)
+
+    def episodes():
+        for episode in builder.episodes(split):
+            steps = episode["steps"]
+            if len(steps) > MAX_EPISODE_STEPS:
+                raise ValueError(f"an episode of {len(steps)} steps exceeds "
+                                 f"MAX_EPISODE_STEPS={MAX_EPISODE_STEPS}")
+            yield rlds_episode_to_tensors(steps.dense(), embed)
+
+    description = None if embed_description is None else {
+        "kind": "tfds", "dataset_dir": os.path.abspath(dataset_dir), "split": split,
+        "embedder": embed_description}
+    return EpisodeSource(episodes, description)
+
+
+def source_from_description(description: Dict) -> EpisodeSource:
+    """The episode source `EpisodeSource.describe` described (what a data
+    service worker runs)."""
+    kind = description.get("kind")
+    if kind == "paths":
+        return make_episode_dataset_from_paths(description["paths"], description["reader"])
+    if kind == "arrays":
+        return make_episode_dataset_from_arrays(description["episodes"])
+    if kind == "tfds":
+        embedder = description["embedder"]
+        if embedder["kind"] == "table":
+            embedder = TableEmbedder(embedder["instructions"], embedder["embeddings"])
+        elif embedder["kind"] == "hash":
+            embedder = None
+        else:
+            raise ValueError(f"unknown embedder description {embedder['kind']!r}")
+        return tfds_episode_source(description["dataset_dir"], description["split"], embedder)
+    if kind == "local":
+        source = _LOCAL_SOURCES.get(description["token"]) \
+            if description["pid"] == os.getpid() else None
+        if source is None:
+            raise ValueError(
+                "a source built from a custom callable (a reader= function, a host-callable "
+                "embedder) runs only on a data service worker in the consumer's own process "
+                f"(process {description['pid']}; this worker runs in process {os.getpid()}), "
+                "as a from_generator source limits tf.data service to colocated workers: "
+                "describe it as data (episode paths with a named reader, in-memory episodes, "
+                "a TFDS split with a TableEmbedder, its .npz or the hash embedder) or start a "
+                "WorkerServer in the consumer's process")
+        return source
+    raise ValueError(f"unknown episode source description {kind!r}")
 
 
 def create_rlds_datasets(dataset_dir: str, cfg: RldsPipelineConfig, embedder=None,
@@ -563,22 +701,15 @@ def create_rlds_datasets(dataset_dir: str, cfg: RldsPipelineConfig, embedder=Non
     RLDS dataset at `dataset_dir` (the first split trains, the others
     evaluate): steps densified, the byte instruction decoded and embedded,
     windowed, augmented and batched. `embedder`: a `TableEmbedder`, its
-    .npz path, or a callable (str -> vector); None is the hash embedder."""
-    from rt1_tpu_torch.data import tfds
-
-    embed = _host_embedder(embedder)
-    builder = tfds.TfdsDirectory(dataset_dir)
+    .npz path, or a callable (str -> vector); None is the hash embedder.
+    Through the data service each split after the first runs as the job
+    `<data_service_job_name>/<split>` (one job name holds one stream)."""
+    sources = [tfds_episode_source(dataset_dir, split, embedder) for split in splits]
     out = []
-    for i, split in enumerate(splits):
-        builder.file_instructions(split)  # an empty or unknown split raises here
-
-        def episodes(split=split):
-            for episode in builder.episodes(split):
-                steps = episode["steps"]
-                if len(steps) > MAX_EPISODE_STEPS:
-                    raise ValueError(f"an episode of {len(steps)} steps exceeds "
-                                     f"MAX_EPISODE_STEPS={MAX_EPISODE_STEPS}")
-                yield rlds_episode_to_tensors(steps.dense(), embed)
-
-        out.append(windowed_rlds_dataset(EpisodeSource(episodes), cfg, training=(i == 0)))
+    for i, (split, source) in enumerate(zip(splits, sources)):
+        split_cfg = cfg
+        if i and cfg.data_service_job_name:
+            split_cfg = dataclasses.replace(cfg, data_service_job_name=(
+                f"{cfg.data_service_job_name}/{split}"))
+        out.append(windowed_rlds_dataset(source, split_cfg, training=(i == 0)))
     return tuple(out)

@@ -267,12 +267,31 @@ def loader_name(config: Config) -> str:
     return loader
 
 
+def service_job_name(split: str, block: int, blocks: int) -> str:
+    """The data-service job of a rank's split: JAX's one job name
+    (`rlds_pipeline.py`'s default) for the training split of a single
+    rank, `<name>/<split>` for another split and `.../<block>` for a batch
+    rank of several. JAX gives every split and rank that one name, so its
+    val stream and each rank's `paths[block::blocks]` would join the train
+    job, where TF reads nothing (and the port refuses)."""
+    from rt1_tpu_torch.data.rlds_pipeline import RldsPipelineConfig
+
+    name = RldsPipelineConfig.data_service_job_name
+    if split != "train":
+        name += f"/{split}"
+    if blocks > 1:
+        name += f"/{block}"
+    return name
+
+
 def _rlds_batches(config: Config, split: str, paths, seed: int, block: int,
                   blocks: int) -> DataStream:
     """`data.loader="rlds_tf"` (JAX's `dataset_batches` branch): the episode
     files stream lazily, a rank reading `paths[block::blocks]`, through the
     RLDS windowing pipeline; training shuffles and repeats, the other
-    splits are read once, in order. JAX's refusals come first."""
+    splits are read once, in order. With `data.data_service_address` the
+    pipeline runs on the data service's workers (`service_job_name`).
+    JAX's refusals come first."""
     d = config.data
     if d.clip_tokens:
         raise ValueError("clip_tokens requires the windowed loaders ('tf' or 'numpy'); "
@@ -286,7 +305,8 @@ def _rlds_batches(config: Config, split: str, paths, seed: int, block: int,
     cfg = rlds_pipeline.RldsPipelineConfig(
         window=config.model.time_sequence_length, crop_factor=d.crop_factor, height=d.height,
         width=d.width, batch_size=config.per_host_batch_size, shuffle_buffer=d.shuffle_buffer,
-        seed=seed)
+        seed=seed, data_service_address=d.data_service_address,
+        data_service_job_name=service_job_name(split, block, blocks))
     episodes = rlds_pipeline.make_episode_dataset_from_paths(paths[block::blocks])
     return DataStream(rlds_pipeline.windowed_rlds_dataset(episodes, cfg,
                                                           training=split == "train"), "rlds_tf")

@@ -817,13 +817,6 @@ def test_training_stream_repeats_and_closes():
         next(stream)
 
 
-def test_data_service_address_raises():
-    from rt1_tpu_torch.data import rlds_pipeline as P
-
-    with pytest.raises(ValueError, match="tf.data service"):
-        P.RldsPipelineConfig(data_service_address="grpc://localhost:5000")
-
-
 def test_table_embedder_and_episode_tensors_equal_jax():
     tf = _tf()
     from rt1_tpu.data import rlds_pipeline as J
