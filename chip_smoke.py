@@ -3690,7 +3690,7 @@ PROOF_PROFILE_STEPS = 3
 PROOF_CLI_TIMEOUT_S = 600
 PROOF_DIAG_STEPS = 20            # a closed-loop diagnostics episode's budget (80 in JAX)
 DIAG_KEYS = {"episodes", "successes", "oracle_cosine_mean", "action_std_mean",
-             "block_target_progress_mean", "per_episode"}
+             "block_target_progress_mean", "per_episode", "checkpoint_step"}
 PROBE_ARM, PROBE_FRAMES, PROBE_STEPS, PROBE_BATCH = "small_64x96", 64, 3, 16
 
 
@@ -3812,8 +3812,9 @@ def phase_proof(config_name: str = "language_table", device: str = "cuda"):
     at the config's width (its collection stage a CLI, its train, DAgger and
     eval stages its `main` in process): collect (4 workers) plus DART demos in process,
     vision pretraining and its encoder, train from the graft, one DAgger
-    round, the three-arm eval; then timed and profiled DAgger and eval
-    control steps."""
+    round, the three-arm eval, the proof's arm (`train/proof_arm.py`) run
+    again over the finished workdir; then timed and profiled DAgger and
+    eval control steps."""
     import torch
 
     from rt1_tpu_torch.configs import get_config
@@ -3948,6 +3949,14 @@ def phase_proof(config_name: str = "language_table", device: str = "cuda"):
                 summary["episodes_collected"] != corpus or \
                 summary["eval_episodes"] != sizes["eval_episodes"]:
             raise AssertionError(f"proof eval: learn_proof.json {sorted(summary)}")
+        # 5b. The proof's arm (`python -m rt1_tpu_torch.train.proof_arm`) in
+        # process over this finished workdir with the phase's flags: every
+        # stage skipped, no train step, checkpoint or launch; its decision.
+        arm_record = _proof_arm_resumes(workdir, run + [
+            "--eval_episodes", str(sizes["eval_episodes"]), "--dagger_rounds", "1",
+            "--dagger_episodes", str(sizes["dagger_episodes"]),
+            "--dagger_extra_steps", str(sizes["dagger_extra_steps"])])
+        stage_s["arm"] = arm_record["seconds"]
         # 6. Timed and profiled control steps of the final checkpoint.
         t0 = time.perf_counter()
         model, _ = load_policy_and_step(config, device=device, attention_impl="fused",
@@ -4037,10 +4046,41 @@ def phase_proof(config_name: str = "language_table", device: str = "cuda"):
         "perception_probe": {k: probe[k] for k in ("resolution", "frames", "steps",
                                                    "val_rmse_mm", "dataset_seconds",
                                                    "train_seconds", "device")},
+        "arm": arm_record,
         "stage_s": stage_s,
     }
     emit(record)
     return record
+
+
+def _proof_arm_resumes(workdir, args):
+    """The arm run again over a workdir whose every stage is done: each
+    stage skipped, the checkpoints and `learn_proof.json` unchanged, no
+    train step and no launch; its decision line printed as a phase line."""
+    from rt1_tpu_torch.parallel.flash_attention import fused_attention
+    from rt1_tpu_torch.train import proof_arm
+    from rt1_tpu_torch.trainer.checkpoints import all_steps
+
+    ckpt_dir = os.path.join(workdir, "train", "checkpoints")
+    proof_path = os.path.join(workdir, "learn_proof.json")
+    with open(proof_path, "rb") as f:
+        proof_bytes = f.read()
+    steps_before = all_steps(ckpt_dir)
+    launches_before = dict(fused_attention.launches_by_variant)
+    lines, seconds = _run_in_process(proof_arm.main, args)
+    launches = {v: n - launches_before[v] for v, n in fused_attention.launches_by_variant.items()}
+    stages = {r["proof_arm"]: r for r in lines if "proof_arm" in r}
+    decision = stages.pop("decision", None)
+    with open(proof_path, "rb") as f:
+        unchanged = f.read() == proof_bytes
+    if list(stages) != list(proof_arm.ProofArm.STAGES) or decision is None or \
+            any(r["status"] != "skipped" for r in stages.values()) or \
+            any("steps_per_sec" in r for r in lines) or set(launches.values()) != {0} or \
+            all_steps(ckpt_dir) != steps_before or not unchanged:
+        raise AssertionError(f"proof arm: {lines}, launches {launches}")
+    emit({"phase": "proof_arm", **decision})  # a lane forwards only phase lines
+    return {"stages": {k: r.get("reason") for k, r in stages.items()}, "decision": decision,
+            "launches": launches, "seconds": seconds}
 
 
 def _without_episodes(report):

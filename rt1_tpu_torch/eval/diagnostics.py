@@ -20,7 +20,8 @@ reads its inputs.
 
 The CLI takes a learning-proof workdir and the learning proof's flags
 (`train/learn_proof.py`), which name the checkpoint's model, plus its own;
-the report goes to `--out` (default `<workdir>/diagnostics.json`, or
+the report, with the restored `checkpoint_step`, goes to `--out` (default
+`<workdir>/diagnostics.json`, or
 `<workdir>/corpus_entropy.json` with `--corpus_entropy`) and its summary
 is the last line printed. The policy runs on `cuda` unless `--device cpu`
 is given.
@@ -202,7 +203,7 @@ def main(argv=None) -> int:
 
         resolve_device(proof_args.device)  # no card and no --device cpu: refuse first
         proof.check_meta("diagnostics", learn_proof.EVAL_META_KEYS)
-        policy, _ = proof.restore_policy()
+        policy, step = proof.restore_policy()
         config = proof.train_config(proof_args.num_steps)
         env = build_eval_env(reward_name=learn_proof.REWARD,
                              block_mode=blocks.BlockMode(proof_args.block_mode),
@@ -211,6 +212,7 @@ def main(argv=None) -> int:
                              sequence_length=config.model.time_sequence_length)
         report = closed_loop_diagnostics(policy, env, args.diag_episodes, args.max_steps,
                                          log=emit)
+        report["checkpoint_step"] = step  # which checkpoint the report is of
         out = args.out or os.path.join(proof_args.workdir, "diagnostics.json")
         summary = {k: v for k, v in report.items() if k != "per_episode"}
     with open(out, "w") as f:

@@ -27,7 +27,8 @@ The trained policy is restored with fused attention, so every control
 step of the DAgger rollouts and the trained arm's eval runs the attention
 kernel on the card (`python -m rt1_tpu_torch.eval` does the same). Each
 stage prints one JSON line (`{"stage": ...}`) with its wall time and, for
-dagger and eval, the kernel's launches by variant and the engine's steps.
+dagger and eval, the kernel's launches by variant and the engine's steps
+(eval: also the trained policy's action ms, p50 / p99 / max).
 
 `--config` names the base config (`language_table`, as in JAX) and `--set
 key=value` overrides a field after the proof's own settings; at their
@@ -352,6 +353,8 @@ class LearnProof:
         return results
 
     def evaluate(self):
+        import numpy as np
+
         from rt1_tpu_torch.data.collect import corpus_accounting
         from rt1_tpu_torch.data.episodes import check_embedder_compatibility, read_manifest
         from rt1_tpu_torch.eval.diagnostics import corpus_entropy
@@ -371,12 +374,25 @@ class LearnProof:
         video_dir = os.path.join(a.workdir, "eval", "trained", "videos")
         shutil.rmtree(video_dir, ignore_errors=True)
         policy, _ = self.restore_policy()
+        # The trained policy's action latency a control step (the env's
+        # step and render are not in it).
+        action_ms, act = [], policy.action
+
+        def timed_action(obs):
+            t0 = time.perf_counter()
+            out = act(obs)
+            action_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        policy.action = timed_action
         before = dict(fused_attention.launches_by_variant)
         steps_before = policy.engine.steps_total
         trained = self.run_protocol(policy, "trained", write_videos=True)
         kernel = {"launches": {v: n - before[v]
                                for v, n in fused_attention.launches_by_variant.items()},
-                  "engine_steps": policy.engine.steps_total - steps_before}
+                  "engine_steps": policy.engine.steps_total - steps_before,
+                  "action_ms": {q: float(np.percentile(action_ms, p))
+                                for q, p in (("p50", 50), ("p99", 99), ("max", 100))}}
         # The chance baseline, and the protocol's expert ceiling (the RRT
         # oracle solves well under all oracle-validated inits in 80 steps).
         random_results = self.run_protocol(RandomEvalPolicy(seed=EVAL_SEED), "random")

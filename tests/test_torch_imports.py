@@ -132,7 +132,8 @@ def test_learning_proof_modules_are_among_those_imported():
                  "rt1_tpu_torch.data.dagger", "rt1_tpu_torch.train.dagger_loop",
                  "rt1_tpu_torch.train.meta", "rt1_tpu_torch.train.proof_config",
                  "rt1_tpu_torch.train.pretrain_vision", "rt1_tpu_torch.train.learn_proof",
-                 "rt1_tpu_torch.eval.proof", "rt1_tpu_torch.eval.diagnostics",
+                 "rt1_tpu_torch.train.proof_arm", "rt1_tpu_torch.eval.proof",
+                 "rt1_tpu_torch.eval.diagnostics",
                  "rt1_tpu_torch.utils", "rt1_tpu_torch.utils.curves",
                  "rt1_tpu_torch.utils.artifacts"):
         assert name in names, name
@@ -231,7 +232,8 @@ def test_new_entry_points_default_to_the_card(tmp_path):
                          ("rt1_tpu_torch.train.perception_probe",
                           ["--frames", "4", "--out_dir", str(tmp_path)]),
                          ("rt1_tpu_torch.obs.alerts_proof", ["--config", "tiny"]),
-                         ("rt1_tpu_torch.eval.diagnostics", ["--workdir", str(tmp_path)])):
+                         ("rt1_tpu_torch.eval.diagnostics", ["--workdir", str(tmp_path)]),
+                         ("rt1_tpu_torch.train.proof_arm", ["--workdir", str(tmp_path)])):
         proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO, env=env,
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0 and "CUDA is not available" in proc.stderr, \
