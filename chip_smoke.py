@@ -321,7 +321,17 @@ the other lane are not comparable with those of runs in one lane:
              tensor-core launches a bf16 engine step, 8 tf32x3 the float32
              step; (f) the kernel at a tp rank's heads, (8, 66, 4, 128)
              and (8, 66, 2, 128) in bf16 and float32, under `kernel`'s
-             gates; these cases join the `kernels` line's.
+             gates; these cases join the `kernels` line's; (g) `python
+             examples/torch/parallelism_example.py` as a user runs it (the
+             card by default) beside its `--device cpu` run, 8 gloo ranks
+             each, one Adam step of the tiny RT-1 under dp, tp, sp, pp and
+             ep: five lines in the order of JAX's example, dp, tp and ep on
+             cuda:0 and sp and pp on the host (point to point), each
+             printed loss and gradient norm (float32, TF32 off) within one
+             unit of its last digit of the host run's, the four dense
+             modes' losses on the card within one unit of each other, 0
+             attention-kernel launches; the card run's wall seconds and
+             the card's memory while it ran.
 17. serve_modes — the serving modes at the flagship's width, every engine
              derived in process from the parity phase's seeded f32 master
              weights: card vs CPU in float32 (TF32 off): the int8 tree bit
@@ -498,7 +508,8 @@ the other lane are not comparable with those of runs in one lane:
              reached (`loadgen_launches`), in the MoE flagship's bf16
              engine and float32 step (`moe_launches`), in the engines and
              float32 steps restored from the fsdp=2, tp=2 and pp=2
-             checkpoints and in the tp pair's eval step, by rank
+             checkpoints, in the tp pair's eval step, by rank, and in the
+             parallelism example's steps, all ranks and modes
              (`parallel_launches`), in the engine step served from the
              ported torchvision-layout tower (`pretrained_launches`, phase
              step), in the engine step served from the checkpoint trained
@@ -4570,6 +4581,22 @@ def _ops_c3(config_name, device, workdir, env, frame_b64):
             "allowed_checkpoint_step": ready["checkpoint_step"]}
 
 
+def _verdict_summary(event):
+    """The gate's verdict behind a controller event (its signed file), as
+    much of it as says why the gate decided so; None without one."""
+    path = event.get("verdict_path")
+    if not path or not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        verdict = json.load(f)
+    parity = verdict.get("parity") or {}
+    keys = ("passed", "error", "eval_passed", "candidate_mean_success",
+            "incumbent_mean_success", "margin")
+    return {**{k: verdict.get(k) for k in keys},
+            "parity": {k: parity.get(k) for k in ("passed", "agreement", "tokens_total",
+                                                   "threshold", "error", "skipped")}}
+
+
 def _copy_workdir(src, dst):
     """Copy a train workdir, hard-linking its checkpoint files (hundreds
     of MB at the flagship) and copying the rest."""
@@ -4749,7 +4776,7 @@ def phase_ops(config_name: str = "language_table", device: str = "cuda"):
             if rolled["event"] != "rolled_back" or rolled["step"] != 6 or \
                     rolled["reason"] != "slo_breach_injected" or rolled["incumbent"] != 4 or \
                     restore.get("status") != 200 or restore.get("checkpoint_step") != 4:
-                raise AssertionError(f"ops: rollback {rolled}")
+                raise AssertionError(f"ops: rollback {rolled}; verdict {_verdict_summary(rolled)}")
             timeline = status["timeline"]
             # 4. The metrics plane.
             def alert_cycle():
@@ -6337,14 +6364,155 @@ def tp_kernel_cases():
             for h in (4, 2) for dtype in ("bfloat16", "float32")]
 
 
+# (g) The parallelism example as a user runs it, 8 gloo ranks a run: by
+# default (the card) and with `--device cpu`, both at once. Its lines print
+# the loss to 5 decimals and the gradient norm to 4, as JAX's do; both
+# runs compute in float32 with TF32 off from the same host-drawn weights,
+# batch and crop, which leaves ~1e-7 of each value between card and host,
+# so each printed value may differ from the host's by one unit of its last
+# digit (a rounding edge), and no more; so may the four dense modes' losses
+# on the card, two of which run on the host (a crop drawn on the card's
+# generator would set them apart).
+PARALLEL_EXAMPLE = os.path.join("examples", "torch", "parallelism_example.py")
+PARALLEL_EXAMPLE_DECIMALS = {"loss": 5, "grad_norm": 4}
+PARALLEL_EXAMPLE_UNITS = 1
+PARALLEL_EXAMPLE_TIMEOUT_S = 300
+
+
+def _jax_example_labels():
+    """The mode labels of JAX's `examples/parallelism_example.py`, in its
+    order, read from the file's `modes` list (nothing of JAX is imported)."""
+    import ast
+
+    with open(os.path.join(REPO, "examples", "parallelism_example.py")) as f:
+        tree = ast.parse(f.read())
+    listed = next(node.value for node in ast.walk(tree) if isinstance(node, ast.Assign)
+                  and getattr(node.targets[0], "id", None) == "modes")
+    return [entry.elts[0].value for entry in listed.elts]
+
+
+def _example_lines(text):
+    """The example's mode lines: label, mesh, the printed loss and gradient
+    norm (strings), where its ranks ran, their kernel launches and the
+    step's milliseconds."""
+    import ast
+
+    rows = []
+    for line in text.splitlines():
+        if " mesh={" not in line:
+            continue
+        label, rest = line.split(" mesh=", 1)
+        mesh, fields = rest.split("} ", 1)
+        fields = dict(item.split("=", 1) for item in fields.split())
+        rows.append({"label": label.rstrip(), "mesh": ast.literal_eval(mesh + "}"),
+                     "loss": fields["loss"], "grad_norm": fields["grad_norm"],
+                     "device": fields["device"], "step_ms": float(fields["step_ms"]),
+                     "launches": int(fields["attention_launches"])})
+    return rows
+
+
+class _CardMemory(threading.Thread):
+    """The card's `memory.used` (MiB) every 0.5 s while `proc` runs: the
+    whole card's, which a second lane shares (`nvidia-smi` lists no process
+    in a container that hides the host's process ids)."""
+
+    def __init__(self, proc):
+        super().__init__(daemon=True)
+        self.proc, self.samples = proc, []
+
+    def run(self):
+        while self.proc.poll() is None:
+            self.samples.append(_memory_used_mib(True))
+            time.sleep(0.5)
+
+
+def _parallel_example(on_card):
+    """(g) `python examples/torch/parallelism_example.py` by default (the
+    card; `--device cpu` too without one) and with `--device cpu`, at
+    once: five lines in JAX's order, each mode where the example's rule
+    puts it (sp and pp on the host, the others on cuda:0), each printed
+    loss and gradient norm within PARALLEL_EXAMPLE_UNITS of the host's, the
+    dense modes at one loss on the card, no attention-kernel launch; the
+    card run's wall seconds and the card's memory while it ran."""
+    runs, files = {}, {}
+    root = tempfile.mkdtemp(prefix="rt1_chip_smoke_example_")
+    try:
+        for where, args in (("card", [] if on_card else ["--device", "cpu"]),
+                            ("host", ["--device", "cpu"])):
+            files[where] = open(os.path.join(root, f"{where}.txt"), "w+")
+            runs[where] = (subprocess.Popen(
+                [sys.executable, PARALLEL_EXAMPLE, *args], cwd=REPO, stdout=files[where],
+                stderr=subprocess.STDOUT, text=True, start_new_session=True),
+                time.perf_counter())
+        memory = _CardMemory(runs["card"][0]) if on_card else None
+        if memory is not None:
+            memory.start()
+        seconds, text = {}, {}
+        deadline = time.perf_counter() + PARALLEL_EXAMPLE_TIMEOUT_S
+        while len(seconds) < len(runs) and time.perf_counter() < deadline:
+            for where, (proc, t0) in runs.items():
+                if where not in seconds and proc.poll() is not None:
+                    seconds[where] = time.perf_counter() - t0
+            time.sleep(0.1)
+        for where, (proc, _) in runs.items():
+            files[where].seek(0)
+            text[where] = files[where].read()
+            if proc.poll() != 0:
+                raise AssertionError(f"parallel (g): the example on the {where} exited "
+                                     f"{proc.poll()}; its output ends\n{text[where][-4000:]}")
+        if memory is not None:
+            memory.join(timeout=60)
+    finally:
+        for proc, _ in runs.values():
+            if proc.poll() is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=60)
+        for f in files.values():
+            f.close()
+        shutil.rmtree(root, ignore_errors=True)
+    lines = {where: _example_lines(out) for where, out in text.items()}
+    labels = _jax_example_labels()
+    units = {key: [] for key in PARALLEL_EXAMPLE_DECIMALS}
+    for where, rows in lines.items():
+        if [r["label"] for r in rows] != labels:
+            raise AssertionError(f"parallel (g): the {where} run's modes "
+                                 f"{[r['label'] for r in rows]}, JAX's {labels}")
+    for card, host in zip(lines["card"], lines["host"]):
+        point_to_point = card["mesh"]["seq"] > 1 or card["mesh"]["stage"] > 1
+        expected = "cpu" if point_to_point or not on_card else "cuda:0"
+        if card["mesh"] != host["mesh"] or math.prod(card["mesh"].values()) != 8 or \
+                card["device"] != expected or host["device"] != "cpu":
+            raise AssertionError(f"parallel (g): {card['label']} on {card['device']} "
+                                 f"(host run {host['device']}), expected {expected}")
+        for key, decimals in PARALLEL_EXAMPLE_DECIMALS.items():
+            if not (math.isfinite(float(card[key])) and math.isfinite(float(host[key]))):
+                raise AssertionError(f"parallel (g): {card['label']} {key} not finite")
+            units[key].append(abs(round(float(card[key]) * 10 ** decimals) -
+                                  round(float(host[key]) * 10 ** decimals)))
+    dense = [round(float(r["loss"]) * 1e5) for r in lines["card"] if r["label"][:2] != "ep"]
+    launches = sum(r["launches"] for rows in lines.values() for r in rows)
+    if max(max(u) for u in units.values()) > PARALLEL_EXAMPLE_UNITS or \
+            max(dense) - min(dense) > PARALLEL_EXAMPLE_UNITS or launches:
+        raise AssertionError(f"parallel (g): card vs host units {units}, dense losses on the "
+                             f"card {dense}, launches {launches} (allowed "
+                             f"{PARALLEL_EXAMPLE_UNITS} unit, 0 launches)")
+    samples = memory.samples if memory is not None else []
+    return {"lines": lines["card"], "host_lines": lines["host"], "card_s": seconds["card"],
+            "host_s": seconds["host"], "units": units, "tol_units": PARALLEL_EXAMPLE_UNITS,
+            "dense_loss_units": dense, "launches": launches,
+            "card_memory_used_mib": [min(samples), max(samples)] if samples else None}
+
+
 def phase_parallel(config_name: str = "language_table", device: str = "cuda"):
     """Multi-process training on the card's world of one: (a) the NCCL
     world-1 step against the plain step, (b) the launcher CLI, (c) a gloo
     fsdp=2 checkpoint of the host served on the card, (d) a tp=2 pair on
     the card and a pp=2 pair on the host against their worlds of one, (e)
     the card serving each pair's checkpoint, (f) the kernel at a tp rank's
-    heads (`_parallel_world_one`, `_parallel_launcher`,
-    `_parallel_migration`, `_check_pair`, `_serve_pair`, `_kernel_case`)."""
+    heads, (g) the parallelism example on the card against the host
+    (`_parallel_world_one`, `_parallel_launcher`, `_parallel_migration`,
+    `_check_pair`, `_serve_pair`, `_kernel_case`, `_parallel_example`)."""
     import numpy as np
     import torch
 
@@ -6386,6 +6554,8 @@ def phase_parallel(config_name: str = "language_table", device: str = "cuda"):
         t0 = time.perf_counter()
         served = {name: _serve_pair(config_name, dev, root, name) for name in ("tp", "pp")}
         served["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        example = dict(_parallel_example(dev.type == "cuda"), seconds=time.perf_counter() - t0)
     finally:
         saving.join_quietly()
         for group in groups.values():
@@ -6394,7 +6564,7 @@ def phase_parallel(config_name: str = "language_table", device: str = "cuda"):
     record = {"phase": "parallel", "config": config_name,
               "nvidia_smi": nvidia_smi() if dev.type == "cuda" else None,
               "world_one": world_one, "launcher": launcher, "migration": migration,
-              "pairs": pairs, "served": served, "kernel_cases": cases,
+              "pairs": pairs, "served": served, "kernel_cases": cases, "example": example,
               "seconds": time.perf_counter() - t_phase}
     emit(record)
     return record
@@ -6715,6 +6885,8 @@ def main(argv=None) -> int:
                                ("f32_infer_step", "f32_launches"))}
         entry["parallel_launches"]["tp_eval_step_by_rank"] = [
             launches[variant] for launches in parallel["pairs"]["tp"]["eval_launches"]]
+        # (g) gates every variant's launches in the example's steps at 0.
+        entry["parallel_launches"]["example_steps"] = parallel["example"]["launches"]
     # Phase step's `pretrained` check: one bf16 bucket-8 engine step served
     # from the torchvision-layout tower (counts set to 0 before it).
     pretrained = done["step"]["pretrained"]["engine"]["launches_by_variant"]

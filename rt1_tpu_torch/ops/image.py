@@ -2,9 +2,11 @@
 crop-resize (counterpart of `rt1_tpu/ops/image.py`).
 
 Inference does not crop (`rt1_tpu/models/rt1.py` crops only when
-training). The crop draws its offsets from the generator it is given, on
-the images' device, and cuts the window out with index selects on that
-device, so it needs no host sync.
+training). The crop draws its two offsets from the generator it is given,
+on the generator's device, and cuts the window out with index selects on
+the images' device, so it needs no host sync: a host generator's offsets
+(the train step's `crop_on_host`) enter the device's index arithmetic as
+0-dim host scalars, with no copy.
 
 `resize_bilinear` is `jax.image.resize(method="bilinear")`: half-pixel
 centres and a triangle kernel widened by the scale when downscaling
@@ -36,13 +38,14 @@ def random_shift_crop(images: torch.Tensor, generator: torch.Generator,
                       ratio: float = 0.07) -> torch.Tensor:
     """Zero-pad H/W by `int(dim * ratio)` on each side and crop back at one
     random offset for the whole batch, uniform over [0, 2 * pad] in each
-    axis. (..., H, W, C) in and out, any leading batch dims."""
+    axis, drawn on `generator`'s device. (..., H, W, C) in and out, any
+    leading batch dims."""
     h, w = images.shape[-3], images.shape[-2]
     ud_pad, lr_pad = int(h * ratio), int(w * ratio)
     padded = F.pad(images, (0, 0, lr_pad, lr_pad, ud_pad, ud_pad))
-    dev = images.device
-    shift_h = torch.randint(0, 2 * ud_pad + 1, (), generator=generator, device=dev)
-    shift_w = torch.randint(0, 2 * lr_pad + 1, (), generator=generator, device=dev)
+    dev, drawn_on = images.device, generator.device
+    shift_h = torch.randint(0, 2 * ud_pad + 1, (), generator=generator, device=drawn_on)
+    shift_w = torch.randint(0, 2 * lr_pad + 1, (), generator=generator, device=drawn_on)
     rows = shift_h + torch.arange(h, device=dev)
     cols = shift_w + torch.arange(w, device=dev)
     return padded.index_select(-3, rows).index_select(-2, cols)

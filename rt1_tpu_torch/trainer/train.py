@@ -34,7 +34,12 @@ Randomness: the crop, dropout, stochastic depth and (with
 `photometric_augmentation` on) the photometric augmentation each draw from
 a `torch.Generator` of their own on the step's device, seeded from
 `(seed, step)` (and the micro-batch under accumulation), so a resumed run
-draws what an unbroken one would have.
+draws what an unbroken one would have. The card's generator (Philox) and
+the host's (Mersenne Twister) draw different numbers from one seed, so a
+step that draws differs between the card and the CPU; with
+`crop_on_host` the crop's generator is the host's on every device, and a
+step whose only draw is the crop (no dropout, no stochastic depth, no
+augmentation) computes the same on both.
 
 Accumulation (`accum_steps > 1`) splits the batch into micro-batches,
 sums their gradients and applies one update. Under the reference loss
@@ -127,18 +132,18 @@ RNG_STREAMS = ("crop", "dropout", "stochastic_depth", "augment")
 
 
 def step_rngs(seed: int, step: int, device, micro: int = 0,
-              augment: bool = False) -> Dict[str, torch.Generator]:
-    """One generator per random stream on `device`, seeded from
-    (seed, step, stream index, micro); the `augment` stream only when
-    `augment` (its index is the last, so the others' seeds do not depend on
-    it)."""
+              augment: bool = False, crop_on_host: bool = False) -> Dict[str, torch.Generator]:
+    """One generator per random stream on `device` (the crop's on the host
+    with `crop_on_host`), seeded from (seed, step, stream index, micro);
+    the `augment` stream only when `augment` (its index is the last, so
+    the others' seeds do not depend on it)."""
     device = torch.device(device)
     rngs = {}
     for index, name in enumerate(RNG_STREAMS):
         if name == "augment" and not augment:
             continue
         words = np.random.SeedSequence([seed, step, index, micro]).generate_state(2, np.uint32)
-        g = torch.Generator(device=device)
+        g = torch.Generator(device="cpu" if crop_on_host and name == "crop" else device)
         g.manual_seed((int(words[0]) << 31) ^ int(words[1]))
         rngs[name] = g
     return rngs
@@ -179,6 +184,9 @@ class TrainStepFns:
     # parallel.mixed_precision: every leaf, the routers too, computes from
     # its bf16 copy (JAX's `_bf16_compute_copy`).
     mixed_precision: bool = False
+    # Draw the crop's two offsets on the host whatever the step's device
+    # (module docstring, "Randomness").
+    crop_on_host: bool = False
     # Another family's loss (`trainer/bc.py::make_bc_step_loss_fn`):
     # (policy, params, obs, actions, train, rngs) -> {"loss", ...}.
     loss_fn: Optional[Callable] = None
@@ -333,9 +341,10 @@ class TrainStepFns:
 
     def _local_value_and_grad(self, state: TrainState, batch: Batch, step: int):
         """`value_and_grad` of this rank's rows alone."""
-        device, augment = state.flat.device, self.photometric_augmentation
+        device = state.flat.device
+        streams = {"augment": self.photometric_augmentation, "crop_on_host": self.crop_on_host}
         if self.accum_steps == 1:
-            return self._grad(state, batch, step_rngs(self.seed, step, device, augment=augment))
+            return self._grad(state, batch, step_rngs(self.seed, step, device, **streams))
         # The reference loss scale makes a micro-batch's loss accum times
         # the full batch's: the extra /accum. Another family's mean loss
         # (LAVA's MSE) needs none, as in JAX.
@@ -344,7 +353,7 @@ class TrainStepFns:
         for i, micro in enumerate(_split(batch, self.accum_steps)):
             l_i, g_i, out_i = self._grad(state, micro,
                                          step_rngs(self.seed, step, device, micro=i + 1,
-                                                   augment=augment))
+                                                   **streams))
             grad = g_i if grad is None else grad + g_i
             loss = loss + l_i
             mse = mse + out_i.get("aux_mse", 0.0)

@@ -9,7 +9,12 @@ checks at the end that none of them was imported:
 * `dataset_example.py`: oracle demos, then a batch of the windowed loader;
 * `tutorial.ipynb`: every code cell in order, with the device set to the
   CPU, through the same lifecycle as `examples/tutorial.ipynb` (its
-  sections in the same order).
+  sections in the same order);
+* `parallelism_example.py --device cpu`: one line a mode, in the order of
+  `examples/parallelism_example.py`'s modes, each mode on the host with a
+  finite loss and gradient norm
+  and no attention-kernel launch, the four dense modes at one loss
+  (`tests/test_torch_parallelism_example.py` holds the numbers to JAX's).
 """
 
 import json
@@ -117,3 +122,32 @@ def test_tutorial_runs_on_the_cpu(tmp_path):
     losses = [float(line.split("'loss': ")[1].split(",")[0]) for line in lines
               if "'loss': " in line]
     assert len(losses) == 3 and all(map(math.isfinite, losses))
+
+
+def test_parallelism_example_runs_every_mode_on_the_cpu(tmp_path):
+    out = _run("parallelism_example.py", "--device", "cpu", tmp_path=tmp_path)
+    lines = [line for line in out.splitlines() if " mesh={" in line]
+    from test_torch_parallelism_example import jax_modes
+
+    assert [line.split(" mesh=")[0].rstrip() for line in lines] == \
+        [label for label, _, _ in jax_modes()]
+    fields = [dict(item.split("=", 1) for item in line.split("} ", 1)[1].split())
+              for line in lines]
+    for line, field in zip(lines, fields):
+        assert math.isfinite(float(field["loss"])) and math.isfinite(float(field["grad_norm"]))
+        assert field["device"] == "cpu" and field["attention_launches"] == "0", line
+    assert len({field["loss"] for field in fields[:4]}) == 1, lines
+
+
+def test_parallelism_example_defaults_to_the_card(tmp_path):
+    """Without `--device` the example runs on the card, and refuses on a
+    host without one before it starts a rank."""
+    import torch
+
+    if torch.cuda.is_available():
+        return  # the default device is usable here
+    proc = subprocess.run([sys.executable, os.path.join(EXAMPLES, "parallelism_example.py")],
+                          cwd=EXAMPLES, env=dict(os.environ, TMPDIR=str(tmp_path)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "CUDA is not available" in proc.stderr, proc.stderr[-2000:]
+    assert not os.listdir(tmp_path)   # no rank's rendezvous was made

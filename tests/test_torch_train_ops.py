@@ -4,7 +4,10 @@
   edges and the clip bounds.
 * `random_shift_crop`: the output is a window of the zero-padded input,
   the offsets lie in [0, 2 * pad], every offset occurs, and one generator
-  seed gives one output.
+  seed gives one output. With `crop_on_host` the train step's crop
+  generator is a host one on every device (the masks' stay on the step's
+  device), and the crop cuts images on another device than its
+  generator's.
 * Dropout: keep rate within 4.5 sigma, kept values scaled by 1 / (1 - rate),
   identity in eval mode or at rate 0, no generator in train mode raises.
 * The LR schedule against `optax.piecewise_constant_schedule` (through the
@@ -30,7 +33,7 @@ from rt1_tpu_torch.ops.image import convert_dtype_and_crop_images, random_shift_
 from rt1_tpu_torch.specs import language_table_action_space
 from rt1_tpu_torch.trainer.optim import global_norm, multistep_lr
 from rt1_tpu_torch.train.train import synthetic_batch
-from rt1_tpu_torch.trainer.train import step_rngs
+from rt1_tpu_torch.trainer.train import RNG_STREAMS, step_rngs
 
 
 def _actions(rng, shape):
@@ -170,6 +173,39 @@ def test_synthetic_batches_and_rngs_are_functions_of_seed_and_step():
             assert torch.equal(draws[name], again[name]) and not torch.equal(draws[name],
                                                                              other[name])
         assert len({tuple(v.tolist()) for v in draws.values()}) == len(streams)
+
+
+def test_crop_on_host_draws_the_crop_on_the_host_on_every_device(monkeypatch):
+    """The card's generator (Philox) and the host's (Mersenne Twister)
+    draw different offsets from one seed. With `crop_on_host` the crop's
+    generator is the host's whatever the step's device (so a seed crops
+    alike on the card and on the CPU); the masks' stay on the step's
+    device, as every stream does without it (recorded here: this host has
+    no card, so a host generator stands in for each)."""
+    real = torch.Generator
+
+    def made_on(**kw):
+        made = []
+
+        def recording(device="cpu"):
+            made.append(torch.device(device))
+            return real()
+
+        monkeypatch.setattr(torch, "Generator", recording)
+        rngs = step_rngs(1, 2, "cuda", augment=True, **kw)
+        monkeypatch.undo()
+        return dict(zip(rngs, made))
+
+    cuda = torch.device("cuda")
+    assert made_on() == dict.fromkeys(RNG_STREAMS, cuda)
+    assert made_on(crop_on_host=True) == {**dict.fromkeys(RNG_STREAMS, cuda),
+                                          "crop": torch.device("cpu")}
+    images = torch.rand(2, 3, 16, 16, 3, generator=torch.Generator().manual_seed(0))
+    want = random_shift_crop(images, step_rngs(1, 2, "cpu")["crop"], 0.07)
+    # Images on another device than the generator's (the card's case):
+    # the offsets are drawn on the host, the window cut on the images'.
+    out = random_shift_crop(images.to("meta"), step_rngs(1, 2, "cpu")["crop"], 0.07)
+    assert out.device == torch.device("meta") and out.shape == want.shape
 
 
 def test_global_norm_is_accurate_on_a_long_float32_vector():
