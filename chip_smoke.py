@@ -12,7 +12,7 @@ shares one bytecode cache of the run (`_bytecode_cache`: the card's
 machine writes none, and each process compiled torch anew), and the
 forkserver that workers fork from imports torch once. A whole run takes
 the phases in two lanes: once `train` has run, a second process
-(`_Lane`) runs moe, parallel, serve_modes and proof while this one runs
+(`_Lane`) runs moe, parallel, serve_modes, proof and bench while this one runs
 train_ops, data, rlds, eval and lava; it is joined before fleet, so the
 serving fleets' phases (alerts and canaries judged on latency) and the
 kernels' timings run alone. Host timings of the phases that run beside
@@ -514,8 +514,32 @@ the other lane are not comparable with those of runs in one lane:
              ported torchvision-layout tower (`pretrained_launches`, phase
              step), in the engine step served from the checkpoint trained
              through `data.loader=rlds_tf` (`rlds_launches`, phase rlds),
+             in each run of phase bench and its infer runs' timed steps
+             (`bench_launches`),
              errors (phase parallel's (f) cases
              among them), times and bound.
+24. bench  — (run in the second lane, after `proof`) `python -m
+             rt1_tpu_torch.bench` (its `main`, in process) in each mode
+             on the card: `train` on the flagship (5 steps after 2, one
+             window); `infer` on the flagship with `--attention_impl
+             pallas` in bf16 (with `--inference_dtype f32,bf16,int8` and
+             `--window_sweep 3,6`) and in float32, and on `tiny` in bf16
+             (8 steps after 2 each): exactly one kernel launch a decoder
+             layer a timed step, of `tensor_core`, `tf32x3` and `simple`
+             respectively, and none in the other variants; `e2e` on the
+             flagship from 4 synthetic episodes through the torch loader,
+             and on `tiny` through the packed feeder with `--guard
+             --health` (3 steps after 1, one window); `mfu` on the
+             flagship (a value in (0, 100]); `env` (100 control steps);
+             `multihost` (5 steps, gloo ranks sharing the card). Each headline
+             parses with JAX's metric name for its flags and names the
+             card (`device`: name, count, nvidia-smi line); no fused
+             launch in a train step; the records it writes are read and
+             removed. Prints each run's headline value, seconds and
+             launches, the quant A/B's bytes and floors, the KV-cache
+             sweep, the e2e, mfu and multihost details. Step counts are
+             cut from the CLI's defaults (`BENCH_*`). CPU rehearsal:
+             `phase_bench('tiny', 'cpu')`.
 
 The last line is `{"ok": true, "device": {...}}`.
 """
@@ -4466,7 +4490,9 @@ class _OpsTraffic(threading.Thread):
         except (urllib.error.URLError, OSError) as exc:
             code, out = 0, {"error": str(exc)}
         if code != 200 or "action" not in out:
-            self.failures.append({"session": sid, "code": code, "body": str(out)[:300]})
+            self.failures.append({"session": sid, "code": code, "body": str(out)[:300],
+                                  "unix_time": time.time(),
+                                  "router_view": self._router_view(sid)})
             return None
         self.latencies_ms.append((time.perf_counter() - t) * 1e3)
         self.ok += 1
@@ -4474,11 +4500,13 @@ class _OpsTraffic(threading.Thread):
             self.restarts.append({"session": sid, "unix_time": time.time()})
         return out
 
-    def _note_if_on_canary(self, sid):
-        step, replica_url = self._canary
-        code, _ = _post(replica_url + "/session/export", {"session_id": sid})
-        if code == 200:
-            self.canary_bound.setdefault(step, set()).add(sid)
+    def _router_view(self, sid):
+        """The router's view of `sid` (`GET /fleet/session`: its replica,
+        its orphan and migrated marks), or the error that reading it met."""
+        try:
+            return json.loads(_get_text(f"{self.url}/fleet/session?session_id={sid}"))
+        except (urllib.error.URLError, OSError, ValueError) as exc:
+            return {"error": str(exc)}
 
     def _probe(self, fn, *args):
         try:
@@ -4541,9 +4569,14 @@ class _OpsTraffic(threading.Thread):
                 if short_steps == 1 and self._canary is not None:
                     self._probe(self._note_if_on_canary, short)
                 if short_steps >= OPS_SHORT_STEPS:
+                    # The router's view just before the /release (which
+                    # clears it), kept if the release fails (ROADMAP C7).
+                    view = self._router_view(short)
                     code, out = _post(self.url + "/release", {"session_id": short})
                     if code != 200:
-                        self.failures.append({"session": short, "code": code, "body": str(out)})
+                        self.failures.append({"session": short, "code": code, "body": str(out),
+                                              "unix_time": time.time(),
+                                              "router_view_before_release": view})
                     self.short_released += 1
                     short = None
             self.stop_evt.wait(0.02)
@@ -6570,6 +6603,166 @@ def phase_parallel(config_name: str = "language_table", device: str = "cuda"):
     return record
 
 
+# Phase bench: `python -m rt1_tpu_torch.bench`'s modes through its `main`,
+# in process, at step counts cut from its defaults (steps / warm-up /
+# windows 20 / 3 / 5; env 400 control steps; multihost 30 steps).
+BENCH_TRAIN = ("--steps", "5", "--warmup", "2", "--windows", "1")
+BENCH_INFER = ("--steps", "8", "--warmup", "2")
+BENCH_AB = ("--inference_dtype", "f32,bf16,int8", "--window_sweep", "3,6")
+BENCH_E2E = ("--steps", "3", "--warmup", "1", "--windows", "1", "--episodes", "4")
+BENCH_MFU = ("--steps", "3", "--warmup", "1", "--windows", "1")
+BENCH_ENV_STEPS = "5"             # x 20 control steps
+BENCH_MULTIHOST_STEPS = "5"
+# Headline metric names, JAX's for the same flags (tests/test_torch_bench.py
+# derives them from bench.py's source).
+BENCH_METRICS = {
+    "train": "train_steps_per_sec_per_chip{tiny}",
+    "infer_bfloat16": "infer_step_latency_p50_pallas",
+    "infer_float32": "infer_step_latency_p50_pallas",
+    "infer_tiny_bfloat16": "infer_step_latency_p50_pallas",
+    "e2e": "train_steps_per_sec_per_chip_e2e{tiny}",
+    "e2e_packed": "train_steps_per_sec_per_chip_e2e_tiny_packed",
+    "mfu": "train_step_mfu{tiny}",
+    "env": "env_control_steps_per_sec",
+    "multihost": "multihost_examples_per_sec_ratio_2p_over_1p",
+}
+
+
+def _bench_run(argv):
+    """`python -m rt1_tpu_torch.bench argv` (its `main`, in process): its
+    headline, its stderr JSON lines, the paths it wrote (removed here after
+    reading), the fused kernel's launches in it and its seconds."""
+    import io
+
+    from rt1_tpu_torch import bench
+    from rt1_tpu_torch.parallel.flash_attention import fused_attention, reset_launch_counts
+
+    out, err = io.StringIO(), io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        code = bench.main(list(argv))
+    seconds = time.perf_counter() - t0
+    launches = dict(fused_attention.launches_by_variant)
+    if code != 0:
+        raise AssertionError(f"bench {argv}: exit code {code}")
+    heads = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith('{"metric"')]
+    if len(heads) != 1:
+        raise AssertionError(f"bench {argv}: {len(heads)} headlines in {out.getvalue()[-2000:]}")
+    details = [json.loads(x) for x in err.getvalue().splitlines() if x.startswith("{")]
+    written = [line.split("wrote ", 1)[1].strip() for line in err.getvalue().splitlines()
+               if line.startswith(("bench: wrote ", "bench_multihost: wrote "))]
+    records = {}
+    for path in written:
+        with open(path) as f:
+            records[os.path.basename(path)] = json.load(f)
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    return {"headline": heads[0], "details": details, "records": records,
+            "launches_by_variant": launches, "seconds": seconds}
+
+
+def phase_bench(config_name: str = "language_table", device: str = "cuda"):
+    """`python -m rt1_tpu_torch.bench` on the card, each mode through its
+    `main` in process (module docstring, phase 24)."""
+    import torch
+
+    from rt1_tpu_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    model = "tiny" if config_name == "tiny" else "flagship"
+    on_card = device == "cuda"
+    layers = get_config(config_name).model.num_layers
+    common = ["--device", device]
+    data_dir = tempfile.mkdtemp(prefix="rt1_chip_smoke_bench_")
+    corpus = ["--data_dir", os.path.join(data_dir, "episodes")]
+    cases = {
+        "train": ["--mode", "train", "--model", model, *BENCH_TRAIN],
+        "infer_bfloat16": ["--mode", "infer", "--model", model, "--attention_impl", "pallas",
+                           "--dtype", "bfloat16", *BENCH_INFER, *BENCH_AB],
+        "infer_float32": ["--mode", "infer", "--model", model, "--attention_impl", "pallas",
+                          "--dtype", "float32", *BENCH_INFER],
+        # The simple kernel's path: tiny's d = 8 in bf16.
+        "infer_tiny_bfloat16": ["--mode", "infer", "--model", "tiny", "--attention_impl",
+                                "pallas", "--dtype", "bfloat16", *BENCH_INFER],
+        "e2e": ["--mode", "e2e", "--model", model, *BENCH_E2E, *corpus],
+        # The guard's and the health pack's A/Bs at tiny: the pack's floors
+        # take 400 synced steps.
+        "e2e_packed": ["--mode", "e2e", "--model", "tiny", "--packed", "--guard", "--health",
+                       *BENCH_E2E, *corpus],
+        "mfu": ["--mode", "mfu", "--model", model, *BENCH_MFU],
+        "env": ["--mode", "env", "--steps", BENCH_ENV_STEPS],
+        "multihost": ["--mode", "multihost", "--steps", BENCH_MULTIHOST_STEPS],
+    }
+    runs = {}
+    try:
+        for name, argv in cases.items():
+            runs[name] = _bench_run(argv + common)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    smi = nvidia_smi() if on_card else None
+    expected_device = {"name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+                       "nvidia_smi": smi} if on_card else "cpu"
+    for name, run in runs.items():
+        head = run["headline"]
+        metric = BENCH_METRICS[name].format(tiny="_tiny" if model == "tiny" else "")
+        if head["metric"] != metric or head["device"] != expected_device:
+            raise AssertionError(f"bench {name}: headline {head}, expected {metric} on "
+                                 f"{expected_device}")
+        if not (isinstance(head["value"], float) and math.isfinite(head["value"])
+                and head["value"] > 0):
+            raise AssertionError(f"bench {name}: value {head['value']}")
+    if on_card and not 0 < runs["mfu"]["headline"]["value"] <= 100:
+        raise AssertionError(f"bench mfu: {runs['mfu']['headline']['value']} % outside (0, 100]")
+    # The timed infer steps' launches (infer_detail: the counts' rise over
+    # the timed steps, the run's own counts left whole): exactly one kernel
+    # a decoder layer a step, of the variant the dtype and head dim give.
+    tiny_layers = get_config("tiny").model.num_layers
+    bf16_variant = "simple" if model == "tiny" else "tensor_core"  # tiny's d = 8
+    for name, variant, n_layers in (("infer_bfloat16", bf16_variant, layers),
+                                    ("infer_float32", "tf32x3", layers),
+                                    ("infer_tiny_bfloat16", "simple", tiny_layers)):
+        timed = next(d for d in runs[name]["details"] if d.get("mode") == "infer_detail")
+        expected = dict.fromkeys(("tensor_core", "tf32x3", "simple"), 0)
+        if on_card:  # the CPU takes the plain version
+            expected[variant] = n_layers * int(BENCH_INFER[1])
+        if timed["launches_by_variant"] != expected:
+            raise AssertionError(f"bench {name}: launches {timed['launches_by_variant']}, "
+                                 f"expected {expected}")
+    for name in ("train", "e2e", "e2e_packed", "mfu", "env", "multihost"):
+        if any(runs[name]["launches_by_variant"].values()):
+            raise AssertionError(f"bench {name}: fused attention launched "
+                                 f"{runs[name]['launches_by_variant']} (training runs dense)")
+    ab = next(d for d in runs["infer_bfloat16"]["details"] if d.get("metric") == "infer_quant_ab")
+    sweep = runs["infer_bfloat16"]["records"]["BENCH_serve_kvcache.json"]
+    e2e = {name: next(d for d in runs[name]["details"] if d.get("mode") == "e2e_detail")
+           for name in ("e2e", "e2e_packed")}
+    multihost = runs["multihost"]["records"]["multihost_scaling.json"]
+    where = "gloo ranks all on cuda:0" if on_card else "gloo ranks on the host's CPU"
+    if not multihost["methodology"]["topology"].startswith(where):
+        raise AssertionError(f"bench multihost: {multihost['methodology']['topology']}, "
+                             f"expected {where}")
+    record = {
+        "phase": "bench", "config": config_name, "nvidia_smi": smi,
+        "headlines": {name: run["headline"]["value"] for name, run in runs.items()},
+        "seconds_by_run": {name: run["seconds"] for name, run in runs.items()},
+        "launches_by_run": {name: run["launches_by_variant"] for name, run in runs.items()},
+        "infer_timed_launches": {
+            name: next(d for d in runs[name]["details"]
+                       if d.get("mode") == "infer_detail")["launches_by_variant"]
+            for name in ("infer_bfloat16", "infer_float32", "infer_tiny_bfloat16")},
+        "quant_ab": ab["per_dtype"],
+        "kvcache_sweep": sweep["per_window"],
+        "e2e_detail": e2e,
+        "mfu_detail": next(d for d in runs["mfu"]["details"] if d.get("mode") == "mfu_detail"),
+        "multihost": {"groups": multihost["groups"], "scaling": multihost["scaling"]},
+        "cut": {"train": BENCH_TRAIN, "infer": BENCH_INFER, "e2e": BENCH_E2E, "mfu": BENCH_MFU,
+                "env_steps": BENCH_ENV_STEPS, "multihost_steps": BENCH_MULTIHOST_STEPS},
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(record)
+    return record
+
+
 def _kernel_entry(name, source, launches, path, head, cases):
     """One entry of the `kernels` line: the kernel's numbers at `head` (the
     case of its path's shape) and its largest error over `cases`."""
@@ -6591,14 +6784,14 @@ def _kernel_entry(name, source, launches, path, head, cases):
 
 PHASES = ("kernel", "ab", "sweep", "parity", "tiny", "step", "serve", "train_parity", "train",
           "train_ops", "data", "rlds", "eval", "moe", "lava", "parallel", "serve_modes", "fleet",
-          "ops", "loadgen", "chaos", "proof")
+          "ops", "loadgen", "chaos", "proof", "bench")
 
 
 # The second lane: phases run by a process of their own beside the main
 # one's (see the module docstring). It starts once LANE_B_AFTER has run and
 # is joined before LANE_B_JOIN, so that the serving fleets' phases (alerts
 # and canaries judged on latency) run alone.
-LANE_B = ("moe", "parallel", "serve_modes", "proof")
+LANE_B = ("moe", "parallel", "serve_modes", "proof", "bench")
 LANE_B_AFTER = "train"
 LANE_B_JOIN = "fleet"
 LANE_B_TIMEOUT_S = 1100
@@ -6909,6 +7102,14 @@ def main(argv=None) -> int:
         entry["loadgen_launches"] = {
             mode: {label: counts[variant] for label, counts in row["launches"].items()}
             for mode, row in loadgen.items() if row["launches"]}
+    # Phase bench: each of its runs (counts set to 0 before each) and the
+    # infer runs' timed steps alone.
+    bench = done["bench"]
+    for entry, variant in zip(entries, ("tensor_core", "tf32x3", "simple")):
+        entry["bench_launches"] = {
+            **{name: counts[variant] for name, counts in bench["launches_by_run"].items()},
+            **{f"{name}_timed": counts[variant]
+               for name, counts in bench["infer_timed_launches"].items()}}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

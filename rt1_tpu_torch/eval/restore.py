@@ -235,11 +235,12 @@ def config_with_model_dtype(config: Config, dtype: str) -> Config:
     return config
 
 
-def serving_engine(master: RT1Policy, compute_dtype: torch.dtype, device=None,
-                   inference_dtype: str = "f32", cached_inference: bool = False,
-                   **engine_kwargs) -> PolicyEngine:
-    """An engine serving `master` (a float32 policy on the CPU, which this
-    moves to `device`) in `inference_dtype` at `compute_dtype`."""
+def serving_policy(master: RT1Policy, compute_dtype: torch.dtype, device=None,
+                   inference_dtype: str = "f32"):
+    """`master` (a float32 policy on the CPU, which this moves to `device`)
+    made to serve `inference_dtype` at `compute_dtype`, in eval mode.
+    Returns (policy, its serving state_dict, the preparer that made it from
+    float32 masters, the masters' state_dict)."""
     quant.check_inference_dtype(inference_dtype)
     dev = resolve_device(device)
     master_state = {k: v.detach().clone() for k, v in master.state_dict().items()}
@@ -249,9 +250,19 @@ def serving_engine(master: RT1Policy, compute_dtype: torch.dtype, device=None,
     policy = master.to(device=dev, dtype=compute_dtype)
     quant.quantize_layers_(policy, serving)
     policy.load_state_dict(serving)
-    return PolicyEngine(policy.eval().requires_grad_(False), inference_dtype=inference_dtype,
-                        prepare_variables=prepare, master_state=master_state,
-                        cached_inference=cached_inference, **engine_kwargs)
+    return policy.eval().requires_grad_(False), serving, prepare, master_state
+
+
+def serving_engine(master: RT1Policy, compute_dtype: torch.dtype, device=None,
+                   inference_dtype: str = "f32", cached_inference: bool = False,
+                   **engine_kwargs) -> PolicyEngine:
+    """An engine serving `master` (a float32 policy on the CPU, which this
+    moves to `device`) in `inference_dtype` at `compute_dtype`."""
+    policy, _, prepare, master_state = serving_policy(master, compute_dtype, device,
+                                                      inference_dtype)
+    return PolicyEngine(policy, inference_dtype=inference_dtype, prepare_variables=prepare,
+                        master_state=master_state, cached_inference=cached_inference,
+                        **engine_kwargs)
 
 
 def build_serve_engine(config: Config, weights: Optional[str] = None, device=None,

@@ -265,8 +265,10 @@ def main(argv=None):
         "guard_device_skips": device_skips,
         "ckpt_save_retries": retry_events,
         "preempt_dump_records": len(records),
-        "preempt_badput_s": round(preempt_badput_s, 3),
-        "ckpt_badput_s": round(ckpt_badput_s, 3),
+        # Unrounded: a drain of under half a millisecond rounded to 3
+        # places reads 0.0, "not attributed", though it was.
+        "preempt_badput_s": preempt_badput_s,
+        "ckpt_badput_s": ckpt_badput_s,
         "goodput_pct_phase_a": round(goodput_a["goodput_pct"], 2),
         "packed": not args.synthetic,
     }

@@ -1,7 +1,14 @@
 """Session-affine router for a fleet of serving replicas.
 
 The port's copy of `rt1_tpu/serve/router.py` (the port imports nothing of the JAX
-package); it keeps the JAX module's names, wire format and behaviour.
+package); it keeps the JAX module's names, wire format and behaviour, with
+two differences. An act that a replica answers after its session was
+orphaned under it (a canary rollback, a drain or a death while the act was
+in flight) leaves the orphan mark in place and is not flagged
+``restarted``: the JAX router consumed the mark there, so the session's
+`/release` then answered 404. And `GET /fleet/session?session_id=<id>`
+reads the router's view of one session (its replica, its orphan and
+migrated marks).
 
 A single serving process (`python -m rt1_tpu_torch.serve`) holds one AOT-compiled
 device batch; production traffic needs N of them. The catch is that a
@@ -865,7 +872,20 @@ class Router:
                 continue
             if status == 200:
                 with self._lock:
-                    if session_id in self._migrated:
+                    if self._sessions.get(session_id) != replica.id:
+                        # Orphaned (rollback, drain, death) or moved while
+                        # this act was in flight: the replica answered from
+                        # the window it held before that event, so the
+                        # reply is neither a restart nor a migration. The
+                        # marks stay for the act that lands on the
+                        # session's next home, and /release still finds
+                        # the orphan mark (200, not "unknown session").
+                        # Re-mapping the session to this replica instead
+                        # would undo the eviction the orphaning decided.
+                        # (The JAX router pops the mark here and flags the
+                        # stale reply `restarted`.)
+                        pass
+                    elif session_id in self._migrated:
                         # Live migration carried the window intact —
                         # continuity, not a reset. The migrated flag
                         # consumes any stale orphan mark from an earlier
@@ -901,6 +921,18 @@ class Router:
             },
             None,
         )
+
+    def session_view(self, session_id: str) -> Dict[str, Any]:
+        """The router's view of one session (`GET /fleet/session`): the
+        replica it is mapped to (None when unmapped) and whether it carries
+        the orphan or the migrated mark."""
+        with self._lock:
+            return {
+                "session_id": session_id,
+                "replica_id": self._sessions.get(session_id),
+                "orphaned": session_id in self._orphaned,
+                "migrated": session_id in self._migrated,
+            }
 
     def route_session_op(
         self, path: str, payload: Dict[str, Any]
@@ -1434,6 +1466,14 @@ class _RouterHandler(BaseHTTPRequestHandler):
             self._reply(200, self.router.fleet_status())
         elif self.path == "/fleet/slow_requests":
             self._reply(200, self.router.fleet_slow_requests())
+        elif self.path.startswith("/fleet/session?"):
+            from urllib.parse import parse_qs, urlparse
+
+            sid = parse_qs(urlparse(self.path).query).get("session_id", [""])[-1]
+            if not sid:
+                self._reply(400, {"error": "'session_id' must be a non-empty string"})
+            else:
+                self._reply(200, self.router.session_view(sid))
         elif self.path == "/slo":
             self._reply(200, self.router.slo.summary())
         elif self.path == "/deploy/status":

@@ -273,3 +273,11 @@ def test_rlds_reader_decodes_the_fixture_without_tf_or_protobuf():
     proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and "RLDS OK" in proc.stdout, proc.stdout + proc.stderr
+
+
+def test_bench_modules_are_among_those_imported():
+    """The benchmark CLI and its multihost runner (`python -m
+    rt1_tpu_torch.bench`), imported by the probe above with JAX blocked."""
+    names = set(_port_modules())
+    for name in ("rt1_tpu_torch.bench", "rt1_tpu_torch.bench_multihost"):
+        assert name in names, name
